@@ -1,0 +1,512 @@
+// Fused WaveRNN sample loop for Hopper (sm_90a): the whole autoregressive
+// generation of every fold in ONE cooperative launch.
+//
+// Replaces: wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel (called
+// through generate_pallas_fused), the TPU kernel that upsamples its own
+// conditioning from frame-rate folded rows and runs the sample loop.
+//
+// What it computes, per fold b and sample t = c*hop + i (chunk c, phase i):
+//   once per chunk c (hoisted, as the TPU kernel does):
+//     p_j   = frame[c+j][:n_mels] @ W_Imel          j < K  (mel taps)
+//     base  = a1 @ W_Ia1 + b_I,  gi2a = a2 @ W_i2a + b_i2,
+//     f1a   = a3 @ W_1a + b_1,   f2a  = a4 @ W_2a + b_2   (a = frame[c+aux_tap])
+//   per sample:
+//     inp = base + x*w_Ix + sum_j phi[j][i] * p_j
+//     h1  = GRU(inp, h1);   xr = inp + h1
+//     h2  = GRU([xr|a2], h2); x2 = xr + h2
+//     hf  = relu(fc2(relu(fc1(x2))));  logits = fc3(hf)
+//     x   = MOL sample (Gumbel mixture pick + inverse-CDF logistic, log-scale
+//           clamped at log 1e-14) or RAW Gumbel-argmax, from injected
+//           uniforms or the counter hash below.
+//
+// What bounds it: latency, not bytes or FLOPs. Counted once, the work is
+// small for the card (each step multiplies the ~3.69M core weights, 7.4 MB
+// in bf16, by a batch of only B folds), but the steps are a chain: every
+// sample depends on the previous one, and five stages of a step depend on
+// each other across the whole grid. PERF.md has the measured split between
+// the fixed per-step cost and the part that grows with the fold count.
+//
+// Design: one persistent cooperative launch, one block per SM. Each block
+// owns a slice of the output columns of every layer (a warp per column,
+// lanes across the reduction axis with 16-byte weight loads); a grid barrier
+// separates the dependent stages of one step: gru1 | gru2 | fc1 | fc2 |
+// fc3+sample. Weights stay in device memory (they fit in the 50 MB L2);
+// the small per-step activation vectors are staged in shared memory per
+// block. The recurrent state ping-pongs between two buffers so a
+// stage never overwrites what another block is still reading.
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BT = 8;  // folds per shared-memory tile
+constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
+constexpr float MOL_U_SCALE = (float)(1.0 - 2e-5);
+
+}  // namespace
+
+// Mirrored field for field by ops/cuda_gen.py (ctypes): 8-byte fields only.
+struct FusedArgs {
+  const float* frames;  // (nf_loc, B, C) f32, C = n_mels + 4A
+  const float* phi;     // (K, hop) f32
+  const float* noise;   // (T, B, NU) f32 injected uniforms, or null
+  const void* w_imel;   // (R, n_mels)   WT
+  const void* w_ia1;    // (R, A)        WT
+  const float* w_ix;    // (R,)
+  const float* b_i;     // (R,)
+  const void* wi1;      // (3R, R)       WT
+  const void* wh1;      // (3R, R)       WT
+  const float* bi1;     // (3R,)
+  const float* bh1;     // (3R,)
+  const void* wi2x;     // (3R, R)       WT
+  const void* wi2a;     // (3R, A)       WT
+  const void* wh2;      // (3R, R)       WT
+  const float* bi2;     // (3R,)
+  const float* bh2;     // (3R,)
+  const void* w1x;      // (FC, R)       WT
+  const void* w1a;      // (FC, A)       WT
+  const float* b1;      // (FC,)
+  const void* w2x;      // (FC, FC)      WT
+  const void* w2a;      // (FC, A)       WT
+  const float* b2;      // (FC,)
+  const void* w3;       // (NC, FC)      WT
+  const float* b3;      // (NC,)
+  float* out;           // (B, T) f32
+  float* work;          // zeroed workspace, see Work below
+  int64_t B, R, FC, A, n_mels, NC, K, hop, fold_chunks, aux_tap;
+  int64_t mol, seed, bf16;
+};
+
+namespace {
+
+struct Work {  // views into FusedArgs::work (floats)
+  float *ps, *base, *gi2a, *f1a, *f2a, *h1, *h2, *xr, *x2, *hf1, *hf2, *x;
+  __device__ Work(float* w, int B, int R, int FC, int K) {
+    ps = w;                  // (K, B, R)
+    base = ps + K * B * R;   // (B, R)
+    gi2a = base + B * R;     // (B, 3R)
+    f1a = gi2a + 3 * B * R;  // (B, FC)
+    f2a = f1a + B * FC;      // (B, FC)
+    h1 = f2a + B * FC;       // (2, B, R) ping-pong
+    h2 = h1 + 2 * B * R;     // (2, B, R) ping-pong
+    xr = h2 + 2 * B * R;     // (B, R)
+    x2 = xr + B * R;         // (B, R)
+    hf1 = x2 + B * R;        // (B, FC)
+    hf2 = hf1 + B * FC;      // (B, FC)
+    x = hf2 + B * FC;        // (B,) previous sample
+  }
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&w)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    w[2 * e] = f.x;
+    w[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ void load8_shared(const float* p, float (&a)[8]) {
+  const float4 u = reinterpret_cast<const float4*>(p)[0];
+  const float4 v = reinterpret_cast<const float4*>(p)[1];
+  a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
+  a[4] = v.x; a[5] = v.y; a[6] = v.z; a[7] = v.w;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Warp-wide dot products of one output unit j against a tile of nb folds:
+// NA gate rows of `wa` against s_a, NB gate rows of `wb` against s_b.
+// Row g of a matrix is row g*gstride + j, of length n (n % 8 == 0); the
+// tiles are (nb, n) row-major in shared memory. Every lane ends with the
+// full sums.
+template <int NA, int NB, typename WT>
+__device__ __forceinline__ void warp_dots(const WT* __restrict__ wa,
+                                          const WT* __restrict__ wb, int j,
+                                          int gstride, int n,
+                                          const float* s_a, const float* s_b,
+                                          int nb, float (&acc)[NA + NB][BT]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < NA + NB; ++g)
+#pragma unroll
+    for (int b = 0; b < BT; ++b) acc[g][b] = 0.f;
+  for (int k0 = lane * 8; k0 < n; k0 += 256) {
+    float w[NA + NB][8];
+#pragma unroll
+    for (int g = 0; g < NA; ++g)
+      load8(wa + ((size_t)g * gstride + j) * n + k0, w[g]);
+#pragma unroll
+    for (int g = 0; g < NB; ++g)
+      load8(wb + ((size_t)g * gstride + j) * n + k0, w[NA + g]);
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      if (b < nb) {
+        float a[8];
+        load8_shared(s_a + b * n + k0, a);
+#pragma unroll
+        for (int g = 0; g < NA; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][b] = fmaf(w[g][e], a[e], acc[g][b]);
+        if (NB > 0) {
+          load8_shared(s_b + b * n + k0, a);
+#pragma unroll
+          for (int g = NA; g < NA + NB; ++g)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[g][b] = fmaf(w[g][e], a[e], acc[g][b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < NA + NB; ++g)
+#pragma unroll
+    for (int b = 0; b < BT; ++b)
+      if (b < nb) acc[g][b] = warp_sum(acc[g][b]);
+}
+
+// Warp-wide dot of a weight row (any length) with a read-only vector.
+template <typename WT>
+__device__ __forceinline__ float warp_dot_scalar(const WT* __restrict__ w,
+                                                 const float* __restrict__ v,
+                                                 int n) {
+  float acc = 0.f;
+  for (int k = threadIdx.x & 31; k < n; k += 32) acc = fmaf(load1(w + k), __ldg(v + k), acc);
+  return warp_sum(acc);
+}
+
+// Counter-based uniforms, production noise. ops/cuda_gen.py holds the same
+// hash in PyTorch so the plain version can replay the exact draws.
+__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ float counter_uniform(uint32_t key, uint32_t ctr,
+                                                 bool mol) {
+  const float u = __fmul_rn((float)(lowbias32(ctr ^ key) >> 8),
+                            5.9604644775390625e-08f);  // 2^-24
+  return mol ? __fadd_rn(__fmul_rn(u, MOL_U_SCALE), 1e-5f) : __fadd_rn(u, 1e-9f);
+}
+
+// argmax over the warp with the first index winning ties (jnp/torch argmax)
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  const int B = (int)a.B, R = (int)a.R, FC = (int)a.FC, A = (int)a.A;
+  const int n_mels = (int)a.n_mels, NC = (int)a.NC, K = (int)a.K;
+  const int hop = (int)a.hop, C = n_mels + 4 * A;
+  const int T = (int)(a.fold_chunks * a.hop);
+  const bool mol = a.mol != 0;
+  const int nr = NC / 3;
+  const int NU = mol ? nr + 1 : NC;
+  const uint32_t key = lowbias32((uint32_t)a.seed);
+  const int DM = R > FC ? R : FC;
+  float* s_a = smem;            // (BT, DM)
+  float* s_b = smem + BT * DM;  // (BT, R)
+  Work wk(a.work, B, R, FC, K);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // units spread over blocks first, so every SM gets a share of each stage
+  const int gw = warp * gridDim.x + blockIdx.x;
+  const int nw = WARPS * gridDim.x;
+
+  const WT* w_imel = (const WT*)a.w_imel;
+  const WT* w_ia1 = (const WT*)a.w_ia1;
+  const WT* wi1 = (const WT*)a.wi1;
+  const WT* wh1 = (const WT*)a.wh1;
+  const WT* wi2x = (const WT*)a.wi2x;
+  const WT* wi2a = (const WT*)a.wi2a;
+  const WT* wh2 = (const WT*)a.wh2;
+  const WT* w1x = (const WT*)a.w1x;
+  const WT* w1a = (const WT*)a.w1a;
+  const WT* w2x = (const WT*)a.w2x;
+  const WT* w2a = (const WT*)a.w2a;
+  const WT* w3 = (const WT*)a.w3;
+
+  for (int c = 0; c < (int)a.fold_chunks; ++c) {
+    // ---- per-chunk conditioning: mel taps and the four aux projections ----
+    const int n_units = K * R + R + 3 * R + 2 * FC;
+    for (int u = gw; u < n_units; u += nw) {
+      for (int b = 0; b < B; ++b) {
+        if (u < K * R) {
+          const int j = u / R, col = u % R;
+          const float* fr = a.frames + ((size_t)(c + j) * B + b) * C;
+          const float v = warp_dot_scalar(w_imel + (size_t)col * n_mels, fr, n_mels);
+          if (lane == 0) wk.ps[((size_t)j * B + b) * R + col] = v;
+          continue;
+        }
+        const float* aux = a.frames + ((size_t)(c + a.aux_tap) * B + b) * C + n_mels;
+        int v = u - K * R;
+        if (v < R) {
+          const float s = warp_dot_scalar(w_ia1 + (size_t)v * A, aux, A);
+          if (lane == 0) wk.base[(size_t)b * R + v] = s + a.b_i[v];
+          continue;
+        }
+        v -= R;
+        if (v < 3 * R) {
+          const float s = warp_dot_scalar(wi2a + (size_t)v * A, aux + A, A);
+          if (lane == 0) wk.gi2a[(size_t)b * 3 * R + v] = s + a.bi2[v];
+          continue;
+        }
+        v -= 3 * R;
+        if (v < FC) {
+          const float s = warp_dot_scalar(w1a + (size_t)v * A, aux + 2 * A, A);
+          if (lane == 0) wk.f1a[(size_t)b * FC + v] = s + a.b1[v];
+          continue;
+        }
+        v -= FC;
+        const float s = warp_dot_scalar(w2a + (size_t)v * A, aux + 3 * A, A);
+        if (lane == 0) wk.f2a[(size_t)b * FC + v] = s + a.b2[v];
+      }
+    }
+    grid.sync();
+
+    for (int i = 0; i < hop; ++i) {
+      const int t = c * hop + i;
+      float* h1_cur = wk.h1 + (size_t)(t & 1) * B * R;
+      float* h1_nxt = wk.h1 + (size_t)((t + 1) & 1) * B * R;
+      float* h2_cur = wk.h2 + (size_t)(t & 1) * B * R;
+      float* h2_nxt = wk.h2 + (size_t)((t + 1) & 1) * B * R;
+
+      // ---- stage 1: inp, GRU1, xr ----
+      for (int b0 = 0; b0 < B; b0 += BT) {
+        const int nb = min(BT, B - b0);
+        __syncthreads();
+        for (int e = threadIdx.x; e < nb * R; e += THREADS) {
+          const int b = b0 + e / R, k = e % R;
+          float v = __ldcg(wk.base + (size_t)b * R + k) + __ldcg(wk.x + b) * a.w_ix[k];
+          for (int j = 0; j < K; ++j)
+            v = v + a.phi[j * hop + i] * __ldcg(wk.ps + ((size_t)j * B + b) * R + k);
+          s_a[e] = v;
+          s_b[e] = __ldcg(h1_cur + (size_t)b * R + k);
+        }
+        __syncthreads();
+        for (int j = gw; j < R; j += nw) {
+          float acc[6][BT];
+          warp_dots<3, 3>(wi1, wh1, j, R, R, s_a, s_b, nb, acc);
+          if (lane < nb) {
+            float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+#pragma unroll
+            for (int b = 0; b < BT; ++b)
+              if (b == lane) {
+                gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
+                hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
+              }
+            const int b = lane;
+            const float r = sigmoidf((gr + a.bi1[j]) + (hr + a.bh1[j]));
+            const float z = sigmoidf((gz + a.bi1[R + j]) + (hz + a.bh1[R + j]));
+            const float n = tanhf((gn + a.bi1[2 * R + j]) + r * (hn + a.bh1[2 * R + j]));
+            const float h = (1.f - z) * n + z * s_b[b * R + j];
+            h1_nxt[(size_t)(b0 + b) * R + j] = h;
+            wk.xr[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+          }
+        }
+      }
+      grid.sync();
+
+      // ---- stage 2: GRU2 on [xr | a2], x2 ----
+      for (int b0 = 0; b0 < B; b0 += BT) {
+        const int nb = min(BT, B - b0);
+        __syncthreads();
+        for (int e = threadIdx.x; e < nb * R; e += THREADS) {
+          const size_t g = (size_t)b0 * R + e;
+          s_a[e] = __ldcg(wk.xr + g);
+          s_b[e] = __ldcg(h2_cur + g);
+        }
+        __syncthreads();
+        for (int j = gw; j < R; j += nw) {
+          float acc[6][BT];
+          warp_dots<3, 3>(wi2x, wh2, j, R, R, s_a, s_b, nb, acc);
+          if (lane < nb) {
+            float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+#pragma unroll
+            for (int b = 0; b < BT; ++b)
+              if (b == lane) {
+                gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
+                hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
+              }
+            const int b = lane;
+            const float* ga = wk.gi2a + (size_t)(b0 + b) * 3 * R;  // a2 terms + bi2
+            const float r = sigmoidf((gr + __ldcg(ga + j)) + (hr + a.bh2[j]));
+            const float z = sigmoidf((gz + __ldcg(ga + R + j)) + (hz + a.bh2[R + j]));
+            const float n = tanhf((gn + __ldcg(ga + 2 * R + j)) + r * (hn + a.bh2[2 * R + j]));
+            const float h = (1.f - z) * n + z * s_b[b * R + j];
+            h2_nxt[(size_t)(b0 + b) * R + j] = h;
+            wk.x2[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+          }
+        }
+      }
+      grid.sync();
+
+      // ---- stages 3 and 4: fc1, fc2 (ReLU) ----
+      for (int layer = 0; layer < 2; ++layer) {
+        const float* src = layer == 0 ? wk.x2 : wk.hf1;
+        float* dst = layer == 0 ? wk.hf1 : wk.hf2;
+        const float* add = layer == 0 ? wk.f1a : wk.f2a;
+        const WT* w = layer == 0 ? w1x : w2x;
+        const int n = layer == 0 ? R : FC;
+        for (int b0 = 0; b0 < B; b0 += BT) {
+          const int nb = min(BT, B - b0);
+          __syncthreads();
+          for (int e = threadIdx.x; e < nb * n; e += THREADS)
+            s_a[e] = __ldcg(src + (size_t)b0 * n + e);
+          __syncthreads();
+          for (int j = gw; j < FC; j += nw) {
+            float acc[1][BT];
+            warp_dots<1, 0>(w, w, j, FC, n, s_a, s_a, nb, acc);
+            if (lane < nb) {
+              float s = 0.f;
+#pragma unroll
+              for (int b = 0; b < BT; ++b)
+                if (b == lane) s = acc[0][b];
+              const size_t o = (size_t)(b0 + lane) * FC + j;
+              dst[o] = fmaxf(s + __ldcg(add + o), 0.f);
+            }
+          }
+        }
+        grid.sync();
+      }
+
+      // ---- stage 5: fc3 and the sample, one block per fold ----
+      for (int b = blockIdx.x; b < B; b += gridDim.x) {
+        float* s_h = s_a;        // (FC,)
+        float* s_l = s_a + FC;   // (NC,)
+        __syncthreads();
+        for (int e = threadIdx.x; e < FC; e += THREADS)
+          s_h[e] = __ldcg(wk.hf2 + (size_t)b * FC + e);
+        __syncthreads();
+        for (int cls = warp; cls < NC; cls += WARPS) {
+          float acc[1][BT];
+          warp_dots<1, 0>(w3, w3, cls, NC, FC, s_h, s_h, 1, acc);
+          if (lane == 0) s_l[cls] = acc[0][0] + a.b3[cls];
+        }
+        __syncthreads();
+        if (warp == 0) {
+          const size_t ctr0 = ((size_t)t * B + b) * NU;
+          auto uniform = [&](int k) {
+            return a.noise ? __ldg(a.noise + ctr0 + k)
+                           : counter_uniform(key, (uint32_t)(ctr0 + k), mol);
+          };
+          float best = -INFINITY;
+          int idx = 0x7fffffff;
+          float sample;
+          if (mol) {
+            if (lane < nr) {
+              best = s_l[lane] - logf(-logf(uniform(lane)));
+              idx = lane;
+            }
+            warp_argmax(best, idx);
+            const float mean = s_l[nr + idx];
+            const float log_s = fmaxf(s_l[2 * nr + idx], LOG_SCALE_MIN);
+            const float us = uniform(nr);
+            sample = mean + expf(log_s) * (logf(us) - logf(1.f - us));
+            sample = fminf(fmaxf(sample, -1.f), 1.f);
+          } else {
+            for (int k = lane; k < NC; k += 32) {
+              const float v = s_l[k] + -logf(-logf(uniform(k)));
+              if (v > best) {
+                best = v;
+                idx = k;
+              }
+            }
+            warp_argmax(best, idx);
+            sample = 2.f * (float)idx / ((float)NC - 1.f) - 1.f;
+          }
+          if (lane == 0) {
+            a.out[(size_t)b * T + t] = sample;
+            wk.x[b] = sample;
+          }
+        }
+      }
+      grid.sync();
+    }
+  }
+}
+
+size_t shared_bytes(const FusedArgs& a) {
+  const int64_t dm = a.R > a.FC ? a.R : a.FC;
+  const int64_t tiles = (int64_t)BT * (dm + a.R);
+  const int64_t head = a.FC + a.NC;  // stage 5 reuses the tiles
+  return (size_t)(tiles > head ? tiles : head) * sizeof(float);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of workspace the launch needs (zero-filled by the caller).
+int64_t wr_sample_loop_fused_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K) {
+  return K * B * R + B * R + 3 * B * R + 2 * B * FC + 4 * B * R + 2 * B * R
+         + 2 * B * FC + B;
+}
+
+// Launches the loop on `stream`; returns the CUDA error code (0 = launched).
+int wr_sample_loop_fused(const FusedArgs* args, void* stream) {
+  const void* fn = args->bf16 ? (const void*)fused_sample_loop<__nv_bfloat16>
+                              : (const void*)fused_sample_loop<float>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const size_t smem = shared_bytes(*args);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  FusedArgs a = *args;
+  void* kargs[] = {&a};
+  // one block per SM: within the co-residency limit per_sm * sms
+  e = cudaLaunchCooperativeKernel(fn, dim3(sms), dim3(THREADS), kargs, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // extern "C"

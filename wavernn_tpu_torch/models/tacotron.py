@@ -1,0 +1,311 @@
+"""Tacotron (text -> mel) for PyTorch (port of
+``wavernn_tpu.models.tacotron``, free-running inference).
+
+Module and parameter names follow the reference state dict
+(models/tacotron.py:289-519), so a reference ``.pyt`` loads with
+``load_state_dict(strict=True)``. Generation: the encoder runs as plain
+PyTorch, the whole free-running decoder loop runs in the decode kernel
+(ops/cuda_taco.py), then the postnet CBHG and ``post_proj``.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import TacotronConfig
+from ..device import resolve_device
+from ..ops import layers as L
+from ..ops.cuda_taco import decode
+from ..text.symbols import symbols
+from ..timing import stage
+
+
+class PreNet(nn.Module):
+    def __init__(self, in_dims: int, fc1_dims: int = 256, fc2_dims: int = 128):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dims, fc1_dims)
+        self.fc2 = nn.Linear(fc1_dims, fc2_dims)
+
+    def forward(self, x):
+        return prenet(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                      self.fc2.bias)
+
+
+def prenet(x, w1, b1, w2, b2):
+    """Eval-mode PreNet: dropout off, as in the reference's generate."""
+    x = torch.relu(L.linear(x, w1, b1))
+    return torch.relu(L.linear(x, w2, b2))
+
+
+class HighwayNetwork(nn.Module):
+    def __init__(self, size: int):
+        super().__init__()
+        self.W1 = nn.Linear(size, size)
+        self.W2 = nn.Linear(size, size)
+
+    def forward(self, x):
+        x1 = L.linear(x, self.W1.weight, self.W1.bias)
+        g = torch.sigmoid(L.linear(x, self.W2.weight, self.W2.bias))
+        return g * torch.relu(x1) + (1.0 - g) * x
+
+
+class BatchNormConv(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int):
+        super().__init__()
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel, bias=False)
+        self.bnorm = nn.BatchNorm1d(out_channels)
+
+    def forward(self, x, relu: bool):
+        k = self.conv.weight.shape[-1]
+        x = L.conv1d(x, self.conv.weight, padding=k // 2)
+        if relu:
+            x = torch.relu(x)
+        b = self.bnorm
+        return L.batchnorm(x, b.weight, b.bias, b.running_mean, b.running_var)
+
+
+def _maxpool_k2_s1(x):
+    """MaxPool1d(kernel=2, stride=1, padding=1) then [:T] (tacotron.py:68,111)."""
+    xp = torch.nn.functional.pad(x, (1, 0), value=-math.inf)
+    return torch.maximum(xp[:, :, :-1], xp[:, :, 1:])
+
+
+class CBHG(nn.Module):
+    def __init__(self, K: int, in_channels: int, channels: int,
+                 proj_channels, num_highways: int):
+        super().__init__()
+        self.conv1d_bank = nn.ModuleList(
+            BatchNormConv(in_channels, channels, k) for k in range(1, K + 1))
+        self.conv_project1 = BatchNormConv(K * channels, proj_channels[0], 3)
+        self.conv_project2 = BatchNormConv(proj_channels[0],
+                                           proj_channels[1], 3)
+        if proj_channels[-1] != channels:
+            self.pre_highway = nn.Linear(proj_channels[-1], channels,
+                                         bias=False)
+        self.highways = nn.ModuleList(HighwayNetwork(channels)
+                                      for _ in range(num_highways))
+        self.rnn = nn.GRU(channels, channels, batch_first=True,
+                          bidirectional=True)
+
+    def forward(self, x):
+        """(B, C_in, T) -> (B, T, 2*channels), eval mode."""
+        T = x.shape[-1]
+        residual = x
+        h = torch.cat([blk(x, relu=True)[:, :, :T]
+                       for blk in self.conv1d_bank], dim=1)
+        h = _maxpool_k2_s1(h)
+        c = self.conv_project1(h, relu=True)
+        c = self.conv_project2(c, relu=False)
+        h = (c + residual).transpose(1, 2)
+        if hasattr(self, "pre_highway"):
+            h = L.linear(h, self.pre_highway.weight)
+        for hw in self.highways:
+            h = hw(h)
+        g = self.rnn
+        return L.bigru(h, (g.weight_ih_l0, g.weight_hh_l0, g.bias_ih_l0,
+                           g.bias_hh_l0),
+                       (g.weight_ih_l0_reverse, g.weight_hh_l0_reverse,
+                        g.bias_ih_l0_reverse, g.bias_hh_l0_reverse))
+
+
+class Encoder(nn.Module):
+    def __init__(self, tts: TacotronConfig, num_chars: int):
+        super().__init__()
+        self.embedding = nn.Embedding(num_chars, tts.embed_dims)
+        self.pre_net = PreNet(tts.embed_dims)
+        self.cbhg = CBHG(tts.encoder_K, tts.encoder_dims, tts.encoder_dims,
+                         [tts.encoder_dims, tts.encoder_dims],
+                         tts.num_highways)
+
+    def forward(self, ids):
+        """(B, T_text) ids -> (B, T_text, 2*encoder_dims)."""
+        x = self.pre_net(L.embedding(ids, self.embedding.weight))
+        return self.cbhg(x.transpose(1, 2))
+
+
+class LSA(nn.Module):
+    def __init__(self, attn_dims: int):
+        super().__init__()
+        self.conv = nn.Conv1d(2, 32, 31, padding=15, bias=False)
+        self.L = nn.Linear(32, attn_dims)
+        self.W = nn.Linear(attn_dims, attn_dims)
+        self.v = nn.Linear(attn_dims, 1, bias=False)
+
+
+class Decoder(nn.Module):
+    def __init__(self, tts: TacotronConfig, n_mels: int):
+        super().__init__()
+        d = tts.decoder_dims
+        self.prenet = PreNet(n_mels)
+        self.attn_net = LSA(d)
+        self.attn_rnn = nn.GRUCell(d + d // 2, d)
+        self.rnn_input = nn.Linear(2 * d, tts.lstm_dims)
+        self.res_rnn1 = nn.LSTMCell(tts.lstm_dims, tts.lstm_dims)
+        self.res_rnn2 = nn.LSTMCell(tts.lstm_dims, tts.lstm_dims)
+        self.mel_proj = nn.Linear(tts.lstm_dims, n_mels * tts.max_r,
+                                  bias=False)
+        self.register_buffer("r", torch.tensor(1, dtype=torch.int32))
+
+
+class Tacotron(nn.Module):
+    def __init__(self, tts: TacotronConfig, n_mels: int = 80,
+                 num_chars: int = len(symbols)):
+        super().__init__()
+        self.tts, self.n_mels = tts, n_mels
+        d = tts.decoder_dims
+        self.encoder = Encoder(tts, num_chars)
+        self.encoder_proj = nn.Linear(d, d, bias=False)
+        self.decoder = Decoder(tts, n_mels)
+        self.postnet = CBHG(tts.postnet_K, n_mels, tts.postnet_dims,
+                            [256, n_mels], tts.num_highways)
+        self.post_proj = nn.Linear(2 * tts.postnet_dims, n_mels, bias=False)
+        self.register_buffer("step", torch.zeros(1, dtype=torch.long))
+        self.register_buffer("stop_threshold",
+                             torch.tensor(tts.stop_threshold,
+                                          dtype=torch.float32))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Fresh weights from ``generator`` with the JAX package's init:
+        xavier-uniform on every matrix (reference init_model,
+        tacotron.py:482-484), biases U(+-1/sqrt(fan_in)), highway W1 biases
+        zero, BatchNorm at identity."""
+        def uniform(p, bound):
+            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                    - bound)
+
+        for name, p in self.named_parameters():
+            mod_name, leaf = name.rsplit(".", 1)
+            mod = self.get_submodule(mod_name)
+            if isinstance(mod, nn.BatchNorm1d):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif p.dim() > 1:
+                rf = math.prod(p.shape[2:])
+                uniform(p, math.sqrt(6.0 / (p.shape[1] * rf + p.shape[0] * rf)))
+            elif mod_name.endswith(".W1"):  # highway (tacotron.py:15)
+                p.zero_()
+            elif isinstance(mod, (nn.GRU, nn.GRUCell, nn.LSTMCell)):
+                uniform(p, 1.0 / math.sqrt(mod.hidden_size))
+            else:
+                uniform(p, 1.0 / math.sqrt(mod.weight.shape[1]))
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+    def decoder_weights(self):
+        """The decoder's weights by state-dict name below ``decoder.``."""
+        return {k: v.detach() for k, v in self.decoder.named_parameters()}
+
+
+# --------------------------------------------------------------------------
+# decoder math on weight dicts (shared with the plain decode)
+# --------------------------------------------------------------------------
+
+def lsa_scores(dec, encoder_seq_proj, query, cumulative, attention,
+               text_mask=None):
+    """Location-sensitive smooth attention (tacotron.py:187-205): sigmoid
+    energies normalised by their sum over the text. Returns (B, T_text)."""
+    q = L.linear(query, dec["attn_net.W.weight"],
+                 dec["attn_net.W.bias"])[:, None, :]
+    loc = torch.stack([cumulative, attention], dim=1)
+    loc = L.conv1d(loc, dec["attn_net.conv.weight"], padding=15)
+    loc = L.linear(loc.transpose(1, 2), dec["attn_net.L.weight"],
+                   dec["attn_net.L.bias"])
+    u = L.linear(torch.tanh(q + encoder_seq_proj + loc),
+                 dec["attn_net.v.weight"])[..., 0]
+    sig = torch.sigmoid(u)
+    if text_mask is not None:
+        sig = sig * text_mask
+    return sig / torch.sum(sig, dim=1, keepdim=True)
+
+
+class DecoderState(NamedTuple):
+    attn_hidden: torch.Tensor
+    rnn1_h: torch.Tensor
+    rnn1_c: torch.Tensor
+    rnn2_h: torch.Tensor
+    rnn2_c: torch.Tensor
+    context: torch.Tensor
+    cumulative: torch.Tensor
+    attention: torch.Tensor
+    prev_frame: torch.Tensor  # last mel frame of the previous group
+
+
+def init_decoder_state(dec, batch: int, T_text: int, n_mels: int,
+                       device) -> DecoderState:
+    d = dec["attn_rnn.weight_hh"].shape[1]
+    lstm = dec["res_rnn1.weight_hh"].shape[1]
+    E = dec["rnn_input.weight"].shape[1] - d
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    return DecoderState(z(batch, d), z(batch, lstm), z(batch, lstm),
+                        z(batch, lstm), z(batch, lstm), z(batch, E),
+                        z(batch, T_text), z(batch, T_text), z(batch, n_mels))
+
+
+def decoder_step(dec, encoder_seq, encoder_seq_proj, prenet_in,
+                 state: DecoderState, r: int, n_mels: int, max_r: int,
+                 text_mask=None):
+    """One free-running decoder group (tacotron.py:229-286, eval).
+    Returns (mels (B, n_mels, r), scores (B, T_text), new_state)."""
+    p = prenet(prenet_in, dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
+               dec["prenet.fc2.weight"], dec["prenet.fc2.bias"])
+    attn_hidden = L.gru_cell(torch.cat([state.context, p], dim=-1),
+                             state.attn_hidden, dec["attn_rnn.weight_ih"],
+                             dec["attn_rnn.weight_hh"],
+                             dec["attn_rnn.bias_ih"], dec["attn_rnn.bias_hh"])
+    scores = lsa_scores(dec, encoder_seq_proj, attn_hidden, state.cumulative,
+                        state.attention, text_mask)
+    cumulative = state.cumulative + scores
+    context = torch.einsum("bt,btc->bc", scores, encoder_seq)
+    x = L.linear(torch.cat([context, attn_hidden], dim=1),
+                 dec["rnn_input.weight"], dec["rnn_input.bias"])
+    h1, c1 = L.lstm_cell(x, (state.rnn1_h, state.rnn1_c),
+                         dec["res_rnn1.weight_ih"], dec["res_rnn1.weight_hh"],
+                         dec["res_rnn1.bias_ih"], dec["res_rnn1.bias_hh"])
+    x = x + h1
+    h2, c2 = L.lstm_cell(x, (state.rnn2_h, state.rnn2_c),
+                         dec["res_rnn2.weight_ih"], dec["res_rnn2.weight_hh"],
+                         dec["res_rnn2.bias_ih"], dec["res_rnn2.bias_hh"])
+    x = x + h2
+    mels = L.linear(x, dec["mel_proj.weight"])
+    mels = mels.reshape(x.shape[0], n_mels, max_r)[:, :, :r]
+    new_state = DecoderState(attn_hidden, h1, c1, h2, c2, context,
+                             cumulative, scores, mels[:, :, -1])
+    return mels, scores, new_state
+
+
+def postnet(model: Tacotron, mel):
+    """(1, n_mels, steps) -> linear (1, n_mels, steps)."""
+    y = model.postnet(mel)
+    return L.linear(y, model.post_proj.weight).transpose(1, 2)
+
+
+@torch.no_grad()
+def generate(model: Tacotron, x_ids, r: int, steps: int = 2000,
+             device="cuda", timings: Optional[dict] = None):
+    """Free-running inference (tacotron.py:420-480): batch-1 text ids ->
+    (mel (n_mels, T), linear (n_mels, T), attn (T // r, T_text)) as numpy,
+    trimmed after the group that triggered the stop."""
+    dev = resolve_device(device, model)
+    tts, n_mels = model.tts, model.n_mels
+    steps = -(-steps // r) * r
+    ids = torch.as_tensor(np.asarray(x_ids), dtype=torch.long,
+                          device=dev)[None]
+    with stage(timings, "encoder", dev):
+        enc = model.encoder(ids)
+        encp = L.linear(enc, model.encoder_proj.weight)
+    with stage(timings, "decode_kernel", dev):
+        mask = torch.ones(ids.shape[1], dtype=torch.float32, device=dev)
+        mel, attn, n_valid = decode(model.decoder_weights(), enc, encp, mask,
+                                    r, steps, n_mels, tts.max_r,
+                                    tts.stop_threshold)
+    with stage(timings, "postnet", dev):
+        linear = postnet(model, mel)
+    T = min(int(n_valid[0]) * r, steps)
+    return (mel[0, :, :T].cpu().numpy(), linear[0, :, :T].cpu().numpy(),
+            attn[0, :T // r].cpu().numpy())

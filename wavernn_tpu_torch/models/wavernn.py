@@ -1,0 +1,221 @@
+"""WaveRNN vocoder (fatchord variant) for PyTorch (port of
+``wavernn_tpu.models.wavernn``, batched inference path).
+
+Module and parameter names follow the reference state dict
+(models/fatchord_version.py:92-167), so a reference ``.pyt`` loads with
+``load_state_dict(strict=True)``. Generation runs the fused branch of the
+JAX package's ``_generate_device``: MelResNet at frame rate, frame-rate
+folds, the fused sample-loop kernel (ops/cuda_gen.py), mu-law decode (RAW),
+the equal-power crossfade and the 20-frame tail fade.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import DSPConfig, WaveRNNConfig
+from ..device import resolve_device
+from ..ops import layers as L
+from ..ops import polyphase as P
+from ..ops.cuda_gen import generate_fused
+from ..ops.fold import tail_fade, xfade_and_unfold
+from ..timing import stage
+
+
+class ResBlock(nn.Module):
+    def __init__(self, dims: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.conv2 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.batch_norm1 = nn.BatchNorm1d(dims)
+        self.batch_norm2 = nn.BatchNorm1d(dims)
+
+    def forward(self, x):
+        r = x
+        x = torch.relu(_bn(self.batch_norm1, L.conv1d(x, self.conv1.weight)))
+        x = _bn(self.batch_norm2, L.conv1d(x, self.conv2.weight))
+        return x + r
+
+
+def _bn(bn: nn.BatchNorm1d, x):
+    return L.batchnorm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+
+class MelResNet(nn.Module):
+    def __init__(self, res_blocks: int, in_dims: int, compute_dims: int,
+                 res_out_dims: int, pad: int):
+        super().__init__()
+        self.conv_in = nn.Conv1d(in_dims, compute_dims, 2 * pad + 1,
+                                 bias=False)
+        self.batch_norm = nn.BatchNorm1d(compute_dims)
+        self.layers = nn.ModuleList(ResBlock(compute_dims)
+                                    for _ in range(res_blocks))
+        self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
+
+    def forward(self, x):
+        """(B, n_mels, T) -> (B, res_out, T - 2*pad), eval mode."""
+        x = torch.relu(_bn(self.batch_norm, L.conv1d(x, self.conv_in.weight)))
+        for layer in self.layers:
+            x = layer(x)
+        return L.conv1d(x, self.conv_out.weight, self.conv_out.bias)
+
+
+class Stretch2d(nn.Module):
+    """Nearest-neighbour repeat along time; holds no weights (it marks the
+    even slots of the reference's ``up_layers``)."""
+
+    def __init__(self, scale: int):
+        super().__init__()
+        self.scale = scale
+
+
+class UpsampleNetwork(nn.Module):
+    def __init__(self, feat_dims: int, upsample_scales, compute_dims: int,
+                 res_blocks: int, res_out_dims: int, pad: int):
+        super().__init__()
+        self.resnet = MelResNet(res_blocks, feat_dims, compute_dims,
+                                res_out_dims, pad)
+        layers = []
+        for scale in upsample_scales:
+            k = scale * 2 + 1
+            conv = nn.Conv2d(1, 1, kernel_size=(1, k), padding=(0, scale),
+                             bias=False)
+            layers += [Stretch2d(scale), conv]
+        self.up_layers = nn.ModuleList(layers)
+
+    def up_weights(self):
+        return [m.weight for m in self.up_layers if isinstance(m, nn.Conv2d)]
+
+
+class WaveRNN(nn.Module):
+    def __init__(self, voc: WaveRNNConfig, dsp: DSPConfig):
+        super().__init__()
+        self.voc, self.dsp = voc, dsp
+        R, FC, A = voc.rnn_dims, voc.fc_dims, voc.aux_dims
+        self.upsample = UpsampleNetwork(dsp.num_mels, voc.upsample_factors,
+                                        voc.compute_dims, voc.res_blocks,
+                                        voc.res_out_dims, voc.pad)
+        self.I = nn.Linear(dsp.num_mels + A + 1, R)
+        self.rnn1 = nn.GRU(R, R, batch_first=True)
+        self.rnn2 = nn.GRU(R + A, R, batch_first=True)
+        self.fc1 = nn.Linear(R + A, FC)
+        self.fc2 = nn.Linear(FC + A, FC)
+        self.fc3 = nn.Linear(FC, voc.n_classes(dsp.bits))
+        self.register_buffer("step", torch.zeros(1, dtype=torch.long))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Fresh weights from ``generator`` with the JAX package's init:
+        linear/conv U(+-1/sqrt(fan_in)), GRU U(+-1/sqrt(hidden)), the
+        averaging convs 1/k (fatchord:78), BatchNorm at identity."""
+        for name, p in self.named_parameters():
+            if ".up_layers." in name:
+                p.fill_(1.0 / p.shape[-1])
+                continue
+            if ".batch_norm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+                continue
+            if name.startswith("rnn"):
+                bound = 1.0 / math.sqrt(self.voc.rnn_dims)
+            else:
+                mod = self.get_submodule(name.rsplit(".", 1)[0])
+                w = mod.weight
+                bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
+            p.copy_(torch.rand(p.shape, generator=generator) * 2 * bound
+                    - bound)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+    def core_weights(self):
+        """The sample loop's weights by reference state-dict name."""
+        names = ("I.weight", "I.bias", "rnn1.weight_ih_l0",
+                 "rnn1.weight_hh_l0", "rnn1.bias_ih_l0", "rnn1.bias_hh_l0",
+                 "rnn2.weight_ih_l0", "rnn2.weight_hh_l0", "rnn2.bias_ih_l0",
+                 "rnn2.bias_hh_l0", "fc1.weight", "fc1.bias", "fc2.weight",
+                 "fc2.bias", "fc3.weight", "fc3.bias")
+        params = dict(self.named_parameters())
+        return {k: params[k].detach() for k in names}
+
+
+def fused_cond_ok(voc: WaveRNNConfig, dsp: DSPConfig, target: int,
+                  overlap: int) -> bool:
+    """The fused kernel needs folds phase-aligned to mel frames (true for
+    the defaults: target 11000 / overlap 550 / hop 275)."""
+    if not (math.prod(voc.upsample_factors) == dsp.hop_length
+            and target % dsp.hop_length == 0
+            and overlap % dsp.hop_length == 0):
+        return False
+    geo = P.geometry(voc.upsample_factors, voc.pad)
+    return 0 <= -geo.d_lo < geo.K
+
+
+def fused_conditioning(model: WaveRNN, mels_padded, total_len: int,
+                       target: int, overlap: int):
+    """MelResNet at frame rate, the polyphase table and the frame-rate
+    folds: (frames, phi, geometry, fold_chunks)."""
+    voc = model.voc
+    geo = P.geometry(voc.upsample_factors, voc.pad)
+    phi = P.phi_table(model.upsample.up_weights(), voc.upsample_factors, geo)
+    aux_fr = model.upsample.resnet(mels_padded)
+    num_folds, stride_f, fold_chunks, _ = P.fold_geometry(
+        total_len, target, overlap, geo.hop)
+    frames = P.build_folded_frames(mels_padded[0].t(), aux_fr[0].t(),
+                                   num_folds, stride_f, fold_chunks, geo.K,
+                                   geo.d_lo)
+    return frames, phi.contiguous(), geo, fold_chunks
+
+
+@torch.no_grad()
+def generate(model: WaveRNN, mels, *, target: Optional[int] = None,
+             overlap: Optional[int] = None, mu_law: bool = True,
+             noise=None, generator: Optional[torch.Generator] = None,
+             device="cuda", timings: Optional[dict] = None):
+    """Batched (folded) utterance generation (fatchord_version.py:169-264).
+
+    mels: (1, n_mels, T_frames) normalized mel in [0, 1] (tensor or array).
+    noise: injected sampling uniforms for replay (see ops/cuda_gen.py);
+    None draws the kernel's counter-hash noise from a seed taken from
+    ``generator``. Returns the float64 waveform ((T_frames-1)*hop,) on
+    ``device``, with the reference's tail fade-out. On CUDA the sample
+    loop multiplies bfloat16 weights with float32 accumulation. ``timings``, when
+    given, receives the device milliseconds of each stage.
+
+    Only the fused-conditioning path is ported: target and overlap must
+    be multiples of hop (the materialized path is later work)."""
+    dev = resolve_device(device, model)
+    voc, dsp = model.voc, model.dsp
+    target = voc.target if target is None else target
+    overlap = voc.overlap if overlap is None else overlap
+    mu_law = mu_law and voc.mode == "RAW"
+    if not fused_cond_ok(voc, dsp, target, overlap):
+        raise NotImplementedError(
+            "only fold-batched generation with target/overlap multiples of "
+            "hop (the fused sample-loop kernel) is ported")
+    mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
+    wave_len = (mels.shape[-1] - 1) * dsp.hop_length
+    total_len = mels.shape[-1] * dsp.hop_length
+    seed = 0
+    if noise is None:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=generator).item())
+    with stage(timings, "vocoder_conditioning", dev):
+        mels = torch.nn.functional.pad(mels, (voc.pad, voc.pad))
+        frames, phi, geo, fold_chunks = fused_conditioning(
+            model, mels, total_len, target, overlap)
+    with stage(timings, "sample_kernel", dev):
+        samples = generate_fused(model.core_weights(), frames, phi, geo.hop,
+                                 -geo.d_lo, fold_chunks, voc.mode,
+                                 noise=noise, seed=seed)
+    with stage(timings, "crossfade", dev):
+        y = samples.to(torch.float64)
+        if mu_law:
+            mu = voc.n_classes(dsp.bits) - 1
+            y = torch.sign(y) / mu * ((1 + mu) ** torch.abs(y) - 1)
+        wav = xfade_and_unfold(y, overlap)[:wave_len]
+        wav = tail_fade(wav, 20 * dsp.hop_length)
+    return wav

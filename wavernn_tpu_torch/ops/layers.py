@@ -1,0 +1,106 @@
+"""Neural-net primitives as plain functions on tensors (port of
+``wavernn_tpu.ops.layers``, inference side).
+
+Weights are in torch's layouts, the reference state-dict's own: a linear
+weight is (out, in), a conv weight (out, in, k), GRU/LSTM weights
+(gates * hidden, in) with torch's gate order — GRU [r, z, n]
+(fatchord_version.py:117-119), LSTM [i, f, g, o] (tacotron.py:220-221).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+
+
+def linear(x, w, b=None):
+    """x (..., in) @ w (out, in)^T + b."""
+    y = x @ w.t()
+    return y if b is None else y + b
+
+
+def conv1d(x, w, b=None, padding: int = 0):
+    """x (N, C, W) -> (N, O, W_out); w (O, C, K)."""
+    return F.conv1d(x, w, b, padding=padding)
+
+
+def batchnorm(x, weight, bias, mean, var, eps: float = BN_EPS):
+    """Eval-mode BatchNorm1d over (N, C, W) with running statistics."""
+    inv = torch.rsqrt(var + eps)
+    y = (x - mean[None, :, None]) * inv[None, :, None]
+    return y * weight[None, :, None] + bias[None, :, None]
+
+
+def gru_gates(gi, gh, h):
+    """GRU update from the input- and hidden-side projections (biases
+    included): n = tanh(gi_n + r * gh_n), h' = (1 - z) n + z h."""
+    H = h.shape[-1]
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+    return (1.0 - z) * n + z * h
+
+
+def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh):
+    """One GRU step. x (B, in), h (B, H) -> (B, H)."""
+    return gru_gates(linear(x, w_ih, b_ih), linear(h, w_hh, b_hh), h)
+
+
+def gru(xs, w_ih, w_hh, b_ih, b_hh, h0: Optional[torch.Tensor] = None):
+    """Full-sequence GRU, xs (B, T, in) -> ((B, T, H), h_T).
+
+    The input-side GEMM runs once over the whole sequence; only the
+    hidden-side product is sequential."""
+    B, T, _ = xs.shape
+    H = w_hh.shape[1]
+    h = xs.new_zeros(B, H) if h0 is None else h0
+    gi_all = linear(xs, w_ih, b_ih)
+    ys = []
+    for t in range(T):
+        h = gru_gates(gi_all[:, t], linear(h, w_hh, b_hh), h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def bigru(xs, fwd, bwd, lens: Optional[torch.Tensor] = None):
+    """Bidirectional GRU: concat(fwd(x), reversed(bwd(reversed(x)))).
+
+    ``fwd``/``bwd`` are (w_ih, w_hh, b_ih, b_hh) tuples. ``lens`` (B,)
+    gives the true lengths of right-padded rows: each row is rolled right
+    by T - len before the flip, so the backward GRU reads the real text
+    first and valid positions match an unpadded run (pad positions are
+    garbage for the caller to ignore)."""
+    y_f, _ = gru(xs, *fwd)
+    if lens is None:
+        y_b, _ = gru(xs.flip(1), *bwd)
+        return torch.cat([y_f, y_b.flip(1)], dim=-1)
+    T = xs.shape[1]
+    shifts = [int(s) for s in (T - lens).tolist()]
+    rolled = torch.stack([torch.roll(x, s, dims=0)
+                          for x, s in zip(xs, shifts)])
+    y_b, _ = gru(rolled.flip(1), *bwd)
+    y_b = y_b.flip(1)
+    y_b = torch.stack([torch.roll(y, -s, dims=0)
+                       for y, s in zip(y_b, shifts)])
+    return torch.cat([y_f, y_b], dim=-1)
+
+
+def lstm_cell(x, state: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh,
+              b_ih, b_hh):
+    """One LSTM step; state = (h, c)."""
+    h, c = state
+    H = h.shape[-1]
+    g = linear(x, w_ih, b_ih) + linear(h, w_hh, b_hh)
+    i = torch.sigmoid(g[..., :H])
+    f = torch.sigmoid(g[..., H:2 * H])
+    gg = torch.tanh(g[..., 2 * H:3 * H])
+    o = torch.sigmoid(g[..., 3 * H:])
+    c = f * c + i * gg
+    return o * torch.tanh(c), c
+
+
+def embedding(ids, table):
+    return table[ids]

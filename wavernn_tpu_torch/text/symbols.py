@@ -1,0 +1,28 @@
+"""Symbol inventory: 148 ids (reference utils/text/symbols.py:18).
+
+Order matters — ids index the Tacotron embedding table and must line up with
+the pretrained checkpoints: pad, '-', punctuation, letters, then '@'-prefixed
+ARPAbet phonemes.
+"""
+
+ARPABET = [
+    "AA", "AA0", "AA1", "AA2", "AE", "AE0", "AE1", "AE2", "AH", "AH0", "AH1",
+    "AH2", "AO", "AO0", "AO1", "AO2", "AW", "AW0", "AW1", "AW2", "AY", "AY0",
+    "AY1", "AY2", "B", "CH", "D", "DH", "EH", "EH0", "EH1", "EH2", "ER", "ER0",
+    "ER1", "ER2", "EY", "EY0", "EY1", "EY2", "F", "G", "HH", "IH", "IH0",
+    "IH1", "IH2", "IY", "IY0", "IY1", "IY2", "JH", "K", "L", "M", "N", "NG",
+    "OW", "OW0", "OW1", "OW2", "OY", "OY0", "OY1", "OY2", "P", "R", "S", "SH",
+    "T", "TH", "UH", "UH0", "UH1", "UH2", "UW", "UW0", "UW1", "UW2", "V", "W",
+    "Y", "Z", "ZH",
+]
+
+PAD = "_"
+PUNCTUATION = "!'(),.:;? "
+SPECIAL = "-"
+LETTERS = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+
+symbols = ([PAD] + list(SPECIAL) + list(PUNCTUATION) + list(LETTERS)
+           + ["@" + s for s in ARPABET])
+
+symbol_to_id = {s: i for i, s in enumerate(symbols)}
+id_to_symbol = {i: s for i, s in enumerate(symbols)}
