@@ -18,11 +18,24 @@ Phases, one JSON line each; any failure raises and exits nonzero:
   main     text -> wav through ``synthesis.tts_to_wav`` at the full default
            Config() with weights made from a seed: stage times, audio
            seconds, real-time factor and both kernels' launch counts
+  b5       the GRU recurrence kernels (forward and backward) against their
+           plain versions at the training shape T 1375, H 512, at B 32 and
+           B 128, float32 (TF32 off) and bfloat16 streams
+  train    vocoder training at the full default Config(): a synthetic
+           dataset in the reference layout, the CLI entry point
+           ``cli.train_wavernn`` run in-process for 6 steps (checkpoint at
+           step 5 with a generated test item), B5's launch counts, the
+           saved checkpoint generated from again; then one full-width step
+           with the kernels against ``recurrence="scan"`` from the same
+           weights and batch (loss and every gradient), steps/s, samples/s
+           and the stage ms of a step
   timings  each kernel and its plain version at the main path's shapes
            and on its inputs, with CUDA events after warm-up, the least
            time the card could take for the same work, and the outputs
            held against each other (B1 bfloat16 and float32 as in b1, B2
-           as in b2)
+           as in b2, B5 forward and backward in float32 at the train step's
+           shape), and cuDNN's ``torch.nn.GRU`` at that shape as B5's
+           library yardstick
 
 Then the card's name and power limit, the kernels JSON line, and last the
 device line. Comparisons run with TF32 off (cuDNN convolutions default to
@@ -47,6 +60,14 @@ PEAK_BYTES = 3.35e12
 
 B1_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_fused.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
+B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
+# B5 tolerances. float32: summation order only, over 1375 steps. bfloat16
+# streams: ys/sv within a few bf16 ulps at |v| <= 1 (2**-8 each; a one-ulp
+# rounding flip of h is carried forward), gradients 3e-2 of the largest
+# entry (the JAX package's own bf16 bound is 5e-2)
+B5_F32_TOL = 1e-4
+B5_BF16_TOL = 3e-2
+TRAIN_STEPS = 6
 
 
 def emit(phase: str, **fields):
@@ -126,6 +147,31 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def step_kernels(fn, names):
+    """One call of ``fn`` under torch.profiler (device activity only): its
+    kernel count, the ms the device was busy with them (the union of their
+    intervals) and the ms of the kernels whose name holds one of
+    ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no kernel of the step")
+    busy, end = 0.0, -math.inf
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    named = sum(e - s for s, e, n in spans if any(k in n for k in names))
+    return {"kernels": len(spans), "busy_ms": busy / 1e3,
+            "named_ms": named / 1e3}
+
+
 def b1_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes):
     """(FLOPs, bytes) the fused sample loop needs for these shapes."""
     per_sample = 2 * (2 * 3 * R * R + 2 * 3 * R * R + FC * R + FC * FC
@@ -153,6 +199,93 @@ def b2_work(groups, T, E, D, P1, P2, L, F, n_mels, n_out_groups):
     return groups * per_group, nbytes
 
 
+def gru_work(T, B, H, nbytes, backward):
+    """(FLOPs, bytes) of one B5 launch: each input read once and each
+    output written once; stream elements of ``nbytes`` bytes."""
+    flops = 2 * T * B * H * 3 * H
+    if backward:   # sv, ys, dys, wh, h0 in; dgi, dgh, dh0 (f32) out
+        streams = T * B * (4 * H + H + H + 3 * H + 3 * H)
+        return flops, nbytes * (streams + 3 * H * H + B * H) + 4 * B * H
+    # gi, wh, h0 in (bh f32); ys, sv out
+    return flops, (nbytes * (T * B * (3 * H + H + 4 * H) + 3 * H * H + B * H)
+                   + 4 * 3 * H)
+
+
+def bound(flops, nbytes, peak):
+    """(least ms, what sets it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def gru_inputs(T, B, H, dtype, dev, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=g) * scale
+    return (rnd(T, B, 3 * H, scale=0.5).to(dtype).to(dev),
+            rnd(H, 3 * H, scale=H ** -0.5).to(dtype).to(dev),
+            rnd(3 * H, scale=0.05).to(dev),
+            rnd(B, H, scale=0.1).to(dtype).to(dev),
+            rnd(T, B, H, scale=0.1).to(dtype).to(dev))
+
+
+def check_b5(cuda_gru, gi, wh, bh, h0, dys):
+    """Both B5 kernels against their plain versions on the same inputs
+    (the backward on the kernel's own forward streams): (result, ok)."""
+    import torch
+    bf16 = gi.dtype == torch.bfloat16
+    tol = B5_BF16_TOL if bf16 else B5_F32_TOL
+    ys, sv = cuda_gru.gru_seq_fwd(gi, wh, bh, h0)
+    ys_p, sv_p = cuda_gru.gru_seq_ref(gi, wh, bh, h0)
+    dgi, dgh, dh0 = cuda_gru.gru_seq_bwd(sv, ys, wh, h0, dys)
+    pdgi, pdgh, pdh0 = cuda_gru.gru_seq_bwd_ref(sv, ys, wh, h0, dys)
+    torch.cuda.synchronize()
+    res = {"ys_max_abs_err": float((ys.float() - ys_p.float()).abs().max()),
+           "sv_max_abs_err": float((sv.float() - sv_p.float()).abs().max()),
+           "dgi_rel_err": rel_err(dgi, pdgi), "dgh_rel_err": rel_err(dgh, pdgh),
+           "dh0_rel_err": rel_err(dh0, pdh0),
+           "bwd_max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                  for a, b in ((dgi, pdgi), (dgh, pdgh),
+                                               (dh0, pdh0)))}
+    ok = (res["ys_max_abs_err"] <= tol and res["sv_max_abs_err"] <= tol
+          and max(res["dgi_rel_err"], res["dgh_rel_err"],
+                  res["dh0_rel_err"]) <= tol
+          and all(bool(t.isfinite().all()) for t in (ys, sv, dgi, dgh, dh0)))
+    return res, ok
+
+
+def write_dataset(root: Path, n_items: int, frames: int, hop: int, seed: int):
+    """A synthetic vocoder dataset in the reference layout: dataset.pkl,
+    mel/*.npy (80 x frames, uniform in [0, 1]) and quant/*.npy (16-bit
+    labels of a noisy sine)."""
+    import pickle
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    (root / "mel").mkdir(parents=True)
+    (root / "quant").mkdir()
+    t = np.arange(frames * hop) / 22050.0
+    ids = []
+    for i in range(n_items):
+        name = f"smoke{i:03d}"
+        np.save(root / "mel" / f"{name}.npy",
+                rng.uniform(0, 1, (80, frames)).astype(np.float32))
+        wave = (0.5 * np.sin(2 * np.pi * (110 + 7 * i) * t)
+                + 0.02 * rng.randn(t.size))
+        q = np.clip(np.round((wave + 1) / 2 * (2 ** 16 - 1)), 0, 2 ** 16 - 1)
+        np.save(root / "quant" / f"{name}.npy", q.astype(np.int64))
+        ids.append((name, frames))
+    with open(root / "dataset.pkl", "wb") as f:
+        pickle.dump(ids, f)
+
+
 def main() -> int:
     try:
         import torch
@@ -170,7 +303,7 @@ def main() -> int:
     from wavernn_tpu_torch.config import Config, WaveRNNConfig
     from wavernn_tpu_torch.models import tacotron as taco
     from wavernn_tpu_torch.models import wavernn as wr
-    from wavernn_tpu_torch.ops import _build, cuda_gen, cuda_taco
+    from wavernn_tpu_torch.ops import _build, cuda_gen, cuda_gru, cuda_taco
     from wavernn_tpu_torch.ops import layers as L
     from wavernn_tpu_torch.synthesis import tts_to_wav
     from wavernn_tpu_torch.text import text_to_sequence
@@ -330,6 +463,214 @@ def main() -> int:
             and all(launches.values())):
         raise AssertionError("main path: bad wave or a kernel never ran")
 
+    # ---- b5: the GRU recurrence kernels against their plain versions ----
+    b5 = {}
+    T5, H5 = cfg.voc_train.seq_len, cfg.voc.rnn_dims
+    for B5 in (32, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            with torch.no_grad():
+                res, ok = check_b5(cuda_gru, *gru_inputs(T5, B5, H5, dt, dev,
+                                                         B5))
+            res["plan"] = [cuda_gru.launch_plan(B5, H5, dt, bw)
+                           for bw in (False, True)]
+            tag = f"B{B5}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
+            b5[tag] = res
+            emit("b5", case=tag, T=T5, H=H5, ok=ok,
+                 tolerance=B5_BF16_TOL if dt == torch.bfloat16
+                 else B5_F32_TOL, **res)
+            if not ok:
+                raise AssertionError(f"B5 {tag}: a kernel disagrees with its "
+                                     "plain version")
+
+    # ---- train: the vocoder trainer's CLI at full width ----
+    import copy
+    import os
+    import tempfile
+    from scipy.io import wavfile
+    from wavernn_tpu_torch.cli import train_wavernn
+    from wavernn_tpu_torch.cli.common import load_voc_model
+    from wavernn_tpu_torch.data.dataset import VocoderBatcher, VocoderDataset
+    from wavernn_tpu_torch.data.prefetch import prefetch
+    from wavernn_tpu_torch.synthesis import gen_testset
+    from wavernn_tpu_torch.train import wavernn_train as wt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data", 40, 120, cfg.dsp.hop_length, 7)
+        hp = tmp / "hparams_smoke.py"
+        hp.write_text(f"data_path = {str(tmp / 'data')!r}\n"
+                      "voc_model_id = 'smoke'\n"
+                      f"voc_total_steps = {TRAIN_STEPS}\n"
+                      "voc_checkpoint_every = 5\n"
+                      "voc_gen_at_checkpoint = 1\nvoc_test_samples = 2\n")
+        work = tmp / "run"
+        work.mkdir()
+        cwd = os.getcwd()
+        os.chdir(work)
+        cuda_gru.gru_seq_tm.fwd_launches = 0
+        cuda_gru.gru_seq_tm.bwd_launches = 0
+        t0 = time.perf_counter()
+        try:
+            train_wavernn.main(["--hp_file", str(hp)])
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        cli_s = time.perf_counter() - t0
+        b5_launches = {"gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
+                       "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+        ckpt = work / "checkpoints" / "smoke.wavernn"
+        records = [json.loads(ln) for ln in
+                   (ckpt / "metrics.jsonl").read_text().splitlines()]
+        epochs = [r for r in records if r["event"] == "epoch"]
+        files = {n: (ckpt / n).exists() for n in (
+            "latest_weights.npz", "latest_optim.npz",
+            "wave_step0K_weights.npz", "wave_step0K_optim.npz")}
+        outs = sorted((work / "model_outputs" / "smoke.wavernn").iterdir())
+        gen_wavs = [p for p in outs if "gen_batched" in p.name]
+        pcm_peak = [int(abs(wavfile.read(p)[1].astype(int)).max())
+                    for p in gen_wavs]
+        # the named snapshot back from disk, and its test item generated
+        # again: the wave itself must be finite (the file is clipped PCM)
+        snap, snap_step = load_voc_model(ckpt / "wave_step0K_weights.npz",
+                                         cfg, dev)
+        test_set = VocoderDataset(tmp / "data", ["smoke000"])
+        wav = wr.generate(snap, test_set[0][0][None],
+                          generator=torch.Generator().manual_seed(0),
+                          device=dev)
+        cli = {"steps": [r["step"] for r in epochs],
+               "epoch_loss": [r["loss"] for r in epochs],
+               "nonfinite_grad_steps": sum(r["nonfinite_grad_steps"]
+                                           for r in epochs),
+               "nonfinite_loss_steps": sum(r["nonfinite_loss_steps"]
+                                           for r in epochs),
+               "launches": b5_launches, "files": files,
+               "generated": [p.name for p in gen_wavs], "pcm_peak": pcm_peak,
+               "snapshot_step": snap_step,
+               "regenerated_finite": bool(wav.isfinite().all()),
+               "regenerated_samples": int(wav.numel()), "wall_s": cli_s}
+        ok = (cli["steps"] == list(range(1, TRAIN_STEPS + 1))
+              and all(math.isfinite(v) for v in cli["epoch_loss"])
+              and cli["nonfinite_grad_steps"] == 0
+              and cli["nonfinite_loss_steps"] == 0
+              and b5_launches["gru_seq_fwd"] == 2 * TRAIN_STEPS
+              and b5_launches["gru_seq_bwd"] == 2 * TRAIN_STEPS
+              and all(files.values()) and len(gen_wavs) == 1
+              and pcm_peak[0] > 0 and snap_step == 5
+              and cli["regenerated_finite"])
+        emit("train", stage="cli", ok=ok, **cli)
+        if not ok:
+            raise AssertionError("train: the CLI run failed a check")
+
+        # one full-width step, kernels against recurrence="scan", from the
+        # same weights and batch
+        batcher = VocoderBatcher(VocoderDataset(tmp / "data", [
+            f"smoke{i:03d}" for i in range(40)]), cfg,
+            cfg.voc_train.batch_size, seed=3)
+        t0 = time.perf_counter()
+        x, y, m = next(iter(batcher))
+        collate_ms = (time.perf_counter() - t0) * 1e3
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        x, y, m = (torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                   for a in (x, y, m))
+        end.record()
+        state = wt.create_train_state(cfg.voc, cfg.dsp, cfg.voc_train.lr,
+                                      cfg.voc_train.clip_grad_norm, seed=11,
+                                      device=dev)
+        grads = {}
+        for rec in ("auto", "scan"):
+            loss, g = wt.loss_and_grads(copy.deepcopy(state.model), x, y, m,
+                                        cfg.voc, recurrence=rec)
+            grads[rec] = (float(loss), g)
+        torch.cuda.synchronize()
+        h2d_ms = start.elapsed_time(end)
+        names = [n for n, _ in state.model.named_parameters()]
+        (lk, gk), (ls, gs) = grads["auto"], grads["scan"]
+        grad_err = {n: rel_err(a, b) for n, a, b in zip(names, gk, gs)}
+        worst = max(grad_err, key=grad_err.get)
+        cmp = {"loss_kernels": lk, "loss_scan": ls,
+               "loss_rel_err": abs(lk - ls) / abs(ls),
+               "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+               "grad_rel_err_gru": {n: grad_err[n] for n in names
+                                    if n.startswith("rnn")}}
+        ok = (cmp["loss_rel_err"] <= 1e-5 and cmp["grad_max_rel_err"] <= 1e-3
+              and math.isfinite(lk))
+        emit("train", stage="kernels_vs_scan", ok=ok, loss_tolerance=1e-5,
+             grad_tolerance=1e-3, **cmp)
+        if not ok:
+            raise AssertionError("train: the kernel step disagrees with the "
+                                 "scan step")
+
+        # speed of the step and where its time goes
+        for _ in range(2):                                   # warm-up
+            wt.train_step(state, x, y, m, cfg.voc)
+        n_steps = 10
+        stage_t = {}
+        torch.cuda.synchronize()
+        for _ in range(n_steps):
+            wt.train_step(state, x, y, m, cfg.voc, timings=stage_t)
+        torch.cuda.synchronize()
+        stage_ms = {k: v / n_steps for k, v in elapsed_ms(stage_t).items()}
+        # host time to enqueue one step (the device drained first), and
+        # steps/s on a batch that stays on the card
+        host_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wt.train_step(state, x, y, m, cfg.voc)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            wt.train_step(state, x, y, m, cfg.voc)
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        # one step under torch.profiler: its kernels, the time the device
+        # was busy with them, and B5's part of it
+        device = step_kernels(lambda: wt.train_step(state, x, y, m, cfg.voc),
+                              ("gru_fwd", "gru_bwd"))
+        device["b5_ms"] = device.pop("named_ms")
+        device["idle_share"] = 1 - device["busy_ms"] / (
+            1e3 * resident_s / n_steps)
+
+        def loop_s(batches):
+            """Seconds of n_steps trainer steps fed through prefetch."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = 0
+            for xb, yb, mb in prefetch(batches, device=dev):
+                wt.train_step(state, xb, yb, mb, cfg.voc)
+                done += 1
+                if done == n_steps:
+                    break
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        # the trainer's own loop, batches collated from disk by the
+        # prefetch thread; then the same loop on batches collated before
+        # it starts (the thread only pins them)
+        torch.cuda.reset_peak_memory_stats()
+        wall = loop_s(iter(lambda: next(iter(batcher)), None))
+        t0 = time.perf_counter()
+        ready = [next(iter(batcher)) for _ in range(n_steps)]
+        collate_mean_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        ready_s = loop_s(ready)
+        B_tr = cfg.voc_train.batch_size
+        speed = {"steps_per_s": n_steps / wall,
+                 "steps_per_s_resident_batch": n_steps / resident_s,
+                 "steps_per_s_precollated": n_steps / ready_s,
+                 "host_enqueue_ms": min(host_ms), "device": device,
+                 "samples_per_s": n_steps * B_tr / wall,
+                 "audio_samples_per_s": n_steps * B_tr
+                 * cfg.voc_train.seq_len / wall,
+                 "step_ms": 1e3 * wall / n_steps,
+                 "stage_ms": {**stage_ms, "data_collate_host": collate_ms,
+                              "data_collate_host_mean": collate_mean_ms,
+                              "data_h2d": h2d_ms},
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "batch": B_tr, "seq_len": cfg.voc_train.seq_len}
+        emit("train", stage="speed", **speed)
+
     # ---- timings at the main path's shapes, each kernel held against its
     # plain version on the same inputs ----
     with torch.no_grad():
@@ -385,7 +726,43 @@ def main() -> int:
         fl2, by2 = b2_work(computed, x.shape[1], enc.shape[-1], 256, 256,
                            128, 512, r * 80, 80, n_groups)
         b2_bound = max(fl2 / PEAK_F32, by2 / PEAK_BYTES) * 1e3
-    ok = ok16 and ok32 and ok2
+        # B5 at the train step's shape (float32 streams, as the default
+        # precision runs them), on the same inputs for kernel and plain
+        gi, wh, bh, h0, dys = gru_inputs(T5, cfg.voc_train.batch_size, H5,
+                                         torch.float32, dev, 5)
+        f_ms, (ys, sv) = cuda_ms(lambda: cuda_gru.gru_seq_fwd(gi, wh, bh, h0),
+                                 5)
+        bw_ms, _ = cuda_ms(lambda: cuda_gru.gru_seq_bwd(sv, ys, wh, h0, dys), 5)
+        f_plain, _ = cuda_ms(lambda: cuda_gru.gru_seq_ref(gi, wh, bh, h0), 1)
+        bw_plain, _ = cuda_ms(lambda: cuda_gru.gru_seq_bwd_ref(
+            sv, ys, wh, h0, dys), 1)
+        b5_main, ok5 = check_b5(cuda_gru, gi, wh, bh, h0, dys)
+    # cuDNN's GRU at the same shape, input size H: its call also does the
+    # input product x @ w_ih^T + b_ih, timed alone and subtracted
+    lib_gru = torch.nn.GRU(H5, H5).to(dev)
+    xs = torch.randn(T5, cfg.voc_train.batch_size, H5, device=dev,
+                     requires_grad=True)
+    w_ih, b_ih = lib_gru.weight_ih_l0, lib_gru.bias_ih_l0
+
+    def fwd_bwd(fn):
+        def run():
+            out = fn()
+            out.backward(torch.ones_like(out))
+        return run
+    with torch.no_grad():
+        lib_f, _ = cuda_ms(lambda: lib_gru(xs)[0], 5)
+        proj_f, _ = cuda_ms(lambda: torch.addmm(b_ih, xs.view(-1, H5),
+                                                w_ih.t()), 5)
+    lib_fb, _ = cuda_ms(fwd_bwd(lambda: lib_gru(xs)[0]), 5)
+    proj_fb, _ = cuda_ms(fwd_bwd(lambda: torch.addmm(
+        b_ih, xs.view(-1, H5), w_ih.t())), 5)
+    lib_fwd_ms = lib_f - proj_f
+    lib_bwd_ms = (lib_fb - proj_fb) - lib_fwd_ms
+    fl5f, by5f = gru_work(T5, cfg.voc_train.batch_size, H5, 4, False)
+    fl5b, by5b = gru_work(T5, cfg.voc_train.batch_size, H5, 4, True)
+    b5f_bound, b5f_by = bound(fl5f, by5f, PEAK_F32)
+    b5b_bound, b5b_by = bound(fl5b, by5b, PEAK_F32)
+    ok = ok16 and ok32 and ok2 and ok5
     emit("timings", ok=ok,
          b1={"folds": B, "steps": T, "ms": b1_ms, "plain_ms": b1_plain,
              "bound_ms": b1_bound, "flops": fl, "bytes": by,
@@ -393,7 +770,18 @@ def main() -> int:
          b2={"text_len": x.shape[1], "groups_computed": computed,
              "groups": n_groups, "ms": b2_ms, "plain_ms": b2_plain,
              "bound_ms": b2_bound, "flops": fl2, "bytes": by2,
-             "check": b2_main})
+             "check": b2_main},
+         b5={"T": T5, "B": cfg.voc_train.batch_size, "H": H5,
+             "fwd_ms": f_ms, "bwd_ms": bw_ms, "fwd_plain_ms": f_plain,
+             "bwd_plain_ms": bw_plain, "fwd_bound_ms": b5f_bound,
+             "bwd_bound_ms": b5b_bound, "fwd_flops": fl5f, "fwd_bytes": by5f,
+             "bwd_flops": fl5b, "bwd_bytes": by5b,
+             "us_per_step": [1e3 * f_ms / T5, 1e3 * bw_ms / T5],
+             "cudnn_fwd_ms": lib_f, "cudnn_fwd_bwd_ms": lib_fb,
+             "input_product_fwd_ms": proj_f,
+             "input_product_fwd_bwd_ms": proj_fb,
+             "library_fwd_ms": lib_fwd_ms, "library_bwd_ms": lib_bwd_ms,
+             "check": b5_main})
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
@@ -417,6 +805,22 @@ def main() -> int:
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": "operations" if fl2 / PEAK_F32 >= by2 / PEAK_BYTES
          else "bytes", "library_ms": None},
+        {"name": "gru_seq_fwd", "route": "cuda", "source": B5_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gru.py:57",
+         "launches": b5_launches["gru_seq_fwd"],
+         "max_abs_err": max([b5_main["ys_max_abs_err"]]
+                            + [r["ys_max_abs_err"] for k, r in b5.items()
+                               if k.endswith("f32")]),
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": b5f_bound,
+         "bound_by": b5f_by, "library_ms": lib_fwd_ms},
+        {"name": "gru_seq_bwd", "route": "cuda", "source": B5_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gru.py:122",
+         "launches": b5_launches["gru_seq_bwd"],
+         "max_abs_err": max([b5_main["bwd_max_abs_err"]]
+                            + [r["bwd_max_abs_err"] for k, r in b5.items()
+                               if k.endswith("f32")]),
+         "ms": bw_ms, "plain_ms": bw_plain, "bound_ms": b5b_bound,
+         "bound_by": b5b_by, "library_ms": lib_bwd_ms},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,12 @@ suite's conftest (it imports JAX):
     PYTHONPATH=. python -m pytest tests/test_torch_port_cuda.py -m cuda -q --noconftest
 
 Tolerance: 2e-3 on samples and mels (float32 on both sides, summation
-order only; TF32 off), attention 2e-4, the stop group identical.
+order only; TF32 off), attention 2e-4, the stop group identical. The GRU
+recurrence (B5): float32 ys and sv within 1e-5, dgi, dgh and dh0 within
+1e-5 of each tensor's largest entry (summation order only, over at most 40
+steps); bfloat16 streams within 3e-2 absolute (ys, sv: a few bf16 ulps at
+|v| <= 1, a one-ulp rounding flip of h carried forward) and 3e-2 of the
+largest entry (gradients).
 """
 import pytest
 import torch
@@ -15,7 +20,7 @@ from wavernn_tpu_torch.config import (DSPConfig, TacotronConfig,
                                       WaveRNNConfig)
 from wavernn_tpu_torch.models import tacotron as taco
 from wavernn_tpu_torch.models import wavernn as wr
-from wavernn_tpu_torch.ops import cuda_gen, cuda_taco
+from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +79,57 @@ def test_decode_kernel_matches_plain(cuda, threshold):
     assert int(nv_k[0]) == int(nv_p[0]) == (20 if threshold < 0 else 7)
     torch.testing.assert_close(mel_k, mel_p, atol=2e-3, rtol=0)
     torch.testing.assert_close(att_k, att_p, atol=2e-4, rtol=0)
+
+
+def _gru_inputs(T, B, H, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=g) * scale
+    return (rnd(T, B, 3 * H, scale=0.5).to(dtype).to(dev),
+            rnd(H, 3 * H, scale=H ** -0.5).to(dtype).to(dev),
+            rnd(3 * H, scale=0.05).to(dev),
+            rnd(B, H, scale=0.1).to(dtype).to(dev),
+            rnd(T, B, H, scale=0.1).to(dtype).to(dev))
+
+
+# H 203 leaves the last block with one unit on a 132-SM card (two units a
+# block, 102 blocks); T 1 runs the single-step edge of both sweeps
+@pytest.mark.parametrize("T,B,H,dtype", [
+    (40, 8, 64, torch.float32), (1, 3, 203, torch.float32),
+    (17, 5, 203, torch.float32), (40, 8, 64, torch.bfloat16),
+    (17, 5, 203, torch.bfloat16)])
+def test_gru_kernels_match_plain(cuda, T, B, H, dtype):
+    gi, wh, bh, h0, dys = _gru_inputs(T, B, H, dtype, cuda)
+    f0, b0 = cuda_gru.gru_seq_tm.fwd_launches, cuda_gru.gru_seq_tm.bwd_launches
+    ys, sv = cuda_gru.gru_seq_fwd(gi, wh, bh, h0)
+    ys_p, sv_p = cuda_gru.gru_seq_ref(gi, wh, bh, h0)
+    dgi, dgh, dh0 = cuda_gru.gru_seq_bwd(sv, ys, wh, h0, dys)
+    want = cuda_gru.gru_seq_bwd_ref(sv, ys, wh, h0, dys)
+    torch.cuda.synchronize()
+    assert cuda_gru.gru_seq_tm.fwd_launches == f0 + 1
+    assert cuda_gru.gru_seq_tm.bwd_launches == b0 + 1
+    assert ys.dtype == sv.dtype == dgi.dtype == dgh.dtype == dtype
+    assert dh0.dtype == torch.float32
+    bf16 = dtype == torch.bfloat16
+    tol = 3e-2 if bf16 else 1e-5
+    torch.testing.assert_close(ys.float(), ys_p.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(sv.float(), sv_p.float(), atol=tol, rtol=0)
+    for got, ref in zip((dgi, dgh, dh0), want):
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+def test_gru_autograd_on_cuda_matches_cpu(cuda):
+    """The autograd Function with the kernels against the same Function on
+    the CPU (plain versions): all four gradients."""
+    gi, wh, bh, h0, dys = _gru_inputs(23, 4, 96, torch.float32, cuda, 1)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (gi, wh, bh,
+                                                               h0)]
+        ys = cuda_gru.gru_seq_tm(*leaves)
+        ys.backward(dys.to(dev))
+        outs.append([ys.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, ref in zip(*outs):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-5 * max(scale, 1.0)

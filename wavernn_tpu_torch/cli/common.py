@@ -1,4 +1,4 @@
-"""Shared CLI plumbing for the port: config and weight loading.
+"""Shared CLI plumbing for the port: config, workspace and weight loading.
 
 Weights load from a reference PyTorch checkpoint (``.pyt``/``.pt``/
 ``.pth``: ``torch.load`` then ``load_state_dict``) or from the JAX
@@ -17,14 +17,20 @@ from ..compat.from_jax import state_dict_from_jax
 from ..config import Config
 from ..models.tacotron import Tacotron
 from ..models.wavernn import WaveRNN
-
-TORCH_SUFFIXES = (".pyt", ".pt", ".pth")
+from ..paths import Workspace
+from ..train.checkpoints import TORCH_SUFFIXES
 
 
 def load_config(hp_file: Optional[str]) -> Config:
     if hp_file and Path(hp_file).exists():
         return Config.from_hparams_file(hp_file)
     return Config()
+
+
+def make_workspace(cfg: Config, output_root: str = ".") -> Workspace:
+    return Workspace(cfg.data_path, cfg.voc_model_id, cfg.tts_model_id,
+                     ignore_voc=cfg.ignore_voc, ignore_tts=cfg.ignore_tts,
+                     output_root=output_root)
 
 
 def _read(path: Path, cfg: Config):

@@ -1,0 +1,97 @@
+"""CLI: vocoder training with the PyTorch/CUDA port (reference
+train_wavernn.py).
+
+    python -m wavernn_tpu_torch.cli.train_wavernn --hp_file hparams.py \\
+        [--gta] [--lr 1e-4] [--batch_size 32]
+
+Trains on one CUDA device (the two GRU recurrences of every step run on the
+hand-written kernel B5), or on the CPU with --force_cpu (the kernels' plain
+PyTorch versions). Checkpoints are the JAX package's .npz pair, so either
+package resumes the other's run.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+
+import torch
+
+from ..data.dataset import get_vocoder_datasets
+from ..device import resolve_device
+from ..synthesis import gen_testset
+from ..train import wavernn_train as wt
+from ..train.checkpoints import restore_checkpoint
+from .common import load_config, make_workspace
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train the WaveRNN vocoder on one device (the JAX "
+                    "package's multi-device mesh is not ported: ROADMAP "
+                    "A11)")
+    parser.add_argument("--lr", "-l", type=float)
+    parser.add_argument("--batch_size", "-b", type=int)
+    parser.add_argument("--force_train", "-f", action="store_true")
+    parser.add_argument("--gta", "-g", action="store_true",
+                        help="train on GTA features")
+    parser.add_argument("--prune", action="store_true",
+                        help="magnitude pruning: not ported yet (ROADMAP "
+                             "A9/B9); raises")
+    parser.add_argument("--hp_file", default=None)
+    parser.add_argument("--force_cpu", "-c", action="store_true",
+                        help="train on the CPU with the plain PyTorch "
+                             "versions of the kernels")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the first "
+                             "training steps into this directory")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.hp_file)
+    if args.prune or cfg.voc_train.prune:
+        raise NotImplementedError("pruning is not ported to the PyTorch "
+                                  "package yet (ROADMAP A9, kernel B9)")
+    device = resolve_device("cpu" if args.force_cpu else "cuda")
+    lr = args.lr or cfg.voc_train.lr
+    batch_size = args.batch_size or cfg.voc_train.batch_size
+    ws = make_workspace(cfg)
+
+    # the upsample factors must exactly factorise hop (train_wavernn.py:68)
+    assert math.prod(cfg.voc.upsample_factors) == cfg.dsp.hop_length
+
+    state = wt.create_train_state(cfg.voc, cfg.dsp, lr,
+                                  cfg.voc_train.clip_grad_norm,
+                                  seed=args.seed, device=device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"Trainable Parameters: {n_params / 1e6:.3f}M")
+    state.step = restore_checkpoint(
+        "voc", ws, state.model, state.opt, create_if_missing=True,
+        init_weights_path=cfg.voc_train.init_weights_path)
+
+    train_set, test_set = get_vocoder_datasets(
+        ws.data, batch_size, cfg, train_gta=args.gta,
+        tts_model_id=cfg.tts_model_id if args.gta else "", seed=args.seed)
+
+    total_steps = (10_000_000 if args.force_train
+                   else cfg.voc_train.total_steps)
+    for name, value in (
+            ("Remaining", f"{(total_steps - state.step) // 1000}k Steps"),
+            ("Batch Size", batch_size), ("LR", lr),
+            ("Sequence Len", cfg.voc_train.seq_len), ("GTA Train", args.gta),
+            ("Device", device), ("Recurrence", cfg.voc_train.recurrence),
+            ("Precision", cfg.voc_train.precision)):
+        print(f"| {name}: {value}")
+
+    def on_checkpoint(st):
+        gen_testset(st.model, test_set, cfg.voc_train.gen_at_checkpoint,
+                    cfg.voc.target, cfg.voc.overlap, ws.voc_output, cfg,
+                    step=st.step,
+                    generator=torch.Generator().manual_seed(args.seed),
+                    device=device)
+
+    wt.train_loop(cfg, ws, train_set, state, lr=lr, total_steps=total_steps,
+                  on_checkpoint=on_checkpoint, profile_dir=args.profile_dir)
+    print("Training Complete.")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,10 @@
 """Typed, frozen configuration for the PyTorch/CUDA port.
 
-A copy of the inference-side dataclasses of ``wavernn_tpu.config``
-(DSPConfig, WaveRNNConfig, TacotronConfig, Config) and of the reference
-``hparams_*.py`` loader, cut to the fields that text -> wav synthesis
-reads. The training settings stay with the JAX package until training is
-ported.
+A copy of the dataclasses of ``wavernn_tpu.config`` (DSPConfig,
+WaveRNNConfig, WaveRNNTrainConfig, TacotronConfig, Config) and of the
+reference ``hparams_*.py`` loader, cut to the fields that text -> wav
+synthesis and vocoder training read. The Tacotron training settings are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import importlib.util
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 
 def _import_py_file(path: Union[str, Path]):
@@ -71,6 +71,42 @@ class WaveRNNConfig:
         raise ValueError(f"Unknown WaveRNN mode {self.mode!r}")
 
 
+_PRECISIONS = ("float32", "bfloat16")
+
+
+@dataclass(frozen=True)
+class WaveRNNTrainConfig:
+    """Vocoder training loop settings (reference hparams.py:46-55)."""
+
+    batch_size: int = 32
+    lr: float = 1e-4
+    checkpoint_every: int = 25_000
+    gen_at_checkpoint: int = 5
+    total_steps: int = 1_000_000
+    test_samples: int = 50
+    seq_len: int = 275 * 5  # must be a multiple of hop_length
+    clip_grad_norm: Optional[float] = 4.0
+    init_weights_path: Optional[str] = None
+    # "bfloat16": the core GRU/FC stack computes in bf16 (float32 master
+    # weights, optimizer state, upsampler and BatchNorm statistics)
+    precision: str = "float32"
+    # the two GRU recurrences: "auto" and "pallas" run the kernel B5 on a
+    # CUDA tensor (its plain version on a CPU tensor); "scan" runs the
+    # plain step loop under autograd, explicitly asked for
+    recurrence: str = "auto"
+    # magnitude pruning is not ported: the trainer raises when it is set
+    prune: bool = False
+
+    def __post_init__(self):
+        if self.precision not in _PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {_PRECISIONS}, got "
+                f"{self.precision!r}")
+        if self.recurrence not in ("auto", "scan", "pallas"):
+            raise ValueError(
+                f"recurrence must be auto/scan/pallas, got {self.recurrence!r}")
+
+
 @dataclass(frozen=True)
 class TacotronConfig:
     """TTS model settings (reference hparams.py:66-80)."""
@@ -91,10 +127,16 @@ class TacotronConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The settings text -> wav synthesis reads."""
+    """The settings text -> wav synthesis and vocoder training read."""
 
+    data_path: str = "data/"
+    voc_model_id: str = "ljspeech_mol"
+    tts_model_id: str = "ljspeech_lsa_smooth_attention"
+    ignore_tts: bool = False
+    ignore_voc: bool = False
     dsp: DSPConfig = field(default_factory=DSPConfig)
     voc: WaveRNNConfig = field(default_factory=WaveRNNConfig)
+    voc_train: WaveRNNTrainConfig = field(default_factory=WaveRNNTrainConfig)
     tts: TacotronConfig = field(default_factory=TacotronConfig)
 
     def __post_init__(self):
@@ -103,10 +145,13 @@ class Config:
             raise ValueError(
                 f"upsample_factors {self.voc.upsample_factors} must factorise "
                 f"hop_length {self.dsp.hop_length} (product={total})")
+        if self.voc_train.seq_len % self.dsp.hop_length != 0:
+            raise ValueError("voc seq_len must be a multiple of hop_length")
 
     @classmethod
     def from_hparams_file(cls, path: Union[str, Path]) -> "Config":
-        """Load the synthesis fields of a reference-style hparams file."""
+        """Load the synthesis and vocoder-training fields of a
+        reference-style hparams file."""
         m = _import_py_file(path)
         g = lambda name, default=None: getattr(m, name, default)
         dsp = DSPConfig(
@@ -134,6 +179,20 @@ class Config:
             target=g("voc_target", 11_000),
             overlap=g("voc_overlap", 550),
         )
+        voc_train = WaveRNNTrainConfig(
+            batch_size=g("voc_batch_size", 32),
+            lr=g("voc_lr", 1e-4),
+            checkpoint_every=g("voc_checkpoint_every", 25_000),
+            gen_at_checkpoint=g("voc_gen_at_checkpoint", 5),
+            total_steps=g("voc_total_steps", 1_000_000),
+            test_samples=g("voc_test_samples", 50),
+            seq_len=g("voc_seq_len", g("hop_length", 275) * 5),
+            clip_grad_norm=g("voc_clip_grad_norm", 4.0),
+            init_weights_path=g("voc_init_weights_path"),
+            precision=g("voc_precision", "float32"),
+            recurrence=g("voc_recurrence", "auto"),
+            prune=g("voc_prune", False),
+        )
         tts = TacotronConfig(
             embed_dims=g("tts_embed_dims", 256),
             encoder_dims=g("tts_encoder_dims", 128),
@@ -147,4 +206,10 @@ class Config:
             stop_threshold=g("tts_stop_threshold", -3.4),
             cleaner_names=tuple(g("tts_cleaner_names", ("english_cleaners",))),
         )
-        return cls(dsp=dsp, voc=voc, tts=tts)
+        return cls(
+            data_path=g("data_path", "data/"),
+            voc_model_id=g("voc_model_id", "ljspeech_mol"),
+            tts_model_id=g("tts_model_id", "ljspeech_lsa_smooth_attention"),
+            ignore_tts=g("ignore_tts", False),
+            ignore_voc=g("ignore_voc", False),
+            dsp=dsp, voc=voc, voc_train=voc_train, tts=tts)

@@ -1,12 +1,16 @@
 """WaveRNN vocoder (fatchord variant) for PyTorch (port of
-``wavernn_tpu.models.wavernn``, batched inference path).
+``wavernn_tpu.models.wavernn``: the teacher-forced training ``forward`` and
+batched generation).
 
 Module and parameter names follow the reference state dict
 (models/fatchord_version.py:92-167), so a reference ``.pyt`` loads with
-``load_state_dict(strict=True)``. Generation runs the fused branch of the
-JAX package's ``_generate_device``: MelResNet at frame rate, frame-rate
-folds, the fused sample-loop kernel (ops/cuda_gen.py), mu-law decode (RAW),
-the equal-power crossfade and the 20-frame tail fade.
+``load_state_dict(strict=True)``. ``forward`` runs the two GRUs as the
+recurrence kernel B5 (ops/cuda_gru.py) with the core stack time-major, or
+as B5's plain step loop under autograd (``recurrence="scan"``).
+Generation runs the fused branch of the JAX package's
+``_generate_device``: MelResNet at frame rate, frame-rate folds, the fused
+sample-loop kernel (ops/cuda_gen.py), mu-law decode (RAW), the
+equal-power crossfade and the 20-frame tail fade.
 """
 from __future__ import annotations
 
@@ -21,8 +25,16 @@ from ..device import resolve_device
 from ..ops import layers as L
 from ..ops import polyphase as P
 from ..ops.cuda_gen import generate_fused
+from ..ops.cuda_gru import gru_seq_ref, gru_seq_tm
 from ..ops.fold import tail_fade, xfade_and_unfold
 from ..timing import stage
+
+
+CORE_NAMES = ("I.weight", "I.bias", "rnn1.weight_ih_l0", "rnn1.weight_hh_l0",
+              "rnn1.bias_ih_l0", "rnn1.bias_hh_l0", "rnn2.weight_ih_l0",
+              "rnn2.weight_hh_l0", "rnn2.bias_ih_l0", "rnn2.bias_hh_l0",
+              "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias",
+              "fc3.weight", "fc3.bias")
 
 
 class ResBlock(nn.Module):
@@ -33,14 +45,18 @@ class ResBlock(nn.Module):
         self.batch_norm1 = nn.BatchNorm1d(dims)
         self.batch_norm2 = nn.BatchNorm1d(dims)
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False):
         r = x
-        x = torch.relu(_bn(self.batch_norm1, L.conv1d(x, self.conv1.weight)))
-        x = _bn(self.batch_norm2, L.conv1d(x, self.conv2.weight))
+        x = torch.relu(_bn(self.batch_norm1, L.conv1d(x, self.conv1.weight),
+                           training))
+        x = _bn(self.batch_norm2, L.conv1d(x, self.conv2.weight), training)
         return x + r
 
 
-def _bn(bn: nn.BatchNorm1d, x):
+def _bn(bn: nn.BatchNorm1d, x, training: bool = False):
+    if training:
+        return L.batchnorm_train(x, bn.weight, bn.bias, bn.running_mean,
+                                 bn.running_var)
     return L.batchnorm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var)
 
 
@@ -55,11 +71,13 @@ class MelResNet(nn.Module):
                                     for _ in range(res_blocks))
         self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
 
-    def forward(self, x):
-        """(B, n_mels, T) -> (B, res_out, T - 2*pad), eval mode."""
-        x = torch.relu(_bn(self.batch_norm, L.conv1d(x, self.conv_in.weight)))
+    def forward(self, x, training: bool = False):
+        """(B, n_mels, T) -> (B, res_out, T - 2*pad). ``training`` uses batch
+        statistics and updates the running ones in place."""
+        x = torch.relu(_bn(self.batch_norm, L.conv1d(x, self.conv_in.weight),
+                           training))
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, training)
         return L.conv1d(x, self.conv_out.weight, self.conv_out.bias)
 
 
@@ -70,6 +88,14 @@ class Stretch2d(nn.Module):
     def __init__(self, scale: int):
         super().__init__()
         self.scale = scale
+
+
+def _stretch(x, scale: int):
+    """Nearest-neighbour repeat along the last axis. expand + reshape, not
+    ``repeat_interleave``, which reads its output size back to the host
+    and so waits for the device."""
+    return x.unsqueeze(-1).expand(*x.shape, scale).reshape(
+        *x.shape[:-1], x.shape[-1] * scale)
 
 
 class UpsampleNetwork(nn.Module):
@@ -88,6 +114,26 @@ class UpsampleNetwork(nn.Module):
 
     def up_weights(self):
         return [m.weight for m in self.up_layers if isinstance(m, nn.Conv2d)]
+
+    def forward(self, mels, training: bool = False):
+        """mels (B, n_mels, T) with the 2*pad context frames ->
+        (mels_up (B, (T-2*pad)*hop, n_mels), aux (B, (T-2*pad)*hop, res_out)),
+        in float32 (upsample_apply, fatchord_version.py:72-90): MelResNet,
+        its nearest-neighbour stretch, and the Stretch2d + Conv2d averaging
+        convs on the mels, trimmed by ``indent`` at both ends."""
+        scales = [m.scale for m in self.up_layers if isinstance(m, Stretch2d)]
+        total = math.prod(scales)
+        indent = self.resnet.conv_in.weight.shape[-1] // 2 * total
+        aux = _stretch(self.resnet(mels, training), total)
+        m = mels[:, None]                                  # (B, 1, C, T)
+        for layer in self.up_layers:
+            if isinstance(layer, Stretch2d):
+                m = _stretch(m, layer.scale)
+            else:
+                m = torch.nn.functional.conv2d(
+                    m, layer.weight, padding=layer.padding)
+        m = m[:, 0, :, indent:-indent]
+        return m.transpose(1, 2), aux.transpose(1, 2)
 
 
 class WaveRNN(nn.Module):
@@ -131,15 +177,67 @@ class WaveRNN(nn.Module):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
 
+    def core_parameters(self):
+        """The core stack's parameters (I, both GRUs, fc1-3) by reference
+        state-dict name, attached to autograd."""
+        params = dict(self.named_parameters())
+        return {k: params[k] for k in CORE_NAMES}
+
     def core_weights(self):
         """The sample loop's weights by reference state-dict name."""
-        names = ("I.weight", "I.bias", "rnn1.weight_ih_l0",
-                 "rnn1.weight_hh_l0", "rnn1.bias_ih_l0", "rnn1.bias_hh_l0",
-                 "rnn2.weight_ih_l0", "rnn2.weight_hh_l0", "rnn2.bias_ih_l0",
-                 "rnn2.bias_hh_l0", "fc1.weight", "fc1.bias", "fc2.weight",
-                 "fc2.bias", "fc3.weight", "fc3.bias")
-        params = dict(self.named_parameters())
-        return {k: params[k].detach() for k in names}
+        return {k: v.detach() for k, v in self.core_parameters().items()}
+
+
+def forward(model: WaveRNN, x, mels, training: bool = False,
+            compute_dtype=None, recurrence: str = "auto"):
+    """Teacher-forced forward (fatchord_version.py:131-167): logits
+    (B, T, n_classes) in float32.
+
+    x (B, T) previous samples in [-1, 1]; mels (B, n_mels, T_mel), the
+    window with its 2*pad context frames. ``training`` runs BatchNorm on
+    batch statistics and updates its running statistics in place.
+    ``compute_dtype`` (bfloat16) runs the core GRU/FC stack in that dtype:
+    the upsampler and BatchNorm stay float32, the core weights and inputs
+    are cast on entry and the logits cast back to float32.
+    ``recurrence``: the two GRUs run time-major over gi = h @ wi + bi,
+    computed as one matrix product outside the recurrence, with one
+    (B, T) -> (T, B) flip after I. "auto"/"pallas" run them through
+    ``gru_seq_tm`` (the kernel B5 forward and backward on CUDA tensors,
+    their plain versions on CPU tensors); "scan" runs B5's plain forward
+    ``gru_seq_ref`` under autograd."""
+    if recurrence not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown recurrence {recurrence!r}")
+    A = model.voc.aux_dims
+    mels_up, aux = model.upsample(mels, training)
+    cd = torch.float32 if compute_dtype is None else compute_dtype
+    w = {k: v.to(cd) for k, v in model.core_parameters().items()}
+    x, mels_up, aux = x.to(cd), mels_up.to(cd), aux.to(cd)
+    a1, a2, a3, a4 = (aux[..., i * A:(i + 1) * A] for i in range(4))
+    h = torch.cat([x[..., None], mels_up, a1], dim=-1)
+    h = L.linear(h, w["I.weight"], w["I.bias"])
+
+    def tm(v):
+        return v.transpose(0, 1)
+
+    def rnn(name, inp):
+        gi = L.linear(inp, w[f"{name}.weight_ih_l0"], w[f"{name}.bias_ih_l0"])
+        wh = w[f"{name}.weight_hh_l0"].t()
+        bh = w[f"{name}.bias_hh_l0"]
+        h0 = inp.new_zeros(inp.shape[1], wh.shape[0])
+        if recurrence == "scan":
+            return gru_seq_ref(gi, wh, bh, h0)[0]
+        return gru_seq_tm(gi, wh, bh, h0)
+
+    h = tm(h).contiguous()                  # the one (B, T) -> (T, B) flip
+    res = h
+    h = rnn("rnn1", h) + res
+    res = h
+    h = rnn("rnn2", torch.cat([h, tm(a2)], dim=-1)) + res
+    h = torch.relu(L.linear(torch.cat([h, tm(a3)], dim=-1), w["fc1.weight"],
+                            w["fc1.bias"]))
+    h = torch.relu(L.linear(torch.cat([h, tm(a4)], dim=-1), w["fc2.weight"],
+                            w["fc2.bias"]))
+    return tm(L.linear(h, w["fc3.weight"], w["fc3.bias"])).float()
 
 
 def fused_cond_ok(voc: WaveRNNConfig, dsp: DSPConfig, target: int,

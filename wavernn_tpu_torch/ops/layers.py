@@ -1,5 +1,5 @@
 """Neural-net primitives as plain functions on tensors (port of
-``wavernn_tpu.ops.layers``, inference side).
+``wavernn_tpu.ops.layers``).
 
 Weights are in torch's layouts, the reference state-dict's own: a linear
 weight is (out, in), a conv weight (out, in, k), GRU/LSTM weights
@@ -32,6 +32,29 @@ def batchnorm(x, weight, bias, mean, var, eps: float = BN_EPS):
     inv = torch.rsqrt(var + eps)
     y = (x - mean[None, :, None]) * inv[None, :, None]
     return y * weight[None, :, None] + bias[None, :, None]
+
+
+def batchnorm_train(x, weight, bias, running_mean, running_var,
+                    momentum: float = 0.1, eps: float = BN_EPS):
+    """Training-mode BatchNorm1d over (N, C, W): batch statistics over
+    (N, W) in float32, the output in x's dtype.
+
+    The running statistics (momentum 0.1, unbiased variance) are updated
+    IN PLACE in ``running_mean``/``running_var``, where the JAX package
+    returns new parameters; the optimizer never reads them, so when in the
+    step they change makes no difference."""
+    in_dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=(0, 2))
+    var = x.var(dim=(0, 2), unbiased=False)
+    n = x.shape[0] * x.shape[2]
+    with torch.no_grad():
+        unbiased = var * n / max(n - 1, 1)
+        running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
+        running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
+    y = (x - mean[None, :, None]) * torch.rsqrt(var + eps)[None, :, None]
+    y = y * weight[None, :, None] + bias[None, :, None]
+    return y.to(in_dtype)
 
 
 def gru_gates(gi, gh, h):
