@@ -29,13 +29,29 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            with the kernels against ``recurrence="scan"`` from the same
            weights and batch (loss and every gradient), steps/s, samples/s
            and the stage ms of a step
+  b6       the Tacotron teacher-forcing decoder recurrence kernels
+           (forward, and backward with every weight gradient) against their
+           plain versions: full width B 32, T_text 150, 100 groups at r 7;
+           an odd shape B 5, T_text 33, 7 groups at r 2; eval mode (zero
+           zoneout masks, forward only); float32, TF32 off
+  taco_train
+           Tacotron training at the full default Config(): a synthetic
+           64-item TTS dataset in the reference layout, ``cli.
+           train_tacotron`` in-process over a two-session schedule (r 7
+           then r 5, 6 steps), B6's and B5's launch counts, the checkpoint
+           pair; ``--force_gta`` and ``--force_attn`` from it; one
+           full-width step with the kernels against ``recurrence="scan"``
+           (same weights, batch and injected masks: the loss within 1e-4;
+           each gradient held to a float64 scan step within 1e-4, or twice
+           the float32 scan step's largest distance in its module where
+           that is larger); steps/s, stage ms and a profiled step
   timings  each kernel and its plain version at the main path's shapes
            and on its inputs, with CUDA events after warm-up, the least
            time the card could take for the same work, and the outputs
            held against each other (B1 bfloat16 and float32 as in b1, B2
            as in b2, B5 forward and backward in float32 at the train step's
-           shape), and cuDNN's ``torch.nn.GRU`` at that shape as B5's
-           library yardstick
+           shape, B6 forward and backward at the b6 full-width shape), and
+           cuDNN's ``torch.nn.GRU`` at that shape as B5's library yardstick
 
 Then the card's name and power limit, the kernels JSON line, and last the
 device line. Comparisons run with TF32 off (cuDNN convolutions default to
@@ -61,6 +77,7 @@ PEAK_BYTES = 3.35e12
 B1_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_fused.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
+B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
 # B5 tolerances. float32: summation order only, over 1375 steps. bfloat16
 # streams: ys/sv within a few bf16 ulps at |v| <= 1 (2**-8 each; a one-ulp
 # rounding flip of h is carried forward), gradients 3e-2 of the largest
@@ -68,6 +85,14 @@ B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
 B5_F32_TOL = 1e-4
 B5_BF16_TOL = 3e-2
 TRAIN_STEPS = 6
+# B6 (float32, TF32 off): each output within 1e-4 of its largest entry.
+# Kernel and plain version differ in summation order only, but over up to
+# 100 dependent groups, with the attention's normalisation and the location
+# conv feeding each group's rounding into the next
+B6_TOL = 1e-4
+B6_FULL = (32, 150, 100, 7)   # B, T_text, groups, r: full width, r = 7
+TT_ITEMS = 64
+TT_SCHEDULE = ((7, 1e-3, 3, 32), (5, 1e-4, 6, 32))
 
 
 def emit(phase: str, **fields):
@@ -147,11 +172,12 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def step_kernels(fn, names):
+def step_kernels(fn, names, top: int = 0):
     """One call of ``fn`` under torch.profiler (device activity only): its
     kernel count, the ms the device was busy with them (the union of their
-    intervals) and the ms of the kernels whose name holds one of
-    ``names``."""
+    intervals), the ms of the kernels whose name holds one of ``names``
+    and, when ``top``, the ``top`` kernel names by device ms (name, ms,
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -168,8 +194,16 @@ def step_kernels(fn, names):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     named = sum(e - s for s, e, n in spans if any(k in n for k in names))
-    return {"kernels": len(spans), "busy_ms": busy / 1e3,
-            "named_ms": named / 1e3}
+    out = {"kernels": len(spans), "busy_ms": busy / 1e3,
+           "named_ms": named / 1e3}
+    if top:
+        by_name = {}
+        for s, e, n in spans:
+            ms, k = by_name.get(n, (0.0, 0))
+            by_name[n] = (ms + (e - s) / 1e3, k + 1)
+        out["top"] = [[n[:90], ms, k] for n, (ms, k) in
+                      sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def b1_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes):
@@ -284,6 +318,117 @@ def write_dataset(root: Path, n_items: int, frames: int, hop: int, seed: int):
         ids.append((name, frames))
     with open(root / "dataset.pkl", "wb") as f:
         pickle.dump(ids, f)
+
+
+def write_tts_dataset(root: Path, n_items: int, seed: int):
+    """A synthetic TTS dataset in the reference layout: dataset.pkl,
+    text_dict.pkl (lines of test_sentences/sentences.txt) and mel/*.npy
+    (80 x 300-800 frames, uniform in [0, 1])."""
+    import pickle
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lines = [ln.strip() for ln in (ROOT / "test_sentences" / "sentences.txt")
+             .read_text().splitlines() if ln.strip()]
+    (root / "mel").mkdir(parents=True)
+    ids, text = [], {}
+    for i in range(n_items):
+        name = f"tts{i:03d}"
+        frames = int(rng.randint(300, 801))
+        np.save(root / "mel" / f"{name}.npy",
+                rng.uniform(0, 1, (80, frames)).astype(np.float32))
+        ids.append((name, frames))
+        text[name] = " ".join(lines[(i + k) % len(lines)]
+                              for k in range(1 + i % 3))
+    with open(root / "dataset.pkl", "wb") as f:
+        pickle.dump(ids, f)
+    with open(root / "text_dict.pkl", "wb") as f:
+        pickle.dump(text, f)
+
+
+def b6_case(B, T, G, r, dev, seed, train=True):
+    """B6's inputs at the full default widths: the operands of a seeded
+    Tacotron's decoder, encoder outputs, prenet features after dropout,
+    zoneout masks (zeros when not ``train``)."""
+    import torch
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.ops import cuda_taco_train as ct
+    cfg = Config()
+    gen = torch.Generator().manual_seed(seed)
+    model = taco.Tacotron(cfg.tts, 80)
+    model.reset_parameters(gen)
+    dec = {k: v.detach().to(dev) for k, v in
+           model.decoder_parameters().items()}
+    weights = ct.decoder_operands(dec, cfg.tts.max_r, r, 80)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen)
+    P2, Lh = 128, cfg.tts.lstm_dims
+    enc = (0.5 * rnd(B, T, 256)).to(dev)
+    encp = (0.5 * rnd(B, T, 256)).to(dev)
+    pre = (torch.rand(G, B, P2, generator=gen)
+           * (torch.rand(G, B, P2, generator=gen) < 0.5) * 2.0).to(dev)
+    if train:
+        zm1, zm2 = (torch.rand(2, G, B, Lh, generator=gen) < 0.1).float()
+    else:
+        zm1 = zm2 = torch.zeros(G, B, Lh)
+    return (pre, zm1.to(dev), zm2.to(dev), enc, encp), weights
+
+
+def check_b6(ct, ins, weights, seed, backward=True):
+    """B6's forward kernel against ``core_ref`` (outputs and, when
+    ``backward``, every stream), then the backward kernel against
+    ``core_bwd_ref`` on the kernel's own streams and random cotangents of
+    mel and scores: (result, ok). Relative errors are over each output's
+    largest entry."""
+    import torch
+    mel, sc, st = ct.decoder_tf_fwd(*ins, weights, save=backward)
+    mel_p, sc_p, st_p = ct.core_ref(*ins, *weights, save=backward)
+    torch.cuda.synchronize()
+    res = {"mel_rel_err": rel_err(mel, mel_p),
+           "scores_rel_err": rel_err(sc, sc_p),
+           "fwd_max_abs_err": max(float((mel - mel_p).abs().max()),
+                                  float((sc - sc_p).abs().max()))}
+    fin = [mel, sc]
+    errs = [res["mel_rel_err"], res["scores_rel_err"]]
+    if backward:
+        serr = {k: rel_err(st[k], st_p[k]) for k in ct.STREAMS}
+        res["stream_worst"] = max(serr, key=serr.get)
+        res["stream_rel_err"] = serr[res["stream_worst"]]
+        errs.append(res["stream_rel_err"])
+        gen = torch.Generator().manual_seed(seed)
+        dmel = torch.randn(mel.shape, generator=gen).to(mel.device)
+        dsc = torch.randn(sc.shape, generator=gen).to(mel.device)
+        got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, weights)
+        want = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *weights)
+        torch.cuda.synchronize()
+        names = ("dpre", "denc", "dencp") + ct.WEIGHTS
+        gerr = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        res["grad_worst"] = max(gerr, key=gerr.get)
+        res["grad_rel_err"] = gerr
+        res["bwd_max_abs_err"] = max(float((a - b).abs().max())
+                                     for a, b in zip(got, want))
+        errs.append(gerr[res["grad_worst"]])
+        fin += list(got)
+    ok = (max(errs) <= B6_TOL
+          and all(bool(t.isfinite().all()) for t in fin))
+    return res, ok
+
+
+def b6_work(G, B, T, E, D, P2, L, F, backward):
+    """(FLOPs, bytes) of one B6 launch: each input read once and each
+    output written once (float32)."""
+    nt = 62
+    n_w = (3 * D * (E + P2) + 3 * D * D + 6 * D + D * D + D + nt * D + D
+           + L * (E + D) + L + 2 * (8 * L * L + 4 * L) + F * L)
+    streams = G * B * (T + 6 * D + 1 + E + 15 * L)
+    rec = (3 * D * (E + P2) + 3 * D * D + D * D + L * (E + D) + 16 * L * L
+           + F * L)
+    inputs = G * B * (P2 + 2 * L) + B * T * (E + D) + n_w
+    if not backward:
+        flops = 2 * G * B * (rec + T * (nt * D + D) + T * E)
+        return flops, 4 * (inputs + G * B * (F + T) + streams)
+    flops = 2 * G * B * (2 * rec + 2 * T * E + T * (3 * nt * D + D))
+    return flops, 4 * (inputs + streams + G * B * (F + 2 * T)
+                       + G * B * P2 + B * T * (E + D) + n_w)
 
 
 def main() -> int:
@@ -671,6 +816,236 @@ def main() -> int:
                  "batch": B_tr, "seq_len": cfg.voc_train.seq_len}
         emit("train", stage="speed", **speed)
 
+    # ---- b6: the TF decoder training recurrence against its plain versions
+    from wavernn_tpu_torch.ops import cuda_taco_train as ct
+    b6 = {}
+    for tag, (Bq, Tq, Gq, rq), train in (("full", B6_FULL, True),
+                                         ("odd", (5, 33, 7, 2), True),
+                                         ("eval", B6_FULL, False)):
+        ins, w6 = b6_case(Bq, Tq, Gq, rq, dev, 21, train)
+        with torch.no_grad():
+            res, ok = check_b6(ct, ins, w6, 22, backward=train)
+        b6[tag] = res
+        emit("b6", case=tag, B=Bq, T_text=Tq, G=Gq, r=rq, ok=ok,
+             tolerance=B6_TOL, **res)
+        if not ok:
+            raise AssertionError(f"B6 {tag}: a kernel disagrees with its "
+                                 "plain version")
+
+    # ---- taco_train: the Tacotron trainer's CLI at full width ----
+    from wavernn_tpu_torch.cli import train_tacotron
+    from wavernn_tpu_torch.config import TacotronTrainConfig
+    from wavernn_tpu_torch.data.dataset import get_tts_datasets
+    from wavernn_tpu_torch.train import tacotron_train as tt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_taco_") as tmp:
+        tmp = Path(tmp)
+        write_tts_dataset(tmp / "data", TT_ITEMS, 11)
+        hp = tmp / "hparams_taco.py"
+        hp.write_text(f"data_path = {str(tmp / 'data')!r}\n"
+                      "tts_model_id = 'smoke'\n"
+                      f"tts_schedule = {TT_SCHEDULE!r}\n"
+                      "tts_checkpoint_every = 3\n")
+        work = tmp / "run"
+        work.mkdir()
+
+        def cli(*flags):
+            cwd = os.getcwd()
+            os.chdir(work)
+            try:
+                train_tacotron.main(["--hp_file", str(hp), *flags])
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+
+        for c in (ct.decoder_tf, cuda_gru.gru_seq_tm):
+            c.fwd_launches = c.bwd_launches = 0
+        t0 = time.perf_counter()
+        cli()
+        cli_s = time.perf_counter() - t0
+        tt_launches = {"taco_tf_fwd": ct.decoder_tf.fwd_launches,
+                       "taco_tf_bwd": ct.decoder_tf.bwd_launches,
+                       "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
+                       "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+        ckpt = work / "checkpoints" / "smoke.tacotron"
+        records = [json.loads(ln) for ln in
+                   (ckpt / "metrics.jsonl").read_text().splitlines()]
+        sessions = [r for r in records if r["event"] == "session"]
+        files = {n: (ckpt / n).exists() for n in (
+            "latest_weights.npz", "latest_optim.npz",
+            "taco_step0K_weights.npz", "taco_step0K_optim.npz")}
+        with np.load(ckpt / "latest_weights.npz") as z:
+            meta = {"step": int(z["meta/step"]), "r": int(z["meta/r"])}
+        n_steps_tt = TT_SCHEDULE[-1][2]
+        res = {"sessions": [[r["r"], r["step"], r["loss"]] for r in sessions],
+               "nonfinite_loss_steps": sum(r["nonfinite_loss_steps"]
+                                           for r in sessions),
+               "nonfinite_grad_steps": sum(r["nonfinite_grad_steps"]
+                                           for r in sessions),
+               "launches": tt_launches, "files": files, "meta": meta,
+               "wall_s": cli_s}
+        ok = ([r["r"] for r in sessions] == [7, 5]
+              and [r["step"] for r in sessions] == [3, n_steps_tt]
+              and all(math.isfinite(r["loss"]) for r in sessions)
+              and res["nonfinite_loss_steps"] == 0
+              and res["nonfinite_grad_steps"] == 0
+              and tt_launches["taco_tf_fwd"] == n_steps_tt
+              and tt_launches["taco_tf_bwd"] == n_steps_tt
+              and tt_launches["gru_seq_fwd"] == 4 * n_steps_tt
+              and tt_launches["gru_seq_bwd"] == 4 * n_steps_tt
+              and all(files.values()) and meta == {"step": n_steps_tt, "r": 5})
+        emit("taco_train", stage="cli", ok=ok, **res)
+        if not ok:
+            raise AssertionError("taco_train: the CLI run failed a check")
+
+        # GTA mels and attention maps from that checkpoint
+        t0 = time.perf_counter()
+        cli("--force_gta")
+        cli("--force_attn")
+        export_s = time.perf_counter() - t0
+        shapes_ok, finite, n_files = True, True, {}
+        for sub in ("gta_smoke", "attn_smoke"):
+            found = sorted((tmp / "data" / sub).iterdir())
+            n_files[sub] = len(found)
+            for f in found:
+                a = np.load(f)
+                mel_len = np.load(tmp / "data" / "mel" / f.name).shape[1]
+                finite &= bool(np.isfinite(a).all())
+                if sub == "gta_smoke":
+                    shapes_ok &= a.shape == (80, mel_len)
+                else:   # (groups of its padded batch, its batch's T_text)
+                    shapes_ok &= a.ndim == 2 and a.shape[0] * 5 > mel_len
+        ok = (shapes_ok and finite
+              and all(v == TT_ITEMS for v in n_files.values()))
+        emit("taco_train", stage="export", ok=ok, files=n_files,
+             shapes_ok=shapes_ok, finite=finite, wall_s=export_s)
+        if not ok:
+            raise AssertionError("taco_train: GTA/attention export failed")
+
+        # one full-width step, kernels against recurrence="scan", from the
+        # same weights, batch and injected masks
+        cfg_tt = Config(tts_train=TacotronTrainConfig(schedule=TT_SCHEDULE))
+        batcher, _ = get_tts_datasets(tmp / "data", 32, 7, cfg_tt, seed=3)
+        t0 = time.perf_counter()
+        chars, mel_b, _, _ = next(iter(batcher))
+        tt_collate_ms = (time.perf_counter() - t0) * 1e3
+        xb = torch.from_numpy(chars).to(dev)
+        mb = torch.from_numpy(mel_b).to(dev)
+        G7 = mb.shape[-1] // 7
+        state = tt.create_train_state(cfg.tts, 80, 1e-3, 1.0, seed=13,
+                                      device=dev)
+        masks = taco.draw_masks(state.model, xb.shape[0], xb.shape[1], G7,
+                                torch.Generator(device=dev).manual_seed(5),
+                                dev)
+        # the same step with the plain loops in float64, the reference for
+        # both float32 steps. At this length float32 itself cannot meet 1e-4
+        # on every gradient: the CBHG BatchNorm backward (batch statistics
+        # over 770 positions) and 770-step BiGRUs amplify rounding: on the
+        # H100 the float32 scan step lies up to 2e-2 from float64 (encoder
+        # leaves, ``scan_vs_f64_worst``), two float32 orders scattering
+        # around float64 by up to 4x each other on single leaves. So each
+        # gradient of the kernel step is held to float64 within
+        # max(1e-4, twice the float32 scan step's largest distance in the
+        # same module), and the loss within 1e-4 of the scan step's
+        out = {}
+        for tag, rec, dt in (("kernels", "auto", torch.float32),
+                             ("scan", "scan", torch.float32),
+                             ("scan_f64", "scan", torch.float64)):
+            loss, _, g = tt.loss_and_grads(
+                copy.deepcopy(state.model).to(dt), xb, mb.to(dt), 7, rec,
+                {k: v.to(dt) for k, v in masks.items()})
+            out[tag] = (float(loss), [t.double() for t in g])
+        torch.cuda.synchronize()
+        names = [n for n, _ in state.model.named_parameters()]
+
+        def leaf_err(a, b):
+            return {n: rel_err(x, y) for n, x, y in
+                    zip(names, out[a][1], out[b][1])}
+
+        e_ks, e_k64, e_s64 = (leaf_err("kernels", "scan"),
+                              leaf_err("kernels", "scan_f64"),
+                              leaf_err("scan", "scan_f64"))
+        module = lambda n: n.split(".")[0]
+        floor = {}
+        for n in names:
+            floor[module(n)] = max(floor.get(module(n), 0.0), e_s64[n])
+        limit = {m: max(B6_TOL, 2 * v) for m, v in floor.items()}
+        worst = max(names, key=lambda n: e_k64[n] / limit[module(n)])
+        lk, ls = out["kernels"][0], out["scan"][0]
+        cmp = {"B": xb.shape[0], "T_text": xb.shape[1], "steps": mb.shape[-1],
+               "loss_kernels": lk, "loss_scan": ls,
+               "loss_scan_f64": out["scan_f64"][0],
+               "loss_rel_err": abs(lk - ls) / abs(ls),
+               "kernels_vs_scan_max": max(e_ks.values()),
+               "kernels_vs_scan_median": sorted(e_ks.values())[len(names) // 2],
+               "kernels_vs_scan_over_1e-4": sum(v > B6_TOL
+                                                for v in e_ks.values()),
+               "grads": len(names),
+               "kernels_vs_f64_max": {m: max(v for n, v in e_k64.items()
+                                             if module(n) == m)
+                                      for m in floor},
+               "scan_vs_f64_max": floor, "limit": limit,
+               "scan_vs_f64_worst": max(e_s64, key=e_s64.get),
+               "worst": worst, "worst_vs_f64": e_k64[worst],
+               "median_vs_f64": [sorted(e.values())[len(names) // 2]
+                                 for e in (e_k64, e_s64)]}
+        ok = (cmp["loss_rel_err"] <= B6_TOL and math.isfinite(lk)
+              and all(e_k64[n] <= limit[module(n)] for n in names))
+        emit("taco_train", stage="kernels_vs_scan", ok=ok, tolerance=B6_TOL,
+             **cmp)
+        if not ok:
+            raise AssertionError("taco_train: the kernel step disagrees with "
+                                 "the scan step")
+
+        # speed: the trainer's loop and a resident batch, stage ms, a
+        # profiled step
+        gen_tt = torch.Generator(device=dev).manual_seed(6)
+
+        def tstep(timings=None):
+            return tt.train_step_tf(state, xb, mb, 7, generator=gen_tt,
+                                    timings=timings)
+
+        for _ in range(2):
+            tstep()
+        n_tt = 5
+        stage_t = {}
+        torch.cuda.synchronize()
+        for _ in range(n_tt):
+            tstep(stage_t)
+        torch.cuda.synchronize()
+        tt_stage_ms = {k: v / n_tt for k, v in elapsed_ms(stage_t).items()}
+        t0 = time.perf_counter()
+        for _ in range(n_tt):
+            tstep()
+        torch.cuda.synchronize()
+        tt_resident_s = time.perf_counter() - t0
+        dev_tt = step_kernels(tstep, ("taco_tf", "wgrad_gemm", "colsum",
+                                      "reduce_parts"), top=12)
+        dev_tt["b6_ms"] = dev_tt.pop("named_ms")
+        dev_tt["b6_recurrence_ms"] = step_kernels(
+            tstep, ("taco_tf",))["named_ms"]
+        dev_tt["b5_ms"] = step_kernels(tstep, ("gru_fwd", "gru_bwd"))[
+            "named_ms"]
+        dev_tt["idle_share"] = 1 - dev_tt["busy_ms"] / (
+            1e3 * tt_resident_s / n_tt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = 0
+        for cb, mbb, _, _ in prefetch(iter(lambda: next(iter(batcher)), None),
+                                      device=dev):
+            tt.train_step_tf(state, cb, mbb, 7, generator=gen_tt)
+            done += 1
+            if done == n_tt:
+                break
+        torch.cuda.synchronize()
+        tt_loop_s = time.perf_counter() - t0
+        emit("taco_train", stage="speed",
+             steps_per_s=n_tt / tt_loop_s,
+             steps_per_s_resident_batch=n_tt / tt_resident_s,
+             step_ms=1e3 * tt_loop_s / n_tt, device=dev_tt,
+             stage_ms={**tt_stage_ms, "data_collate_host": tt_collate_ms},
+             batch=xb.shape[0], steps=mb.shape[-1], r=7)
+
     # ---- timings at the main path's shapes, each kernel held against its
     # plain version on the same inputs ----
     with torch.no_grad():
@@ -762,7 +1137,28 @@ def main() -> int:
     fl5b, by5b = gru_work(T5, cfg.voc_train.batch_size, H5, 4, True)
     b5f_bound, b5f_by = bound(fl5f, by5f, PEAK_F32)
     b5b_bound, b5b_by = bound(fl5b, by5b, PEAK_F32)
-    ok = ok16 and ok32 and ok2 and ok5
+    # B6 at the b6 phase's full-width shape, kernel and plain version on
+    # the same inputs (the backward on the kernel forward's streams)
+    ins6, w6 = b6_case(*B6_FULL, dev, 31, True)
+    with torch.no_grad():
+        f6_ms, (mel6, sc6, st6) = cuda_ms(
+            lambda: ct.decoder_tf_fwd(*ins6, w6, save=True), 3)
+        g6 = torch.Generator().manual_seed(32)
+        dmel6 = torch.randn(mel6.shape, generator=g6).to(dev)
+        dsc6 = torch.randn(sc6.shape, generator=g6).to(dev)
+        b6_ms, _ = cuda_ms(lambda: ct.decoder_tf_bwd(
+            dmel6, dsc6, st6, sc6, *ins6, w6), 3)
+        f6_plain, _ = cuda_ms(lambda: ct.core_ref(*ins6, *w6, save=True), 1)
+        b6_plain, _ = cuda_ms(lambda: ct.core_bwd_ref(
+            dmel6, dsc6, st6, sc6, *ins6, *w6), 1)
+        b6_main, ok6 = check_b6(ct, ins6, w6, 33)
+    Bq, Tq, Gq, rq = B6_FULL
+    dims6 = (Gq, Bq, Tq, 256, 256, 128, 512, rq * 80)
+    fl6f, by6f = b6_work(*dims6, False)
+    fl6b, by6b = b6_work(*dims6, True)
+    b6f_bound, b6f_by = bound(fl6f, by6f, PEAK_F32)
+    b6b_bound, b6b_by = bound(fl6b, by6b, PEAK_F32)
+    ok = ok16 and ok32 and ok2 and ok5 and ok6
     emit("timings", ok=ok,
          b1={"folds": B, "steps": T, "ms": b1_ms, "plain_ms": b1_plain,
              "bound_ms": b1_bound, "flops": fl, "bytes": by,
@@ -781,7 +1177,18 @@ def main() -> int:
              "input_product_fwd_ms": proj_f,
              "input_product_fwd_bwd_ms": proj_fb,
              "library_fwd_ms": lib_fwd_ms, "library_bwd_ms": lib_bwd_ms,
-             "check": b5_main})
+             "check": b5_main},
+         b6={"B": Bq, "T_text": Tq, "G": Gq, "r": rq, "fwd_ms": f6_ms,
+             "bwd_ms": b6_ms, "fwd_plain_ms": f6_plain,
+             "bwd_plain_ms": b6_plain, "fwd_bound_ms": b6f_bound,
+             "bwd_bound_ms": b6b_bound, "fwd_flops": fl6f,
+             "fwd_bytes": by6f, "bwd_flops": fl6b, "bwd_bytes": by6b,
+             "us_per_group": [1e3 * f6_ms / Gq, 1e3 * b6_ms / Gq],
+             "launches_per_train_step": [
+                 tt_launches["taco_tf_fwd"] / TT_SCHEDULE[-1][2],
+                 tt_launches["taco_tf_bwd"] / TT_SCHEDULE[-1][2]],
+             "check": {k: v for k, v in b6_main.items()
+                       if k != "grad_rel_err"}})
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
@@ -821,6 +1228,21 @@ def main() -> int:
                                if k.endswith("f32")]),
          "ms": bw_ms, "plain_ms": bw_plain, "bound_ms": b5b_bound,
          "bound_by": b5b_by, "library_ms": lib_bwd_ms},
+        {"name": "taco_tf_fwd", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:80",
+         "launches": tt_launches["taco_tf_fwd"],
+         "max_abs_err": max([b6_main["fwd_max_abs_err"]]
+                            + [r["fwd_max_abs_err"] for r in b6.values()]),
+         "ms": f6_ms, "plain_ms": f6_plain, "bound_ms": b6f_bound,
+         "bound_by": b6f_by, "library_ms": None},
+        {"name": "taco_tf_bwd", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:350",
+         "launches": tt_launches["taco_tf_bwd"],
+         "max_abs_err": max([b6_main["bwd_max_abs_err"]]
+                            + [r["bwd_max_abs_err"] for r in b6.values()
+                               if "bwd_max_abs_err" in r]),
+         "ms": b6_ms, "plain_ms": b6_plain, "bound_ms": b6b_bound,
+         "bound_by": b6b_by, "library_ms": None},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,11 @@ recurrence (B5): float32 ys and sv within 1e-5, dgi, dgh and dh0 within
 1e-5 of each tensor's largest entry (summation order only, over at most 40
 steps); bfloat16 streams within 3e-2 absolute (ys, sv: a few bf16 ulps at
 |v| <= 1, a one-ulp rounding flip of h carried forward) and 3e-2 of the
-largest entry (gradients).
+largest entry (gradients). The Tacotron TF decoder recurrence (B6),
+float32: mel, scores, the residual streams and every gradient within 1e-5
+of each tensor's largest entry (summation order only, over at most 7
+groups); a Tacotron train step's loss and gradients on the card within
+1e-4 of the CPU's (the whole model, other library kernels).
 """
 import pytest
 import torch
@@ -21,6 +25,8 @@ from wavernn_tpu_torch.config import (DSPConfig, TacotronConfig,
 from wavernn_tpu_torch.models import tacotron as taco
 from wavernn_tpu_torch.models import wavernn as wr
 from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
+from wavernn_tpu_torch.ops import cuda_taco_train as ct
+from wavernn_tpu_torch.train import tacotron_train as tt
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +139,70 @@ def test_gru_autograd_on_cuda_matches_cpu(cuda):
     for got, ref in zip(*outs):
         scale = float(ref.abs().max())
         assert float((got - ref).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _b6_inputs(B, T, G, r, dev, train, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = taco.Tacotron(TacotronConfig(), 80)
+    model.reset_parameters(gen)
+    dec = {k: v.detach().to(dev)
+           for k, v in model.decoder_parameters().items()}
+    weights = ct.decoder_operands(dec, 20, r, 80)
+    rnd = lambda *s: torch.randn(*s, generator=gen)
+    zm = ((torch.rand(2, G, B, 512, generator=gen) < 0.1).float() if train
+          else torch.zeros(2, G, B, 512))
+    ins = (torch.rand(G, B, 128, generator=gen), zm[0], zm[1],
+           0.5 * rnd(B, T, 256), 0.5 * rnd(B, T, 256))
+    return tuple(t.to(dev) for t in ins), weights
+
+
+@pytest.mark.parametrize("B,T,G,r,train", [(3, 20, 6, 2, True),
+                                           (5, 33, 7, 2, True),
+                                           (4, 17, 5, 5, False)])
+def test_taco_train_kernels_match_plain(cuda, B, T, G, r, train):
+    ins, w = _b6_inputs(B, T, G, r, cuda, train)
+    with torch.no_grad():
+        before = ct.decoder_tf.fwd_launches
+        mel, sc, st = ct.decoder_tf_fwd(*ins, w, save=True)
+        mel_p, sc_p, st_p = ct.core_ref(*ins, *w, save=True)
+        assert ct.decoder_tf.fwd_launches == before + 1
+        assert _rel(mel, mel_p) <= 1e-5 and _rel(sc, sc_p) <= 1e-5
+        for k in ct.STREAMS:
+            assert _rel(st[k], st_p[k]) <= 1e-5, k
+        gen = torch.Generator().manual_seed(1)
+        dmel = torch.randn(mel.shape, generator=gen).to(cuda)
+        dsc = torch.randn(sc.shape, generator=gen).to(cuda)
+        before = ct.decoder_tf.bwd_launches
+        got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w)
+        want = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+        torch.cuda.synchronize()
+        assert ct.decoder_tf.bwd_launches == before + 1
+    for name, a, b in zip(("dpre", "denc", "dencp") + ct.WEIGHTS, got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
+
+
+def test_taco_train_step_on_cuda_matches_cpu(cuda):
+    tts = TacotronConfig(embed_dims=32, postnet_dims=32, encoder_K=2,
+                         postnet_K=2, num_highways=1)
+    gen = torch.Generator().manual_seed(0)
+    model = taco.Tacotron(tts, 80)
+    model.reset_parameters(gen)
+    B, T, G, r = 3, 19, 6, 2
+    x = torch.randint(1, 148, (B, T), generator=gen)
+    m = torch.randn(B, 80, G * r, generator=gen)
+    masks = taco.draw_masks(model, B, T, G, gen, "cpu")
+    loss_c, _, g_c = tt.loss_and_grads(model, x, m, r, masks=masks)
+    model_d = model.to(cuda)
+    before = (ct.decoder_tf.fwd_launches, cuda_gru.gru_seq_tm.bwd_launches)
+    loss_d, _, g_d = tt.loss_and_grads(
+        model_d, x.to(cuda), m.to(cuda), r,
+        masks={k: v.to(cuda) for k, v in masks.items()})
+    assert ct.decoder_tf.fwd_launches == before[0] + 1
+    assert cuda_gru.gru_seq_tm.bwd_launches == before[1] + 4
+    assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    for a, b in zip(g_d, g_c):
+        assert _rel(a.cpu(), b) <= 1e-4

@@ -1,0 +1,101 @@
+"""CLI: Tacotron teacher-forcing training with the PyTorch/CUDA port
+(reference train_tacotron.py).
+
+    python -m wavernn_tpu_torch.cli.train_tacotron --hp_file hparams.py \\
+        [--force_gta] [--force_attn]
+
+Trains on one CUDA device through the progressive schedule
+(``tts_schedule``): every step's decoder recurrence runs on the
+hand-written kernel B6 and the four CBHG BiGRU directions on kernel B5; or
+on the CPU with --force_cpu (the kernels' plain PyTorch versions).
+--force_gta / --force_attn write the teacher-forced GTA mels / attention
+maps of the dataset from the latest checkpoint and exit. Checkpoints are
+the JAX package's .npz pair, so either package resumes the other's run.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..data.dataset import get_tts_datasets
+from ..device import resolve_device
+from ..train import tacotron_train as tt
+from ..train.checkpoints import restore_checkpoint
+from .common import load_config, make_workspace
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train Tacotron (teacher forcing) on one device (the "
+                    "JAX package's multi-device mesh is not ported: ROADMAP "
+                    "A11)")
+    parser.add_argument("--force_train", "-f", action="store_true",
+                        help="accepted for the reference's flag surface; "
+                             "the schedule decides the steps")
+    parser.add_argument("--force_gta", "-g", action="store_true",
+                        help="write GTA mels of the dataset and exit")
+    parser.add_argument("--force_attn", "-a", action="store_true",
+                        help="write attention maps of the dataset and exit")
+    parser.add_argument("--hp_file", default=None)
+    parser.add_argument("--force_cpu", "-c", action="store_true",
+                        help="train on the CPU with the plain PyTorch "
+                             "versions of the kernels")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the first "
+                             "training steps into this directory")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.hp_file)
+    if cfg.tts.mode != "teacher_forcing":
+        raise NotImplementedError(
+            f"mode {cfg.tts.mode!r}: attention forcing is not ported to the "
+            "PyTorch package yet (ROADMAP B7)")
+    device = resolve_device("cpu" if args.force_cpu else "cuda")
+    ws = make_workspace(cfg)
+    schedule = cfg.tts_train.schedule
+
+    state = tt.create_train_state(cfg.tts, cfg.dsp.num_mels, schedule[0][1],
+                                  cfg.tts_train.clip_grad_norm,
+                                  seed=args.seed, device=device)
+    state.step = restore_checkpoint(
+        "tts", ws, state.model, state.opt, create_if_missing=True,
+        init_weights_path=cfg.tts_train.init_weights_path)
+
+    if args.force_gta or args.force_attn:
+        r = tt.session_for_step(schedule, state.step)[0]
+        ds, _ = get_tts_datasets(ws.data, 8, r, cfg, seed=args.seed)
+        if args.force_gta:
+            tt.create_gta_features(state.model, ds, r, ws.gta,
+                                   recurrence=cfg.tts_train.recurrence)
+        if args.force_attn:
+            tt.create_attn_ref(state.model, ds, r, ws.attn,
+                               recurrence=cfg.tts_train.recurrence)
+        return
+
+    n_params = sum(p.numel() for p in state.model.parameters())
+    for name, value in (
+            ("Trainable Parameters", f"{n_params / 1e6:.3f}M"),
+            ("Mode", cfg.tts.mode), ("Step", state.step),
+            ("Schedule", len(schedule)),
+            ("Max mel len", cfg.tts_train.max_mel_len), ("Device", device),
+            ("Recurrence", cfg.tts_train.recurrence)):
+        print(f"| {name}: {value}")
+
+    def make_dataset(r, bs):
+        return get_tts_datasets(ws.data, bs, r, cfg, seed=args.seed)[0]
+
+    def on_checkpoint(st, metrics, ids):
+        # the reference plots one item's attention and mel here
+        # (train_tacotron.py:216-219)
+        print(f"step {st.step}: attention/mel plots skipped (not ported: "
+              "ROADMAP A12)")
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    tt.train_loop(cfg, ws, state, make_dataset, generator=generator,
+                  on_checkpoint=on_checkpoint, profile_dir=args.profile_dir)
+    print("Training Complete.")
+
+
+if __name__ == "__main__":
+    main()

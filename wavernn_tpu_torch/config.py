@@ -3,8 +3,7 @@
 A copy of the dataclasses of ``wavernn_tpu.config`` (DSPConfig,
 WaveRNNConfig, WaveRNNTrainConfig, TacotronConfig, Config) and of the
 reference ``hparams_*.py`` loader, cut to the fields that text -> wav
-synthesis and vocoder training read. The Tacotron training settings are
-not ported yet.
+synthesis, vocoder training and Tacotron teacher-forcing training read.
 """
 from __future__ import annotations
 
@@ -123,11 +122,60 @@ class TacotronConfig:
     stop_threshold: float = -3.4
     max_r: int = 20
     cleaner_names: Tuple[str, ...] = ("english_cleaners",)
+    # run mode: teacher_forcing | attention_forcing_online |
+    #           attention_forcing_offline | free_running; the trainer
+    #           runs teacher_forcing (the attention-forcing arms are
+    #           ROADMAP B7)
+    mode: str = "teacher_forcing"
+
+
+@dataclass(frozen=True)
+class TacotronTrainConfig:
+    """TTS training schedule (reference hparams.py:82-93 and the fork's
+    extras)."""
+
+    # (r, lr, step, batch_size) progressive schedule
+    schedule: Tuple[Tuple[int, float, int, int], ...] = (
+        (7, 1e-3, 10_000, 32),
+        (5, 1e-4, 100_000, 32),
+        (2, 1e-4, 180_000, 16),
+        (2, 1e-4, 350_000, 8),
+    )
+    max_mel_len: Optional[int] = 1250
+    bin_lengths: bool = True
+    clip_grad_norm: Optional[float] = 1.0
+    checkpoint_every: int = 2_000
+    # bfloat16 Tacotron training is not ported yet (ROADMAP A8)
+    precision: str = "float32"
+    # the decoder recurrence (kernel B6) and the CBHG BiGRUs (kernel B5):
+    # "auto" and "pallas" run the kernels on CUDA tensors (their plain
+    # versions on CPU tensors); "scan" runs the plain step loops under
+    # autograd, explicitly asked for
+    recurrence: str = "auto"
+    init_weights_path: Optional[str] = None
+    attn_loss_coeff: float = 1.0
+    attn_ref_path: Optional[str] = None
+    model_tf_path: Optional[str] = None
+
+    def __post_init__(self):
+        if self.precision not in _PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {_PRECISIONS}, got "
+                f"{self.precision!r}")
+        if self.precision != "float32":
+            raise NotImplementedError(
+                "tts_precision='bfloat16' is not ported to the PyTorch "
+                "package yet (ROADMAP A8: bf16 Tacotron training); use "
+                "'float32'")
+        if self.recurrence not in ("auto", "scan", "pallas"):
+            raise ValueError(
+                f"recurrence must be auto/scan/pallas, got {self.recurrence!r}")
 
 
 @dataclass(frozen=True)
 class Config:
-    """The settings text -> wav synthesis and vocoder training read."""
+    """The settings text -> wav synthesis, vocoder training and Tacotron
+    training read."""
 
     data_path: str = "data/"
     voc_model_id: str = "ljspeech_mol"
@@ -138,6 +186,8 @@ class Config:
     voc: WaveRNNConfig = field(default_factory=WaveRNNConfig)
     voc_train: WaveRNNTrainConfig = field(default_factory=WaveRNNTrainConfig)
     tts: TacotronConfig = field(default_factory=TacotronConfig)
+    tts_train: TacotronTrainConfig = field(
+        default_factory=TacotronTrainConfig)
 
     def __post_init__(self):
         total = math.prod(self.voc.upsample_factors)
@@ -150,8 +200,8 @@ class Config:
 
     @classmethod
     def from_hparams_file(cls, path: Union[str, Path]) -> "Config":
-        """Load the synthesis and vocoder-training fields of a
-        reference-style hparams file."""
+        """Load the synthesis and training fields of a reference-style
+        hparams file."""
         m = _import_py_file(path)
         g = lambda name, default=None: getattr(m, name, default)
         dsp = DSPConfig(
@@ -205,6 +255,21 @@ class Config:
             dropout=g("tts_dropout", 0.5),
             stop_threshold=g("tts_stop_threshold", -3.4),
             cleaner_names=tuple(g("tts_cleaner_names", ("english_cleaners",))),
+            mode=g("mode", "teacher_forcing"),
+        )
+        tts_train = TacotronTrainConfig(
+            schedule=tuple(tuple(s) for s in g(
+                "tts_schedule", TacotronTrainConfig().schedule)),
+            max_mel_len=g("tts_max_mel_len", 1250),
+            bin_lengths=g("tts_bin_lengths", True),
+            clip_grad_norm=g("tts_clip_grad_norm", 1.0),
+            checkpoint_every=g("tts_checkpoint_every", 2_000),
+            precision=g("tts_precision", "float32"),
+            recurrence=g("tts_recurrence", "auto"),
+            init_weights_path=g("tts_init_weights_path"),
+            attn_loss_coeff=g("attn_loss_coeff", 1.0),
+            attn_ref_path=g("attn_ref_path"),
+            model_tf_path=g("model_tf_path"),
         )
         return cls(
             data_path=g("data_path", "data/"),
@@ -212,4 +277,5 @@ class Config:
             tts_model_id=g("tts_model_id", "ljspeech_lsa_smooth_attention"),
             ignore_tts=g("ignore_tts", False),
             ignore_voc=g("ignore_voc", False),
-            dsp=dsp, voc=voc, voc_train=voc_train, tts=tts)
+            dsp=dsp, voc=voc, voc_train=voc_train, tts=tts,
+            tts_train=tts_train)

@@ -1,5 +1,5 @@
-"""Vocoder input pipeline (port of the vocoder half of
-``wavernn_tpu.data.dataset``; reference utils/dataset.py), numpy only.
+"""Vocoder and TTS input pipelines (port of ``wavernn_tpu.data.dataset``;
+reference utils/dataset.py), numpy only.
 
 The same on-disk artifacts as the reference pipeline
 (``data/{mel,quant,gta,gta_<id>}/<item>.npy`` and ``dataset.pkl``) and the
@@ -10,12 +10,16 @@ same crop and scale:
     labels -> x = labels[:-1] as floats (16-bit scale for MOL), y =
     labels[1:] (floats only for MOL)  (dataset.py:72-98);
   * a deterministic split: a seed-1234 shuffle, the last
-    ``voc_test_samples`` held out  (dataset.py:47-51).
+    ``voc_test_samples`` held out  (dataset.py:47-51);
+  * TTS: text ids and mels padded to the batch's longest (the mel to its
+    longest + 1, rounded up to r), mels scaled [0, 1] -> [-4, 4], and the
+    reference's length-binned, seeded batch order (dataset.py:106-263).
 """
 from __future__ import annotations
 
 import pickle
 import random
+import warnings
 from pathlib import Path
 from typing import Iterator, List, Sequence, Tuple
 
@@ -23,6 +27,7 @@ import numpy as np
 
 from ..config import Config
 from ..dsp.audio import label_2_float
+from ..text import text_to_sequence
 
 
 class VocoderDataset:
@@ -119,3 +124,166 @@ def get_vocoder_datasets(path: Path, batch_size: int, cfg: Config,
     train = VocoderDataset(path, train_ids, train_gta, tts_model_id)
     test = VocoderDataset(path, test_ids, train_gta, tts_model_id)
     return VocoderBatcher(train, cfg, batch_size, seed), test
+
+
+# --------------------------------------------------------------------------
+# TTS dataset
+# --------------------------------------------------------------------------
+
+class TTSDataset:
+    """(text ids, mel, item id, mel length[, attn_ref]) by item id
+    (dataset.py:146-164)."""
+
+    def __init__(self, path: Path, dataset_ids: Sequence[str], text_dict,
+                 cfg: Config):
+        self.path = Path(path)
+        self.metadata = list(dataset_ids)
+        self.text_dict = text_dict
+        self.cfg = cfg
+
+    def __getitem__(self, index: int):
+        item_id = self.metadata[index]
+        x = text_to_sequence(self.text_dict[item_id],
+                             self.cfg.tts.cleaner_names)
+        mel = np.load(self.path / "mel" / f"{item_id}.npy")
+        mel_len = mel.shape[-1]
+        if self.cfg.tts.mode == "attention_forcing_offline":
+            attn_ref = np.load(self.path / self.cfg.tts_train.attn_ref_path
+                               / f"{item_id}.npy")
+            return x, mel, item_id, mel_len, attn_ref
+        return x, mel, item_id, mel_len
+
+    def __len__(self):
+        return len(self.metadata)
+
+
+def pad1d(x, max_len):
+    return np.pad(x, (0, max_len - len(x)))
+
+
+def pad2d(x, max_len):
+    return np.pad(x, ((0, 0), (0, max_len - x.shape[-1])))
+
+
+def pad_cut_attn(attn, max_x_len, max_attn_len):
+    """Pad or cut an attention-reference map to the batch's dimensions,
+    moving cut mass onto the last kept position (dataset.py:175-196)."""
+    l_a, l_x = attn.shape
+    attn_pad = attn
+    if max_x_len - l_x < 0:
+        if max_x_len < 0.5 * l_x:
+            warnings.warn(f"max_x_len {max_x_len} < 0.5 * l_x {l_x}")
+        tmp = attn_pad[:, -(1 + l_x - max_x_len):-1].sum(axis=1, keepdims=True) \
+            / max_x_len
+        attn_pad = np.delete(attn, np.s_[-(1 + l_x - max_x_len):-1], axis=1)
+        attn_pad = attn_pad + tmp
+    elif max_x_len - l_x > 0:
+        tmp = np.zeros([max_x_len - l_x, 1])
+        attn_pad = np.insert(attn, -1, tmp, axis=1)
+    if max_attn_len - l_a < 0:
+        if max_attn_len < 0.5 * l_a:
+            warnings.warn(f"max_attn_len {max_attn_len} < 0.5 * l_a {l_a}")
+        attn_pad = attn_pad[:max_attn_len]
+    elif max_attn_len - l_a > 0:
+        tmp = np.tile(attn_pad[-1, :], (max_attn_len - l_a, 1))
+        attn_pad = np.concatenate([attn_pad, tmp], axis=0)
+    return attn_pad
+
+
+def collate_tts(batch, r: int, offline_attn: bool = False):
+    """Pad and scale (dataset.py:199-231): (chars (B, T_text) int64, mel
+    (B, n_mels, steps) float32 in [-4, 4], ids, mel_lens[, attn_ref]);
+    steps is the longest mel + 1, rounded up to a multiple of r."""
+    x_lens = [len(b[0]) for b in batch]
+    max_x_len = max(x_lens)
+    chars = np.stack([pad1d(b[0], max_x_len) for b in batch]).astype(np.int64)
+
+    spec_lens = [b[1].shape[-1] for b in batch]
+    max_spec_len = max(spec_lens) + 1
+    if max_spec_len % r != 0:
+        max_spec_len += r - max_spec_len % r
+    mel = np.stack([pad2d(b[1], max_spec_len) for b in batch]).astype(np.float32)
+    mel = (mel * 8.0) - 4.0  # [0,1] -> [-4,4] (dataset.py:222)
+
+    ids = [b[2] for b in batch]
+    mel_lens = [b[3] for b in batch]
+    if offline_attn:
+        attn_ref = np.stack([pad_cut_attn(b[4], max_x_len, max_spec_len // r)
+                             for b in batch]).astype(np.float32)
+        return chars, mel, ids, mel_lens, attn_ref
+    return chars, mel, ids, mel_lens
+
+
+def binned_length_order(lengths: Sequence[int], batch_size: int,
+                        bin_size: int, rnd: random.Random) -> np.ndarray:
+    """BinnedLengthSampler order (dataset.py:234-263): indices sorted by
+    length, shuffled within bins of ``bin_size``, the remainder last."""
+    assert bin_size % batch_size == 0
+    idx = np.argsort(np.asarray(lengths))
+    bins = []
+    for i in range(len(idx) // bin_size):
+        this_bin = idx[i * bin_size:(i + 1) * bin_size].copy()
+        rnd.shuffle(this_bin)
+        bins.append(this_bin)
+    binned_idx = (np.stack(bins).reshape(-1) if bins
+                  else np.empty((0,), np.int64))
+    if len(binned_idx) < len(idx):
+        last_bin = idx[len(binned_idx):].copy()
+        rnd.shuffle(last_bin)
+        binned_idx = np.concatenate([binned_idx, last_bin])
+    return binned_idx
+
+
+class TTSBatcher:
+    """Epoch iterator over collated TTS batches with length binning; the
+    last partial batch is dropped."""
+
+    def __init__(self, dataset: TTSDataset, lengths: Sequence[int],
+                 batch_size: int, r: int, bin_lengths: bool = True,
+                 seed: int = 0, offline_attn: bool = False):
+        self.dataset = dataset
+        self.lengths = list(lengths)
+        self.batch_size = batch_size
+        self.r = r
+        self.bin_lengths = bin_lengths
+        self.seed = seed
+        self.epoch = 0
+        self.offline_attn = offline_attn
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self):
+        rnd = random.Random(self.seed + self.epoch)
+        self.epoch += 1
+        if self.bin_lengths:
+            order = binned_length_order(self.lengths, self.batch_size,
+                                        self.batch_size * 3, rnd)
+        else:
+            order = np.asarray(
+                rnd.sample(range(len(self.dataset)), len(self.dataset)))
+        bs = self.batch_size
+        for i in range(0, len(order) - bs + 1, bs):
+            items = [self.dataset[j] for j in order[i:i + bs]]
+            yield collate_tts(items, self.r, self.offline_attn)
+
+
+def get_tts_datasets(path: Path, batch_size: int, r: int, cfg: Config,
+                     seed: int = 0):
+    """(train_batcher, attn_example): items longer than ``max_mel_len``
+    are left out; attn_example is the longest item's id
+    (dataset.py:106-143)."""
+    dataset = load_dataset_ids(path)
+    dataset_ids, mel_lengths = [], []
+    for item_id, n in dataset:
+        if cfg.tts_train.max_mel_len is None or n <= cfg.tts_train.max_mel_len:
+            dataset_ids.append(item_id)
+            mel_lengths.append(n)
+    with open(Path(path) / "text_dict.pkl", "rb") as f:
+        text_dict = pickle.load(f)
+    ds = TTSDataset(path, dataset_ids, text_dict, cfg)
+    offline = cfg.tts.mode == "attention_forcing_offline"
+    batcher = TTSBatcher(ds, mel_lengths, batch_size, r,
+                         cfg.tts_train.bin_lengths, seed, offline)
+    attn_example = dataset_ids[int(np.argmax(mel_lengths))]
+    return batcher, attn_example

@@ -1,11 +1,15 @@
 """Tacotron (text -> mel) for PyTorch (port of
-``wavernn_tpu.models.tacotron``, free-running inference).
+``wavernn_tpu.models.tacotron``: free-running inference and the
+teacher-forcing training forward).
 
 Module and parameter names follow the reference state dict
 (models/tacotron.py:289-519), so a reference ``.pyt`` loads with
 ``load_state_dict(strict=True)``. Generation: the encoder runs as plain
 PyTorch, the whole free-running decoder loop runs in the decode kernel
-(ops/cuda_taco.py), then the postnet CBHG and ``post_proj``.
+(ops/cuda_taco.py), then the postnet CBHG and ``post_proj``. Training
+(``forward``): the CBHG BiGRUs run on the GRU recurrence kernel B5
+(ops/cuda_gru.py) and the decoder's group recurrence on kernel B6
+(ops/cuda_taco_train.py).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from ..config import TacotronConfig
 from ..device import resolve_device
 from ..ops import layers as L
 from ..ops.cuda_taco import decode
+from ..ops.cuda_taco_train import decoder_tf_train, zoneout_masks
 from ..text.symbols import symbols
 from ..timing import stage
 
@@ -35,10 +40,15 @@ class PreNet(nn.Module):
                       self.fc2.bias)
 
 
-def prenet(x, w1, b1, w2, b2):
-    """Eval-mode PreNet: dropout off, as in the reference's generate."""
+def prenet(x, w1, b1, w2, b2, rate: float = 0.5, training: bool = False,
+           masks=(None, None)):
+    """PreNet: two ReLU layers, each followed by dropout with the scaled
+    keep-``masks`` when training; dropout off in eval, as in the
+    reference's generate."""
     x = torch.relu(L.linear(x, w1, b1))
-    return torch.relu(L.linear(x, w2, b2))
+    x = L.dropout(x, rate, training, masks[0])
+    x = torch.relu(L.linear(x, w2, b2))
+    return L.dropout(x, rate, training, masks[1])
 
 
 class HighwayNetwork(nn.Module):
@@ -59,13 +69,17 @@ class BatchNormConv(nn.Module):
         self.conv = nn.Conv1d(in_channels, out_channels, kernel, bias=False)
         self.bnorm = nn.BatchNorm1d(out_channels)
 
-    def forward(self, x, relu: bool):
+    def forward(self, x, relu: bool, training: bool = False):
+        """Conv, ReLU, BatchNorm; ``training`` normalises on batch
+        statistics (over every output position, the extra one of an even
+        kernel width included) and updates the running ones in place."""
         k = self.conv.weight.shape[-1]
         x = L.conv1d(x, self.conv.weight, padding=k // 2)
         if relu:
             x = torch.relu(x)
         b = self.bnorm
-        return L.batchnorm(x, b.weight, b.bias, b.running_mean, b.running_var)
+        bn = L.batchnorm_train if training else L.batchnorm
+        return bn(x, b.weight, b.bias, b.running_mean, b.running_var)
 
 
 def _maxpool_k2_s1(x):
@@ -91,15 +105,17 @@ class CBHG(nn.Module):
         self.rnn = nn.GRU(channels, channels, batch_first=True,
                           bidirectional=True)
 
-    def forward(self, x):
-        """(B, C_in, T) -> (B, T, 2*channels), eval mode."""
+    def forward(self, x, training: bool = False, engine: str = "scan"):
+        """(B, C_in, T) -> (B, T, 2*channels). ``training``: BatchNorm on
+        batch statistics, taken before the bank's truncation to T
+        (tacotron.py:103-105). ``engine``: the BiGRU's (ops/layers.gru)."""
         T = x.shape[-1]
         residual = x
-        h = torch.cat([blk(x, relu=True)[:, :, :T]
+        h = torch.cat([blk(x, True, training)[:, :, :T]
                        for blk in self.conv1d_bank], dim=1)
         h = _maxpool_k2_s1(h)
-        c = self.conv_project1(h, relu=True)
-        c = self.conv_project2(c, relu=False)
+        c = self.conv_project1(h, True, training)
+        c = self.conv_project2(c, False, training)
         h = (c + residual).transpose(1, 2)
         if hasattr(self, "pre_highway"):
             h = L.linear(h, self.pre_highway.weight)
@@ -109,7 +125,8 @@ class CBHG(nn.Module):
         return L.bigru(h, (g.weight_ih_l0, g.weight_hh_l0, g.bias_ih_l0,
                            g.bias_hh_l0),
                        (g.weight_ih_l0_reverse, g.weight_hh_l0_reverse,
-                        g.bias_ih_l0_reverse, g.bias_hh_l0_reverse))
+                        g.bias_ih_l0_reverse, g.bias_hh_l0_reverse),
+                       engine=engine)
 
 
 class Encoder(nn.Module):
@@ -121,10 +138,16 @@ class Encoder(nn.Module):
                          [tts.encoder_dims, tts.encoder_dims],
                          tts.num_highways)
 
-    def forward(self, ids):
-        """(B, T_text) ids -> (B, T_text, 2*encoder_dims)."""
-        x = self.pre_net(L.embedding(ids, self.embedding.weight))
-        return self.cbhg(x.transpose(1, 2))
+    def forward(self, ids, training: bool = False, engine: str = "scan",
+                rate: float = 0.5, masks=(None, None)):
+        """(B, T_text) ids -> (B, T_text, 2*encoder_dims). ``training``:
+        prenet dropout with the scaled keep-``masks`` and the CBHG in
+        training mode."""
+        p = self.pre_net
+        x = prenet(L.embedding(ids, self.embedding.weight), p.fc1.weight,
+                   p.fc1.bias, p.fc2.weight, p.fc2.bias, rate, training,
+                   masks)
+        return self.cbhg(x.transpose(1, 2), training, engine)
 
 
 class LSA(nn.Module):
@@ -196,6 +219,11 @@ class Tacotron(nn.Module):
             if isinstance(m, nn.BatchNorm1d):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+
+    def decoder_parameters(self):
+        """The decoder's parameters by state-dict name below ``decoder.``,
+        attached to autograd."""
+        return dict(self.decoder.named_parameters())
 
     def decoder_weights(self):
         """The decoder's weights by state-dict name below ``decoder.``."""
@@ -279,10 +307,97 @@ def decoder_step(dec, encoder_seq, encoder_seq_proj, prenet_in,
     return mels, scores, new_state
 
 
-def postnet(model: Tacotron, mel):
-    """(1, n_mels, steps) -> linear (1, n_mels, steps)."""
-    y = model.postnet(mel)
+def postnet(model: Tacotron, mel, training: bool = False,
+            engine: str = "scan"):
+    """(B, n_mels, steps) -> linear (B, n_mels, steps)."""
+    y = model.postnet(mel, training, engine)
     return L.linear(y, model.post_proj.weight).transpose(1, 2)
+
+
+MASK_NAMES = ("enc_drop1", "enc_drop2", "dec_drop1", "dec_drop2", "zm1",
+              "zm2")
+
+
+def draw_masks(model: Tacotron, B: int, T_text: int, n_groups: int,
+               generator: torch.Generator, device) -> dict:
+    """The random draws of one training forward, by ``MASK_NAMES``: the
+    encoder prenet's dropout keep-masks (B, T_text, P1), (B, T_text, P2)
+    and the decoder prenet's (G, B, P1), (G, B, P2), scaled by
+    1 / (1 - dropout); the zoneout keep-previous masks (G, B, lstm_dims) of
+    0/1, drawn from ``generator`` on ``device``."""
+    tts = model.tts
+    P1 = model.decoder.prenet.fc1.weight.shape[0]
+    P2 = model.decoder.prenet.fc2.weight.shape[0]
+    drop = lambda *shape: L.dropout_mask(shape, tts.dropout, generator,
+                                         device)
+    zm1, zm2 = zoneout_masks(n_groups, B, tts.lstm_dims, generator, device)
+    return {"enc_drop1": drop(B, T_text, P1), "enc_drop2": drop(B, T_text, P2),
+            "dec_drop1": drop(n_groups, B, P1),
+            "dec_drop2": drop(n_groups, B, P2), "zm1": zm1, "zm2": zm2}
+
+
+def forward(model: Tacotron, x_ids, m, r: int,
+            mode: str = "teacher_forcing", training: bool = True,
+            generate_gta: bool = False, recurrence: str = "auto",
+            masks: Optional[dict] = None,
+            generator: Optional[torch.Generator] = None):
+    """Teacher-forcing forward (tacotron.py:319-379; the JAX package's
+    ``models/tacotron.forward`` TF branch).
+
+    x_ids (B, T_text); m (B, n_mels, steps) target mels, steps % r == 0.
+    Returns (mel_out (B, n_mels, steps), linear (B, n_mels, steps), attn
+    (B, steps // r, T_text)). ``training`` applies the two encoder-prenet
+    and the two decoder-prenet dropouts and zoneout, runs BatchNorm on
+    batch statistics and updates its running statistics in place; their
+    random draws are ``masks`` (``draw_masks``' dict, injected) or drawn
+    from ``generator``. ``generate_gta`` forces eval mode (no dropout,
+    zoneout off, running statistics).
+    ``recurrence``: "auto"/"pallas" run the CBHG BiGRUs on B5 and the
+    decoder recurrence on B6 (their plain versions on CPU tensors); "scan"
+    runs the plain step loops under autograd."""
+    if mode != "teacher_forcing":
+        raise NotImplementedError(
+            f"mode {mode!r}: only teacher forcing is ported; the attention-"
+            "forcing arms and free running wait for kernel B7 (ROADMAP B7)")
+    if recurrence not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown recurrence {recurrence!r}")
+    if generate_gta:
+        training = False
+    tts, n_mels = model.tts, model.n_mels
+    B, _, steps = m.shape
+    G = steps // r
+    engine = "scan" if recurrence == "scan" else "kernel"
+    dec = model.decoder_parameters()
+    if training and masks is None:
+        masks = draw_masks(model, B, x_ids.shape[1], G, generator, m.device)
+    mk = (lambda name: masks[name]) if training else (lambda name: None)
+
+    encoder_seq = model.encoder(x_ids, training, engine, tts.dropout,
+                                (mk("enc_drop1"), mk("enc_drop2")))
+    encoder_seq_proj = L.linear(encoder_seq, model.encoder_proj.weight)
+
+    # group g > 0 is fed the ground-truth frame m[:, :, g*r - 1]; group 0
+    # the GO frame. The prenet is hoisted over all G*B rows.
+    tf_in = torch.cat([m.new_zeros(B, n_mels, 1), m[:, :, r - 1::r][:, :, :-1]],
+                      dim=2)
+    dec_masks = tuple(None if t is None else t.reshape(G * B, -1)
+                      for t in (mk("dec_drop1"), mk("dec_drop2")))
+    pre_all = prenet(tf_in.permute(2, 0, 1).reshape(G * B, n_mels),
+                     dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
+                     dec["prenet.fc2.weight"], dec["prenet.fc2.bias"],
+                     tts.dropout, training, dec_masks).reshape(G, B, -1)
+    if training:
+        zm1, zm2 = masks["zm1"], masks["zm2"]
+    else:
+        zm1 = zm2 = m.new_zeros(G, B, tts.lstm_dims)
+    mel_groups, attn_scores = decoder_tf_train(
+        dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2, tts.max_r, r,
+        n_mels, impl=engine)
+
+    mel_out = mel_groups.permute(1, 2, 0, 3).reshape(B, n_mels, steps)
+    attn = attn_scores.transpose(0, 1)
+    linear = postnet(model, mel_out, training, engine)
+    return mel_out, linear, attn
 
 
 @torch.no_grad()

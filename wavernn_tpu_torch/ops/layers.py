@@ -37,14 +37,14 @@ def batchnorm(x, weight, bias, mean, var, eps: float = BN_EPS):
 def batchnorm_train(x, weight, bias, running_mean, running_var,
                     momentum: float = 0.1, eps: float = BN_EPS):
     """Training-mode BatchNorm1d over (N, C, W): batch statistics over
-    (N, W) in float32, the output in x's dtype.
+    (N, W) in float32 (float64 for float64 input), the output in x's dtype.
 
     The running statistics (momentum 0.1, unbiased variance) are updated
     IN PLACE in ``running_mean``/``running_var``, where the JAX package
     returns new parameters; the optimizer never reads them, so when in the
     step they change makes no difference."""
     in_dtype = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(in_dtype, torch.float32))
     mean = x.mean(dim=(0, 2))
     var = x.var(dim=(0, 2), unbiased=False)
     n = x.shape[0] * x.shape[2]
@@ -72,15 +72,24 @@ def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh):
     return gru_gates(linear(x, w_ih, b_ih), linear(h, w_hh, b_hh), h)
 
 
-def gru(xs, w_ih, w_hh, b_ih, b_hh, h0: Optional[torch.Tensor] = None):
+def gru(xs, w_ih, w_hh, b_ih, b_hh, h0: Optional[torch.Tensor] = None,
+        engine: str = "scan"):
     """Full-sequence GRU, xs (B, T, in) -> ((B, T, H), h_T).
 
     The input-side GEMM runs once over the whole sequence; only the
-    hidden-side product is sequential."""
+    hidden-side product is sequential. ``engine="scan"`` runs the step
+    loop under autograd; any other engine runs the recurrence through
+    ``ops/cuda_gru.gru_seq_tm`` time-major (the kernel B5 forward and
+    backward on CUDA tensors, their plain versions on CPU tensors)."""
     B, T, _ = xs.shape
     H = w_hh.shape[1]
     h = xs.new_zeros(B, H) if h0 is None else h0
     gi_all = linear(xs, w_ih, b_ih)
+    if engine != "scan":
+        from .cuda_gru import gru_seq_tm
+        ys = gru_seq_tm(gi_all.transpose(0, 1).contiguous(), w_hh.t(), b_hh,
+                        h).transpose(0, 1)
+        return ys, ys[:, -1]
     ys = []
     for t in range(T):
         h = gru_gates(gi_all[:, t], linear(h, w_hh, b_hh), h)
@@ -88,23 +97,24 @@ def gru(xs, w_ih, w_hh, b_ih, b_hh, h0: Optional[torch.Tensor] = None):
     return torch.stack(ys, dim=1), h
 
 
-def bigru(xs, fwd, bwd, lens: Optional[torch.Tensor] = None):
+def bigru(xs, fwd, bwd, lens: Optional[torch.Tensor] = None,
+          engine: str = "scan"):
     """Bidirectional GRU: concat(fwd(x), reversed(bwd(reversed(x)))).
 
-    ``fwd``/``bwd`` are (w_ih, w_hh, b_ih, b_hh) tuples. ``lens`` (B,)
-    gives the true lengths of right-padded rows: each row is rolled right
-    by T - len before the flip, so the backward GRU reads the real text
-    first and valid positions match an unpadded run (pad positions are
-    garbage for the caller to ignore)."""
-    y_f, _ = gru(xs, *fwd)
+    ``fwd``/``bwd`` are (w_ih, w_hh, b_ih, b_hh) tuples; ``engine`` as in
+    ``gru``. ``lens`` (B,) gives the true lengths of right-padded rows:
+    each row is rolled right by T - len before the flip, so the backward
+    GRU reads the real text first and valid positions match an unpadded
+    run (pad positions are garbage for the caller to ignore)."""
+    y_f, _ = gru(xs, *fwd, engine=engine)
     if lens is None:
-        y_b, _ = gru(xs.flip(1), *bwd)
+        y_b, _ = gru(xs.flip(1), *bwd, engine=engine)
         return torch.cat([y_f, y_b.flip(1)], dim=-1)
     T = xs.shape[1]
     shifts = [int(s) for s in (T - lens).tolist()]
     rolled = torch.stack([torch.roll(x, s, dims=0)
                           for x, s in zip(xs, shifts)])
-    y_b, _ = gru(rolled.flip(1), *bwd)
+    y_b, _ = gru(rolled.flip(1), *bwd, engine=engine)
     y_b = y_b.flip(1)
     y_b = torch.stack([torch.roll(y, -s, dims=0)
                        for y, s in zip(y_b, shifts)])
@@ -123,6 +133,22 @@ def lstm_cell(x, state: Tuple[torch.Tensor, torch.Tensor], w_ih, w_hh,
     o = torch.sigmoid(g[..., 3 * H:])
     c = f * c + i * gg
     return o * torch.tanh(c), c
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator, device):
+    """A dropout keep-mask scaled by 1 / (1 - rate): each entry is
+    1 / (1 - rate) with probability 1 - rate, else 0."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < 1.0 - rate).float() / (1.0 - rate)
+
+
+def dropout(x, rate: float, training: bool, mask: torch.Tensor):
+    """Inverted dropout (``wavernn_tpu/ops/layers.py:339-343``): x times
+    the scaled keep-``mask`` (``dropout_mask``). Identity when not training
+    or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    return x * mask.to(x.dtype)
 
 
 def embedding(ids, table):

@@ -1,6 +1,8 @@
 """Workspace path registry (port of ``wavernn_tpu.paths``, the reference's
-``utils/paths.py`` layout), cut to the data and vocoder paths: datasets and
-checkpoints are interchangeable with the JAX package's runs."""
+``utils/paths.py`` layout), cut to the data, vocoder and Tacotron-training
+paths: datasets and checkpoints are interchangeable with the JAX package's
+runs. The Tacotron attention and mel plot folders are not made: the plots
+are not ported (ROADMAP A12)."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -17,6 +19,7 @@ class Workspace:
         self.quant = self.data / "quant"
         self.mel = self.data / "mel"
         self.gta = self.data / ("gta" if ignore_tts else f"gta_{tts_id}")
+        self.attn = self.data / f"attn_{tts_id}"
 
         # vocoder
         self.voc_checkpoints = self.base / "checkpoints" / f"{voc_id}.wavernn"
@@ -26,13 +29,24 @@ class Workspace:
         self.voc_log = self.voc_checkpoints / "log.txt"
         self.voc_metrics = self.voc_checkpoints / "metrics.jsonl"
 
-        self.create(ignore_voc=ignore_voc)
+        # tacotron
+        self.tts_checkpoints = self.base / "checkpoints" / f"{tts_id}.tacotron"
+        self.tts_latest_weights = self.tts_checkpoints / "latest_weights.npz"
+        self.tts_latest_optim = self.tts_checkpoints / "latest_optim.npz"
+        self.tts_output = self.base / "model_outputs" / f"{tts_id}.tacotron"
+        self.tts_log = self.tts_checkpoints / "log.txt"
+        self.tts_metrics = self.tts_checkpoints / "metrics.jsonl"
 
-    def create(self, ignore_voc: bool = False):
+        self.create(ignore_voc=ignore_voc, ignore_tts=ignore_tts)
+
+    def create(self, ignore_voc: bool = False, ignore_tts: bool = False):
         for p in (self.data, self.quant, self.mel, self.gta):
             p.mkdir(parents=True, exist_ok=True)
         if not ignore_voc:
             for p in (self.voc_checkpoints, self.voc_output):
+                p.mkdir(parents=True, exist_ok=True)
+        if not ignore_tts:
+            for p in (self.tts_checkpoints, self.tts_output):
                 p.mkdir(parents=True, exist_ok=True)
 
     def get_voc_named_weights(self, name: str) -> Path:
@@ -40,3 +54,9 @@ class Workspace:
 
     def get_voc_named_optim(self, name: str) -> Path:
         return self.voc_checkpoints / f"{name}_optim.npz"
+
+    def get_tts_named_weights(self, name: str) -> Path:
+        return self.tts_checkpoints / f"{name}_weights.npz"
+
+    def get_tts_named_optim(self, name: str) -> Path:
+        return self.tts_checkpoints / f"{name}_optim.npz"

@@ -1,12 +1,13 @@
-"""Vocoder checkpoints (port of ``wavernn_tpu.train.checkpoints``; reference
-utils/checkpoints.py:6-132).
+"""Vocoder and Tacotron checkpoints (port of
+``wavernn_tpu.train.checkpoints``; reference utils/checkpoints.py:6-132).
 
 The same scheme: paired weights/optimizer files, an always-rewritten
 "latest" pair plus optional named snapshots, broken-pair detection, and
 create-if-missing with a warm start. The files are the JAX package's own
 flat ``.npz`` archives, so either package resumes the other's run:
 
-- weights: ``params/<JAX key>`` (compat/to_jax.py) and ``meta/step``;
+- weights: ``params/<JAX key>`` (compat/to_jax.py), ``meta/step`` and, for
+  the Tacotron, ``meta/r``;
 - optimizer: the flat keys of ``tree_to_flat({"opt": state})`` for optax's
   ``chain(clip_by_global_norm, adam)``: ``opt/1/0/.count`` (int32) and
   ``opt/1/0/.mu/<JAX key>``, ``opt/1/0/.nu/<JAX key>`` (``opt/0/0/...``
@@ -24,9 +25,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..compat.from_jax import wavernn_state_dict
+from ..compat.from_jax import tacotron_state_dict, wavernn_state_dict
 from ..compat.to_jax import (from_jax_array, jax_flat_from_state_dict,
-                             to_jax_array, wavernn_jax_key)
+                             tacotron_jax_key, to_jax_array, wavernn_jax_key)
 
 TORCH_SUFFIXES = (".pyt", ".pt", ".pth")
 
@@ -47,14 +48,20 @@ def _opt_prefix(clip: bool) -> str:
     return "opt/1/0/" if clip else "opt/0/0/"
 
 
+def _key_fn(model):
+    """The state-dict -> JAX key map of a WaveRNN or a Tacotron."""
+    return tacotron_jax_key if hasattr(model, "decoder") else wavernn_jax_key
+
+
 def optimizer_flat(model, optimizer) -> Dict[str, np.ndarray]:
     """Adam's count and moments under the JAX package's flat keys."""
     prefix = _opt_prefix(optimizer.clip_grad_norm is not None)
     params = dict(model.named_parameters())
+    key_fn = _key_fn(model)
     count = 0
     flat = {}
     for name, t in model.state_dict().items():
-        hit = wavernn_jax_key(name)
+        hit = key_fn(name)
         if hit is None:
             continue
         key, transpose = hit
@@ -78,8 +85,9 @@ def load_optimizer_flat(model, optimizer, flat) -> int:
         raise KeyError(f"optimizer file holds {len(counts)} Adam counts")
     prefix = counts[0][:-len(".count")]
     count = int(flat[counts[0]])
+    key_fn = _key_fn(model)
     for name, p in model.named_parameters():
-        key, transpose = wavernn_jax_key(name)
+        key, transpose = key_fn(name)
         mu, nu = (from_jax_array(flat[f"{prefix}.{m}/{key}"], transpose)
                   for m in ("mu", "nu"))
         if tuple(mu.shape) != tuple(p.shape):
@@ -92,9 +100,10 @@ def load_optimizer_flat(model, optimizer, flat) -> int:
     return count
 
 
-def read_weights(path) -> Tuple[dict, int]:
-    """(WaveRNN state dict, step) from a weights ``.npz`` of either package
-    or a reference PyTorch checkpoint."""
+def read_weights(path, model=None) -> Tuple[dict, int]:
+    """(state dict, step) from a weights ``.npz`` of either package or a
+    reference PyTorch checkpoint. ``model``: a Tacotron's ``.npz`` needs
+    it for its stop threshold (a WaveRNN's needs nothing)."""
     path = Path(path)
     if path.suffix in TORCH_SUFFIXES:
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -103,30 +112,43 @@ def read_weights(path) -> Tuple[dict, int]:
     params = {k[len("params/"):]: v for k, v in flat.items()
               if k.startswith("params/")}
     step = int(flat.get("meta/step", 0))
-    return wavernn_state_dict(params, step), step
+    if "rnn1/wi" in params:
+        return wavernn_state_dict(params, step), step
+    r = int(flat["meta/r"]) if "meta/r" in flat else int(model.decoder.r)
+    return tacotron_state_dict(params, float(model.stop_threshold), step,
+                               r), step
 
 
 def _paths(model_name: str, workspace):
-    if model_name != "voc":
-        raise ValueError(f"only vocoder checkpoints are ported, not "
-                         f"{model_name!r}")
-    return workspace.voc_latest_weights, workspace.voc_latest_optim
+    if model_name == "voc":
+        return (workspace.voc_latest_weights, workspace.voc_latest_optim,
+                workspace.get_voc_named_weights,
+                workspace.get_voc_named_optim)
+    if model_name == "tts":
+        return (workspace.tts_latest_weights, workspace.tts_latest_optim,
+                workspace.get_tts_named_weights,
+                workspace.get_tts_named_optim)
+    raise ValueError(model_name)
 
 
 def save_checkpoint(model_name: str, workspace, model, optimizer, step: int,
-                    name: Optional[str] = None, log=print) -> None:
+                    name: Optional[str] = None, log=print,
+                    r: Optional[int] = None) -> None:
     """Save the latest pair (always) and a named snapshot when ``name`` is
-    given (checkpoints.py:29-76)."""
-    w_path, o_path = _paths(model_name, workspace)
-    weights = {f"params/{k}": v
-               for k, v in jax_flat_from_state_dict(model.state_dict()).items()}
+    given (checkpoints.py:29-76); ``r``, the Tacotron's reduction factor,
+    goes to ``meta/r``."""
+    w_path, o_path, named_w, named_o = _paths(model_name, workspace)
+    weights = {f"params/{k}": v for k, v in jax_flat_from_state_dict(
+        model.state_dict(), _key_fn(model)).items()}
     weights["meta/step"] = np.asarray(step)
+    if r is not None:
+        weights["meta/r"] = np.asarray(r)
     optim = optimizer_flat(model, optimizer)
     save_flat(w_path, weights)
     save_flat(o_path, optim)
     if name is not None:
-        save_flat(workspace.get_voc_named_weights(name), weights)
-        save_flat(workspace.get_voc_named_optim(name), optim)
+        save_flat(named_w(name), weights)
+        save_flat(named_o(name), optim)
         log(f"Saved checkpoint {name}")
 
 
@@ -137,7 +159,7 @@ def restore_checkpoint(model_name: str, workspace, model, optimizer,
     """Restore the latest pair into ``model`` and ``optimizer`` in place and
     return its step; optionally create it, warm-started from
     ``init_weights_path`` with the step reset (checkpoints.py:79-132)."""
-    w_path, o_path = _paths(model_name, workspace)
+    w_path, o_path, _, _ = _paths(model_name, workspace)
     w_exists, o_exists = w_path.exists(), o_path.exists()
     if w_exists != o_exists:
         raise FileNotFoundError(
@@ -146,13 +168,13 @@ def restore_checkpoint(model_name: str, workspace, model, optimizer,
         if not create_if_missing:
             raise FileNotFoundError(f"No checkpoint at {w_path}")
         if init_weights_path:
-            sd, _ = read_weights(init_weights_path)
+            sd, _ = read_weights(init_weights_path, model)
             sd["step"] = torch.zeros_like(model.step)
             model.load_state_dict(sd, strict=True)
             log(f"Warm-started weights from {init_weights_path} (step reset)")
         save_checkpoint(model_name, workspace, model, optimizer, 0, log=log)
         return 0
-    sd, step = read_weights(w_path)
+    sd, step = read_weights(w_path, model)
     model.load_state_dict(sd, strict=True)
     load_optimizer_flat(model, optimizer, load_flat(o_path))
     log(f"Restored checkpoint from {w_path}")
