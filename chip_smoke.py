@@ -45,12 +45,29 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            each gradient held to a float64 scan step within 1e-4, or twice
            the float32 scan step's largest distance in its module where
            that is larger); steps/s, stage ms and a profiled step
+  b7       the Tacotron attention-forcing decoder recurrence kernels
+           (forward, and backward with d(aref), the prenet's and every other
+           weight gradient) against their plain versions: full width B 32,
+           T_text 150, 200 groups at r 2 (the AF configs' r); the odd shape;
+           eval mode (dropout masks of ones, zero zoneout masks, forward
+           only); float32, TF32 off
+  taco_af  inside taco_train's directory, from its TF checkpoint: attention
+           references at r 2 (``create_attn_ref`` on B6), ``cli.
+           train_tacotron`` in AF-online (the TF checkpoint as the frozen
+           teacher, KL x 1.0) and AF-offline (those references, L1 x 200),
+           3 steps each at batch 32 warm-started from it: B7's, B6's and
+           B5's launch counts, finite losses and gradient norms, the
+           checkpoint pairs; one full-width AF-offline step with the kernels
+           against ``recurrence="scan"`` (the batch cut to 400 frames, the
+           rule of taco_train's); steps/s and a profiled step of each mode
+           with B7's share of device time
   timings  each kernel and its plain version at the main path's shapes
            and on its inputs, with CUDA events after warm-up, the least
            time the card could take for the same work, and the outputs
            held against each other (B1 bfloat16 and float32 as in b1, B2
            as in b2, B5 forward and backward in float32 at the train step's
-           shape, B6 forward and backward at the b6 full-width shape), and
+           shape, B6 and B7 forward and backward at the b6 and b7 full-width
+           shapes), and
            cuDNN's ``torch.nn.GRU`` at that shape as B5's library yardstick
 
 Then the card's name and power limit, the kernels JSON line, and last the
@@ -93,6 +110,12 @@ B6_TOL = 1e-4
 B6_FULL = (32, 150, 100, 7)   # B, T_text, groups, r: full width, r = 7
 TT_ITEMS = 64
 TT_SCHEDULE = ((7, 1e-3, 3, 32), (5, 1e-4, 6, 32))
+# B7 (float32, TF32 off): as B6, over 200 groups at r 2, the AF configs' r
+B7_FULL = (32, 150, 200, 2)   # B, T_text, groups, r
+# the lj_af_online_kl / lj_af_offline schedule's first session, depth cut
+# to 3 steps
+AF_SCHEDULE = ((2, 1e-3, 3, 32),)
+AF_FRAMES = 400               # the kernels-vs-scan and timed AF batch
 
 
 def emit(phase: str, **fields):
@@ -429,6 +452,147 @@ def b6_work(G, B, T, E, D, P2, L, F, backward):
     flops = 2 * G * B * (2 * rec + 2 * T * E + T * (3 * nt * D + D))
     return flops, 4 * (inputs + streams + G * B * (F + 2 * T)
                        + G * B * P2 + B * T * (E + D) + n_w)
+
+
+def b7_case(B, T, G, r, dev, seed, train=True):
+    """B7's inputs at the full default widths: the AF operands of a seeded
+    Tacotron's decoder (prenet first), a reference attention whose rows
+    sum to 1, encoder outputs, the prenet's scaled dropout keep-masks and
+    zoneout masks (ones and zeros when not ``train``)."""
+    import torch
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.ops import cuda_taco_train as ct
+    cfg = Config()
+    gen = torch.Generator().manual_seed(seed)
+    model = taco.Tacotron(cfg.tts, 80)
+    model.reset_parameters(gen)
+    dec = {k: v.detach().to(dev) for k, v in
+           model.decoder_parameters().items()}
+    weights = ct.af_operands(dec, cfg.tts.max_r, r, 80)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen)
+    Lh = cfg.tts.lstm_dims
+    aref = torch.rand(G, B, T, generator=gen) ** 4
+    aref = aref / aref.sum(-1, keepdim=True)
+    enc = 0.5 * rnd(B, T, 256)
+    encp = 0.5 * rnd(B, T, 256)
+    if train:
+        keep = lambda *s: (torch.rand(*s, generator=gen) < 0.5).float() * 2.0
+        dm1, dm2 = keep(G, B, 256), keep(G, B, 128)
+        zm1, zm2 = (torch.rand(2, G, B, Lh, generator=gen) < 0.1).float()
+    else:
+        dm1, dm2 = torch.ones(G, B, 256), torch.ones(G, B, 128)
+        zm1 = zm2 = torch.zeros(G, B, Lh)
+    ins = (aref, dm1, dm2, zm1, zm2, enc, encp)
+    return tuple(t.to(dev) for t in ins), weights
+
+
+def check_b7(ct, ins, weights, seed, backward=True):
+    """B7's forward kernel against ``core_af_ref`` (outputs and, when
+    ``backward``, every stream), then the backward kernel against
+    ``core_af_bwd_ref`` on the kernel's own streams and random cotangents
+    of mel and scores: (result, ok). Relative errors are over each
+    output's largest entry."""
+    import torch
+    mel, sc, st = ct.decoder_af_fwd(*ins, weights, save=backward)
+    mel_p, sc_p, st_p = ct.core_af_ref(*ins, *weights, save=backward)
+    torch.cuda.synchronize()
+    res = {"mel_rel_err": rel_err(mel, mel_p),
+           "scores_rel_err": rel_err(sc, sc_p),
+           "fwd_max_abs_err": max(float((mel - mel_p).abs().max()),
+                                  float((sc - sc_p).abs().max()))}
+    fin = [mel, sc]
+    errs = [res["mel_rel_err"], res["scores_rel_err"]]
+    if backward:
+        serr = {k: rel_err(st[k], st_p[k]) for k in ct.AF_STREAMS}
+        res["stream_worst"] = max(serr, key=serr.get)
+        res["stream_rel_err"] = serr[res["stream_worst"]]
+        errs.append(res["stream_rel_err"])
+        gen = torch.Generator().manual_seed(seed)
+        dmel = torch.randn(mel.shape, generator=gen).to(mel.device)
+        dsc = torch.randn(sc.shape, generator=gen).to(mel.device)
+        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, weights)
+        want = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *weights)
+        torch.cuda.synchronize()
+        names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
+        gerr = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        res["grad_worst"] = max(gerr, key=gerr.get)
+        res["grad_rel_err"] = gerr
+        res["bwd_max_abs_err"] = max(float((a - b).abs().max())
+                                     for a, b in zip(got, want))
+        errs.append(gerr[res["grad_worst"]])
+        fin += list(got)
+    ok = (max(errs) <= B6_TOL
+          and all(bool(t.isfinite().all()) for t in fin))
+    return res, ok
+
+
+def b7_work(G, B, T, E, D, P1, P2, L, F, NM, backward):
+    """(FLOPs, bytes) of one B7 launch: each input read once and each
+    output written once (float32). The recurrence is B6's with the prenet
+    inside (its two layers a group, and their backward) and the context
+    contraction's cotangent going to d(aref)."""
+    nt = 62
+    w_pre = P1 * NM + P1 + P2 * P1 + P2
+    n_w = (3 * D * (E + P2) + 3 * D * D + 6 * D + D * D + D + nt * D + D
+           + L * (E + D) + L + 2 * (8 * L * L + 4 * L) + F * L) + w_pre
+    streams = G * B * (T + 6 * D + 1 + E + 15 * L + NM + P1 + P2)
+    rec = (3 * D * (E + P2) + 3 * D * D + D * D + L * (E + D) + 16 * L * L
+           + F * L + P1 * NM + P2 * P1)
+    # aref, dm1, dm2, zm1, zm2, enc, encp, weights
+    inputs = G * B * (T + P1 + P2 + 2 * L) + B * T * (E + D) + n_w
+    if not backward:
+        flops = 2 * G * B * (rec + T * (nt * D + D) + T * E)
+        return flops, 4 * (inputs + G * B * (F + T) + streams)
+    flops = 2 * G * B * (2 * rec + 2 * T * E + T * (3 * nt * D + D))
+    # + streams, dmel, dsc, scores in; daref, denc, dencp, gradients out
+    return flops, 4 * (inputs + streams + G * B * (F + 3 * T)
+                       + B * T * (E + D) + n_w)
+
+
+def kernels_vs_scan(out, names):
+    """A kernel train step held to the plain one: ``out`` maps "kernels",
+    "scan" (both float32) and "scan_f64" to (loss, gradients as float64 in
+    ``names`` order), and optionally "scan_rev", the float32 plain step on
+    the batch with its rows reversed (the same sums in another order). The
+    loss within B6_TOL of the float32 scan step's; each gradient within
+    max(B6_TOL, twice the largest distance from float64 of a float32 plain
+    step in the same module) of float64. Returns (result, ok)."""
+    def leaf_err(a, b):
+        return {n: rel_err(x, y) for n, x, y in
+                zip(names, out[a][1], out[b][1])}
+
+    e_ks, e_k64, e_s64 = (leaf_err("kernels", "scan"),
+                          leaf_err("kernels", "scan_f64"),
+                          leaf_err("scan", "scan_f64"))
+    plain = [e_s64]
+    if "scan_rev" in out:
+        plain.append(leaf_err("scan_rev", "scan_f64"))
+    module = lambda n: n.split(".")[0]
+    floor = {}
+    for e in plain:
+        for n in names:
+            floor[module(n)] = max(floor.get(module(n), 0.0), e[n])
+    limit = {m: max(B6_TOL, 2 * v) for m, v in floor.items()}
+    worst = max(names, key=lambda n: e_k64[n] / limit[module(n)])
+    lk, ls = out["kernels"][0], out["scan"][0]
+    cmp = {"loss_kernels": lk, "loss_scan": ls,
+           "loss_scan_f64": out["scan_f64"][0],
+           "loss_rel_err": abs(lk - ls) / abs(ls),
+           "kernels_vs_scan_max": max(e_ks.values()),
+           "kernels_vs_scan_median": sorted(e_ks.values())[len(names) // 2],
+           "kernels_vs_scan_over_1e-4": sum(v > B6_TOL for v in e_ks.values()),
+           "grads": len(names),
+           "kernels_vs_f64_max": {m: max(v for n, v in e_k64.items()
+                                         if module(n) == m) for m in floor},
+           "scan_vs_f64_max": floor, "limit": limit,
+           "scan_vs_f64_worst": max(e_s64, key=e_s64.get),
+           "worst": worst, "worst_vs_f64": e_k64[worst],
+           "median_vs_f64": [sorted(e.values())[len(names) // 2]
+                             for e in (e_k64, e_s64)]}
+    ok = (cmp["loss_rel_err"] <= B6_TOL and math.isfinite(lk)
+          and all(e_k64[n] <= limit[module(n)] for n in names))
+    return cmp, ok
 
 
 def main() -> int:
@@ -832,6 +996,21 @@ def main() -> int:
             raise AssertionError(f"B6 {tag}: a kernel disagrees with its "
                                  "plain version")
 
+    # ---- b7: the AF decoder training recurrence against its plain versions
+    b7 = {}
+    for tag, (Bq, Tq, Gq, rq), train in (("full", B7_FULL, True),
+                                         ("odd", (5, 33, 7, 2), True),
+                                         ("eval", B7_FULL, False)):
+        ins, w7 = b7_case(Bq, Tq, Gq, rq, dev, 41, train)
+        with torch.no_grad():
+            res, ok = check_b7(ct, ins, w7, 42, backward=train)
+        b7[tag] = res
+        emit("b7", case=tag, B=Bq, T_text=Tq, G=Gq, r=rq, ok=ok,
+             tolerance=B6_TOL, **res)
+        if not ok:
+            raise AssertionError(f"B7 {tag}: a kernel disagrees with its "
+                                 "plain version")
+
     # ---- taco_train: the Tacotron trainer's CLI at full width ----
     from wavernn_tpu_torch.cli import train_tacotron
     from wavernn_tpu_torch.config import TacotronTrainConfig
@@ -849,11 +1028,11 @@ def main() -> int:
         work = tmp / "run"
         work.mkdir()
 
-        def cli(*flags):
+        def cli(*flags, hp_file=hp):
             cwd = os.getcwd()
             os.chdir(work)
             try:
-                train_tacotron.main(["--hp_file", str(hp), *flags])
+                train_tacotron.main(["--hp_file", str(hp_file), *flags])
                 torch.cuda.synchronize()
             finally:
                 os.chdir(cwd)
@@ -957,40 +1136,9 @@ def main() -> int:
             out[tag] = (float(loss), [t.double() for t in g])
         torch.cuda.synchronize()
         names = [n for n, _ in state.model.named_parameters()]
-
-        def leaf_err(a, b):
-            return {n: rel_err(x, y) for n, x, y in
-                    zip(names, out[a][1], out[b][1])}
-
-        e_ks, e_k64, e_s64 = (leaf_err("kernels", "scan"),
-                              leaf_err("kernels", "scan_f64"),
-                              leaf_err("scan", "scan_f64"))
-        module = lambda n: n.split(".")[0]
-        floor = {}
-        for n in names:
-            floor[module(n)] = max(floor.get(module(n), 0.0), e_s64[n])
-        limit = {m: max(B6_TOL, 2 * v) for m, v in floor.items()}
-        worst = max(names, key=lambda n: e_k64[n] / limit[module(n)])
-        lk, ls = out["kernels"][0], out["scan"][0]
+        cmp, ok = kernels_vs_scan(out, names)
         cmp = {"B": xb.shape[0], "T_text": xb.shape[1], "steps": mb.shape[-1],
-               "loss_kernels": lk, "loss_scan": ls,
-               "loss_scan_f64": out["scan_f64"][0],
-               "loss_rel_err": abs(lk - ls) / abs(ls),
-               "kernels_vs_scan_max": max(e_ks.values()),
-               "kernels_vs_scan_median": sorted(e_ks.values())[len(names) // 2],
-               "kernels_vs_scan_over_1e-4": sum(v > B6_TOL
-                                                for v in e_ks.values()),
-               "grads": len(names),
-               "kernels_vs_f64_max": {m: max(v for n, v in e_k64.items()
-                                             if module(n) == m)
-                                      for m in floor},
-               "scan_vs_f64_max": floor, "limit": limit,
-               "scan_vs_f64_worst": max(e_s64, key=e_s64.get),
-               "worst": worst, "worst_vs_f64": e_k64[worst],
-               "median_vs_f64": [sorted(e.values())[len(names) // 2]
-                                 for e in (e_k64, e_s64)]}
-        ok = (cmp["loss_rel_err"] <= B6_TOL and math.isfinite(lk)
-              and all(e_k64[n] <= limit[module(n)] for n in names))
+               **cmp}
         emit("taco_train", stage="kernels_vs_scan", ok=ok, tolerance=B6_TOL,
              **cmp)
         if not ok:
@@ -1045,6 +1193,206 @@ def main() -> int:
              step_ms=1e3 * tt_loop_s / n_tt, device=dev_tt,
              stage_ms={**tt_stage_ms, "data_collate_host": tt_collate_ms},
              batch=xb.shape[0], steps=mb.shape[-1], r=7)
+
+        # ---- taco_af: attention forcing from the TF checkpoint ----
+        from dataclasses import replace
+        from wavernn_tpu_torch.cli.common import load_tts_model
+        from wavernn_tpu_torch.timing import stage
+        tf_ckpt = ckpt / "latest_weights.npz"
+        teacher = load_tts_model(tf_ckpt, cfg, dev)[0]
+        # the attention references at r 2, the teacher's eval TF forward
+        t0 = time.perf_counter()
+        ds2, _ = get_tts_datasets(tmp / "data", 8, 2, cfg_tt, seed=3)
+        tt.create_attn_ref(teacher, ds2, 2, tmp / "data" / "attn_smoke_r2",
+                           log=lambda *a: None)
+        found = sorted((tmp / "data" / "attn_smoke_r2").iterdir())
+        finite = all(bool(np.isfinite(np.load(f)).all()) for f in found)
+        emit("taco_af", stage="attn_ref", ok=len(found) == TT_ITEMS
+             and finite, files=len(found), finite=finite,
+             wall_s=time.perf_counter() - t0)
+        if len(found) != TT_ITEMS or not finite:
+            raise AssertionError("taco_af: the attention export failed")
+
+        # the CLI in both AF modes, the lj_af_online_kl / lj_af_offline
+        # settings with the depth cut to 3 steps
+        n_af = AF_SCHEDULE[-1][2]
+        af_launches = {}
+        for tag, extra in (
+                ("online", ("mode = 'attention_forcing_online'",
+                            "attn_loss_coeff = 1.0",
+                            f"model_tf_path = {str(tf_ckpt)!r}")),
+                ("offline", ("mode = 'attention_forcing_offline'",
+                             "attn_loss_coeff = 200.0",
+                             "attn_ref_path = 'attn_smoke_r2'"))):
+            hp_af = tmp / f"hparams_af_{tag}.py"
+            hp_af.write_text("\n".join([
+                f"data_path = {str(tmp / 'data')!r}",
+                f"tts_model_id = 'smoke_af_{tag}'",
+                f"tts_schedule = {AF_SCHEDULE!r}", "tts_checkpoint_every = 3",
+                f"tts_init_weights_path = {str(tf_ckpt)!r}", *extra]) + "\n")
+            for c in (ct.decoder_af, ct.decoder_tf, cuda_gru.gru_seq_tm):
+                c.fwd_launches = c.bwd_launches = 0
+            t0 = time.perf_counter()
+            cli(hp_file=hp_af)
+            cli_s = time.perf_counter() - t0
+            got = {"taco_af_fwd": ct.decoder_af.fwd_launches,
+                   "taco_af_bwd": ct.decoder_af.bwd_launches,
+                   "taco_tf_fwd": ct.decoder_tf.fwd_launches,
+                   "taco_tf_bwd": ct.decoder_tf.bwd_launches,
+                   "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
+                   "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+            af_launches[tag] = got
+            online = tag == "online"
+            # B7 1 + 1 a step; B5 4 + 4 for the student and, online, 2
+            # forward for the teacher's encoder BiGRU; B6 forward once a
+            # step for the online teacher (its postnet is skipped)
+            want = {"taco_af_fwd": n_af, "taco_af_bwd": n_af,
+                    "taco_tf_fwd": n_af if online else 0, "taco_tf_bwd": 0,
+                    "gru_seq_fwd": (6 if online else 4) * n_af,
+                    "gru_seq_bwd": 4 * n_af}
+            ckpt_af = work / "checkpoints" / f"smoke_af_{tag}.tacotron"
+            records = [json.loads(ln) for ln in
+                       (ckpt_af / "metrics.jsonl").read_text().splitlines()]
+            sessions = [r for r in records if r["event"] == "session"]
+            files = {n: (ckpt_af / n).exists() for n in (
+                "latest_weights.npz", "latest_optim.npz",
+                "taco_step0K_weights.npz", "taco_step0K_optim.npz")}
+            with np.load(ckpt_af / "latest_weights.npz") as z:
+                meta = {"step": int(z["meta/step"]), "r": int(z["meta/r"])}
+            res = {"sessions": [[r["r"], r["step"], r["loss"]]
+                                for r in sessions],
+                   "nonfinite_loss_steps": sum(r["nonfinite_loss_steps"]
+                                               for r in sessions),
+                   "nonfinite_grad_steps": sum(r["nonfinite_grad_steps"]
+                                               for r in sessions),
+                   "launches": got, "launches_expected": want,
+                   "files": files, "meta": meta, "wall_s": cli_s}
+            ok = (got == want and [r["step"] for r in sessions] == [n_af]
+                  and all(math.isfinite(r["loss"]) for r in sessions)
+                  and res["nonfinite_loss_steps"] == 0
+                  and res["nonfinite_grad_steps"] == 0
+                  and all(files.values()) and meta == {"step": n_af, "r": 2})
+            emit("taco_af", stage=f"cli_{tag}", ok=ok, **res)
+            if not ok:
+                raise AssertionError(f"taco_af: the AF-{tag} CLI run failed "
+                                     "a check")
+
+        # one full-width AF-offline step, kernels against recurrence="scan",
+        # from the TF checkpoint's weights, one batch cut to AF_FRAMES
+        # frames, the same injected masks
+        cfg_off = Config(tts=replace(cfg.tts,
+                                     mode="attention_forcing_offline"),
+                         tts_train=TacotronTrainConfig(
+                             schedule=AF_SCHEDULE,
+                             attn_ref_path="attn_smoke_r2"))
+        batcher_af, _ = get_tts_datasets(tmp / "data", 32, 2, cfg_off, seed=3)
+        t0 = time.perf_counter()
+        chars, mel_b, _, _, aref_b = next(iter(batcher_af))
+        af_collate_ms = (time.perf_counter() - t0) * 1e3
+        steps_af = min(mel_b.shape[-1], AF_FRAMES)
+        xa = torch.from_numpy(chars).to(dev)
+        ma = torch.from_numpy(mel_b[:, :, :steps_af]).to(dev)
+        Ga = steps_af // 2
+        aa = torch.from_numpy(aref_b[:, :Ga]).to(dev)
+        state_af = tt.create_train_state(cfg.tts, 80, 1e-3, 1.0, seed=13,
+                                         device=dev)
+        state_af.model.load_state_dict(teacher.state_dict())
+        masks_af = taco.draw_masks(state_af.model, xa.shape[0], xa.shape[1],
+                                   Ga, torch.Generator(device=dev)
+                                   .manual_seed(8), dev)
+        # The AF recurrence feeds each group's mel back through the prenet,
+        # so float32 rounding grows along 200 groups: on the H100 the
+        # float32 plain step lay up to 2.1e-3 from float64 on decoder
+        # leaves, and by 2x more or less in another summation order
+        # (tools/probe_af_scatter.py, random weights). One float32 sample
+        # is no floor, so the plain step runs twice, the second time on the
+        # batch with its rows reversed (the gradients are sums over rows)
+        rev = torch.arange(xa.shape[0] - 1, -1, -1, device=dev)
+
+        def rows(k, v, reverse):
+            if not reverse:
+                return v
+            return v[:, rev] if k[:3] in ("dec", "zm1", "zm2") else v[rev]
+
+        out = {}
+        for tag, rec, dt, rv in (("kernels", "auto", torch.float32, False),
+                                 ("scan", "scan", torch.float32, False),
+                                 ("scan_rev", "scan", torch.float32, True),
+                                 ("scan_f64", "scan", torch.float64, False)):
+            loss, _, _, _, g = tt.loss_and_grads_af(
+                copy.deepcopy(state_af.model).to(dt),
+                rows("x", xa, rv), rows("m", ma, rv).to(dt),
+                rows("a", aa, rv).to(dt), 2, 200.0, True, rec,
+                {k: rows(k, v, rv).to(dt) for k, v in masks_af.items()})
+            out[tag] = (float(loss), [t.double() for t in g])
+        torch.cuda.synchronize()
+        names = [n for n, _ in state_af.model.named_parameters()]
+        cmp, ok = kernels_vs_scan(out, names)
+        emit("taco_af", stage="kernels_vs_scan", ok=ok, tolerance=B6_TOL,
+             B=xa.shape[0], T_text=xa.shape[1], steps=steps_af, **cmp)
+        if not ok:
+            raise AssertionError("taco_af: the kernel step disagrees with "
+                                 "the scan step")
+
+        # speed of both steps on that resident batch, a profiled step of
+        # each, and AF-offline through the trainer's loop
+        gen_af = torch.Generator(device=dev).manual_seed(9)
+
+        def af_step(online, timings=None):
+            if online:
+                with stage(timings, "teacher", dev):
+                    ref = tt.teacher_attn_ref(teacher, xa, ma, 2)
+                return tt.train_step_af(state_af, xa, ma, ref, 2, 1.0, False,
+                                        generator=gen_af, timings=timings)
+            return tt.train_step_af(state_af, xa, ma, aa, 2, 200.0, True,
+                                    generator=gen_af, timings=timings)
+
+        af_speed = {}
+        for online in (False, True):
+            fn = lambda timings=None: af_step(online, timings)
+            for _ in range(2):
+                fn()
+            stage_t = {}
+            torch.cuda.synchronize()
+            for _ in range(n_tt):
+                fn(stage_t)
+            torch.cuda.synchronize()
+            st_ms = {k: v / n_tt for k, v in elapsed_ms(stage_t).items()}
+            t0 = time.perf_counter()
+            for _ in range(n_tt):
+                fn()
+            torch.cuda.synchronize()
+            res_s = time.perf_counter() - t0
+            dv = step_kernels(fn, ("taco_af", "wgrad_gemm", "colsum",
+                                   "reduce_parts"), top=12)
+            dv["b7_ms"] = dv.pop("named_ms")
+            dv["b7_recurrence_ms"] = step_kernels(fn, ("taco_af",))[
+                "named_ms"]
+            dv["b6_ms"] = step_kernels(fn, ("taco_tf",))["named_ms"]
+            dv["b5_ms"] = step_kernels(fn, ("gru_fwd", "gru_bwd"))[
+                "named_ms"]
+            dv["b7_share"] = dv["b7_ms"] / dv["busy_ms"]
+            dv["idle_share"] = 1 - dv["busy_ms"] / (1e3 * res_s / n_tt)
+            af_speed["online" if online else "offline"] = {
+                "steps_per_s_resident_batch": n_tt / res_s,
+                "stage_ms": st_ms, "device": dv}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = 0
+        for cb, mbb, _, _, ab in prefetch(
+                iter(lambda: next(iter(batcher_af)), None), device=dev):
+            tt.train_step_af(state_af, cb, mbb, ab, 2, 200.0, True,
+                             generator=gen_af)
+            done += 1
+            if done == n_tt:
+                break
+        torch.cuda.synchronize()
+        af_loop_s = time.perf_counter() - t0
+        emit("taco_af", stage="speed", **af_speed,
+             steps_per_s_offline_loop=n_tt / af_loop_s,
+             step_ms_offline_loop=1e3 * af_loop_s / n_tt,
+             data_collate_host_ms=af_collate_ms, batch=xa.shape[0],
+             steps=steps_af, T_text=xa.shape[1], r=2)
 
     # ---- timings at the main path's shapes, each kernel held against its
     # plain version on the same inputs ----
@@ -1158,7 +1506,30 @@ def main() -> int:
     fl6b, by6b = b6_work(*dims6, True)
     b6f_bound, b6f_by = bound(fl6f, by6f, PEAK_F32)
     b6b_bound, b6b_by = bound(fl6b, by6b, PEAK_F32)
-    ok = ok16 and ok32 and ok2 and ok5 and ok6
+    # B7 at the b7 phase's full-width shape, likewise
+    ins7, w7 = b7_case(*B7_FULL, dev, 34, True)
+    with torch.no_grad():
+        f7_ms, (mel7, sc7, st7) = cuda_ms(
+            lambda: ct.decoder_af_fwd(*ins7, w7, save=True), 3)
+        g7 = torch.Generator().manual_seed(35)
+        dmel7 = torch.randn(mel7.shape, generator=g7).to(dev)
+        dsc7 = torch.randn(sc7.shape, generator=g7).to(dev)
+        b7_ms, _ = cuda_ms(lambda: ct.decoder_af_bwd(
+            dmel7, dsc7, st7, sc7, *ins7, w7), 3)
+        f7_plain, _ = cuda_ms(lambda: ct.core_af_ref(*ins7, *w7, save=True),
+                              1)
+        b7_plain, _ = cuda_ms(lambda: ct.core_af_bwd_ref(
+            dmel7, dsc7, st7, sc7, *ins7, *w7), 1)
+        b7_main, ok7 = check_b7(ct, ins7, w7, 36)
+    B7b, T7, G7, r7 = B7_FULL
+    dims7 = (G7, B7b, T7, 256, 256, 256, 128, 512, r7 * 80, 80)
+    fl7f, by7f = b7_work(*dims7, False)
+    fl7b, by7b = b7_work(*dims7, True)
+    b7f_bound, b7f_by = bound(fl7f, by7f, PEAK_F32)
+    b7b_bound, b7b_by = bound(fl7b, by7b, PEAK_F32)
+    af_total = {k: sum(v[k] for v in af_launches.values())
+                for k in ("taco_af_fwd", "taco_af_bwd")}
+    ok = ok16 and ok32 and ok2 and ok5 and ok6 and ok7
     emit("timings", ok=ok,
          b1={"folds": B, "steps": T, "ms": b1_ms, "plain_ms": b1_plain,
              "bound_ms": b1_bound, "flops": fl, "bytes": by,
@@ -1188,6 +1559,16 @@ def main() -> int:
                  tt_launches["taco_tf_fwd"] / TT_SCHEDULE[-1][2],
                  tt_launches["taco_tf_bwd"] / TT_SCHEDULE[-1][2]],
              "check": {k: v for k, v in b6_main.items()
+                       if k != "grad_rel_err"}},
+         b7={"B": B7b, "T_text": T7, "G": G7, "r": r7, "fwd_ms": f7_ms,
+             "bwd_ms": b7_ms, "fwd_plain_ms": f7_plain,
+             "bwd_plain_ms": b7_plain, "fwd_bound_ms": b7f_bound,
+             "bwd_bound_ms": b7b_bound, "fwd_flops": fl7f,
+             "fwd_bytes": by7f, "bwd_flops": fl7b, "bwd_bytes": by7b,
+             "us_per_group": [1e3 * f7_ms / G7, 1e3 * b7_ms / G7],
+             "launches_per_train_step": [af_total["taco_af_fwd"] / (2 * n_af),
+                                         af_total["taco_af_bwd"] / (2 * n_af)],
+             "check": {k: v for k, v in b7_main.items()
                        if k != "grad_rel_err"}})
     if not ok:
         raise AssertionError("a kernel disagrees with its plain version at "
@@ -1243,6 +1624,21 @@ def main() -> int:
                                if "bwd_max_abs_err" in r]),
          "ms": b6_ms, "plain_ms": b6_plain, "bound_ms": b6b_bound,
          "bound_by": b6b_by, "library_ms": None},
+        {"name": "taco_af_fwd", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:802",
+         "launches": af_total["taco_af_fwd"],
+         "max_abs_err": max([b7_main["fwd_max_abs_err"]]
+                            + [r["fwd_max_abs_err"] for r in b7.values()]),
+         "ms": f7_ms, "plain_ms": f7_plain, "bound_ms": b7f_bound,
+         "bound_by": b7f_by, "library_ms": None},
+        {"name": "taco_af_bwd", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:925",
+         "launches": af_total["taco_af_bwd"],
+         "max_abs_err": max([b7_main["bwd_max_abs_err"]]
+                            + [r["bwd_max_abs_err"] for r in b7.values()
+                               if "bwd_max_abs_err" in r]),
+         "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": b7b_bound,
+         "bound_by": b7b_by, "library_ms": None},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,8 +15,15 @@ largest entry (gradients). The Tacotron TF decoder recurrence (B6),
 float32: mel, scores, the residual streams and every gradient within 1e-5
 of each tensor's largest entry (summation order only, over at most 7
 groups); a Tacotron train step's loss and gradients on the card within
-1e-4 of the CPU's (the whole model, other library kernels).
+1e-4 of the CPU's (the whole model, other library kernels). The
+attention-forcing recurrence (B7), float32: mel, scores, the streams,
+d(aref) and every gradient within 1e-5 of each tensor's largest entry, as
+B6; an AF-offline train step with the kernels within 1e-5 (loss, relative)
+and 1e-4 (each gradient of its largest entry) of the same step with
+``recurrence="scan"`` on the card.
 """
+import copy
+
 import pytest
 import torch
 
@@ -206,3 +213,75 @@ def test_taco_train_step_on_cuda_matches_cpu(cuda):
     assert abs(float(loss_d) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
     for a, b in zip(g_d, g_c):
         assert _rel(a.cpu(), b) <= 1e-4
+
+
+def _b7_inputs(B, T, G, r, dev, train, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    model = taco.Tacotron(TacotronConfig(), 80)
+    model.reset_parameters(gen)
+    dec = {k: v.detach().to(dev)
+           for k, v in model.decoder_parameters().items()}
+    weights = ct.af_operands(dec, 20, r, 80)
+    aref = torch.rand(G, B, T, generator=gen)
+    keep = lambda *s: ((torch.rand(*s, generator=gen) < 0.5).float() * 2.0
+                       if train else torch.ones(*s))
+    zm = ((torch.rand(2, G, B, 512, generator=gen) < 0.1).float() if train
+          else torch.zeros(2, G, B, 512))
+    ins = (aref / aref.sum(-1, keepdim=True), keep(G, B, 256),
+           keep(G, B, 128), zm[0], zm[1],
+           0.5 * torch.randn(B, T, 256, generator=gen),
+           0.5 * torch.randn(B, T, 256, generator=gen))
+    return tuple(t.to(dev) for t in ins), weights
+
+
+@pytest.mark.parametrize("B,T,G,r,train", [(5, 33, 7, 2, True),
+                                           (3, 20, 6, 5, False)])
+def test_taco_af_kernels_match_plain(cuda, B, T, G, r, train):
+    ins, w = _b7_inputs(B, T, G, r, cuda, train)
+    with torch.no_grad():
+        before = ct.decoder_af.fwd_launches
+        mel, sc, st = ct.decoder_af_fwd(*ins, w, save=True)
+        mel_p, sc_p, st_p = ct.core_af_ref(*ins, *w, save=True)
+        assert ct.decoder_af.fwd_launches == before + 1
+        assert _rel(mel, mel_p) <= 1e-5 and _rel(sc, sc_p) <= 1e-5
+        for k in ct.AF_STREAMS:
+            assert _rel(st[k], st_p[k]) <= 1e-5, k
+        gen = torch.Generator().manual_seed(1)
+        dmel = torch.randn(mel.shape, generator=gen).to(cuda)
+        dsc = torch.randn(sc.shape, generator=gen).to(cuda)
+        before = ct.decoder_af.bwd_launches
+        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w)
+        want = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+        torch.cuda.synchronize()
+        assert ct.decoder_af.bwd_launches == before + 1
+    names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
+    assert len(got) == len(names)
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
+
+
+def test_taco_af_offline_step_kernels_match_scan(cuda):
+    tts = TacotronConfig(embed_dims=32, postnet_dims=32, encoder_K=2,
+                         postnet_K=2, num_highways=1)
+    gen = torch.Generator().manual_seed(0)
+    model = taco.Tacotron(tts, 80)
+    model.reset_parameters(gen)
+    model = model.to(cuda)
+    B, T, G, r = 3, 19, 6, 2
+    x = torch.randint(1, 148, (B, T), generator=gen).to(cuda)
+    m = torch.randn(B, 80, G * r, generator=gen).to(cuda)
+    aref = torch.rand(B, G, T, generator=gen)
+    aref = (aref / aref.sum(-1, keepdim=True)).to(cuda)
+    masks = {k: v.to(cuda) for k, v in
+             taco.draw_masks(model, B, T, G, gen, "cpu").items()}
+    out = {}
+    for rec in ("auto", "scan"):
+        before = ct.decoder_af.bwd_launches
+        loss, _, _, _, g = tt.loss_and_grads_af(
+            copy.deepcopy(model), x, m, aref, r, 200.0, True, rec, masks)
+        assert ct.decoder_af.bwd_launches == before + (rec == "auto")
+        out[rec] = (float(loss), g)
+    (lk, gk), (ls, gs) = out["auto"], out["scan"]
+    assert abs(lk - ls) <= 1e-5 * abs(ls)
+    for a, b in zip(gk, gs):
+        assert _rel(a, b) <= 1e-4

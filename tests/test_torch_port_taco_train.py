@@ -363,13 +363,13 @@ def test_cli_trains_across_r_and_checkpoints_interoperate(tmp_path,
 def test_cli_raises_for_unported_options(tmp_path, monkeypatch):
     hp = _hparams(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with open(hp, "a") as f:
-        f.write("mode = 'attention_forcing_online'\n")
-    with pytest.raises(NotImplementedError, match="B7"):
-        train_tacotron.main(["--hp_file", str(hp), "--force_cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TacotronTrainConfig(precision="bfloat16")
+    with open(hp, "a") as f:
+        f.write("mode = 'attention_forcing'\n")
+    with pytest.raises(ValueError, match="mode"):
+        train_tacotron.main(["--hp_file", str(hp), "--force_cpu"])
     x, m = _batch(2, 8, 3, 2)
-    with pytest.raises(NotImplementedError, match="B7"):
+    with pytest.raises(ValueError, match="mode"):
         taco.forward(_models()[1], torch.tensor(x), torch.tensor(m), 2,
-                     mode="free_running")
+                     mode="forcing")

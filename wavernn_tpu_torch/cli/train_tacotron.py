@@ -1,13 +1,23 @@
-"""CLI: Tacotron teacher-forcing training with the PyTorch/CUDA port
-(reference train_tacotron.py).
+"""CLI: Tacotron training with the PyTorch/CUDA port (reference
+train_tacotron.py), in the mode the hparams file's ``mode`` names.
 
     python -m wavernn_tpu_torch.cli.train_tacotron --hp_file hparams.py \\
         [--force_gta] [--force_attn]
 
 Trains on one CUDA device through the progressive schedule
-(``tts_schedule``): every step's decoder recurrence runs on the
-hand-written kernel B6 and the four CBHG BiGRU directions on kernel B5; or
-on the CPU with --force_cpu (the kernels' plain PyTorch versions).
+(``tts_schedule``), or on the CPU with --force_cpu (the kernels' plain
+PyTorch versions):
+
+- ``teacher_forcing``: the decoder recurrence on the hand-written kernel B6;
+- ``attention_forcing_online``: the student's recurrence on kernel B7,
+  context from the attention of the frozen teacher-forcing model at
+  ``model_tf_path`` (its eval forward on B6), loss + attn_loss_coeff x KL;
+- ``attention_forcing_offline``: B7 with the attention maps under
+  ``<data_path>/<attn_ref_path>/`` (written by --force_attn), loss +
+  attn_loss_coeff x L1.
+
+The four CBHG BiGRU directions run on kernel B5 in every mode. A fresh
+run warm-starts from ``tts_init_weights_path`` when it is set.
 --force_gta / --force_attn write the teacher-forced GTA mels / attention
 maps of the dataset from the latest checkpoint and exit. Checkpoints are
 the JAX package's .npz pair, so either package resumes the other's run.
@@ -22,14 +32,15 @@ from ..data.dataset import get_tts_datasets
 from ..device import resolve_device
 from ..train import tacotron_train as tt
 from ..train.checkpoints import restore_checkpoint
-from .common import load_config, make_workspace
+from .common import load_config, load_tts_model, make_workspace
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train Tacotron (teacher forcing) on one device (the "
-                    "JAX package's multi-device mesh is not ported: ROADMAP "
-                    "A11)")
+        description="Train Tacotron (teacher forcing, or attention forcing "
+                    "online / offline, as the hparams' mode says) on one "
+                    "device (the JAX package's multi-device mesh is not "
+                    "ported: ROADMAP A11)")
     parser.add_argument("--force_train", "-f", action="store_true",
                         help="accepted for the reference's flag surface; "
                              "the schedule decides the steps")
@@ -47,10 +58,13 @@ def main(argv=None):
                              "training steps into this directory")
     args = parser.parse_args(argv)
     cfg = load_config(args.hp_file)
-    if cfg.tts.mode != "teacher_forcing":
-        raise NotImplementedError(
-            f"mode {cfg.tts.mode!r}: attention forcing is not ported to the "
-            "PyTorch package yet (ROADMAP B7)")
+    mode, tt_cfg = cfg.tts.mode, cfg.tts_train
+    if mode == "attention_forcing_online" and not tt_cfg.model_tf_path:
+        raise ValueError("attention_forcing_online needs model_tf_path, the "
+                         "teacher-forcing model (train_tacotron.py:78-92)")
+    if mode == "attention_forcing_offline" and not tt_cfg.attn_ref_path:
+        raise ValueError("attention_forcing_offline needs attn_ref_path, "
+                         "the attention maps under data_path")
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     ws = make_workspace(cfg)
     schedule = cfg.tts_train.schedule
@@ -91,9 +105,15 @@ def main(argv=None):
         print(f"step {st.step}: attention/mel plots skipped (not ported: "
               "ROADMAP A12)")
 
+    teacher = None
+    if mode == "attention_forcing_online":
+        # the frozen teacher (wavernn_tpu/cli/train_tacotron.py:55-60)
+        teacher = load_tts_model(tt_cfg.model_tf_path, cfg, device)[0]
+        teacher.requires_grad_(False)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     tt.train_loop(cfg, ws, state, make_dataset, generator=generator,
-                  on_checkpoint=on_checkpoint, profile_dir=args.profile_dir)
+                  on_checkpoint=on_checkpoint, profile_dir=args.profile_dir,
+                  teacher=teacher)
     print("Training Complete.")
 
 

@@ -106,6 +106,10 @@ class WaveRNNTrainConfig:
                 f"recurrence must be auto/scan/pallas, got {self.recurrence!r}")
 
 
+TTS_MODES = ("teacher_forcing", "attention_forcing_online",
+             "attention_forcing_offline", "free_running")
+
+
 @dataclass(frozen=True)
 class TacotronConfig:
     """TTS model settings (reference hparams.py:66-80)."""
@@ -122,11 +126,17 @@ class TacotronConfig:
     stop_threshold: float = -3.4
     max_r: int = 20
     cleaner_names: Tuple[str, ...] = ("english_cleaners",)
-    # run mode: teacher_forcing | attention_forcing_online |
-    #           attention_forcing_offline | free_running; the trainer
-    #           runs teacher_forcing (the attention-forcing arms are
-    #           ROADMAP B7)
+    # run mode (one of TTS_MODES): teacher_forcing | attention_forcing_online
+    # (a frozen TF teacher's attention, KL loss) | attention_forcing_offline
+    # (attention maps from disk, L1 loss) | free_running; the trainer runs
+    # the two attention-forcing modes as such and any other as teacher
+    # forcing, as the JAX package's does
     mode: str = "teacher_forcing"
+
+    def __post_init__(self):
+        if self.mode not in TTS_MODES:
+            raise ValueError(f"mode must be one of {TTS_MODES}, got "
+                             f"{self.mode!r}")
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,36 @@
-// Tacotron teacher-forcing decoder training recurrence for Hopper (sm_90a):
-// forward and backward, each one cooperative persistent launch over all
-// G = steps / r decoder groups, and the backward's weight gradients.
+// Tacotron decoder training recurrence for Hopper (sm_90a), teacher
+// forcing (B6: taco_tf_fwd / taco_tf_bwd) and attention forcing (B7:
+// taco_af_fwd / taco_af_bwd): forward and backward, each one cooperative
+// persistent launch over all G = steps / r decoder groups, and the
+// backward's weight gradients. One templated body per direction; the AF
+// arm's additions are compiled only into the taco_af_* kernels.
 //
 // Replaces: wavernn_tpu/ops/pallas_taco_train.py, _make_fwd_kernel(af=False)
 // (:80, called at :328 through _fwd_impl) and _make_bwd_kernel(af=False)
 // (:350, called at :747 through _core_bwd), the TPU kernels behind the
-// custom VJP _core. ops/cuda_taco_train.py holds the wrapper, the
-// torch.autograd.Function and the plain versions (core_ref, core_bwd_ref).
+// custom VJP _core; and the same makers with af=True (:328 through
+// _core_af :802, :925 through _core_af_bwd :836). ops/cuda_taco_train.py
+// holds the wrappers, the torch.autograd.Functions and the plain versions
+// (core_ref, core_bwd_ref, core_af_ref, core_af_bwd_ref).
+//
+// Attention forcing (AF) differs from TF in three places:
+//   * the prenet runs inside the recurrence, on the last mel frame of the
+//     previous group (zeros at g = 0), with pre-scaled dropout keep-masks
+//     dm1 / dm2: one block per utterance, after LSTM2's barrier, computes
+//     prev = x2 @ wm[last frame]^T, p1 = relu(w1 prev + b1) dm1 and
+//     pre = relu(w2 p1 + b2) dm2 (weights from L2), then one more barrier:
+//     six per group instead of five. prev, p1 and pre are written as
+//     streams for the backward;
+//   * the context is sum_t aref[g, b, t] enc_t; the scores, the cumulative
+//     and the previous attention still come from the student's own LSA;
+//   * the backward emits daref = dctx . enc_t instead of adding it to the
+//     scores' cotangent, and the utterance block of the attention stage
+//     also runs the prenet backward: dpre = dgi @ awi[:, E:], dp2 = dpre dm2
+//     [pre > 0], dp1 = (dp2 @ w2) dm1 [p1 > 0], Dprev = dp1 @ w1, added to
+//     the last frame of group g-1's mel cotangent (the wrapper hands the
+//     kernel a copy of dmel, so the mel_proj gradient reduction reads the
+//     effective cotangent). No extra barrier: the next read of that row is
+//     stage 1 of group g-1, behind the attention stage's barrier.
 //
 // What it computes, per group g, batched over B utterances (float32):
 //   ah   = GRUCell([ctx | pre_g], ah)                    attention rnn
@@ -109,6 +133,25 @@ struct TfBwdArgs {
   int64_t G, B, T, E, D, P2, L, F, bc;
 };
 
+// The AF arm's extra operands (B7). With them TfFwdArgs.pre is s_pre, which
+// the forward writes; TfBwdArgs.pre is the forward's s_pre and
+// TfBwdArgs.dmel the writable copy `dmel` below; TfBwdArgs.dpre is unused.
+struct AfFwdArgs {
+  const float *aref, *dm1, *dm2;                   // (G,B,T) (G,B,P1) (G,B,P2)
+  const float *w1, *b1, *w2, *b2;                  // (P1, NM) (P1) (P2, P1) (P2)
+  float *s_prev, *s_p1, *s_pre;                    // (G,B,NM) (G,B,P1) (G,B,P2)
+  int64_t P1, NM;
+};
+
+struct AfBwdArgs {
+  const float *aref, *dm1, *dm2, *w1T, *w2T;       // ... (NM, P1) (P1, P2)
+  const float *s_prev, *s_p1;
+  float *dmel;                                     // (G,B,F), gains Dprev
+  float *c_dp1, *c_dp2, *daref;                    // (G,B,P1) (G,B,P2) (G,B,T)
+  float *dw1, *db1, *dw2, *db2;
+  int64_t P1, NM;
+};
+
 namespace {
 
 struct Take {
@@ -177,6 +220,15 @@ __host__ __device__ inline int64_t lsa_fwd_floats(int64_t D, int64_t T, int64_t 
 __host__ __device__ inline int64_t lsa_bwd_floats(int64_t D, int64_t T, int64_t E) {
   return 4 * up4(D) + 4 * win_floats(T) + 2 * up4(T) + TC + up4(E) + LSA_RED + LOC_RED +
          NTAP * D;
+}
+// AF: the forward's prenet block (x2, prev, p1, p2) and the backward's
+// prenet chain after the attention stage's own floats (dgi, dpre, dp1,
+// Dprev)
+inline int64_t af_fwd_floats(const TfFwdArgs& a, const AfFwdArgs& x) {
+  return up4(a.L) + up4(x.NM) + up4(x.P1) + up4(a.P2);
+}
+inline int64_t af_bwd_floats(const TfBwdArgs& a, const AfBwdArgs& x) {
+  return up4(3 * a.D) + up4(a.P2) + up4(x.P1) + up4(x.NM);
 }
 inline int64_t fwd_row_floats(const TfFwdArgs& a) {
   int64_t w = a.E + a.P2 + a.D;
@@ -310,7 +362,8 @@ __device__ void unit_stage(float* X, int B, int bc, int units, const Seg* segs, 
 // out[i] = add[i] + sum_k W[i * n + k] x[k] for i < rows (x in shared
 // memory, n a multiple of 4): each warp takes 8 rows at a time, lanes along
 // k with 16-byte loads, so 8 independent weight loads are in flight. `add`
-// is read through L2 (another block may have written it in this launch).
+// is read through L2 (another block may have written it in this launch);
+// nullptr adds nothing.
 __device__ void rows_matvec(const float* __restrict__ W, int rows, int n, const float* x,
                             const float* add, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -334,7 +387,7 @@ __device__ void rows_matvec(const float* __restrict__ W, int rows, int n, const 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float s = warp_sum(acc[i]);
-      if (lane == 0 && i0 + i < rows) out[i0 + i] = __ldcg(add + i0 + i) + s;
+      if (lane == 0 && i0 + i < rows) out[i0 + i] = (add ? __ldcg(add + i0 + i) : 0.f) + s;
     }
   }
 }
@@ -470,7 +523,44 @@ __device__ void loc_input_grad(const float (&dp)[TC], int d, bool unit, int D,
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
+// AF: the prenet of group g, one block per utterance (see the header):
+// prev, p1 and pre of every utterance into their streams.
+__device__ void af_prenet(const AfFwdArgs& x, const float* wm_last, const float* x2, int g,
+                          int B, int L, int P2, float* sm) {
+  const int P1 = (int)x.P1, NM = (int)x.NM;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    float* s_x = sm;
+    float* s_pv = s_x + up4(L);
+    float* s_p1 = s_pv + up4(NM);
+    float* s_p2 = s_p1 + up4(P1);
+    const size_t gbb = (size_t)g * B + b;
+    __syncthreads();
+    if (g > 0) {
+      for (int e = threadIdx.x; e < L; e += THREADS) s_x[e] = __ldcg(x2 + (size_t)b * L + e);
+      __syncthreads();
+      rows_matvec(wm_last, NM, L, s_x, nullptr, s_pv);
+    } else {
+      for (int e = threadIdx.x; e < NM; e += THREADS) s_pv[e] = 0.f;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < NM; e += THREADS) x.s_prev[gbb * NM + e] = s_pv[e];
+    rows_matvec(x.w1, P1, NM, s_pv, x.b1, s_p1);
+    __syncthreads();
+    for (int k = threadIdx.x; k < P1; k += THREADS) {
+      const float v = fmaxf(s_p1[k], 0.f) * x.dm1[gbb * P1 + k];
+      s_p1[k] = v;
+      x.s_p1[gbb * P1 + k] = v;
+    }
+    __syncthreads();
+    rows_matvec(x.w2, P2, P1, s_p1, x.b2, s_p2);
+    __syncthreads();
+    for (int j = threadIdx.x; j < P2; j += THREADS)
+      x.s_pre[gbb * P2 + j] = fmaxf(s_p2[j], 0.f) * x.dm2[gbb * P2 + j];
+  }
+}
+
+template <bool AF>
+__device__ __forceinline__ void fwd_body(const TfFwdArgs& a, const AfFwdArgs& x) {
   cg::grid_group grid = cg::this_grid();
   const int G = (int)a.G, B = (int)a.B, T = (int)a.T, E = (int)a.E, D = (int)a.D;
   const int P2 = (int)a.P2, L = (int)a.L, F = (int)a.F, bc = (int)a.bc;
@@ -500,6 +590,11 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
   for (int g = 0; g < G; ++g) {
     const int nxt = cur ^ 1;
     const size_t gb = (size_t)g * B;
+    if constexpr (AF) {
+      // ---- P: the prenet on the previous group's last frame ----
+      af_prenet(x, a.wm + (size_t)(F - x.NM) * L, wk.x2, g, B, L, P2, sm);
+      grid.sync();
+    }
     // ---- A: attention GRUCell on [ctx | pre_g], h = ah ----
     {
       const Seg segs[3] = {{wk.ctx[cur], E, E}, {a.pre + gb * P2, P2, P2}, {wk.ah[cur], D, D}};
@@ -593,6 +688,10 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
         if (save) a.s_cum[o] = cumw[t + CONV_HALF];
       }
       __syncthreads();
+      if constexpr (AF) {   // the context weights: the reference attention
+        for (int t = threadIdx.x; t < T; t += THREADS) s_sig[t] = x.aref[(gb + b) * T + t];
+        __syncthreads();
+      }
       weighted_rows(a.enc + (size_t)b * T * E, T, E, s_sig, red4,
                     wk.ctx[nxt] + (size_t)b * E, save ? a.s_ctx + (gb + b) * E : nullptr);
       if (save) {
@@ -678,6 +777,14 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
   mel_stage(G - 1);
 }
 
+__global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
+  fwd_body<false>(a, AfFwdArgs{});
+}
+
+__global__ void __launch_bounds__(THREADS, 1) taco_af_fwd(TfFwdArgs a, AfFwdArgs x) {
+  fwd_body<true>(a, x);
+}
+
 }  // namespace
 
 namespace {
@@ -704,7 +811,8 @@ __device__ __forceinline__ LstmBwd lstm_bwd(float dh, float dc_in, const float* 
   return r;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
+template <bool AF>
+__device__ __forceinline__ void bwd_body(const TfBwdArgs& a, const AfBwdArgs& x) {
   cg::grid_group grid = cg::this_grid();
   const int G = (int)a.G, B = (int)a.B, T = (int)a.T, E = (int)a.E, D = (int)a.D;
   const int P2 = (int)a.P2, L = (int)a.L, F = (int)a.F, bc = (int)a.bc;
@@ -834,6 +942,7 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
       float* red = s_u + TC;
       float* redj = red + WARPS;           // LOC_RED
       float* s_gw = redj + LOC_RED;        // this group's location-weight gradient (62, D)
+      float* s_dgi = s_gw + NTAP * D;      // AF: the prenet chain (af_bwd_floats)
       const size_t gbb = gb + b;
       __syncthreads();
       for (int e = threadIdx.x; e < D; e += THREADS) {
@@ -854,12 +963,13 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
         s_dctx[e] = __ldcg(wk.dctx_t + (size_t)b * E + e);
       __syncthreads();
       // ds = d(scores) + d(cumulative) + d(attention) + dctx . enc_t, and
-      // d(enc_t) += s_t dctx; each lane's loads go out before its stores
+      // d(enc_t) += s_t dctx; each lane's loads go out before its stores.
+      // AF: the context weights are aref, and dctx . enc_t is d(aref)
       const float* enc_b = a.enc + (size_t)b * T * E;
       float* denc_b = a.denc + (size_t)b * T * E;
       for (int t = warp; t < T; t += WARPS) {
         float acc = 0.f;
-        const float st = s_s[t];
+        const float st = AF ? x.aref[gbb * T + t] : s_s[t];
         for (int e0 = 0; e0 < E; e0 += 32 * 8) {
           float ev[8], dv[8];
 #pragma unroll
@@ -880,9 +990,16 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
           }
         }
         acc = warp_sum(acc);
-        if (lane == 0)
-          s_ds[t] = a.dsc[gbb * T + t] + __ldcg(wk.dcum + (size_t)b * T + t) +
-                    __ldcg(wk.datt + (size_t)b * T + t) + acc;
+        if (lane == 0) {
+          const float ds = a.dsc[gbb * T + t] + __ldcg(wk.dcum + (size_t)b * T + t) +
+                           __ldcg(wk.datt + (size_t)b * T + t);
+          if constexpr (AF) {
+            s_ds[t] = ds;
+            x.daref[gbb * T + t] = acc;
+          } else {
+            s_ds[t] = ds + acc;
+          }
+        }
       }
       __syncthreads();
       float part = 0.f;
@@ -996,37 +1113,86 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
         gh[D + j] = dpre_z;
         gh[2 * D + j] = dpre_n * r;
         wk.dtz[(size_t)b * D + j] = dh * z;
+        if constexpr (AF) {
+          s_dgi[j] = dpre_r;
+          s_dgi[D + j] = dpre_z;
+          s_dgi[2 * D + j] = dpre_n;
+        }
+      }
+      if constexpr (AF) {
+        // the prenet's backward: dpre = dgi @ awi[:, E:], then through
+        // the second and first layers (ReLU and the dropout keep-masks)
+        // to d(prev), which joins the last frame of group g-1's dmel
+        const int P1 = (int)x.P1, NM = (int)x.NM;
+        float* s_d2 = s_dgi + up4(3 * D);
+        float* s_d1 = s_d2 + up4(P2);
+        float* s_d0 = s_d1 + up4(P1);
+        __syncthreads();
+        rows_matvec(a.awiT + (size_t)E * 3 * D, P2, 3 * D, s_dgi, nullptr, s_d2);
+        __syncthreads();
+        for (int j = threadIdx.x; j < P2; j += THREADS) {
+          const size_t o = gbb * P2 + j;
+          const float v = a.pre[o] > 0.f ? s_d2[j] * x.dm2[o] : 0.f;
+          s_d2[j] = v;
+          x.c_dp2[o] = v;
+        }
+        __syncthreads();
+        rows_matvec(x.w2T, P1, P2, s_d2, nullptr, s_d1);
+        __syncthreads();
+        for (int k = threadIdx.x; k < P1; k += THREADS) {
+          const size_t o = gbb * P1 + k;
+          const float v = x.s_p1[o] > 0.f ? s_d1[k] * x.dm1[o] : 0.f;
+          s_d1[k] = v;
+          x.c_dp1[o] = v;
+        }
+        __syncthreads();
+        if (g > 0) {
+          rows_matvec(x.w1T, NM, P1, s_d1, nullptr, s_d0);
+          __syncthreads();
+          float* dm = x.dmel + (gbb - B) * F + F - NM;
+          for (int m = threadIdx.x; m < NM; m += THREADS) dm[m] = __ldcg(dm + m) + s_d0[m];
+        }
       }
     }
     grid.sync();
-    // ---- 7: [dctx | dpre] = dgi @ awi, dah = dah z + dgh @ awh ----
+    // ---- 7: [dctx | dpre] = dgi @ awi, dah = dah z + dgh @ awh (AF: the
+    // attention stage took dpre) ----
     {
+      const int ni = AF ? E : E + P2;   // units from awi; the rest from awh
       const Seg segs[2] = {{a.c_dgi + gb * 3 * D, 3 * D, 3 * D},
                            {a.c_dgh + gb * 3 * D, 3 * D, 3 * D}};
-      unit_stage(sm, B, bc, E + P2 + D, segs, 2,
+      unit_stage(sm, B, bc, ni + D, segs, 2,
                  [&](int u, const float* X, int xs, int b0, int nr) {
                    float acc[1][RB];
                    zero(acc);
-                   if (u < E + P2)
+                   if (u < ni)
                      dots<1>(acc, a.awiT, u, 0, 3 * D, X, xs, 0, nr);
                    else
-                     dots<1>(acc, a.awhT, u - E - P2, 0, 3 * D, X, xs, 3 * D, nr);
+                     dots<1>(acc, a.awhT, u - ni, 0, 3 * D, X, xs, 3 * D, nr);
                    reduce(acc);
                    if (lane < nr) {
                      const int b = b0 + lane;
                      const float v = pick(acc[0], lane);
                      if (u < E) {
                        wk.dctx[(size_t)b * E + u] = v;
-                     } else if (u < E + P2) {
+                     } else if (u < ni) {
                        a.dpre[(gb + b) * P2 + u - E] = v;
                      } else {
-                       const size_t o = (size_t)b * D + u - E - P2;
+                       const size_t o = (size_t)b * D + u - ni;
                        wk.dah[o] = __ldcg(wk.dtz + o) + v;
                      }
                    }
                  });
     }
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
+  bwd_body<false>(a, AfBwdArgs{});
+}
+
+__global__ void __launch_bounds__(THREADS, 1) taco_af_bwd(TfBwdArgs a, AfBwdArgs x) {
+  bwd_body<true>(a, x);
 }
 
 // C (M x N, row stride ldc) = sum_r A[r, m] * Bm[r - shift, n] over r < R
@@ -1150,41 +1316,10 @@ cudaError_t csum(cudaStream_t st, const float* A, int64_t lda, float* out, int64
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of zeroed workspace the forward / backward needs.
-int64_t wr_taco_tf_fwd_work_floats(const TfFwdArgs* a) { return FwdWork(nullptr, *a).size; }
-int64_t wr_taco_tf_bwd_work_floats(const TfBwdArgs* a) { return BwdWork(nullptr, *a).size; }
-
-// Batch rows per staged pass of the forward (0: the shapes do not fit).
-int64_t wr_taco_tf_fwd_rows(const TfFwdArgs* a) {
-  return make_plan(a->B, a->D, fwd_row_floats(*a), lsa_fwd_floats(a->D, a->T, a->E)).bc;
-}
-int64_t wr_taco_tf_bwd_rows(const TfBwdArgs* a) {
-  return make_plan(a->B, a->D, bwd_row_floats(*a), lsa_bwd_floats(a->D, a->T, a->E)).bc;
-}
-
-// The forward over all G groups on `stream`; returns the CUDA error code.
-int wr_taco_tf_fwd(const TfFwdArgs* args, void* stream) {
-  TfFwdArgs a = *args;
-  const Plan p = make_plan(a.B, a.D, fwd_row_floats(a), lsa_fwd_floats(a.D, a.T, a.E));
-  if (p.bc < 1 || a.bc != p.bc) return cudaErrorInvalidValue;
-  void* kargs[] = {&a};
-  return launch_coop((const void*)taco_tf_fwd, p.smem, kargs, (cudaStream_t)stream);
-}
-
-// The backward: the reverse sweep, then every weight gradient from the
-// cotangent streams it wrote. Returns the CUDA error code.
-int wr_taco_tf_bwd(const TfBwdArgs* args, void* stream) {
-  TfBwdArgs a = *args;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Plan p = make_plan(a.B, a.D, bwd_row_floats(a), lsa_bwd_floats(a.D, a.T, a.E));
-  if (p.bc < 1 || a.bc != p.bc) return cudaErrorInvalidValue;
-  void* kargs[] = {&a};
-  cudaError_t e = launch_coop((const void*)taco_tf_bwd, p.smem, kargs, st);
-  if (e != cudaSuccess) return e;
+// Every weight gradient of the recurrence from the cotangent streams the
+// backward launch wrote (the AF arm adds the prenet's).
+cudaError_t wgrads(const TfBwdArgs& a, const AfBwdArgs* x, cudaStream_t st) {
+  cudaError_t e;
   const int64_t R = a.G * a.B, B = a.B, D = a.D, E = a.E, P2 = a.P2, L = a.L, F = a.F;
   // attention GRUCell: input [ctx_prev | pre], hidden ah_prev (rows shifted by B)
   if ((e = gemm(st, a.c_dgi, 3 * D, a.s_ctx, E, B, a.dawi, E + P2, 3 * D, E, R))) return e;
@@ -1206,14 +1341,93 @@ int wr_taco_tf_bwd(const TfBwdArgs* args, void* stream) {
   if ((e = gemm(st, a.c_dg2, 4 * L, a.s_x1, L, 0, a.dl2wi, L, 4 * L, L, R))) return e;
   if ((e = gemm(st, a.c_dg2, 4 * L, a.s_h2, L, B, a.dl2wh, L, 4 * L, L, R))) return e;
   if ((e = csum(st, a.c_dg2, 4 * L, a.dl2b, 4 * L, R))) return e;
-  // mel_proj (the r frames' rows)
+  // mel_proj (the r frames' rows; AF: the cotangent with Dprev added)
   if ((e = gemm(st, a.dmel, F, a.s_x2, L, 0, a.dwm, L, F, L, R))) return e;
+  if (x) {   // the prenet: fc2 on p1 (after its dropout), fc1 on prev
+    const int64_t P1 = x->P1, NM = x->NM;
+    if ((e = gemm(st, x->c_dp2, P2, x->s_p1, P1, 0, x->dw2, P1, P2, P1, R))) return e;
+    if ((e = csum(st, x->c_dp2, P2, x->db2, P2, R))) return e;
+    if ((e = gemm(st, x->c_dp1, P1, x->s_prev, NM, 0, x->dw1, NM, P1, NM, R))) return e;
+    if ((e = csum(st, x->c_dp1, P1, x->db1, P1, R))) return e;
+  }
   // the per-utterance partials: location weight (B, 62, D) -> (D, 62), v
   reduce_parts<<<(unsigned)((NTAP * D + 255) / 256), 256, 0, st>>>(a.pw01, (int)B, NTAP,
                                                                     (int)D, 1, a.dw01);
   if ((e = cudaGetLastError())) return e;
   reduce_parts<<<(unsigned)((D + 255) / 256), 256, 0, st>>>(a.pv, (int)B, 1, (int)D, 0, a.dv);
   return cudaGetLastError();
+}
+
+Plan fwd_plan(const TfFwdArgs& a, const AfFwdArgs* x) {
+  int64_t lsa = lsa_fwd_floats(a.D, a.T, a.E);
+  if (x && af_fwd_floats(a, *x) > lsa) lsa = af_fwd_floats(a, *x);
+  return make_plan(a.B, a.D, fwd_row_floats(a), lsa);
+}
+
+Plan bwd_plan(const TfBwdArgs& a, const AfBwdArgs* x) {
+  const int64_t lsa = lsa_bwd_floats(a.D, a.T, a.E) + (x ? af_bwd_floats(a, *x) : 0);
+  return make_plan(a.B, a.D, bwd_row_floats(a), lsa);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of zeroed workspace the forward / backward needs (both arms).
+int64_t wr_taco_tf_fwd_work_floats(const TfFwdArgs* a) { return FwdWork(nullptr, *a).size; }
+int64_t wr_taco_tf_bwd_work_floats(const TfBwdArgs* a) { return BwdWork(nullptr, *a).size; }
+
+// Batch rows per staged pass (0: the shapes do not fit).
+int64_t wr_taco_tf_fwd_rows(const TfFwdArgs* a) { return fwd_plan(*a, nullptr).bc; }
+int64_t wr_taco_tf_bwd_rows(const TfBwdArgs* a) { return bwd_plan(*a, nullptr).bc; }
+int64_t wr_taco_af_fwd_rows(const TfFwdArgs* a, const AfFwdArgs* x) {
+  return fwd_plan(*a, x).bc;
+}
+int64_t wr_taco_af_bwd_rows(const TfBwdArgs* a, const AfBwdArgs* x) {
+  return bwd_plan(*a, x).bc;
+}
+
+// The forward over all G groups on `stream`; returns the CUDA error code.
+int wr_taco_tf_fwd(const TfFwdArgs* args, void* stream) {
+  TfFwdArgs a = *args;
+  const Plan p = fwd_plan(a, nullptr);
+  if (p.bc < 1 || a.bc != p.bc) return cudaErrorInvalidValue;
+  void* kargs[] = {&a};
+  return launch_coop((const void*)taco_tf_fwd, p.smem, kargs, (cudaStream_t)stream);
+}
+
+int wr_taco_af_fwd(const TfFwdArgs* args, const AfFwdArgs* xargs, void* stream) {
+  TfFwdArgs a = *args;
+  AfFwdArgs x = *xargs;
+  const Plan p = fwd_plan(a, &x);
+  if (p.bc < 1 || a.bc != p.bc || a.pre != x.s_pre) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &x};
+  return launch_coop((const void*)taco_af_fwd, p.smem, kargs, (cudaStream_t)stream);
+}
+
+// The backward: the reverse sweep, then every weight gradient from the
+// cotangent streams it wrote. Returns the CUDA error code.
+int wr_taco_tf_bwd(const TfBwdArgs* args, void* stream) {
+  TfBwdArgs a = *args;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Plan p = bwd_plan(a, nullptr);
+  if (p.bc < 1 || a.bc != p.bc) return cudaErrorInvalidValue;
+  void* kargs[] = {&a};
+  cudaError_t e = launch_coop((const void*)taco_tf_bwd, p.smem, kargs, st);
+  if (e != cudaSuccess) return e;
+  return wgrads(a, nullptr, st);
+}
+
+int wr_taco_af_bwd(const TfBwdArgs* args, const AfBwdArgs* xargs, void* stream) {
+  TfBwdArgs a = *args;
+  AfBwdArgs x = *xargs;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Plan p = bwd_plan(a, &x);
+  if (p.bc < 1 || a.bc != p.bc || a.dmel != x.dmel) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &x};
+  cudaError_t e = launch_coop((const void*)taco_af_bwd, p.smem, kargs, st);
+  if (e != cudaSuccess) return e;
+  return wgrads(a, &x, st);
 }
 
 }  // extern "C"

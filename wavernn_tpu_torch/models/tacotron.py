@@ -1,6 +1,6 @@
 """Tacotron (text -> mel) for PyTorch (port of
-``wavernn_tpu.models.tacotron``: free-running inference and the
-teacher-forcing training forward).
+``wavernn_tpu.models.tacotron``: free-running inference and the training
+forward of every mode).
 
 Module and parameter names follow the reference state dict
 (models/tacotron.py:289-519), so a reference ``.pyt`` loads with
@@ -8,8 +8,8 @@ Module and parameter names follow the reference state dict
 PyTorch, the whole free-running decoder loop runs in the decode kernel
 (ops/cuda_taco.py), then the postnet CBHG and ``post_proj``. Training
 (``forward``): the CBHG BiGRUs run on the GRU recurrence kernel B5
-(ops/cuda_gru.py) and the decoder's group recurrence on kernel B6
-(ops/cuda_taco_train.py).
+(ops/cuda_gru.py) and the decoder's group recurrence on kernel B6 (teacher
+forcing) or B7 (attention forcing) (ops/cuda_taco_train.py).
 """
 from __future__ import annotations
 
@@ -20,11 +20,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import TacotronConfig
+from ..config import TTS_MODES, TacotronConfig
 from ..device import resolve_device
 from ..ops import layers as L
 from ..ops.cuda_taco import decode
-from ..ops.cuda_taco_train import decoder_tf_train, zoneout_masks
+from ..ops.cuda_taco_train import (af_operands, core_free_ref,
+                                   decoder_af_train, decoder_tf_train,
+                                   zoneout_masks)
 from ..text.symbols import symbols
 from ..timing import stage
 
@@ -340,27 +342,38 @@ def forward(model: Tacotron, x_ids, m, r: int,
             mode: str = "teacher_forcing", training: bool = True,
             generate_gta: bool = False, recurrence: str = "auto",
             masks: Optional[dict] = None,
-            generator: Optional[torch.Generator] = None):
-    """Teacher-forcing forward (tacotron.py:319-379; the JAX package's
-    ``models/tacotron.forward`` TF branch).
+            generator: Optional[torch.Generator] = None,
+            attn_ref: Optional[torch.Tensor] = None,
+            decoder_only: bool = False):
+    """Training forward of every mode (tacotron.py:319-379; the JAX
+    package's ``models/tacotron.forward``).
 
     x_ids (B, T_text); m (B, n_mels, steps) target mels, steps % r == 0.
     Returns (mel_out (B, n_mels, steps), linear (B, n_mels, steps), attn
-    (B, steps // r, T_text)). ``training`` applies the two encoder-prenet
-    and the two decoder-prenet dropouts and zoneout, runs BatchNorm on
-    batch statistics and updates its running statistics in place; their
-    random draws are ``masks`` (``draw_masks``' dict, injected) or drawn
-    from ``generator``. ``generate_gta`` forces eval mode (no dropout,
-    zoneout off, running statistics).
+    (B, steps // r, T_text)). ``mode``: "teacher_forcing" feeds group g > 0
+    the ground-truth frame m[:, :, g*r - 1]; "attention_forcing_online" /
+    "attention_forcing_offline" feed the decoder's own previous frame and
+    weight the context by ``attn_ref`` (B, steps // r, T_text);
+    "free_running" feeds its own frame and weights the context by its own
+    scores. ``training`` applies the two encoder-prenet and the two
+    decoder-prenet dropouts and zoneout, runs BatchNorm on batch statistics
+    and updates its running statistics in place; their random draws are
+    ``masks`` (``draw_masks``' dict, injected) or drawn from ``generator``.
+    ``generate_gta`` forces eval mode (no dropout, zoneout off, running
+    statistics). ``decoder_only`` skips the postnet (linear is None).
     ``recurrence``: "auto"/"pallas" run the CBHG BiGRUs on B5 and the
-    decoder recurrence on B6 (their plain versions on CPU tensors); "scan"
-    runs the plain step loops under autograd."""
-    if mode != "teacher_forcing":
-        raise NotImplementedError(
-            f"mode {mode!r}: only teacher forcing is ported; the attention-"
-            "forcing arms and free running wait for kernel B7 (ROADMAP B7)")
+    decoder recurrence on B6 (teacher forcing) or B7 (attention forcing),
+    their plain versions on CPU tensors; "scan" runs the plain step loops
+    under autograd. Free running has no kernel: its loop is plain on every
+    device."""
+    if mode not in TTS_MODES:
+        raise ValueError(f"unknown mode {mode!r}: one of {TTS_MODES}")
     if recurrence not in ("auto", "pallas", "scan"):
         raise ValueError(f"unknown recurrence {recurrence!r}")
+    af = mode.startswith("attention_forcing")
+    if af and attn_ref is None:
+        raise ValueError(f"mode {mode!r} needs attn_ref (B, steps // r, "
+                         "T_text)")
     if generate_gta:
         training = False
     tts, n_mels = model.tts, model.n_mels
@@ -375,27 +388,48 @@ def forward(model: Tacotron, x_ids, m, r: int,
     encoder_seq = model.encoder(x_ids, training, engine, tts.dropout,
                                 (mk("enc_drop1"), mk("enc_drop2")))
     encoder_seq_proj = L.linear(encoder_seq, model.encoder_proj.weight)
-
-    # group g > 0 is fed the ground-truth frame m[:, :, g*r - 1]; group 0
-    # the GO frame. The prenet is hoisted over all G*B rows.
-    tf_in = torch.cat([m.new_zeros(B, n_mels, 1), m[:, :, r - 1::r][:, :, :-1]],
-                      dim=2)
-    dec_masks = tuple(None if t is None else t.reshape(G * B, -1)
-                      for t in (mk("dec_drop1"), mk("dec_drop2")))
-    pre_all = prenet(tf_in.permute(2, 0, 1).reshape(G * B, n_mels),
-                     dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
-                     dec["prenet.fc2.weight"], dec["prenet.fc2.bias"],
-                     tts.dropout, training, dec_masks).reshape(G, B, -1)
     if training:
         zm1, zm2 = masks["zm1"], masks["zm2"]
     else:
         zm1 = zm2 = m.new_zeros(G, B, tts.lstm_dims)
-    mel_groups, attn_scores = decoder_tf_train(
-        dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2, tts.max_r, r,
-        n_mels, impl=engine)
+
+    if mode == "teacher_forcing":
+        # group g > 0 is fed the ground-truth frame m[:, :, g*r - 1]; group
+        # 0 the GO frame. The prenet is hoisted over all G*B rows.
+        tf_in = torch.cat([m.new_zeros(B, n_mels, 1),
+                           m[:, :, r - 1::r][:, :, :-1]], dim=2)
+        dec_masks = tuple(None if t is None else t.reshape(G * B, -1)
+                          for t in (mk("dec_drop1"), mk("dec_drop2")))
+        pre_all = prenet(tf_in.permute(2, 0, 1).reshape(G * B, n_mels),
+                         dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
+                         dec["prenet.fc2.weight"], dec["prenet.fc2.bias"],
+                         tts.dropout, training, dec_masks).reshape(G, B, -1)
+        mel_groups, attn_scores = decoder_tf_train(
+            dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2, tts.max_r,
+            r, n_mels, impl=engine)
+    else:
+        # the prenet runs inside the recurrence on the previous group's
+        # last frame, with the decoder prenet's dropout masks per group
+        if training:
+            dm1, dm2 = masks["dec_drop1"], masks["dec_drop2"]
+        else:
+            P1 = dec["prenet.fc1.weight"].shape[0]
+            P2 = dec["prenet.fc2.weight"].shape[0]
+            dm1, dm2 = m.new_ones(G, B, P1), m.new_ones(G, B, P2)
+        if af:
+            mel_groups, attn_scores = decoder_af_train(
+                dec, encoder_seq, encoder_seq_proj, attn_ref, dm1, dm2, zm1,
+                zm2, tts.max_r, r, n_mels, impl=engine)
+        else:
+            mel, attn_scores = core_free_ref(
+                dm1, dm2, zm1.to(m.dtype), zm2.to(m.dtype), encoder_seq,
+                encoder_seq_proj, *af_operands(dec, tts.max_r, r, n_mels))
+            mel_groups = mel.reshape(G, B, r, n_mels).transpose(2, 3)
 
     mel_out = mel_groups.permute(1, 2, 0, 3).reshape(B, n_mels, steps)
     attn = attn_scores.transpose(0, 1)
+    if decoder_only:
+        return mel_out, None, attn
     linear = postnet(model, mel_out, training, engine)
     return mel_out, linear, attn
 

@@ -1,16 +1,24 @@
-"""Tacotron teacher-forcing decoder training recurrence (kernel B6): the
-CUDA kernels' wrappers, the autograd Function and the plain PyTorch
-versions.
+"""Tacotron decoder training recurrence, teacher forcing (kernel B6) and
+attention forcing (kernel B7): the CUDA kernels' wrappers, the autograd
+Functions and the plain PyTorch versions.
 
-Port of ``wavernn_tpu/ops/pallas_taco_train.py``: ``decoder_tf_train`` and
-its operand preparation, ``zoneout_masks``, and the TPU kernels
-``_make_fwd_kernel(af=False)`` / ``_make_bwd_kernel(af=False)`` behind the
-custom VJP ``_core``. The kernels (``csrc/taco_train.cu``) run all G groups
-of the batch in one cooperative launch per direction; the backward launch
-also forms every weight gradient of the recurrence with hand-written
-reduction kernels. ``core_ref`` is the plain forward (the JAX package's
-``core_ref`` in the natural batched layout) and ``core_bwd_ref`` the plain
-backward, a hand-written reverse sweep with the kernels' arithmetic.
+Port of ``wavernn_tpu/ops/pallas_taco_train.py``: ``decoder_tf_train``,
+``decoder_af_train`` and their operand preparation, ``zoneout_masks``, and
+the TPU kernels ``_make_fwd_kernel`` / ``_make_bwd_kernel`` behind the
+custom VJPs ``_core`` (af=False) and ``_core_af`` (af=True). The kernels
+(``csrc/taco_train.cu``) run all G groups of the batch in one cooperative
+launch per direction; the backward launch also forms every weight gradient
+of the recurrence with hand-written reduction kernels. ``core_ref`` /
+``core_af_ref`` are the plain forwards (the JAX package's twins in the
+natural batched layout) and ``core_bwd_ref`` / ``core_af_bwd_ref`` the
+plain backwards, hand-written reverse sweeps with the kernels' arithmetic.
+``core_free_ref`` is the free-running loop, which has no kernel.
+
+Attention forcing: the context weights are a reference attention aref
+(G, B, T) instead of the decoder's scores, and the prenet runs inside the
+recurrence on the previous group's last mel frame, with the dropout
+keep-masks dm1 (G, B, P1) / dm2 (G, B, P2) scaled by 1 / (1 - rate) (ones
+in eval); its weights (``AF_PRENET``) come before ``WEIGHTS``.
 
 The operands keep their natural batched form: pre (G, B, P2) hoisted
 prenet outputs, zm1/zm2 (G, B, L) zoneout keep-previous masks (1 keeps the
@@ -43,6 +51,12 @@ WEIGHTS = ("awi", "abi", "awh", "abh", "wq", "qb", "W01", "v", "wr", "br",
 # x2, the LSTMs' gate activations [i|f|g|o], c1, h1, c2, h2
 STREAMS = ("cum", "q", "div", "ah", "gru", "ctx", "x0", "x1", "x2", "g1",
            "g2", "c1", "h1", "c2", "h2")
+# the AF arm's prenet weights (torch layouts: fc1 (P1, n_mels), fc2 (P2,
+# P1)) before ``WEIGHTS``, and its extra streams: the previous frame the
+# prenet read, its first layer after dropout, its output
+AF_PRENET = ("w1", "b1", "w2", "b2")
+AF_WEIGHTS = AF_PRENET + WEIGHTS
+AF_STREAMS = STREAMS + ("prev", "p1", "pre")
 
 
 def zoneout_masks(n_groups: int, B: int, L: int, generator: torch.Generator,
@@ -80,6 +94,15 @@ def decoder_operands(dec: Dict[str, torch.Tensor], max_r: int, r: int,
             wm.transpose(0, 1).reshape(r * n_mels, L_))
 
 
+def af_operands(dec: Dict[str, torch.Tensor], max_r: int, r: int,
+                n_mels: int) -> Tuple[torch.Tensor, ...]:
+    """The AF recurrence's weight operands (``AF_WEIGHTS`` order): the
+    decoder prenet's, then ``decoder_operands``."""
+    return (dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
+            dec["prenet.fc2.weight"], dec["prenet.fc2.bias"]) \
+        + decoder_operands(dec, max_r, r, n_mels)
+
+
 def _windows(x):
     """(B, T) -> (B, T, 31): [b, t, k] = x[b, t + k - 15], zero outside."""
     return F.pad(x, (CONV_HALF, CONV_HALF)).unfold(-1, CONV_K, 1)
@@ -103,24 +126,38 @@ def _lstm(x, h, c, z, wi, wh, b):
     return h, c, torch.cat([i, f, gg, o], dim=-1)
 
 
-def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
-             wr, br, l1wi, l1wh, l1b, l2wi, l2wh, l2b, wm,
-             save: bool = False):
-    """Plain forward, one group at a time (``pallas_taco_train.py:983-1055``
-    in the batched layout): (mel (G, B, F), scores (G, B, T), streams), the
-    streams a dict of ``STREAMS`` when ``save``, else None. Differentiable
-    by autograd."""
-    G, B, _ = pre.shape
+def _forward(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
+    """The plain group loop of every arm. TF: ``pre`` (G, B, P2), the
+    hoisted prenet. AF and free running: ``af`` = (aref, dm1, dm2, w1, b1,
+    w2, b2); the prenet runs on the previous group's last mel frame
+    (zeros at g = 0) with the scaled dropout keep-masks dm1/dm2, and the
+    context weights are aref (G, B, T), or the scores when aref is None."""
+    (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b, l2wi,
+     l2wh, l2b, wm) = weights
+    G, B = zm1.shape[:2]
     T, E = enc.shape[1], enc.shape[2]
     D, L = wq.shape[0], wr.shape[0]
-    z = lambda *s: pre.new_zeros(s)
+    z = lambda *s: enc.new_zeros(s)
     ah, ctx = z(B, D), z(B, E)
     h1, c1, h2, c2 = z(B, L), z(B, L), z(B, L), z(B, L)
     cum, att = z(B, T), z(B, T)
     mels, scs = [], []
-    st = {k: [] for k in STREAMS} if save else None
+    names = STREAMS if af is None else AF_STREAMS
+    st = {k: [] for k in names} if save else None
+    if af is not None:
+        aref, dm1, dm2, w1, b1, w2, b2 = af
+        prev = z(B, w1.shape[1])
     for g in range(G):
-        gi = torch.cat([ctx, pre[g]], dim=1) @ awi.t() + abi
+        if af is not None:
+            p1 = torch.relu(prev @ w1.t() + b1) * dm1[g]
+            pre_g = torch.relu(p1 @ w2.t() + b2) * dm2[g]
+            if save:
+                st["prev"].append(prev)
+                st["p1"].append(p1)
+                st["pre"].append(pre_g)
+        else:
+            pre_g = pre[g]
+        gi = torch.cat([ctx, pre_g], dim=1) @ awi.t() + abi
         gh = ah @ awh.t() + abh
         r = torch.sigmoid(gi[:, :D] + gh[:, :D])
         zg = torch.sigmoid(gi[:, D:2 * D] + gh[:, D:2 * D])
@@ -131,7 +168,8 @@ def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
         sig = torch.sigmoid(_energy_args(cum, att, q, encp, W01) @ v)
         div = sig.sum(dim=1)
         s = sig / torch.where(div > 0, div, torch.ones_like(div))[:, None]
-        ctx = torch.einsum("bt,bte->be", s, enc)
+        cw = s if af is None or aref is None else aref[g]
+        ctx = torch.einsum("bt,bte->be", cw, enc)
         if save:
             st["cum"].append(cum)
             st["q"].append(q)
@@ -145,8 +183,11 @@ def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
         x1 = x0 + h1
         h2, c2, g2 = _lstm(x1, h2, c2, zm2[g], l2wi, l2wh, l2b)
         x2 = x1 + h2
-        mels.append(x2 @ wm.t())
+        mel = x2 @ wm.t()
+        mels.append(mel)
         scs.append(s)
+        if af is not None:
+            prev = mel[:, mel.shape[1] - prev.shape[1]:]
         if save:
             for k, val in (("x0", x0), ("x1", x1), ("x2", x2), ("g1", g1),
                            ("g2", g2), ("c1", c1), ("h1", h1), ("c2", c2),
@@ -154,6 +195,40 @@ def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
                 st[k].append(val)
     streams = {k: torch.stack(v_) for k, v_ in st.items()} if save else None
     return torch.stack(mels), torch.stack(scs), streams
+
+
+def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
+             wr, br, l1wi, l1wh, l1b, l2wi, l2wh, l2b, wm,
+             save: bool = False):
+    """Plain TF forward, one group at a time (``pallas_taco_train.py:
+    983-1055`` in the batched layout): (mel (G, B, F), scores (G, B, T),
+    streams), the streams a dict of ``STREAMS`` when ``save``, else None.
+    Differentiable by autograd."""
+    weights = (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b,
+               l2wi, l2wh, l2b, wm)
+    return _forward(zm1, zm2, enc, encp, weights, save, pre=pre)
+
+
+def core_af_ref(aref, dm1, dm2, zm1, zm2, enc, encp, w1, b1, w2, b2,
+                *weights, save: bool = False):
+    """Plain AF forward (``pallas_taco_train.py:1058-1140`` in the batched
+    layout): aref (G, B, T) weights the context; the prenet (w1 (P1,
+    n_mels), b1, w2 (P2, P1), b2) runs on the carried last frame of the
+    previous group's mel with the scaled dropout keep-masks dm1 (G, B, P1)
+    / dm2 (G, B, P2). Returns (mel (G, B, F), scores (G, B, T), streams),
+    the streams a dict of ``AF_STREAMS`` when ``save``. Differentiable by
+    autograd."""
+    return _forward(zm1, zm2, enc, encp, weights, save,
+                    af=(aref, dm1, dm2, w1, b1, w2, b2))
+
+
+def core_free_ref(dm1, dm2, zm1, zm2, enc, encp, w1, b1, w2, b2, *weights):
+    """Plain free-running forward: ``core_af_ref`` with the context weighted
+    by the decoder's own scores (the JAX package's ``free_running`` branch,
+    which has no kernel). Returns (mel (G, B, F), scores (G, B, T))."""
+    mel, sc, _ = _forward(zm1, zm2, enc, encp, weights, False,
+                          af=(None, dm1, dm2, w1, b1, w2, b2))
+    return mel, sc
 
 
 def _lstm_bwd(dh, dc, gates, c, c_prev, z, wi, wh):
@@ -169,29 +244,36 @@ def _lstm_bwd(dh, dc, gates, c, c_prev, z, wi, wh):
     return dG, dG @ wi, z * dh + dG @ wh, dcn * f
 
 
-def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
-                 awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b,
-                 l2wi, l2wh, l2b, wm):
-    """Plain backward: the reverse sweep of the kernel, group by group, from
-    the forward's streams. dmel (G, B, F), dsc (G, B, T) (the scores'
-    cotangent, or None). Returns (dpre, denc, dencp, weight gradients in
-    ``WEIGHTS`` order)."""
-    G, B, P2 = pre.shape
+def _backward(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
+              pre=None, af=None):
+    """The plain reverse sweep of both arms (the kernels' spec), group by
+    group from the forward's streams: TF with ``pre``; AF with ``af`` =
+    (aref, dm1, dm2, w1, b1, w2, b2). Returns (d(pre) or d(aref), denc,
+    dencp, the weight gradients by name)."""
+    (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b, l2wi,
+     l2wh, l2b, wm) = weights
+    G, B = zm1.shape[:2]
     T, E = enc.shape[1], enc.shape[2]
     D, L = wq.shape[0], wr.shape[0]
     if dsc is None:
         dsc = scores.new_zeros(scores.shape)
     s_ = streams
-    z = lambda *s: pre.new_zeros(s)
+    z = lambda *s: enc.new_zeros(s)
     dah, dctx = z(B, D), z(B, E)
     dh1, dc1, dh2, dc2 = z(B, L), z(B, L), z(B, L), z(B, L)
     dcum, datt = z(B, T), z(B, T)
-    acc = {k: torch.zeros_like(w) for k, w in zip(WEIGHTS, (
-        awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b, l2wi,
-        l2wh, l2b, wm))}
-    dpre = torch.empty_like(pre)
+    acc = {k: torch.zeros_like(w) for k, w in zip(WEIGHTS, weights)}
     denc, dencp = torch.zeros_like(enc), torch.zeros_like(encp)
     conv_w = torch.stack([W01[:, :CONV_K], W01[:, CONV_K:]], dim=1)
+    if af is None:
+        dfirst = torch.empty_like(pre)                     # d(pre)
+    else:
+        aref, dm1, dm2, w1, b1, w2, b2 = af
+        NM = w1.shape[1]
+        dfirst = torch.empty_like(aref)                    # d(aref)
+        for k, w in zip(AF_PRENET, (w1, b1, w2, b2)):
+            acc[k] = torch.zeros_like(w)
+        dprev = z(B, NM)
 
     def prev(name, g):
         return s_[name][g - 1] if g > 0 else torch.zeros_like(s_[name][0])
@@ -199,9 +281,13 @@ def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
     for g in range(G - 1, -1, -1):
         x0, x1, x2 = s_["x0"][g], s_["x1"][g], s_["x2"][g]
         ah, ctx = s_["ah"][g], s_["ctx"][g]
+        dmel_g = dmel[g]
+        if af is not None:   # the next group's prenet read this last frame
+            dmel_g = torch.cat([dmel_g[:, :-NM], dmel_g[:, -NM:] + dprev],
+                               dim=1)
         # mel_proj and the two LSTMCells
-        dx2 = dmel[g] @ wm
-        acc["wm"] += dmel[g].t() @ x2
+        dx2 = dmel_g @ wm
+        acc["wm"] += dmel_g.t() @ x2
         dG2, dxin2, dh2, dc2 = _lstm_bwd(dh2 + dx2, dc2, s_["g2"][g],
                                          s_["c2"][g], prev("c2", g), zm2[g],
                                          l2wi, l2wh)
@@ -224,8 +310,14 @@ def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
         dah_t = dah + dcat[:, E:]
         # attention: context, cumulative and attention carries, normaliser
         s = scores[g]
-        ds = dsc[g] + dcum + datt + torch.einsum("be,bte->bt", dctx_t, enc)
-        denc += s[:, :, None] * dctx_t[:, None, :]
+        dcontract = torch.einsum("be,bte->bt", dctx_t, enc)
+        if af is None:
+            ds = dsc[g] + dcum + datt + dcontract
+            denc += s[:, :, None] * dctx_t[:, None, :]
+        else:
+            ds = dsc[g] + dcum + datt
+            dfirst[g] = dcontract
+            denc += aref[g][:, :, None] * dctx_t[:, None, :]
         cum_p, att_p = s_["cum"][g], prev_scores(scores, g)
         arg = _energy_args(cum_p, att_p, s_["q"][g], encp, W01)
         sig = torch.sigmoid(arg @ v)
@@ -260,13 +352,51 @@ def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
         dgh = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=-1)
         dinp = dgi @ awi
         dctx = dinp[:, :E]
-        dpre[g] = dinp[:, E:]
         dah = dah_t * zg + dgh @ awh
-        acc["awi"] += dgi.t() @ torch.cat([prev("ctx", g), pre[g]], dim=1)
+        pre_g = pre[g] if af is None else s_["pre"][g]
+        acc["awi"] += dgi.t() @ torch.cat([prev("ctx", g), pre_g], dim=1)
         acc["abi"] += dgi.sum(0)
         acc["awh"] += dgh.t() @ ah_p
         acc["abh"] += dgh.sum(0)
+        if af is None:
+            dfirst[g] = dinp[:, E:]
+            continue
+        # the prenet (ReLU and dropout; dm1, dm2 >= 0), back to the
+        # previous group's last mel frame
+        p1 = s_["p1"][g]
+        dp2 = dinp[:, E:] * dm2[g] * (pre_g > 0)
+        acc["w2"] += dp2.t() @ p1
+        acc["b2"] += dp2.sum(0)
+        dp1 = (dp2 @ w2) * dm1[g] * (p1 > 0)
+        acc["w1"] += dp1.t() @ s_["prev"][g]
+        acc["b1"] += dp1.sum(0)
+        dprev = dp1 @ w1
+    return dfirst, denc, dencp, acc
+
+
+def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
+                 *weights):
+    """Plain TF backward: the reverse sweep of the kernel, group by group,
+    from the forward's streams. dmel (G, B, F), dsc (G, B, T) (the scores'
+    cotangent, or None). Returns (dpre, denc, dencp, weight gradients in
+    ``WEIGHTS`` order)."""
+    dpre, denc, dencp, acc = _backward(dmel, dsc, streams, scores, zm1, zm2,
+                                       enc, encp, weights, pre=pre)
     return (dpre, denc, dencp) + tuple(acc[k] for k in WEIGHTS)
+
+
+def core_af_bwd_ref(dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2,
+                    enc, encp, w1, b1, w2, b2, *weights):
+    """Plain AF backward, the B7 kernel's spec (``pallas_taco_train.py:
+    440-446, 533-546, 597-628``): the previous-frame cotangent Dprev joins
+    the last frame of the group before's dmel, the context contraction goes
+    to d(aref) and not into the scores' cotangent, and the prenet's
+    backward gives its weight gradients and Dprev. Returns (daref, denc,
+    dencp, weight gradients in ``AF_WEIGHTS`` order)."""
+    daref, denc, dencp, acc = _backward(
+        dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
+        af=(aref, dm1, dm2, w1, b1, w2, b2))
+    return (daref, denc, dencp) + tuple(acc[k] for k in AF_WEIGHTS)
 
 
 def prev_scores(scores, g):
@@ -309,29 +439,46 @@ class _BwdArgs(ctypes.Structure):
                 + [(f, ctypes.c_int64) for f in _DIMS + ("bc",)])
 
 
+class _AfFwdArgs(ctypes.Structure):   # AfFwdArgs in csrc/taco_train.cu
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "aref", "dm1", "dm2", "w1", "b1", "w2", "b2", "s_prev", "s_p1",
+        "s_pre")] + [("P1", ctypes.c_int64), ("NM", ctypes.c_int64)])
+
+
+class _AfBwdArgs(ctypes.Structure):   # AfBwdArgs
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "aref", "dm1", "dm2", "w1T", "w2T", "s_prev", "s_p1", "dmel",
+        "c_dp1", "c_dp2", "daref", "dw1", "db1", "dw2", "db2")]
+        + [("P1", ctypes.c_int64), ("NM", ctypes.c_int64)])
+
+
 def _lib():
     lib = _build.load("taco_train")
     if not getattr(lib, "_typed", False):
-        for fn in (lib.wr_taco_tf_fwd, lib.wr_taco_tf_bwd):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.wr_taco_tf_fwd_work_floats,
-                   lib.wr_taco_tf_bwd_work_floats, lib.wr_taco_tf_fwd_rows,
-                   lib.wr_taco_tf_bwd_rows):
-            fn.argtypes = [ctypes.c_void_p]
-            fn.restype = ctypes.c_int64
+        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        for fn, args, res in (
+                (lib.wr_taco_tf_fwd, [P, P], ctypes.c_int),
+                (lib.wr_taco_tf_bwd, [P, P], ctypes.c_int),
+                (lib.wr_taco_af_fwd, [P, P, P], ctypes.c_int),
+                (lib.wr_taco_af_bwd, [P, P, P], ctypes.c_int),
+                (lib.wr_taco_tf_fwd_work_floats, [P], I64),
+                (lib.wr_taco_tf_bwd_work_floats, [P], I64),
+                (lib.wr_taco_tf_fwd_rows, [P], I64),
+                (lib.wr_taco_tf_bwd_rows, [P], I64),
+                (lib.wr_taco_af_fwd_rows, [P, P], I64),
+                (lib.wr_taco_af_bwd_rows, [P, P], I64)):
+            fn.argtypes, fn.restype = args, res
         lib._typed = True
     return lib
 
 
-def _dims(pre, enc, weights) -> Dict[str, int]:
-    G, B, P2 = pre.shape
-    d = dict(G=G, B=B, P2=P2, T=enc.shape[1], E=enc.shape[2],
-             D=weights[4].shape[0], L=weights[8].shape[0],
+def _dims(G, B, enc, weights) -> Dict[str, int]:
+    d = dict(G=G, B=B, P2=weights[0].shape[1] - enc.shape[2], T=enc.shape[1],
+             E=enc.shape[2], D=weights[4].shape[0], L=weights[8].shape[0],
              F=weights[16].shape[0])
     if any(d[k] % 4 for k in ("E", "D", "P2", "L", "F")):
-        raise ValueError(f"the B6 kernels need E, D, P2, L and F divisible "
-                         f"by 4, got {d}")
+        raise ValueError(f"the B6/B7 kernels need E, D, P2, L and F "
+                         f"divisible by 4, got {d}")
     return d
 
 
@@ -345,40 +492,59 @@ def _check_weights(weights, d, dev):
         _build.check_operand(w, name, torch.float32, shape, dev)
 
 
-def _run(fn, args, dev, what):
-    with torch.cuda.device(dev):
-        err = fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+def _prep_af(af, d, dev):
+    """The AF operands, checked and contiguous: (aref, dm1, dm2, w1, b1, w2,
+    b2, P1, n_mels)."""
+    aref, dm1, dm2, w1, b1, w2, b2 = (t.detach().contiguous() for t in af)
+    P1, NM = w1.shape
+    G, B, T, P2, Fm = d["G"], d["B"], d["T"], d["P2"], d["F"]
+    if P1 % 4 or NM % 4 or Fm % NM:
+        raise ValueError(f"the B7 kernels need P1 and n_mels divisible by 4 "
+                         f"and F = r * n_mels, got P1 {P1}, n_mels {NM}, "
+                         f"F {Fm}")
+    for t, name, shape in ((aref, "aref", (G, B, T)), (dm1, "dm1", (G, B, P1)),
+                           (dm2, "dm2", (G, B, P2)), (w1, "w1", (P1, NM)),
+                           (b1, "b1", (P1,)), (w2, "w2", (P2, P1)),
+                           (b2, "b2", (P2,))):
+        _build.check_operand(t, name, torch.float32, shape, dev)
+    return aref, dm1, dm2, w1, b1, w2, b2, P1, NM
+
+
+def _run(err, kid, what):
     if err:
-        raise RuntimeError(f"B6 {what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kid} {what} kernel launch failed: CUDA error "
+                           f"{err}")
 
 
-def _rows(fn, args, what):
-    bc = fn(ctypes.byref(args))
+def _rows(bc, kid, what):
     if bc < 1:
-        raise ValueError(f"no B6 {what} launch fits these shapes in shared "
-                         "memory")
+        raise ValueError(f"no {kid} {what} launch fits these shapes in "
+                         "shared memory")
     return bc
 
 
-def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool):
-    """Forward over all groups: (mel (G, B, F), scores (G, B, T), streams
-    or None). CPU: ``core_ref``; CUDA: the forward kernel."""
-    if pre.device.type == "cpu":
-        return core_ref(pre, zm1, zm2, enc, encp, *weights, save=save)
-    if pre.device.type != "cuda":
-        raise ValueError(f"no B6 kernel for {pre.device}")
-    dev = pre.device
+def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
+    """The forward kernel of either arm (TF: ``pre``; AF: ``af`` as in
+    ``_forward``): (mel, scores, streams or None)."""
+    dev = enc.device
     f32 = torch.float32
-    pre, zm1, zm2, enc, encp = (t.contiguous() for t in
-                                (pre, zm1, zm2, enc, encp))
+    kid = "B6" if af is None else "B7"
+    zm1, zm2, enc, encp = (t.contiguous() for t in (zm1, zm2, enc, encp))
     weights = tuple(w.detach().contiguous() for w in weights)
-    d = _dims(pre, enc, weights)
+    d = _dims(zm1.shape[0], zm1.shape[1], enc, weights)
     G, B, T, E, D, P2, L, Fm = (d[k] for k in _DIMS)
-    for t, name, shape in ((pre, "pre", (G, B, P2)), (zm1, "zm1", (G, B, L)),
-                           (zm2, "zm2", (G, B, L)), (enc, "enc", (B, T, E)),
-                           (encp, "encp", (B, T, D))):
+    for t, name, shape in ((zm1, "zm1", (G, B, L)), (zm2, "zm2", (G, B, L)),
+                           (enc, "enc", (B, T, E)), (encp, "encp", (B, T, D))):
         _build.check_operand(t, name, f32, shape, dev)
     _check_weights(weights, d, dev)
+    if af is None:
+        pre = pre.contiguous()
+        _build.check_operand(pre, "pre", f32, (G, B, P2), dev)
+    else:
+        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev)
+        extra = {k: torch.empty(G, B, n, dtype=f32, device=dev)
+                 for k, n in (("prev", NM), ("p1", P1), ("pre", P2))}
+        pre = extra["pre"]
     w = dict(zip(WEIGHTS, weights))
     w01t = w["W01"].t().contiguous()
     mel = torch.empty(G, B, Fm, dtype=f32, device=dev)
@@ -396,39 +562,63 @@ def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool):
         for k, t in streams.items():
             setattr(args, f"s_{k}", t.data_ptr())
     lib = _lib()
-    args.bc = _rows(lib.wr_taco_tf_fwd_rows, args, "forward")
+    if af is None:
+        args.bc = _rows(lib.wr_taco_tf_fwd_rows(ctypes.byref(args)), kid,
+                        "forward")
+    else:
+        xargs = _AfFwdArgs(
+            **{k: t.data_ptr() for k, t in (
+                ("aref", aref), ("dm1", dm1), ("dm2", dm2), ("w1", w1),
+                ("b1", b1), ("w2", w2), ("b2", b2))},
+            **{f"s_{k}": t.data_ptr() for k, t in extra.items()},
+            P1=P1, NM=NM)
+        args.bc = _rows(lib.wr_taco_af_fwd_rows(ctypes.byref(args),
+                                                ctypes.byref(xargs)),
+                        kid, "forward")
     work = torch.zeros(lib.wr_taco_tf_fwd_work_floats(ctypes.byref(args)),
                        dtype=f32, device=dev)
     args.work = work.data_ptr()
-    _run(lib.wr_taco_tf_fwd, args, dev, "forward")
-    decoder_tf.fwd_launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if af is None:
+            _run(lib.wr_taco_tf_fwd(ctypes.byref(args), stream), kid,
+                 "forward")
+            decoder_tf.fwd_launches += 1
+        else:
+            _run(lib.wr_taco_af_fwd(ctypes.byref(args), ctypes.byref(xargs),
+                                    stream), kid, "forward")
+            decoder_af.fwd_launches += 1
     if save:
         streams["div"] = streams["div"][..., 0]
+        if af is not None:
+            streams.update(extra)
     return mel, scores, streams
 
 
-def decoder_tf_bwd(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
-                   weights):
-    """Backward over all groups: (dpre, denc, dencp, weight gradients in
-    ``WEIGHTS`` order). CPU: ``core_bwd_ref``; CUDA: the backward kernel
-    and its weight-gradient reductions."""
-    if pre.device.type == "cpu":
-        return core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc,
-                            encp, *weights)
-    if pre.device.type != "cuda":
-        raise ValueError(f"no B6 kernel for {pre.device}")
-    dev = pre.device
+def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
+              pre=None, af=None):
+    """The backward kernel of either arm and its weight-gradient
+    reductions: (d(pre) or d(aref), denc, dencp, weight gradients by
+    name)."""
+    dev = enc.device
     f32 = torch.float32
+    kid = "B6" if af is None else "B7"
     weights = tuple(w.detach().contiguous() for w in weights)
-    d = _dims(pre, enc, weights)
+    d = _dims(zm1.shape[0], zm1.shape[1], enc, weights)
     G, B, T, E, D, P2, L, Fm = (d[k] for k in _DIMS)
-    dmel = dmel.contiguous()
+    # AF: the kernel adds each group's previous-frame cotangent into its
+    # own copy of dmel, which the mel_proj gradient then reads
+    dmel = dmel.contiguous() if af is None else dmel.clone(
+        memory_format=torch.contiguous_format)
     dsc = (torch.zeros_like(scores) if dsc is None else dsc.contiguous())
     for t, name, shape in ((dmel, "dmel", (G, B, Fm)),
                            (dsc, "dsc", (G, B, T)),
                            (scores, "scores", (G, B, T))):
         _build.check_operand(t, name, f32, shape, dev)
     _check_weights(weights, d, dev)
+    if af is not None:
+        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev)
+        pre = streams["pre"]
     w = dict(zip(WEIGHTS, weights))
     tr = lambda t: t.t().contiguous()
     ptrs = dict(pre=pre, zm1=zm1, zm2=zm2, enc=enc, encp=encp,
@@ -443,23 +633,76 @@ def decoder_tf_bwd(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
     cw = dict(dgi=3 * D, dgh=3 * D, dq=D, dx0=L, dg1=4 * L, dg2=4 * L)
     for k in _COT:
         ptrs[f"c_{k}"] = torch.empty(G, B, cw[k], dtype=f32, device=dev)
-    outs = dict(dpre=torch.empty_like(pre), denc=torch.zeros_like(enc),
-                dencp=torch.zeros_like(encp),
+    outs = dict(denc=torch.zeros_like(enc), dencp=torch.zeros_like(encp),
                 pw01=torch.zeros(B, 2 * CONV_K, D, dtype=f32, device=dev),
                 pv=torch.zeros(B, D, dtype=f32, device=dev))
+    if af is None:
+        outs["dpre"] = torch.empty_like(pre)
     for k, wt in zip(WEIGHTS, weights):
         outs["dw01" if k == "W01" else f"d{k}"] = torch.empty_like(wt)
     ptrs.update(outs)
     args = _BwdArgs(**{k: v.data_ptr() for k, v in ptrs.items()}, **d)
     lib = _lib()
-    args.bc = _rows(lib.wr_taco_tf_bwd_rows, args, "backward")
+    if af is None:
+        args.bc = _rows(lib.wr_taco_tf_bwd_rows(ctypes.byref(args)), kid,
+                        "backward")
+    else:
+        af_outs = dict(daref=torch.empty_like(aref), dw1=torch.empty_like(w1),
+                       db1=torch.empty_like(b1), dw2=torch.empty_like(w2),
+                       db2=torch.empty_like(b2),
+                       c_dp1=torch.empty(G, B, P1, dtype=f32, device=dev),
+                       c_dp2=torch.empty(G, B, P2, dtype=f32, device=dev))
+        af_ins = dict(aref=aref, dm1=dm1, dm2=dm2, w1T=tr(w1), w2T=tr(w2),
+                      s_prev=streams["prev"].contiguous(),
+                      s_p1=streams["p1"].contiguous(), dmel=dmel)
+        xargs = _AfBwdArgs(**{k: t.data_ptr() for k, t in
+                              {**af_ins, **af_outs}.items()}, P1=P1, NM=NM)
+        args.bc = _rows(lib.wr_taco_af_bwd_rows(ctypes.byref(args),
+                                                ctypes.byref(xargs)),
+                        kid, "backward")
     work = torch.zeros(lib.wr_taco_tf_bwd_work_floats(ctypes.byref(args)),
                        dtype=f32, device=dev)
     args.work = work.data_ptr()
-    _run(lib.wr_taco_tf_bwd, args, dev, "backward")
-    decoder_tf.bwd_launches += 1
-    grads = tuple(outs["dw01" if k == "W01" else f"d{k}"] for k in WEIGHTS)
-    return (outs["dpre"], outs["denc"], outs["dencp"]) + grads
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if af is None:
+            _run(lib.wr_taco_tf_bwd(ctypes.byref(args), stream), kid,
+                 "backward")
+            decoder_tf.bwd_launches += 1
+        else:
+            _run(lib.wr_taco_af_bwd(ctypes.byref(args), ctypes.byref(xargs),
+                                    stream), kid, "backward")
+            decoder_af.bwd_launches += 1
+    grads = {k: outs["dw01" if k == "W01" else f"d{k}"] for k in WEIGHTS}
+    if af is None:
+        return outs["dpre"], outs["denc"], outs["dencp"], grads
+    grads.update((k, af_outs[f"d{k}"]) for k in AF_PRENET)
+    return af_outs["daref"], outs["denc"], outs["dencp"], grads
+
+
+def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool):
+    """Forward over all groups: (mel (G, B, F), scores (G, B, T), streams
+    or None). CPU: ``core_ref``; CUDA: the forward kernel."""
+    if pre.device.type == "cpu":
+        return core_ref(pre, zm1, zm2, enc, encp, *weights, save=save)
+    if pre.device.type != "cuda":
+        raise ValueError(f"no B6 kernel for {pre.device}")
+    return _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=pre)
+
+
+def decoder_tf_bwd(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
+                   weights):
+    """Backward over all groups: (dpre, denc, dencp, weight gradients in
+    ``WEIGHTS`` order). CPU: ``core_bwd_ref``; CUDA: the backward kernel
+    and its weight-gradient reductions."""
+    if pre.device.type == "cpu":
+        return core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc,
+                            encp, *weights)
+    if pre.device.type != "cuda":
+        raise ValueError(f"no B6 kernel for {pre.device}")
+    dpre, denc, dencp, grads = _bwd_cuda(dmel, dsc, streams, scores, zm1,
+                                         zm2, enc, encp, weights, pre=pre)
+    return (dpre, denc, dencp) + tuple(grads[k] for k in WEIGHTS)
 
 
 class _DecoderTF(torch.autograd.Function):
@@ -499,6 +742,73 @@ decoder_tf.fwd_launches = 0
 decoder_tf.bwd_launches = 0
 
 
+def decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp, weights, save: bool):
+    """AF forward over all groups (weights in ``AF_WEIGHTS`` order): (mel
+    (G, B, F), scores (G, B, T), streams (``AF_STREAMS``) or None). CPU:
+    ``core_af_ref``; CUDA: the B7 forward kernel."""
+    if enc.device.type == "cpu":
+        return core_af_ref(aref, dm1, dm2, zm1, zm2, enc, encp, *weights,
+                           save=save)
+    if enc.device.type != "cuda":
+        raise ValueError(f"no B7 kernel for {enc.device}")
+    return _fwd_cuda(zm1, zm2, enc, encp, weights[4:], save,
+                     af=(aref, dm1, dm2) + tuple(weights[:4]))
+
+
+def decoder_af_bwd(dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2, enc,
+                   encp, weights):
+    """AF backward over all groups: (daref, denc, dencp, weight gradients
+    in ``AF_WEIGHTS`` order). CPU: ``core_af_bwd_ref``; CUDA: the B7
+    backward kernel and its weight-gradient reductions."""
+    if enc.device.type == "cpu":
+        return core_af_bwd_ref(dmel, dsc, streams, scores, aref, dm1, dm2,
+                               zm1, zm2, enc, encp, *weights)
+    if enc.device.type != "cuda":
+        raise ValueError(f"no B7 kernel for {enc.device}")
+    daref, denc, dencp, grads = _bwd_cuda(
+        dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights[4:],
+        af=(aref, dm1, dm2) + tuple(weights[:4]))
+    return (daref, denc, dencp) + tuple(grads[k] for k in AF_WEIGHTS)
+
+
+class _DecoderAF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, aref, dm1, dm2, zm1, zm2, enc, encp, *weights):
+        mel, scores, streams = decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc,
+                                              encp, weights, save=True)
+        ctx.save_for_backward(aref, dm1, dm2, zm1, zm2, enc, encp, scores,
+                              *weights, *(streams[k] for k in AF_STREAMS))
+        return mel, scores
+
+    @staticmethod
+    def backward(ctx, dmel, dsc):
+        saved = ctx.saved_tensors
+        aref, dm1, dm2, zm1, zm2, enc, encp, scores = saved[:8]
+        weights = saved[8:8 + len(AF_WEIGHTS)]
+        streams = dict(zip(AF_STREAMS, saved[8 + len(AF_WEIGHTS):]))
+        daref, denc, dencp, *dw = decoder_af_bwd(
+            dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2, enc, encp,
+            weights)
+        return (daref, None, None, None, None, denc, dencp, *dw)
+
+
+def decoder_af(aref, dm1, dm2, zm1, zm2, enc, encp, weights):
+    """The AF recurrence as kernels (B7), differentiable in aref, enc, encp
+    and every weight (``AF_WEIGHTS`` order): (mel (G, B, F), scores (G, B,
+    T)). Without autograd the forward writes only the prenet's streams."""
+    tensors = (aref, enc, encp) + tuple(weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _DecoderAF.apply(aref, dm1, dm2, zm1, zm2, enc, encp,
+                                *weights)
+    mel, scores, _ = decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp,
+                                    weights, save=False)
+    return mel, scores
+
+
+decoder_af.fwd_launches = 0
+decoder_af.bwd_launches = 0
+
+
 def decoder_tf_train(dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2,
                      max_r: int, r: int, n_mels: int, impl: str = "kernel"):
     """The teacher-forcing decoder recurrence (``pallas_taco_train.py:
@@ -515,6 +825,30 @@ def decoder_tf_train(dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2,
                               encoder_seq_proj, *weights)
     else:
         mel, sc = decoder_tf(pre_all, zm1, zm2, encoder_seq,
+                             encoder_seq_proj, weights)
+    G, B = mel.shape[:2]
+    return mel.reshape(G, B, r, n_mels).transpose(2, 3), sc
+
+
+def decoder_af_train(dec, encoder_seq, encoder_seq_proj, attn_ref, dm1, dm2,
+                     zm1, zm2, max_r: int, r: int, n_mels: int,
+                     impl: str = "kernel"):
+    """The attention-forcing decoder recurrence (``pallas_taco_train.py:
+    1299-1346``). attn_ref (B, G, T) the reference attention; dm1/dm2
+    (G, B, P1/P2) the decoder prenet's scaled dropout keep-masks (ones in
+    eval); zm1/zm2 (G, B, L) zoneout masks (zeros in eval). impl "kernel":
+    ``decoder_af`` (B7 on CUDA tensors, its plain versions on CPU
+    tensors); "scan": the plain forward under autograd.
+    Returns (mel_groups (G, B, n_mels, r), attn_scores (G, B, T))."""
+    weights = af_operands(dec, max_r, r, n_mels)
+    dt = encoder_seq.dtype
+    aref = attn_ref.to(dt).transpose(0, 1).contiguous()
+    dm1, dm2, zm1, zm2 = (t.to(dt) for t in (dm1, dm2, zm1, zm2))
+    if impl == "scan":
+        mel, sc, _ = core_af_ref(aref, dm1, dm2, zm1, zm2, encoder_seq,
+                                 encoder_seq_proj, *weights)
+    else:
+        mel, sc = decoder_af(aref, dm1, dm2, zm1, zm2, encoder_seq,
                              encoder_seq_proj, weights)
     G, B = mel.shape[:2]
     return mel.reshape(G, B, r, n_mels).transpose(2, 3), sc

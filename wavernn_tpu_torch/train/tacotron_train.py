@@ -1,12 +1,20 @@
-"""Tacotron teacher-forcing training (port of the TF parts of
-``wavernn_tpu.train.tacotron_train``; reference train_tacotron.py:98-485).
+"""Tacotron training (port of ``wavernn_tpu.train.tacotron_train``;
+reference train_tacotron.py:98-485) in the fork's three loss modes:
 
-The loss is L1(mel, m) + L1(linear, m) over the padded batch. The optimizer
-is the vocoder trainer's: Adam with optax's global-norm clip rule (here at
-``tts_clip_grad_norm`` = 1.0), the learning rate set per session of the
-progressive (r, lr, step, batch size) schedule. The attention-forcing modes
-wait for kernel B7 (ROADMAP B7); one device only (the data-parallel mesh is
-ROADMAP A11).
+- teacher forcing (TF): L1(mel, m) + L1(linear, m) over the padded batch;
+- attention forcing online (AF-online): a frozen TF teacher gives attn_ref
+  for every batch (``teacher_attn_ref``), the student runs attention
+  forcing, and the loss adds ``attn_loss_coeff`` x KL(teacher || student)
+  summed over the text axis and averaged over the rest
+  (train_tacotron.py:286-294);
+- attention forcing offline (AF-offline): attn_ref comes from disk with the
+  batch, and the loss adds ``attn_loss_coeff`` x the mean L1 of the two
+  attention maps (train_tacotron.py:387).
+
+The optimizer is the vocoder trainer's: Adam with optax's global-norm clip
+rule (here at ``tts_clip_grad_norm`` = 1.0), the learning rate set per
+session of the progressive (r, lr, step, batch size) schedule. One device
+only (the data-parallel mesh is ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -49,6 +57,16 @@ def session_for_step(schedule, step: int) -> Tuple[int, float, int, int]:
     return schedule[-1]
 
 
+def attention_kl(student_attn, teacher_attn, eps: float = 1e-10):
+    """KL(teacher || student) over the text axis, summed there and averaged
+    over the rest: the reference's F.kl_div(log(student), teacher)
+    (train_tacotron.py:286-294), both clamped below at ``eps``."""
+    t = teacher_attn
+    s = torch.log(torch.clamp_min(student_attn, eps))
+    kl = t * (torch.log(torch.clamp_min(t, eps)) - s)
+    return torch.mean(torch.sum(kl, dim=-1))
+
+
 def loss_tf(model, x_ids, m, r: int, recurrence: str = "auto", masks=None,
             generator=None):
     """(loss, attn): mean |mel - m| + mean |linear - m| of the
@@ -62,17 +80,68 @@ def loss_tf(model, x_ids, m, r: int, recurrence: str = "auto", masks=None,
     return loss, attn
 
 
+def loss_af(model, x_ids, m, attn_ref, r: int, attn_loss_coeff: float,
+            offline: bool, recurrence: str = "auto", masks=None,
+            generator=None):
+    """(loss, attn, loss_out, loss_attn) of the attention-forcing training
+    forward: loss_out = mean |mel - m| + mean |linear - m|; loss_attn the
+    mean L1 of attn and attn_ref (offline) or ``attention_kl`` (online);
+    loss = loss_out + attn_loss_coeff * loss_attn."""
+    mode = ("attention_forcing_offline" if offline
+            else "attention_forcing_online")
+    mel, linear, attn = taco.forward(model, x_ids, m, r, mode=mode,
+                                     training=True, recurrence=recurrence,
+                                     masks=masks, generator=generator,
+                                     attn_ref=attn_ref)
+    loss_out = torch.mean(torch.abs(mel - m)) + torch.mean(
+        torch.abs(linear - m))
+    if offline:
+        loss_attn = torch.mean(torch.abs(attn - attn_ref))
+    else:
+        loss_attn = attention_kl(attn, attn_ref)
+    return loss_out + attn_loss_coeff * loss_attn, attn, loss_out, loss_attn
+
+
+def _grads(model, loss_fn, dev, timings):
+    """(loss, attn, the loss parts, gradients in ``model.parameters()``
+    order) of ``loss_fn() -> (loss, attn, *parts)``."""
+    with stage(timings, "forward", dev):
+        loss, attn, *parts = loss_fn()
+    with stage(timings, "backward", dev):
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    return (loss.detach(), attn.detach(), [p.detach() for p in parts],
+            list(grads))
+
+
 def loss_and_grads(model, x_ids, m, r: int, recurrence: str = "auto",
                    masks=None, generator=None,
                    timings: Optional[dict] = None):
-    """(loss, attn, gradients in ``model.parameters()`` order)."""
-    dev = m.device
-    with stage(timings, "forward", dev):
-        loss, attn = loss_tf(model, x_ids, m, r, recurrence, masks,
-                             generator)
-    with stage(timings, "backward", dev):
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-    return loss.detach(), attn.detach(), list(grads)
+    """(loss, attn, gradients in ``model.parameters()`` order) of
+    ``loss_tf``."""
+    loss, attn, _, grads = _grads(
+        model, lambda: loss_tf(model, x_ids, m, r, recurrence, masks,
+                               generator), m.device, timings)
+    return loss, attn, grads
+
+
+def loss_and_grads_af(model, x_ids, m, attn_ref, r: int,
+                      attn_loss_coeff: float, offline: bool,
+                      recurrence: str = "auto", masks=None, generator=None,
+                      timings: Optional[dict] = None):
+    """(loss, attn, loss_out, loss_attn, gradients in
+    ``model.parameters()`` order) of ``loss_af``."""
+    loss, attn, (l_out, l_attn), grads = _grads(
+        model, lambda: loss_af(model, x_ids, m, attn_ref, r, attn_loss_coeff,
+                               offline, recurrence, masks, generator),
+        m.device, timings)
+    return loss, attn, l_out, l_attn, grads
+
+
+def _apply(state: TTSTrainState, grads, timings, dev):
+    with stage(timings, "optimizer", dev):
+        gnorm = state.opt.step(grads)
+    state.step += 1
+    return gnorm
 
 
 def train_step_tf(state: TTSTrainState, x_ids, m, r: int,
@@ -82,20 +151,50 @@ def train_step_tf(state: TTSTrainState, x_ids, m, r: int,
     "grad_norm", "attn"} on the device (no host synchronisation)."""
     loss, attn, grads = loss_and_grads(state.model, x_ids, m, r, recurrence,
                                        masks, generator, timings)
-    with stage(timings, "optimizer", m.device):
-        gnorm = state.opt.step(grads)
-    state.step += 1
+    gnorm = _apply(state, grads, timings, m.device)
     return {"loss": loss, "grad_norm": gnorm, "attn": attn}
+
+
+def train_step_af(state: TTSTrainState, x_ids, m, attn_ref, r: int,
+                  attn_loss_coeff: float = 1.0, offline: bool = False,
+                  recurrence: str = "auto", masks=None, generator=None,
+                  timings: Optional[dict] = None) -> dict:
+    """One attention-forcing optimizer step on ``state`` in place
+    (train_step_af, ``wavernn_tpu/train/tacotron_train.py:106-122``).
+    Returns {"loss", "loss_out", "loss_attn", "grad_norm", "attn"} on the
+    device."""
+    loss, attn, l_out, l_attn, grads = loss_and_grads_af(
+        state.model, x_ids, m, attn_ref, r, attn_loss_coeff, offline,
+        recurrence, masks, generator, timings)
+    gnorm = _apply(state, grads, timings, m.device)
+    return {"loss": loss, "loss_out": l_out, "loss_attn": l_attn,
+            "grad_norm": gnorm, "attn": attn}
+
+
+@torch.no_grad()
+def teacher_attn_ref(teacher, x_ids, m, r: int, recurrence: str = "auto"):
+    """AF-online: the frozen teacher's attention (B, steps // r, T_text)
+    from its eval-mode teacher-forcing forward (train_tacotron.py:268-278);
+    the postnet, which does not feed the attention, is skipped. On CUDA
+    tensors its decoder runs on B6 and its encoder BiGRU on B5."""
+    _, _, attn = taco.forward(teacher, x_ids, m, r, mode="teacher_forcing",
+                              training=False, recurrence=recurrence,
+                              decoder_only=True)
+    return attn
 
 
 def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
                log=print, max_steps: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
                on_checkpoint=None, profile_dir=None,
-               profile_steps: int = 20) -> TTSTrainState:
+               profile_steps: int = 20, teacher=None) -> TTSTrainState:
     """Progressive-schedule training loop (train_tacotron.py:98-430).
 
-    ``make_dataset(r, batch_size)`` gives an iterable of collated batches.
+    ``make_dataset(r, batch_size)`` gives an iterable of collated batches
+    (five fields with attn_ref in AF-offline). ``cfg.tts.mode`` picks the
+    step: AF-offline takes attn_ref from the batch, AF-online from
+    ``teacher`` (a frozen Tacotron, ``teacher_attn_ref``); every other mode
+    trains teacher forcing, as the JAX package's loop does.
     Each session sets its r (also ``decoder.r``) and lr and trains until
     its step; a checkpoint pair is written every ``checkpoint_every`` steps
     with a named ``taco_step{k}K`` snapshot, and at each session's end;
@@ -110,10 +209,11 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
     from .checkpoints import save_checkpoint
 
     tt = cfg.tts_train
-    if cfg.tts.mode != "teacher_forcing":
-        raise NotImplementedError(
-            f"mode {cfg.tts.mode!r}: attention forcing is not ported yet "
-            "(ROADMAP B7)")
+    offline = cfg.tts.mode == "attention_forcing_offline"
+    online = cfg.tts.mode == "attention_forcing_online"
+    if online and teacher is None:
+        raise ValueError("attention_forcing_online needs the frozen "
+                         "teacher-forcing model (model_tf_path)")
     dev = next(state.model.parameters()).device
     metrics_log = MetricsLogger(workspace.tts_metrics)
     timer = StepTimer()
@@ -139,9 +239,18 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
         n = 0
         metrics = None
         while state.step < max_step:
-            for chars, mel, ids, _ in prefetch(dataset, device=dev):
-                metrics = train_step_tf(state, chars, mel, r, tt.recurrence,
-                                        generator=generator)
+            for chars, mel, ids, _, *rest in prefetch(dataset, device=dev):
+                if online:
+                    rest = [teacher_attn_ref(teacher, chars, mel, r,
+                                             tt.recurrence)]
+                if online or offline:
+                    metrics = train_step_af(
+                        state, chars, mel, rest[0], r, tt.attn_loss_coeff,
+                        offline, tt.recurrence, generator=generator)
+                else:
+                    metrics = train_step_tf(state, chars, mel, r,
+                                            tt.recurrence,
+                                            generator=generator)
                 n += 1
                 running += metrics["loss"]
                 bad_loss += (~torch.isfinite(metrics["loss"])).int()
@@ -192,7 +301,7 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
 @torch.no_grad()
 def _export(model, dataset, r: int, recurrence: str):
     dev = next(model.parameters()).device
-    for i, (x_ids, m, ids, mel_lens) in enumerate(dataset):
+    for i, (x_ids, m, ids, mel_lens, *_) in enumerate(dataset):
         x_ids = torch.as_tensor(x_ids, device=dev)
         m = torch.as_tensor(m, device=dev)
         _, gta, attn = taco.forward(model, x_ids, m, r,
