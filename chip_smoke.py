@@ -17,7 +17,30 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            no stop, and a forced stop (same n_valid, frozen replay)
   main     text -> wav through ``synthesis.tts_to_wav`` at the full default
            Config() with weights made from a seed: stage times, audio
-           seconds, real-time factor and both kernels' launch counts
+           seconds, real-time factor and the kernels' launch counts (B1, B2,
+           B5 forward in the CBHG BiGRUs), the postnet with its BiGRU as a
+           plain step loop and on B5
+  b3       the materialized sample loop (with state I/O) against its plain
+           version at full width: float32 at an odd shape (B 3, T 1,000),
+           bfloat16 at 10 rows x 2,000 steps (as b1), one launch of 2,000
+           steps against two chained launches of 1,000 (identical) and a
+           snapshot at step 700 against a 700-step launch's state
+  b8       the batched decode against its plain version at full width, r 2,
+           200 groups, B 5, 16 and 32 (the five test sentences repeated,
+           the length-aware encoder's outputs), no stop; and a forced stop
+           at B 32 (random texts, mel_proj as drawn or negated) whose
+           threshold, from the plain run's group maxima, stops the rows at
+           three or more different groups (n_valid equal, frozen replay)
+  serve    the serving paths at full width, steps 400: tts_to_wav_batch on
+           the five sentences, tts_to_wav_fast and tts_to_wav(batched=False)
+           on the first, and ``cli.gen_tacotron wavernn --batch_sentences``
+           in-process from checkpoints in a temp workspace: wall s, audio s,
+           x_realtime, stage ms and exact launch counts per path
+  stream   StreamingVocoder over the main path's 400-frame mel, 24-frame
+           blocks, injected noise, against one unbatched B3 launch over the
+           whole utterance (share of samples within 1e-3 >= 99.9 %), block
+           ms; MultiStreamVocoder with 8 lanes fed out of step against their
+           solo streams, aggregate x_realtime
   b5       the GRU recurrence kernels (forward and backward) against their
            plain versions at the training shape T 1375, H 512, at B 32 and
            B 128, float32 (TF32 off) and bfloat16 streams
@@ -67,11 +90,11 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            held against each other (B1 bfloat16 and float32 as in b1, B2
            as in b2, B5 forward and backward in float32 at the train step's
            shape, B6 and B7 forward and backward at the b6 and b7 full-width
-           shapes), and
+           shapes, B3 at B1's shape and unbatched, B8 at B 5 and 32), and
            cuDNN's ``torch.nn.GRU`` at that shape as B5's library yardstick
 
-Then the card's name and power limit, the kernels JSON line, and last the
-device line. Comparisons run with TF32 off (cuDNN convolutions default to
+Then the card's name and power limit, the kernels JSON line (ten
+kernels), and last the device line. Comparisons run with TF32 off (cuDNN convolutions default to
 TF32). Exits 2 without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
@@ -595,6 +618,445 @@ def kernels_vs_scan(out, names):
     return cmp, ok
 
 
+SENTENCES = [ln.strip() for ln in (ROOT / "test_sentences" / "sentences.txt")
+             .read_text().splitlines() if ln.strip()] \
+    if (ROOT / "test_sentences" / "sentences.txt").exists() else []
+B8_BATCHES = (5, 16, 32)
+
+
+def b3_work(B, T, R, FC, A, n_mels, NC, wbytes):
+    """(FLOPs, bytes) the materialized sample loop needs: B1's per-sample
+    products plus each step's conditioning products, every conditioning
+    row read once, the samples written once, the state in and out."""
+    per_sample = 2 * (2 * 3 * R * R + 2 * 3 * R * R + FC * R + FC * FC
+                      + NC * FC)
+    per_row = 2 * (R * (n_mels + A) + 3 * R * A + 2 * FC * A)
+    n_w = (R * (n_mels + A) + 2 * 3 * R * R + 3 * R * (R + A)
+           + FC * (R + A) + FC * (FC + A) + NC * FC)
+    n_f32 = R + R + 4 * 3 * R + 2 * FC + NC
+    nbytes = n_w * wbytes + 4 * (n_f32 + T * B * (n_mels + 4 * A) + B * T
+                                 + 2 * (2 * B * R + B))
+    return B * T * (per_sample + per_row), nbytes
+
+
+def b8_work(groups, lens, T, E, D, P1, P2, L, F, n_mels, n_groups):
+    """(FLOPs, bytes) of the batched decode: each row's groups up to and
+    including the one after its stop (its frozen output) at its own text
+    length; the weights read once, the padded inputs read and the outputs
+    written once."""
+    flops = sum(b2_work(g, t, E, D, P1, P2, L, F, n_mels, n_groups)[0]
+                for g, t in zip(groups, lens))
+    w_bytes = b2_work(0, 0, E, D, P1, P2, L, F, n_mels, 0)[1] - 4
+    B = len(lens)
+    return flops, (w_bytes + 4 * B * T * (E + D + 1)
+                   + 4 * B * n_groups * (F + T) + 4 * B)
+
+
+def stop_threshold(mel, r):
+    """From a decode that never stopped (B, n_mels, steps): the threshold at
+    which the most rows stop at distinct groups (row b stops at the first
+    group g with g*r > 10 whose largest value is below it), the widest
+    margin among equals. Returns (threshold, predicted n_valid)."""
+    B, n_mels, steps = mel.shape
+    G = steps // r
+    peaks = mel.reshape(B, n_mels, G, r).amax(dim=(1, 3)).cpu()
+    vals = sorted(set(peaks[:, [g for g in range(G) if g * r > 10]]
+                      .flatten().tolist()))
+    best = None
+    for lo, hi in zip(vals[:-1], vals[1:]):
+        thr = (lo + hi) / 2
+        stops = [next((g + 1 for g in range(G)
+                       if g * r > 10 and peaks[b, g] < thr), G)
+                 for b in range(B)]
+        score = (len(set(stops)), hi - lo)
+        if best is None or score > best[0]:
+            best = (score, thr, stops)
+    return best[1], best[2]
+
+
+def check_b8(got, want, mel_tol, att_tol):
+    """Batched decode against its plain version: every row's n_valid
+    equal, mel and attention within their tolerances."""
+    (mel_k, att_k, nv_k), (mel_p, att_p, nv_p) = got, want
+    res = {"n_valid": [nv_k.tolist(), nv_p.tolist()],
+           "mel_max_abs_err": float((mel_k - mel_p).abs().max()),
+           "attn_max_abs_err": float((att_k - att_p).abs().max())}
+    ok = (res["n_valid"][0] == res["n_valid"][1]
+          and res["mel_max_abs_err"] <= mel_tol
+          and res["attn_max_abs_err"] <= att_tol)
+    return res, ok
+
+
+def b8_inputs(tts, seqs, dev):
+    """The batched decode's inputs for the id sequences ``seqs`` as the
+    serving path makes them: the length-aware encoder on B5, pad positions
+    zeroed."""
+    import torch
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.ops import layers as L
+    ids, lens = taco.pad_ids(seqs, dev)
+    with torch.no_grad():
+        enc = tts.encoder(ids, engine="kernel", lens=lens)
+        mask = (torch.arange(ids.shape[1], device=dev)[None]
+                < lens[:, None]).float()
+        enc = enc * mask[..., None]
+        encp = L.linear(enc, tts.encoder_proj.weight) * mask[..., None]
+    return enc, encp, mask, lens.tolist()
+
+
+def launch_counts():
+    """Every kernel's launch count, by kernel name."""
+    from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
+    return {"sample_loop_fused": cuda_gen.generate_fused.launches,
+            "sample_loop_materialized": cuda_gen.generate_materialized.launches,
+            "taco_decode": cuda_taco.decode.launches,
+            "taco_decode_batch": cuda_taco.decode_batch.launches,
+            "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches}
+
+
+def zero_counts():
+    from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
+    cuda_gen.generate_fused.launches = 0
+    cuda_gen.generate_materialized.launches = 0
+    cuda_taco.decode.launches = 0
+    cuda_taco.decode_batch.launches = 0
+    cuda_gru.gru_seq_tm.fwd_launches = 0
+
+
+def phase_b3(cfg, dev, gen, tol):
+    """B3 against its plain version: float32 at an odd shape, bfloat16 at
+    full width, and the state handoff. Returns the result dict."""
+    import torch
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    voc = wr.WaveRNN(cfg.voc, cfg.dsp)
+    voc.reset_parameters(gen)
+    voc = voc.to(dev).eval()
+    core = voc.core_weights()
+    A4 = 4 * cfg.voc.aux_dims
+    f32 = torch.float32
+
+    def case(B, T, seed):
+        g = torch.Generator().manual_seed(seed)
+        mu = torch.rand(B, T, 80, generator=g).to(dev)
+        au = (torch.rand(B, T, A4, generator=g) * 2 - 1).to(dev)
+        u = cg.counter_uniforms(seed, T, B, 11, True, dev)
+        return mu, au, (u[..., :10], u[..., 10])
+
+    def cut(n, a, b):
+        return tuple(v[a:b] for v in n)
+
+    res = {}
+    with torch.no_grad():
+        mu, au, noise = case(3, 1000, 41)
+        got, st = cg.generate_materialized(core, mu, au, "MOL", noise=noise,
+                                           compute_dtype=f32)
+        ref, st_p = cg.generate_materialized_ref(core, mu, au, "MOL",
+                                                 noise=noise)
+        chk, ok32 = check_b1_f32("f32_odd", got, ref, tol)
+        res.update(chk)
+        res["f32_odd_state_max_abs_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(st, st_p))
+        mu, au, noise = case(10, 2000, 42)
+        got16, _ = cg.generate_materialized(core, mu, au, "MOL", seed=43)
+        ref16, _ = cg.generate_materialized_ref(
+            cg.round_core_like_kernel(core), mu, au, "MOL", seed=43)
+        chk, ok16 = check_b1_bf16(got16, ref16)
+        res.update(chk)
+        y, st = cg.generate_materialized(core, mu, au, "MOL", noise=noise,
+                                         compute_dtype=f32)
+        y1, st1 = cg.generate_materialized(
+            core, mu[:, :1000], au[:, :1000], "MOL",
+            noise=cut(noise, 0, 1000), compute_dtype=f32)
+        y2, st2 = cg.generate_materialized(
+            core, mu[:, 1000:], au[:, 1000:], "MOL",
+            noise=cut(noise, 1000, 2000), init_state=st1, compute_dtype=f32)
+        _, snap = cg.generate_materialized(core, mu, au, "MOL", noise=noise,
+                                           state_snapshot_at=700,
+                                           compute_dtype=f32)
+        _, st700 = cg.generate_materialized(
+            core, mu[:, :700], au[:, :700], "MOL", noise=cut(noise, 0, 700),
+            compute_dtype=f32)
+    torch.cuda.synchronize()
+    res["chained_equal_one_launch"] = bool(
+        torch.equal(torch.cat([y1, y2], dim=1), y)
+        and all(torch.equal(a, b) for a, b in zip(st2, st)))
+    res["snapshot_700_equal_700_steps"] = all(
+        torch.equal(a, b) for a, b in zip(snap, st700))
+    ok = (ok32 and ok16 and res["chained_equal_one_launch"]
+          and res["snapshot_700_equal_700_steps"]
+          and res["f32_odd_state_max_abs_err"] <= tol)
+    emit("b3", ok=ok, tolerance=tol, odd_shape=[3, 1000],
+         bf16_shape=[10, 2000], **res)
+    if not ok:
+        raise AssertionError("B3: the kernel disagrees with its plain version "
+                             "or its state handoff is not exact")
+    return res
+
+
+def phase_b8(cfg, dev, tts, mel_tol, att_tol):
+    """B8 against its plain version at full width, r 2, 200 groups, B 5,
+    16, 32 (the five test sentences, repeated), no stop; then a forced stop
+    with the rows stopping at different groups. Returns (results, the no-stop
+    cases' inputs and plain outputs by B)."""
+    import torch
+    from wavernn_tpu_torch.ops import cuda_taco as ctd
+    from wavernn_tpu_torch.text import text_to_sequence
+    dec = tts.decoder_weights()
+    res, cases = {}, {}
+    for B in B8_BATCHES:
+        enc, encp, mask, lens = b8_inputs(tts, [text_to_sequence(
+            SENTENCES[i % len(SENTENCES)], cfg.tts.cleaner_names)
+            for i in range(B)], dev)
+        args = (dec, enc, encp, mask, 2, 400, 80, cfg.tts.max_r)
+        with torch.no_grad():
+            got = ctd.decode_batch(*args, -1e30)
+            want = ctd.decode_batch_ref(*args, -1e30)
+        chk, ok = check_b8(got, want, mel_tol, att_tol)
+        ok = ok and chk["n_valid"][0] == [200] * B
+        chk["launches_for_B"] = -(-B // ctd.batch_rows(B, enc.shape[1], 256))
+        res[f"B{B}"] = chk
+        cases[B] = (args, lens, want)
+        emit("b8", case=f"B{B}_no_stop", B=B, T_text=enc.shape[1], ok=ok,
+             mel_tolerance=mel_tol, attn_tolerance=att_tol,
+             **{k: v for k, v in chk.items() if k != "n_valid"},
+             n_valid_equal=chk["n_valid"][0] == chk["n_valid"][1])
+        if not ok:
+            raise AssertionError(f"B8 B={B}: kernel disagrees with its plain "
+                                 "version")
+    # forced stop: random weights' group maxima mostly rise from the zero
+    # state to a fixed point, and then one threshold splits the rows only
+    # into "stop at the first eligible group" and "never". Rows that stop at
+    # different groups need maxima that fall after group 6, which depends on
+    # the weights and the text: the plain version tries 32 random texts with
+    # mel_proj as drawn and negated, three draws at most, and the first
+    # with three or more stop groups is held against the kernel
+    for attempt in range(6):
+        g = torch.Generator().manual_seed(100 + attempt // 2)
+        lens = torch.randint(3, 60, (32,), generator=g).tolist()
+        seqs = [torch.randint(1, 148, (n,), generator=g).tolist()
+                for n in lens]
+        sign = -1.0 if attempt % 2 == 0 else 1.0
+        args = ({**dec, "mel_proj.weight": sign * dec["mel_proj.weight"]},
+                *b8_inputs(tts, seqs, dev)[:3], 2, 400, 80, cfg.tts.max_r)
+        with torch.no_grad():
+            thr, predicted = stop_threshold(
+                ctd.decode_batch_ref(*args, -1e30)[0], 2)
+        if len(set(predicted)) >= 3:
+            break
+    B = 32
+    with torch.no_grad():
+        got = ctd.decode_batch(*args, thr)
+        want = ctd.decode_batch_ref(*args, thr)
+    chk, ok = check_b8(got, want, mel_tol, att_tol)
+    nv = got[2].tolist()
+    mel_k = got[0]
+    frozen = all(torch.equal(mel_k[b, :, (n) * 2:(n + 1) * 2],
+                             mel_k[b, :, -2:]) for b, n in enumerate(nv)
+                 if n < 200)
+    chk.update(threshold=thr, stop_groups=sorted(set(nv)),
+               predicted_equal=nv == predicted, replay_frozen=frozen,
+               attempt=attempt, mel_proj_sign=sign)
+    ok = ok and frozen and len(set(nv)) >= 3
+    res["forced_stop"] = chk
+    emit("b8", case="forced_stop", B=B, ok=ok, mel_tolerance=mel_tol,
+         attn_tolerance=att_tol, **chk)
+    if not ok:
+        raise AssertionError("B8 forced stop: kernel disagrees with its "
+                             "plain version")
+    return res, cases
+
+
+def phase_serve(cfg, dev, tts, voc):
+    """The serving paths at full width, steps 400 (random weights never
+    stop): tts_to_wav_batch on the five sentences, tts_to_wav_fast and
+    tts_to_wav(batched=False), and gen_tacotron --batch_sentences
+    in-process. The launch counts are zeroed before each path and read
+    after it. Returns {path: launch counts}."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from wavernn_tpu_torch.cli import gen_tacotron
+    from wavernn_tpu_torch.cli.common import make_workspace
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.synthesis import (tts_to_wav, tts_to_wav_batch,
+                                             tts_to_wav_fast)
+    from wavernn_tpu_torch.timing import elapsed_ms
+    from wavernn_tpu_torch.train.checkpoints import save_checkpoint
+    from wavernn_tpu_torch.train.wavernn_train import make_optimizer
+    sr, hop = cfg.dsp.sample_rate, cfg.dsp.hop_length
+    counts = {}
+
+    def run(name, fn, want):
+        zero_counts()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves = fn(timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launch_counts()
+        audio = sum(len(w) for w in waves) / sr
+        finite = all(bool(np.isfinite(w).all()) for w in waves)
+        peak = max(float(np.abs(w).max()) for w in waves)
+        ok = (finite and peak <= math.sqrt(2) + 1e-9
+              and all(c[k] == v for k, v in want.items()))
+        counts[name] = c
+        emit("serve", path=name, ok=ok, wall_s=wall, audio_s=audio,
+             x_realtime=audio / wall, stage_ms=elapsed_ms(timings),
+             launches=c, want_launches=want, waves=len(waves),
+             wav_abs_max=peak)
+        if not ok:
+            raise AssertionError(f"serve {name}: bad wave or launch count")
+
+    five = SENTENCES[:5]
+    run("tts_to_wav_batch", lambda tm: [w for w, _ in tts_to_wav_batch(
+        tts, voc, five, cfg, 2, steps=400,
+        generator=torch.Generator().manual_seed(1), device=dev,
+        timings=tm)],
+        {"taco_decode_batch": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
+         "taco_decode": 0, "sample_loop_materialized": 0})
+    run("tts_to_wav_fast", lambda tm: [tts_to_wav_fast(
+        tts, voc, five[0], cfg, 2, steps=400,
+        generator=torch.Generator().manual_seed(2), device=dev,
+        timings=tm)[0]],
+        {"taco_decode": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
+         "taco_decode_batch": 0, "sample_loop_materialized": 0})
+    run("tts_to_wav_unbatched", lambda tm: [tts_to_wav(
+        tts, voc, five[0], cfg, 2, steps=100,
+        generator=torch.Generator().manual_seed(3), device=dev, timings=tm,
+        batched=False)[0]],
+        {"taco_decode": 1, "sample_loop_materialized": 1, "gru_seq_fwd": 4,
+         "sample_loop_fused": 0, "taco_decode_batch": 0})
+
+    # the CLI in-process, from checkpoints in a temp workspace, on two
+    # sentences (its decode bound is 2000 frames)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "two.txt").write_text("\n".join(five[:2]) + "\n")
+        hp = tmp / "hparams_serve.py"
+        hp.write_text("tts_model_id = 'serve'\nvoc_model_id = 'serve'\n"
+                      f"test_sentences_file = {str(tmp / 'two.txt')!r}\n")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            cli_cfg = Config.from_hparams_file(hp)
+            ws = make_workspace(cli_cfg)
+            save_checkpoint("tts", ws, tts, make_optimizer(tts, 1e-3), 1000,
+                            r=2, log=lambda *_: None)
+            save_checkpoint("voc", ws, voc, make_optimizer(voc, 1e-4), 2000,
+                            log=lambda *_: None)
+
+            def cli(tm):
+                gen_tacotron.main(["--hp_file", str(hp), "wavernn",
+                                   "--batch_sentences"])
+                return [wavfile.read(ws.tts_output / f"{i}_wavernn_batchN_1k"
+                                     ".wav")[1].astype(np.float64) / 2 ** 15
+                        for i in (1, 2)]
+            run("cli_gen_tacotron_batch_sentences", cli,
+                {"taco_decode_batch": 1, "sample_loop_fused": 1,
+                 "gru_seq_fwd": 4})
+        finally:
+            os.chdir(cwd)
+    return counts
+
+
+def phase_stream(cfg, dev, voc, mel):
+    """StreamingVocoder over a 400-frame mel against one unbatched B3 launch
+    with the same noise, and MultiStreamVocoder with 8 lanes fed out of
+    step against their solo streams. Returns (B3 launches of the streamed
+    runs, results)."""
+    import torch
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    from wavernn_tpu_torch.streaming import (MultiStreamVocoder,
+                                             StreamingVocoder)
+    hop, sr = cfg.dsp.hop_length, cfg.dsp.sample_rate
+    mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
+    frames = mel.shape[1]
+    T = frames * hop
+    u = cg.counter_uniforms(51, T, 1, 11, True, dev)
+    noise = (u[..., :10], u[..., 10])
+    with torch.no_grad():
+        mu, au = voc.upsample(torch.nn.functional.pad(mel[None], (2, 2)))
+        want, _ = cg.generate_materialized(voc.core_weights(), mu, au, "MOL",
+                                           noise=noise)
+    zero_counts()
+    sv = StreamingVocoder(voc, chunk_frames=24, noise=noise, device=dev,
+                          device_out=True)
+    blocks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, frames, 50):
+        blocks += sv.feed(mel[:, a:a + 50])
+    blocks += sv.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launch_counts()["sample_loop_materialized"]
+    got = torch.cat(blocks)
+    err = (got - want[0]).abs()
+    res = {"frames": frames, "samples": got.numel(), "blocks": len(blocks),
+           "share_within_1e-3": float((err <= 1e-3).float().mean()),
+           "share_equal": float((err == 0).float().mean()),
+           "max_abs_err": float(err.max()), "wall_s": wall,
+           "block_ms": 1e3 * wall / len(blocks),
+           "block_audio_ms": 1e3 * 24 * hop / sr,
+           "x_realtime": T / sr / wall, "launches": launched}
+    ok = (got.shape == want[0].shape and res["share_within_1e-3"] >= 0.999
+          and launched == len(blocks))
+    emit("stream", case="streaming_vs_unbatched", ok=ok, **res)
+    if not ok:
+        raise AssertionError("stream: streamed samples disagree with the "
+                             "unbatched run")
+
+    # 8 lanes of 48-frame mels fed out of step, against solo streams
+    n, W = 8, 48
+    lanes = [mel[:, 7 * b: 7 * b + W] for b in range(n)]
+    un = cg.counter_uniforms(52, W * hop, n, 11, True, dev)
+    noise8 = (un[..., :10], un[..., 10])
+    zero_counts()
+    msv = MultiStreamVocoder(voc, n, chunk_frames=24, noise=noise8,
+                             device=dev, device_out=True)
+    outs = [[] for _ in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(6):
+        for b in range(n):
+            lo, hi = (8 + b) * step, (8 + b) * (step + 1)
+            if lo < W:
+                for sb, ys in msv.feed(b, lanes[b][:, lo:hi],
+                                       drain=False).items():
+                    outs[sb] += ys
+        for sb, ys in msv.poll().items():
+            outs[sb] += ys
+    for b in range(n):
+        for sb, ys in msv.flush(b).items():
+            outs[sb] += ys
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    launched += launch_counts()["sample_loop_materialized"]
+    shares, equal = [], []
+    for b in range(n):
+        solo = StreamingVocoder(voc, chunk_frames=24, noise=(
+            noise8[0][:, b:b + 1], noise8[1][:, b:b + 1]), device=dev,
+            device_out=True)
+        want_b = torch.cat(solo.feed(lanes[b]) + solo.flush())
+        got_b = torch.cat(outs[b])
+        e = (got_b - want_b).abs() if got_b.shape == want_b.shape \
+            else torch.ones(1, device=dev)
+        shares.append(float((e <= 1e-3).float().mean()))
+        equal.append(float((e == 0).float().mean()))
+    mres = {"lanes": n, "frames_per_lane": W, "share_within_1e-3": shares,
+            "share_equal": equal, "wall_s": mwall,
+            "x_realtime": n * W * hop / sr / mwall}
+    ok = min(shares) >= 0.999
+    emit("stream", case="multistream_lanes_vs_solo", ok=ok, **mres)
+    if not ok:
+        raise AssertionError("stream: a lane disagrees with its solo stream")
+    return launched, res
+
+
 def main() -> int:
     try:
         import torch
@@ -744,8 +1206,7 @@ def main() -> int:
     tts_to_wav(tts, voc, text, cfg, r, steps=steps,
                generator=torch.Generator().manual_seed(0), device=dev)
     torch.cuda.synchronize()
-    cuda_gen.generate_fused.launches = 0
-    cuda_taco.decode.launches = 0
+    zero_counts()
     timings = {}
     t0 = time.perf_counter()
     wav, mel, attn = tts_to_wav(tts, voc, text, cfg, r, steps=steps,
@@ -753,24 +1214,41 @@ def main() -> int:
                                 device=dev, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sample_loop_fused": cuda_gen.generate_fused.launches,
-                "taco_decode": cuda_taco.decode.launches}
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("sample_loop_fused", "taco_decode",
+                                       "gru_seq_fwd")}
     audio_s = len(wav) / cfg.dsp.sample_rate
     stages = elapsed_ms(timings)
     import numpy as np
     finite = bool(np.isfinite(wav).all())
     peak = float(np.abs(wav).max())
+    # the postnet before (its BiGRU as a host-launched step loop, slices
+    # 1-4) and after (on B5's forward kernel) on a decode's shape
+    dm = torch.randn(1, 80, steps,
+                     generator=torch.Generator().manual_seed(78)).to(dev)
+    with torch.no_grad():
+        postnet_ms = {eng: cuda_ms(lambda: taco.postnet(tts, dm, engine=eng),
+                                   2)[0] for eng in ("scan", "kernel")}
     emit("main", text=text, text_ids=len(text_to_sequence(
         text, cfg.tts.cleaner_names)), mel_frames=int(mel.shape[1]),
          attn_shape=list(attn.shape), wav_samples=len(wav),
          audio_s=audio_s, wall_s=wall, x_realtime=audio_s / wall,
          stage_ms=stages, launches=launches, wav_finite=finite,
-         wav_abs_max=peak)
+         wav_abs_max=peak, postnet_ms_plain_loop=postnet_ms["scan"],
+         postnet_ms_b5=postnet_ms["kernel"])
     # folds' samples lie in [-1, 1]; the equal-power crossfade of two
     # folds can reach sqrt(2)
     if not (finite and peak <= math.sqrt(2) + 1e-9
-            and all(launches.values())):
+            and all(launches.values())
+            and counts["sample_loop_materialized"] == 0):
         raise AssertionError("main path: bad wave or a kernel never ran")
+
+    # ---- b3, b8: the serving kernels against their plain versions; serve,
+    # stream: the serving paths ----
+    b3 = phase_b3(cfg, dev, torch.Generator().manual_seed(77), TOL)
+    b8, b8_cases = phase_b8(cfg, dev, tts, MEL_TOL, ATT_TOL)
+    serve_counts = phase_serve(cfg, dev, tts, voc)
+    stream_b3, stream = phase_stream(cfg, dev, voc, mel)
 
     # ---- b5: the GRU recurrence kernels against their plain versions ----
     b5 = {}
@@ -1529,8 +2007,55 @@ def main() -> int:
     b7b_bound, b7b_by = bound(fl7b, by7b, PEAK_F32)
     af_total = {k: sum(v[k] for v in af_launches.values())
                 for k in ("taco_af_fwd", "taco_af_bwd")}
-    ok = ok16 and ok32 and ok2 and ok5 and ok6 and ok7
-    emit("timings", ok=ok,
+    # B3 at the b1 shape (the main mel upsampled and folded: 10 folds x
+    # 12,100 steps) and unbatched (1 x 12,100), bfloat16 matrices and
+    # counter-hash noise as the serving paths call it; B8 at B 5 and 32
+    from wavernn_tpu_torch.ops.fold import fold_with_overlap
+    with torch.no_grad():
+        mu, au = voc.upsample(torch.nn.functional.pad(mels, (2, 2)))
+        muf = fold_with_overlap(mu, cfg.voc.target, cfg.voc.overlap)
+        auf = fold_with_overlap(au, cfg.voc.target, cfg.voc.overlap)
+        b3_t = {}
+        for tag, (m3, a3) in (("folds", (muf, auf)),
+                              ("unbatched", (mu[:, :T].contiguous(),
+                                             au[:, :T].contiguous()))):
+            k_ms, (g3, _) = cuda_ms(lambda: cuda_gen.generate_materialized(
+                core, m3, a3, cfg.voc.mode, seed=7), 2)
+            p_ms, (p3, _) = cuda_ms(
+                lambda: cuda_gen.generate_materialized_ref(
+                    core16, m3, a3, cfg.voc.mode, seed=7), 1)
+            chk, ok_t = check_b1_bf16(g3, p3)
+            fl3, by3 = b3_work(m3.shape[0], m3.shape[1], R, FC,
+                               cfg.voc.aux_dims, 80, 30, 2)
+            b_ms, b_by = bound(fl3, by3, PEAK_BF16)
+            b3_t[tag] = {"B": m3.shape[0], "steps": m3.shape[1], "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "flops": fl3, "bytes": by3,
+                         "us_per_step": 1e3 * k_ms / m3.shape[1],
+                         "check": chk, "ok": ok_t}
+        b8_t = {}
+        for B8 in (5, 32):
+            args8, lens8, _ = b8_cases[B8]
+            k_ms, got8 = cuda_ms(lambda: cuda_taco.decode_batch(*args8, -1e30),
+                                 3)
+            p_ms, want8 = cuda_ms(
+                lambda: cuda_taco.decode_batch_ref(*args8, -1e30), 1)
+            chk, ok_t = check_b8(got8, want8, MEL_TOL, ATT_TOL)
+            G8 = 200
+            fl8, by8 = b8_work([min(n + 1, G8) for n in got8[2].tolist()],
+                               lens8, args8[1].shape[1], 256, 256, 256, 128,
+                               512, 2 * 80, 80, G8)
+            b_ms, b_by = bound(fl8, by8, PEAK_F32)
+            b8_t[B8] = {"T_text": args8[1].shape[1], "groups": G8, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "flops": fl8, "bytes": by8,
+                       "us_per_group": 1e3 * k_ms / G8,
+                       "check": {k: v for k, v in chk.items()
+                                 if k != "n_valid"}, "ok": ok_t}
+    ok3 = all(v["ok"] for v in b3_t.values())
+    ok8 = all(v["ok"] for v in b8_t.values())
+    ok = ok16 and ok32 and ok2 and ok5 and ok6 and ok7 and ok3 and ok8
+    emit("timings", ok=ok, b3=b3_t, b8=b8_t,
          b1={"folds": B, "steps": T, "ms": b1_ms, "plain_ms": b1_plain,
              "bound_ms": b1_bound, "flops": fl, "bytes": by,
              "us_per_step_by_folds": sweep, "check": b1_main},
@@ -1593,6 +2118,23 @@ def main() -> int:
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": "operations" if fl2 / PEAK_F32 >= by2 / PEAK_BYTES
          else "bytes", "library_ms": None},
+        {"name": "sample_loop_materialized", "route": "cuda",
+         "source": B1_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:220",
+         "launches": (serve_counts["tts_to_wav_unbatched"]
+                      ["sample_loop_materialized"] + stream_b3),
+         "max_abs_err": max(b3["f32_odd_max_abs_err"],
+                            b3["f32_odd_state_max_abs_err"]),
+         "ms": b3_t["folds"]["ms"], "plain_ms": b3_t["folds"]["plain_ms"],
+         "bound_ms": b3_t["folds"]["bound_ms"],
+         "bound_by": b3_t["folds"]["bound_by"], "library_ms": None},
+        {"name": "taco_decode_batch", "route": "cuda", "source": B2_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco.py:207",
+         "launches": sum(c["taco_decode_batch"]
+                         for c in serve_counts.values()),
+         "max_abs_err": max(v["mel_max_abs_err"] for v in b8.values()),
+         "ms": b8_t[5]["ms"], "plain_ms": b8_t[5]["plain_ms"],
+         "bound_ms": b8_t[5]["bound_ms"], "bound_by": b8_t[5]["bound_by"],
+         "library_ms": None},
         {"name": "gru_seq_fwd", "route": "cuda", "source": B5_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gru.py:57",
          "launches": b5_launches["gru_seq_fwd"],

@@ -20,7 +20,12 @@ attention-forcing recurrence (B7), float32: mel, scores, the streams,
 d(aref) and every gradient within 1e-5 of each tensor's largest entry, as
 B6; an AF-offline train step with the kernels within 1e-5 (loss, relative)
 and 1e-4 (each gradient of its largest entry) of the same step with
-``recurrence="scan"`` on the card.
+``recurrence="scan"`` on the card. The materialized sample loop (B3):
+samples and the returned state within 2e-3 (as B1), and chained launches
+equal to one launch exactly. The batched decode (B8): as B2, every row's
+stop group identical. Streaming on the card against one unbatched launch:
+at least 99.9 % of samples within 1e-3 (cuDNN may convolve a window with
+another algorithm than the whole mel).
 """
 import copy
 
@@ -285,3 +290,153 @@ def test_taco_af_offline_step_kernels_match_scan(cuda):
     assert abs(lk - ls) <= 1e-5 * abs(ls)
     for a, b in zip(gk, gs):
         assert _rel(a, b) <= 1e-4
+
+
+def _small_voc(mode, cuda, seed):
+    gen = torch.Generator().manual_seed(seed)
+    voc = wr.WaveRNN(WaveRNNConfig(mode=mode, rnn_dims=64, fc_dims=64,
+                                   compute_dims=16, res_out_dims=32,
+                                   res_blocks=1), DSPConfig())
+    voc.reset_parameters(gen)
+    return voc.to(cuda).eval(), gen
+
+
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_materialized_kernel_matches_plain_and_chains(cuda, mode):
+    """B3 at an odd shape (B 3, T 333) against its plain version, float32
+    weights; then the state handoff: one launch of T steps equals two
+    chained launches under the same noise, bit for bit, and a snapshot at
+    step s equals the state an s-step launch returns."""
+    voc, gen = _small_voc(mode, cuda, 4)
+    B, T, T1 = 3, 333, 140
+    NC = voc.core_weights()["fc3.weight"].shape[0]
+    mels_up = torch.rand(B, T, 80, generator=gen).to(cuda)
+    aux = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+    state = tuple(t.to(cuda) for t in (torch.rand(B, 64, generator=gen) - 0.5,
+                                       torch.rand(B, 64, generator=gen) - 0.5,
+                                       torch.rand(B, generator=gen) - 0.5))
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    u = cuda_gen.counter_uniforms(5, T, B, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    cut = (lambda n, a, b: tuple(v[a:b] for v in n) if mode == "MOL"
+           else n[a:b])
+    core = voc.core_weights()
+    f32 = torch.float32
+    with torch.no_grad():
+        before = cuda_gen.generate_materialized.launches
+        y, st = cuda_gen.generate_materialized(
+            core, mels_up, aux, mode, noise=noise, init_state=state,
+            compute_dtype=f32)
+        y_p, st_p = cuda_gen.generate_materialized_ref(
+            core, mels_up, aux, mode, noise=noise, init_state=state)
+        assert cuda_gen.generate_materialized.launches == before + 1
+        torch.testing.assert_close(y, y_p, atol=2e-3, rtol=0)
+        for a, b in zip(st, st_p):
+            torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
+        y1, st1 = cuda_gen.generate_materialized(
+            core, mels_up[:, :T1], aux[:, :T1], mode,
+            noise=cut(noise, 0, T1), init_state=state, compute_dtype=f32)
+        y2, st2 = cuda_gen.generate_materialized(
+            core, mels_up[:, T1:], aux[:, T1:], mode,
+            noise=cut(noise, T1, T), init_state=st1, compute_dtype=f32)
+        _, snap = cuda_gen.generate_materialized(
+            core, mels_up, aux, mode, noise=noise, init_state=state,
+            state_snapshot_at=T1, compute_dtype=f32)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    for a, b in zip(st2, st):
+        assert torch.equal(a, b)
+    for a, b in zip(snap, st1):
+        assert torch.equal(a, b)
+
+
+def _mixed_stop_threshold(mel, r):
+    """From a decode that never stopped, a threshold at which the rows stop
+    at different groups (the first group g with g*r > 10 whose largest
+    value is below it), the widest margin among those with the most:
+    (threshold, each row's n_valid under it)."""
+    B, n_mels, steps = mel.shape
+    G = steps // r
+    peaks = mel.reshape(B, n_mels, G, r).amax(dim=(1, 3)).cpu()
+    vals = torch.unique(peaks[:, [g for g in range(G) if g * r > 10]])
+    best = None
+    for lo, hi in zip(vals[:-1].tolist(), vals[1:].tolist()):
+        thr = (lo + hi) / 2
+        stops = [next((g + 1 for g in range(G)
+                       if g * r > 10 and peaks[b, g] < thr), G)
+                 for b in range(B)]
+        score = (len(set(stops)), hi - lo)
+        if best is None or score > best[0]:
+            best = (score, thr, stops)
+    return best[1], best[2]
+
+
+@pytest.mark.parametrize("B", [3, 11])
+def test_batched_decode_kernel_matches_plain(cuda, B):
+    """B8 at B 3 and 11 (one launch for every B), mixed text lengths: no
+    stop, every row stopped at its first eligible group (frozen replay),
+    and a threshold at which the rows stop at different groups."""
+    gen = torch.Generator().manual_seed(2)
+    tts = taco.Tacotron(TacotronConfig(embed_dims=32, encoder_K=2,
+                                       lstm_dims=64, postnet_dims=32,
+                                       postnet_K=2, num_highways=1), 80)
+    tts.reset_parameters(gen)
+    tts = tts.to(cuda).eval()
+    lens = torch.randint(5, 24, (B,), generator=gen)
+    lens[0] = 24
+    ids = torch.randint(1, 148, (B, 24), generator=gen)
+    ids = (ids * (torch.arange(24)[None] < lens[:, None])).to(cuda)
+    lens = lens.to(cuda)
+    with torch.no_grad():
+        enc = tts.encoder(ids, lens=lens)
+        mask = (torch.arange(24, device=cuda)[None] < lens[:, None]).float()
+        enc = enc * mask[..., None]
+        encp = (enc @ tts.encoder_proj.weight.t()) * mask[..., None]
+        dec = tts.decoder_weights()
+        base = (enc, encp, mask, 2, 60, 80, 20)
+        # rows stop at different groups only where their group maxima fall
+        # after group 6, which depends on the weights: mel_proj as drawn
+        # and negated, the one with more stop groups
+        picks = []
+        for sign in (1.0, -1.0):
+            d = {**dec, "mel_proj.weight": sign * dec["mel_proj.weight"]}
+            thr, stops = _mixed_stop_threshold(
+                cuda_taco.decode_batch_ref(d, *base, -1e30)[0], 2)
+            picks.append((len(set(stops)), d, thr))
+        _, mixed, thr = max(picks, key=lambda p: p[0])
+        for d, threshold, want_nv in ((dec, -1e30, [30] * B),
+                                      (dec, 10.0, [7] * B),
+                                      (mixed, thr, None)):
+            before = cuda_taco.decode_batch.launches
+            mel_k, att_k, nv_k = cuda_taco.decode_batch(d, *base, threshold)
+            mel_p, att_p, nv_p = cuda_taco.decode_batch_ref(d, *base,
+                                                            threshold)
+            assert cuda_taco.decode_batch.launches == before + 1
+            assert nv_k.tolist() == nv_p.tolist()
+            assert want_nv is None or nv_p.tolist() == want_nv
+            torch.testing.assert_close(mel_k, mel_p, atol=2e-3, rtol=0)
+            torch.testing.assert_close(att_k, att_p, atol=2e-4, rtol=0)
+
+
+def test_streaming_matches_unbatched_offline(cuda):
+    """StreamingVocoder on the card (B3 per block, the state handed on)
+    against one unbatched B3 launch over the whole utterance with the same
+    noise: at least 99.9 % of samples within 1e-3 (cuDNN may pick another
+    convolution algorithm for a window than for the whole mel)."""
+    from wavernn_tpu_torch.streaming import StreamingVocoder
+    voc, gen = _small_voc("MOL", cuda, 6)
+    frames = 40
+    mels = torch.rand(80, frames, generator=gen).to(cuda)
+    T = frames * 275
+    u = cuda_gen.counter_uniforms(7, T, 1, 11, True, cuda)
+    noise = (u[..., :10], u[..., 10])
+    with torch.no_grad():
+        mu, au = voc.upsample(torch.nn.functional.pad(mels[None], (2, 2)))
+        want, _ = cuda_gen.generate_materialized(voc.core_weights(), mu, au,
+                                                 "MOL", noise=noise)
+    sv = StreamingVocoder(voc, chunk_frames=7, noise=noise, device=cuda)
+    got = torch.cat([torch.as_tensor(sv.feed(mels[:, :17])),
+                     torch.as_tensor(sv.feed(mels[:, 17:])),
+                     torch.as_tensor(sv.flush())]).to(cuda)
+    assert got.shape == (T,)
+    share = float(((got - want[0]).abs() <= 1e-3).float().mean())
+    assert share >= 0.999, share

@@ -55,6 +55,7 @@ class WaveRNNConfig:
     res_out_dims: int = 128
     res_blocks: int = 10
     pad: int = 2
+    gen_batched: bool = True
     target: int = 11_000
     overlap: int = 550
 
@@ -198,6 +199,8 @@ class Config:
     tts: TacotronConfig = field(default_factory=TacotronConfig)
     tts_train: TacotronTrainConfig = field(
         default_factory=TacotronTrainConfig)
+    test_sentences_file: Optional[str] = None
+    test_sentences_names: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         total = math.prod(self.voc.upsample_factors)
@@ -236,6 +239,7 @@ class Config:
             res_out_dims=g("voc_res_out_dims", 128),
             res_blocks=g("voc_res_blocks", 10),
             pad=g("voc_pad", 2),
+            gen_batched=g("voc_gen_batched", True),
             target=g("voc_target", 11_000),
             overlap=g("voc_overlap", 550),
         )
@@ -281,6 +285,7 @@ class Config:
             attn_ref_path=g("attn_ref_path"),
             model_tf_path=g("model_tf_path"),
         )
+        names = g("test_sentences_names")
         return cls(
             data_path=g("data_path", "data/"),
             voc_model_id=g("voc_model_id", "ljspeech_mol"),
@@ -288,4 +293,6 @@ class Config:
             ignore_tts=g("ignore_tts", False),
             ignore_voc=g("ignore_voc", False),
             dsp=dsp, voc=voc, voc_train=voc_train, tts=tts,
-            tts_train=tts_train)
+            tts_train=tts_train,
+            test_sentences_file=g("test_sentences_file"),
+            test_sentences_names=tuple(names) if names else None)

@@ -1,30 +1,47 @@
-// Fused WaveRNN sample loop for Hopper (sm_90a): the whole autoregressive
-// generation of every fold in ONE cooperative launch.
+// WaveRNN sample loops for Hopper (sm_90a): the whole autoregressive
+// generation of every row in ONE cooperative launch. One templated body
+// serves both TPU kernels; the arm is a compile-time flag.
 //
-// Replaces: wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel (called
-// through generate_pallas_fused), the TPU kernel that upsamples its own
-// conditioning from frame-rate folded rows and runs the sample loop.
+// Replaces:
+//   FUSED = true   (B1): wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel
+//                  (called through generate_pallas_fused), the TPU kernel
+//                  that upsamples its own conditioning from frame-rate folded
+//                  rows and runs the sample loop;
+//   FUSED = false  (B3, with B4's state I/O): pallas_gen.py, _make_kernel
+//                  (with_state False and True, called through
+//                  generate_pallas and generate_pallas_with_state), the
+//                  materialized sample loop that streams sample-rate
+//                  conditioning in and can resume from and snapshot the RNN
+//                  state.
 //
-// What it computes, per fold b and sample t = c*hop + i (chunk c, phase i):
-//   once per chunk c (hoisted, as the TPU kernel does):
+// What it computes, per row b and sample t:
+//   B1, t = c*hop + i (chunk c, phase i), once per chunk c (hoisted, as the
+//   TPU kernel does):
 //     p_j   = frame[c+j][:n_mels] @ W_Imel          j < K  (mel taps)
 //     base  = a1 @ W_Ia1 + b_I,  gi2a = a2 @ W_i2a + b_i2,
 //     f1a   = a3 @ W_1a + b_1,   f2a  = a4 @ W_2a + b_2   (a = frame[c+aux_tap])
+//   B3, the row cond[t, b] = [mel | a1 | a2 | a3 | a4] at every step:
+//     base  = [mel | a1] @ W_Ic + b_I, and gi2a, f1a, f2a as above from its
+//     a2..a4, computed inside the launch for a span of steps ahead as one
+//     product over (span*B) rows into the workspace (they do not depend on x)
 //   per sample:
-//     inp = base + x*w_Ix + sum_j phi[j][i] * p_j
+//     inp = base + x*w_Ix (+ sum_j phi[j][i] * p_j in B1)
 //     h1  = GRU(inp, h1);   xr = inp + h1
 //     h2  = GRU([xr|a2], h2); x2 = xr + h2
 //     hf  = relu(fc2(relu(fc1(x2))));  logits = fc3(hf)
 //     x   = MOL sample (Gumbel mixture pick + inverse-CDF logistic, log-scale
 //           clamped at log 1e-14) or RAW Gumbel-argmax, from injected
 //           uniforms or the counter hash below.
+//   B3 state: (h1, h2, x) start from the given state (zeros when none), and
+//   the state entering step snapshot_at (the final state when it is T) is
+//   written out, so two chained launches of T/2 steps equal one of T.
 //
 // What bounds it: latency, not bytes or FLOPs. Counted once, the work is
 // small for the card (each step multiplies the ~3.69M core weights, 7.4 MB
-// in bf16, by a batch of only B folds), but the steps are a chain: every
+// in bf16, by a batch of only B rows), but the steps are a chain: every
 // sample depends on the previous one, and five stages of a step depend on
 // each other across the whole grid. PERF.md has the measured split between
-// the fixed per-step cost and the part that grows with the fold count.
+// the fixed per-step cost and the part that grows with the row count.
 //
 // Design: one persistent cooperative launch, one block per SM. Each block
 // owns a slice of the output columns of every layer (a warp per column,
@@ -33,7 +50,10 @@
 // fc3+sample. Weights stay in device memory (they fit in the 50 MB L2);
 // the small per-step activation vectors are staged in shared memory per
 // block. The recurrent state ping-pongs between two buffers so a
-// stage never overwrites what another block is still reading.
+// stage never overwrites what another block is still reading. B3's
+// conditioning products run once per span of steps, with one more barrier;
+// its workspace is per span, so nothing but the output and the conditioning
+// stream grows with T.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,16 +66,17 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int BT = 8;  // folds per shared-memory tile
+constexpr int BT = 8;  // rows per shared-memory tile
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr float MOL_U_SCALE = (float)(1.0 - 2e-5);
 
 }  // namespace
 
 // Mirrored field for field by ops/cuda_gen.py (ctypes): 8-byte fields only.
-struct FusedArgs {
-  const float* frames;  // (nf_loc, B, C) f32, C = n_mels + 4A
-  const float* phi;     // (K, hop) f32
+struct LoopArgs {
+  const float* frames;  // B1: (nf_loc, B, C) f32, C = n_mels + 4A
+  const float* phi;     // B1: (K, hop) f32
+  const float* cond;    // B3: (T, B, C) f32
   const float* noise;   // (T, B, NU) f32 injected uniforms, or null
   const void* w_imel;   // (R, n_mels)   WT
   const void* w_ia1;    // (R, A)        WT
@@ -78,29 +99,37 @@ struct FusedArgs {
   const float* b2;      // (FC,)
   const void* w3;       // (NC, FC)      WT
   const float* b3;      // (NC,)
+  const float* h1_0;    // B3: (B, R) initial state, or null for zeros
+  const float* h2_0;    // B3: (B, R)
+  const float* x_0;     // B3: (B,)
+  float* snap_h1;       // B3: (B, R) the state entering step snapshot_at
+  float* snap_h2;       // B3: (B, R)
+  float* snap_x;        // B3: (B,)
   float* out;           // (B, T) f32
   float* work;          // zeroed workspace, see Work below
   int64_t B, R, FC, A, n_mels, NC, K, hop, fold_chunks, aux_tap;
+  int64_t T, span, snapshot_at;  // B3: steps, steps per conditioning span
   int64_t mol, seed, bf16;
 };
 
 namespace {
 
-struct Work {  // views into FusedArgs::work (floats)
+struct Work {  // views into LoopArgs::work (floats); S = span (B1: 1)
   float *ps, *base, *gi2a, *f1a, *f2a, *h1, *h2, *xr, *x2, *hf1, *hf2, *x;
-  __device__ Work(float* w, int B, int R, int FC, int K) {
-    ps = w;                  // (K, B, R)
-    base = ps + K * B * R;   // (B, R)
-    gi2a = base + B * R;     // (B, 3R)
-    f1a = gi2a + 3 * B * R;  // (B, FC)
-    f2a = f1a + B * FC;      // (B, FC)
-    h1 = f2a + B * FC;       // (2, B, R) ping-pong
-    h2 = h1 + 2 * B * R;     // (2, B, R) ping-pong
-    xr = h2 + 2 * B * R;     // (B, R)
-    x2 = xr + B * R;         // (B, R)
-    hf1 = x2 + B * R;        // (B, FC)
-    hf2 = hf1 + B * FC;      // (B, FC)
-    x = hf2 + B * FC;        // (B,) previous sample
+  __device__ Work(float* w, int B, int R, int FC, int K, int S) {
+    const size_t SB = (size_t)S * B;
+    ps = w;                            // (K, B, R)  B1's mel taps
+    base = ps + (size_t)K * B * R;     // (S, B, R)
+    gi2a = base + SB * R;              // (S, B, 3R)
+    f1a = gi2a + 3 * SB * R;           // (S, B, FC)
+    f2a = f1a + SB * FC;               // (S, B, FC)
+    h1 = f2a + SB * FC;                // (2, B, R) ping-pong
+    h2 = h1 + 2 * B * R;               // (2, B, R) ping-pong
+    xr = h2 + 2 * B * R;               // (B, R)
+    x2 = xr + B * R;                   // (B, R)
+    hf1 = x2 + B * R;                  // (B, FC)
+    hf2 = hf1 + B * FC;                // (B, FC)
+    x = hf2 + B * FC;                  // (B,) previous sample
   }
 };
 
@@ -142,11 +171,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// Warp-wide dot products of one output unit j against a tile of nb folds:
+// Warp-wide dot products of one output unit j against a tile of nb rows:
 // NA gate rows of `wa` against s_a, NB gate rows of `wb` against s_b.
 // Row g of a matrix is row g*gstride + j, of length n (n % 8 == 0); the
 // tiles are (nb, n) row-major in shared memory. Every lane ends with the
-// full sums.
+// full sums. A row's sums do not depend on the other rows of its tile.
 template <int NA, int NB, typename WT>
 __device__ __forceinline__ void warp_dots(const WT* __restrict__ wa,
                                           const WT* __restrict__ wb, int j,
@@ -233,14 +262,27 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
+// B3: copy the state entering the current step (block 0 only; other blocks
+// write only the other ping-pong buffer and x after later barriers).
+__device__ void snapshot(const LoopArgs& a, const float* h1, const float* h2,
+                         const float* x, int B, int R) {
+  if (blockIdx.x != 0) return;
+  for (int e = threadIdx.x; e < B * R; e += THREADS) {
+    a.snap_h1[e] = __ldcg(h1 + e);
+    a.snap_h2[e] = __ldcg(h2 + e);
+  }
+  for (int b = threadIdx.x; b < B; b += THREADS) a.snap_x[b] = __ldcg(x + b);
+}
+
+template <typename WT, bool FUSED>
+__global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int B = (int)a.B, R = (int)a.R, FC = (int)a.FC, A = (int)a.A;
-  const int n_mels = (int)a.n_mels, NC = (int)a.NC, K = (int)a.K;
+  const int n_mels = (int)a.n_mels, NC = (int)a.NC, K = FUSED ? (int)a.K : 0;
   const int hop = (int)a.hop, C = n_mels + 4 * A;
-  const int T = (int)(a.fold_chunks * a.hop);
+  const int T = FUSED ? (int)(a.fold_chunks * a.hop) : (int)a.T;
+  const int span = FUSED ? hop : (int)a.span;
   const bool mol = a.mol != 0;
   const int nr = NC / 3;
   const int NU = mol ? nr + 1 : NC;
@@ -248,12 +290,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
   const int DM = R > FC ? R : FC;
   float* s_a = smem;            // (BT, DM)
   float* s_b = smem + BT * DM;  // (BT, R)
-  Work wk(a.work, B, R, FC, K);
+  Work wk(a.work, B, R, FC, K, FUSED ? 1 : span);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // units spread over blocks first, so every SM gets a share of each stage
   const int gw = warp * gridDim.x + blockIdx.x;
   const int nw = WARPS * gridDim.x;
+  const int gt = threadIdx.x * gridDim.x + blockIdx.x, nt = THREADS * gridDim.x;
 
   const WT* w_imel = (const WT*)a.w_imel;
   const WT* w_ia1 = (const WT*)a.w_ia1;
@@ -268,50 +311,103 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
   const WT* w2a = (const WT*)a.w2a;
   const WT* w3 = (const WT*)a.w3;
 
-  for (int c = 0; c < (int)a.fold_chunks; ++c) {
-    // ---- per-chunk conditioning: mel taps and the four aux projections ----
-    const int n_units = K * R + R + 3 * R + 2 * FC;
-    for (int u = gw; u < n_units; u += nw) {
-      for (int b = 0; b < B; ++b) {
-        if (u < K * R) {
-          const int j = u / R, col = u % R;
-          const float* fr = a.frames + ((size_t)(c + j) * B + b) * C;
-          const float v = warp_dot_scalar(w_imel + (size_t)col * n_mels, fr, n_mels);
-          if (lane == 0) wk.ps[((size_t)j * B + b) * R + col] = v;
-          continue;
+  if constexpr (!FUSED) {
+    // resume from the given state (the workspace arrives zeroed); the first
+    // conditioning span's barrier orders these writes before step 0
+    for (int e = gt; e < B * R; e += nt) {
+      if (a.h1_0) wk.h1[e] = a.h1_0[e];
+      if (a.h2_0) wk.h2[e] = a.h2_0[e];
+    }
+    if (a.x_0)
+      for (int b = gt; b < B; b += nt) wk.x[b] = a.x_0[b];
+  }
+
+  for (int t0 = 0; t0 < T; t0 += span) {
+    const int n_steps = min(span, T - t0);
+    if constexpr (FUSED) {
+      // ---- per-chunk conditioning: mel taps and the four aux projections ----
+      const int c = t0 / hop;
+      const int n_units = K * R + R + 3 * R + 2 * FC;
+      for (int u = gw; u < n_units; u += nw) {
+        for (int b = 0; b < B; ++b) {
+          if (u < K * R) {
+            const int j = u / R, col = u % R;
+            const float* fr = a.frames + ((size_t)(c + j) * B + b) * C;
+            const float v = warp_dot_scalar(w_imel + (size_t)col * n_mels, fr, n_mels);
+            if (lane == 0) wk.ps[((size_t)j * B + b) * R + col] = v;
+            continue;
+          }
+          const float* aux = a.frames + ((size_t)(c + a.aux_tap) * B + b) * C + n_mels;
+          int v = u - K * R;
+          if (v < R) {
+            const float s = warp_dot_scalar(w_ia1 + (size_t)v * A, aux, A);
+            if (lane == 0) wk.base[(size_t)b * R + v] = s + a.b_i[v];
+            continue;
+          }
+          v -= R;
+          if (v < 3 * R) {
+            const float s = warp_dot_scalar(wi2a + (size_t)v * A, aux + A, A);
+            if (lane == 0) wk.gi2a[(size_t)b * 3 * R + v] = s + a.bi2[v];
+            continue;
+          }
+          v -= 3 * R;
+          if (v < FC) {
+            const float s = warp_dot_scalar(w1a + (size_t)v * A, aux + 2 * A, A);
+            if (lane == 0) wk.f1a[(size_t)b * FC + v] = s + a.b1[v];
+            continue;
+          }
+          v -= FC;
+          const float s = warp_dot_scalar(w2a + (size_t)v * A, aux + 3 * A, A);
+          if (lane == 0) wk.f2a[(size_t)b * FC + v] = s + a.b2[v];
         }
-        const float* aux = a.frames + ((size_t)(c + a.aux_tap) * B + b) * C + n_mels;
-        int v = u - K * R;
+      }
+    } else {
+      // ---- the span's conditioning: base, gi2a, f1a, f2a for its
+      // n_steps * B rows of cond (row q = i*B + b is step t0 + i) ----
+      const int rows = n_steps * B;
+      const int n_units = R + 3 * R + 2 * FC;
+      for (int u = gw; u < n_units; u += nw) {
+        const WT *w0, *w1 = nullptr;
+        int n0 = A, off0, off1 = 0, stride;
+        float bias;
+        float* dst;
+        int v = u;
         if (v < R) {
-          const float s = warp_dot_scalar(w_ia1 + (size_t)v * A, aux, A);
-          if (lane == 0) wk.base[(size_t)b * R + v] = s + a.b_i[v];
-          continue;
+          w0 = w_imel + (size_t)v * n_mels; n0 = n_mels; off0 = 0;
+          w1 = w_ia1 + (size_t)v * A; off1 = n_mels;
+          bias = a.b_i[v]; dst = wk.base + v; stride = R;
+        } else if ((v -= R) < 3 * R) {
+          w0 = wi2a + (size_t)v * A; off0 = n_mels + A;
+          bias = a.bi2[v]; dst = wk.gi2a + v; stride = 3 * R;
+        } else if ((v -= 3 * R) < FC) {
+          w0 = w1a + (size_t)v * A; off0 = n_mels + 2 * A;
+          bias = a.b1[v]; dst = wk.f1a + v; stride = FC;
+        } else {
+          v -= FC;
+          w0 = w2a + (size_t)v * A; off0 = n_mels + 3 * A;
+          bias = a.b2[v]; dst = wk.f2a + v; stride = FC;
         }
-        v -= R;
-        if (v < 3 * R) {
-          const float s = warp_dot_scalar(wi2a + (size_t)v * A, aux + A, A);
-          if (lane == 0) wk.gi2a[(size_t)b * 3 * R + v] = s + a.bi2[v];
-          continue;
+        for (int q = 0; q < rows; ++q) {
+          const float* row = a.cond + ((size_t)t0 * B + q) * C;
+          float s = warp_dot_scalar(w0, row + off0, n0);
+          if (w1) s += warp_dot_scalar(w1, row + off1, A);
+          if (lane == 0) dst[(size_t)q * stride] = s + bias;
         }
-        v -= 3 * R;
-        if (v < FC) {
-          const float s = warp_dot_scalar(w1a + (size_t)v * A, aux + 2 * A, A);
-          if (lane == 0) wk.f1a[(size_t)b * FC + v] = s + a.b1[v];
-          continue;
-        }
-        v -= FC;
-        const float s = warp_dot_scalar(w2a + (size_t)v * A, aux + 3 * A, A);
-        if (lane == 0) wk.f2a[(size_t)b * FC + v] = s + a.b2[v];
       }
     }
     grid.sync();
 
-    for (int i = 0; i < hop; ++i) {
-      const int t = c * hop + i;
+    for (int i = 0; i < n_steps; ++i) {
+      const int t = t0 + i;
+      // B1 keeps one conditioning row per chunk; B3 one per step of the span
+      const size_t ci = FUSED ? 0 : (size_t)i * B;
       float* h1_cur = wk.h1 + (size_t)(t & 1) * B * R;
       float* h1_nxt = wk.h1 + (size_t)((t + 1) & 1) * B * R;
       float* h2_cur = wk.h2 + (size_t)(t & 1) * B * R;
       float* h2_nxt = wk.h2 + (size_t)((t + 1) & 1) * B * R;
+      if constexpr (!FUSED) {
+        if (t == a.snapshot_at) snapshot(a, h1_cur, h2_cur, wk.x, B, R);
+      }
 
       // ---- stage 1: inp, GRU1, xr ----
       for (int b0 = 0; b0 < B; b0 += BT) {
@@ -319,9 +415,11 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
         __syncthreads();
         for (int e = threadIdx.x; e < nb * R; e += THREADS) {
           const int b = b0 + e / R, k = e % R;
-          float v = __ldcg(wk.base + (size_t)b * R + k) + __ldcg(wk.x + b) * a.w_ix[k];
-          for (int j = 0; j < K; ++j)
-            v = v + a.phi[j * hop + i] * __ldcg(wk.ps + ((size_t)j * B + b) * R + k);
+          float v = __ldcg(wk.base + (ci + b) * R + k) + __ldcg(wk.x + b) * a.w_ix[k];
+          if constexpr (FUSED) {
+            for (int j = 0; j < K; ++j)
+              v = v + a.phi[j * hop + i] * __ldcg(wk.ps + ((size_t)j * B + b) * R + k);
+          }
           s_a[e] = v;
           s_b[e] = __ldcg(h1_cur + (size_t)b * R + k);
         }
@@ -371,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
                 hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
               }
             const int b = lane;
-            const float* ga = wk.gi2a + (size_t)(b0 + b) * 3 * R;  // a2 terms + bi2
+            const float* ga = wk.gi2a + (ci + b0 + b) * 3 * R;  // a2 terms + bi2
             const float r = sigmoidf((gr + __ldcg(ga + j)) + (hr + a.bh2[j]));
             const float z = sigmoidf((gz + __ldcg(ga + R + j)) + (hz + a.bh2[R + j]));
             const float n = tanhf((gn + __ldcg(ga + 2 * R + j)) + r * (hn + a.bh2[2 * R + j]));
@@ -387,7 +485,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
       for (int layer = 0; layer < 2; ++layer) {
         const float* src = layer == 0 ? wk.x2 : wk.hf1;
         float* dst = layer == 0 ? wk.hf1 : wk.hf2;
-        const float* add = layer == 0 ? wk.f1a : wk.f2a;
+        const float* add = (layer == 0 ? wk.f1a : wk.f2a) + ci * FC;
         const WT* w = layer == 0 ? w1x : w2x;
         const int n = layer == 0 ? R : FC;
         for (int b0 = 0; b0 < B; b0 += BT) {
@@ -412,7 +510,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
         grid.sync();
       }
 
-      // ---- stage 5: fc3 and the sample, one block per fold ----
+      // ---- stage 5: fc3 and the sample, one block per row ----
       for (int b = blockIdx.x; b < B; b += gridDim.x) {
         float* s_h = s_a;        // (FC,)
         float* s_l = s_a + FC;   // (NC,)
@@ -466,29 +564,21 @@ __global__ void __launch_bounds__(THREADS, 1) fused_sample_loop(FusedArgs a) {
       grid.sync();
     }
   }
+  if constexpr (!FUSED) {
+    if (a.snapshot_at == T)
+      snapshot(a, wk.h1 + (size_t)(T & 1) * B * R, wk.h2 + (size_t)(T & 1) * B * R,
+               wk.x, B, R);
+  }
 }
 
-size_t shared_bytes(const FusedArgs& a) {
+size_t shared_bytes(const LoopArgs& a) {
   const int64_t dm = a.R > a.FC ? a.R : a.FC;
   const int64_t tiles = (int64_t)BT * (dm + a.R);
   const int64_t head = a.FC + a.NC;  // stage 5 reuses the tiles
   return (size_t)(tiles > head ? tiles : head) * sizeof(float);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of workspace the launch needs (zero-filled by the caller).
-int64_t wr_sample_loop_fused_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K) {
-  return K * B * R + B * R + 3 * B * R + 2 * B * FC + 4 * B * R + 2 * B * R
-         + 2 * B * FC + B;
-}
-
-// Launches the loop on `stream`; returns the CUDA error code (0 = launched).
-int wr_sample_loop_fused(const FusedArgs* args, void* stream) {
-  const void* fn = args->bf16 ? (const void*)fused_sample_loop<__nv_bfloat16>
-                              : (const void*)fused_sample_loop<float>;
+int launch(const void* fn, const LoopArgs* args, void* stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -500,13 +590,40 @@ int wr_sample_loop_fused(const FusedArgs* args, void* stream) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  FusedArgs a = *args;
+  LoopArgs a = *args;
   void* kargs[] = {&a};
   // one block per SM: within the co-residency limit per_sm * sms
   e = cudaLaunchCooperativeKernel(fn, dim3(sms), dim3(THREADS), kargs, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of workspace a launch needs (zero-filled by the caller): K mel taps
+// (B1; 0 for B3), `span` rows of conditioning products per row (B1: 1).
+int64_t wr_sample_loop_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K,
+                                   int64_t span) {
+  return K * B * R + span * B * (R + 3 * R + 2 * FC) + 4 * B * R + 2 * B * R
+         + 2 * B * FC + B;
+}
+
+// B1: launches the fused loop on `stream`; returns the CUDA error code
+// (0 = launched).
+int wr_sample_loop_fused(const LoopArgs* args, void* stream) {
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, true>
+                           : (const void*)sample_loop<float, true>,
+                args, stream);
+}
+
+// B3: launches the materialized loop with state I/O on `stream`.
+int wr_sample_loop_materialized(const LoopArgs* args, void* stream) {
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, false>
+                           : (const void*)sample_loop<float, false>,
+                args, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,16 @@
 // Tacotron free-running decode for Hopper (sm_90a): every decoder group of
-// one utterance in ONE cooperative launch.
+// a batch of utterances in ONE cooperative launch. Two kernels share this
+// file's helpers: taco_decode (B2, one utterance) and taco_decode_batch (B8,
+// B utterances of right-padded text with per-row stop and freeze).
 //
-// Replaces: wavernn_tpu/ops/pallas_taco.py, _make_kernel (called through
-// decode_pallas), the TPU kernel that runs the batch-1 decoder loop with
-// its weights resident.
+// Replaces:
+//   taco_decode        wavernn_tpu/ops/pallas_taco.py, _make_kernel (called
+//                      through decode_pallas), the TPU kernel that runs the
+//                      batch-1 decoder loop with its weights resident;
+//   taco_decode_batch  pallas_taco.py, _make_batch_kernel (decode_pallas_batch,
+//                      B <= 8) and _make_stacked_kernel (decode_pallas_stacked,
+//                      B > 8): the same function for any B, one kernel (the
+//                      TPU's B <= 8 / B > 8 split is a layout matter).
 //
 // What it computes, per group g (reference tacotron.py:229-286, eval):
 //   p      = relu(fc2(relu(fc1(prev_frame))))                 prenet
@@ -19,10 +26,13 @@
 //            once from the frozen state) is replayed for every later group.
 //            n_valid counts the groups decoded before the stop was set,
 //            the trigger group included.
+//   B8 does this per row: mask_t is the row's text mask, a row that stops
+//   freezes alone while the others go on, and once every row has stopped
+//   one more group computes every row's frozen output, replayed from then.
 //
-// What bounds it: latency. At batch 1 every group is a chain of ten stages
-// that depend on each other across the whole grid (matrix-vector products
-// over the ~5.9M decoder weights, 23.6 MB in float32), and every group
+// What bounds it: latency. Every group is a chain of ten stages that
+// depend on each other across the whole grid (matrix-vector products over
+// the ~5.9M decoder weights, 23.6 MB in float32, for B rows), and every group
 // depends on the previous one; counted once, its FLOPs and bytes are small
 // for the card.
 //
@@ -36,6 +46,11 @@
 // flip. Every block derives the stop flag itself from the group's mels in
 // device memory after the barrier, so all blocks take the same branch
 // without another barrier and the host never synchronises inside the loop.
+// B8: a warp takes one (output unit, tile of 4 rows) item, so B rows spread
+// over more warps; each row has its own ping-pong index, flipped only while
+// the row is live, kept identically in every block's shared memory; the
+// LSA takes (row, position) pairs. Shared memory and the workspace grow with
+// B * T_text: ops/cuda_taco.py splits a batch into launches that fit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -372,6 +387,459 @@ size_t shared_bytes(const DecodeArgs& a) {
 
 }  // namespace
 
+// B8's arguments, mirrored field for field by ops/cuda_taco.py (ctypes):
+// 8-byte fields only. The weights are B2's.
+struct BatchArgs {
+  const float* enc;    // (B, T, E)
+  const float* encp;   // (B, T, D)
+  const float* mask;   // (B, T)          1 on a row's text, 0 on its padding
+  const float* w1p;
+  const float* b1p;
+  const float* w2p;
+  const float* b2p;
+  const float* awi;
+  const float* abi;
+  const float* awh;
+  const float* abh;
+  const float* wq;
+  const float* qb;
+  const float* conv;
+  const float* lw;
+  const float* v;
+  const float* wr;
+  const float* br;
+  const float* l1wi;
+  const float* l1wh;
+  const float* l1b;
+  const float* l2wi;
+  const float* l2wh;
+  const float* l2b;
+  const float* wm;
+  float* mel_out;      // (B, n_groups, F)
+  float* att_out;      // (B, n_groups, T)
+  int32_t* n_valid;    // (B,)
+  float* work;         // zeroed workspace, see BWork below
+  int64_t B, T, E, D, P1, P2, L, n_mels, r, n_groups;
+  double stop_threshold;
+};
+
+namespace {
+
+constexpr int RT = 4;  // rows of one warp item
+
+struct BWork {  // views into BatchArgs::work; every row 16-byte aligned
+  int64_t Tp, Fp;  // padded row widths of the T- and F-long buffers
+  float *p1, *p2, *q, *sig, *xin, *x1, *x2;            // (B, .)
+  float *ah, *ctx, *cum, *att, *h1, *c1, *h2, *c2, *mel;  // (2, B, .)
+  int64_t size = 0;  // floats
+  __host__ __device__ BWork(float* w, const BatchArgs& a)
+      : Tp(up4(a.T)), Fp(up4(a.r * a.n_mels)) {
+    const int64_t B = a.B;
+    auto take = [&](int64_t n) {
+      float* p = w ? w + size : nullptr;
+      size += up4(n);
+      return p;
+    };
+    p1 = take(B * a.P1); p2 = take(B * a.P2); q = take(B * a.D);
+    sig = take(B * Tp); xin = take(B * a.L); x1 = take(B * a.L);
+    x2 = take(B * a.L);
+    ah = take(2 * B * a.D); ctx = take(2 * B * a.E); cum = take(2 * B * Tp);
+    att = take(2 * B * Tp); h1 = take(2 * B * a.L); c1 = take(2 * B * a.L);
+    h2 = take(2 * B * a.L); c2 = take(2 * B * a.L); mel = take(2 * B * Fp);
+  }
+};
+
+// Row b of a ping-pong buffer (2, B, w) at index i.
+__device__ __forceinline__ float* pp(float* base, int64_t w, int i, int b, int B) {
+  return base + ((int64_t)i * B + b) * w;
+}
+
+// The input vectors [a (na floats) | b] of up to RT rows, read through L2:
+// other blocks wrote them before the last grid barrier.
+struct Rows {
+  const float* a[RT];
+  const float* b[RT];
+  int na;
+  __device__ float4 at(int r, int k) const {
+    return k < na ? __ldcg(reinterpret_cast<const float4*>(a[r] + k))
+                  : __ldcg(reinterpret_cast<const float4*>(b[r] + (k - na)));
+  }
+};
+
+// NG warp-wide dot products per row: weight rows g*gstride + j (length n)
+// against the first nb rows of x. Each row's sum runs in B2's order.
+template <int NG>
+__device__ __forceinline__ void row_dots(const float* __restrict__ w, int j,
+                                         int gstride, int n, const Rows& x,
+                                         int nb, float (&acc)[NG][RT]) {
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[g][r] = 0.f;
+  for (int k = (threadIdx.x & 31) * 4; k < n; k += 128) {
+    float4 wv[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      wv[g] = __ldg(reinterpret_cast<const float4*>(w + ((size_t)g * gstride + j) * n + k));
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r < nb) {
+        const float4 xv = x.at(r, k);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          acc[g][r] = fmaf(wv[g].x, xv.x, acc[g][r]);
+          acc[g][r] = fmaf(wv[g].y, xv.y, acc[g][r]);
+          acc[g][r] = fmaf(wv[g].z, xv.z, acc[g][r]);
+          acc[g][r] = fmaf(wv[g].w, xv.w, acc[g][r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+      if (r < nb) acc[g][r] = warp_sum(acc[g][r]);
+}
+
+// acc[g][r] with r a runtime lane index, without local memory
+template <int NG>
+__device__ __forceinline__ float pick(const float (&acc)[NG][RT], int g, int r) {
+  float v = 0.f;
+#pragma unroll
+  for (int rr = 0; rr < RT; ++rr)
+    if (rr == r) v = acc[g][rr];
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) taco_decode_batch(BatchArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int B = (int)a.B, T = (int)a.T, E = (int)a.E, D = (int)a.D;
+  const int P1 = (int)a.P1, P2 = (int)a.P2, L = (int)a.L;
+  const int n_mels = (int)a.n_mels, r = (int)a.r, F = r * n_mels;
+  const float thr = (float)a.stop_threshold;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = warp * gridDim.x + blockIdx.x, nw = WARPS * gridDim.x;
+  const int gt = threadIdx.x * gridDim.x + blockIdx.x, nt = THREADS * gridDim.x;
+  const int tiles = (B + RT - 1) / RT;
+  BWork wk(a.work, a);
+  const int64_t Tp = wk.Tp, Fp = wk.Fp;
+
+  extern __shared__ float smem[];
+  float* s_conv = smem;                          // (32, 2, 31)
+  float* s_lwT = s_conv + LOC_CH * 2 * CONV_K;   // (32, D): L weight transposed
+  float* s_v = s_lwT + LOC_CH * D;               // (D,)
+  float* s_q = s_v + D;                          // (B, D)
+  float* s_cum = s_q + B * D;                    // (B, T)
+  float* s_att = s_cum + B * T;                  // (B, T)
+  float* s_tot = s_att + B * T;                  // (B,)
+  int* s_cur = reinterpret_cast<int*>(s_tot + B);  // (B,) live ping-pong index
+  int* s_stop = s_cur + B;                       // (B,) stopped before this group
+  int* s_valid = s_stop + B;                     // (B,) groups decoded live
+  int* s_src = s_valid + B;                      // (B,) buffer of this group's output
+  int* s_hit = s_src + B;                        // (B,) this group's stop test
+  float* s_scores = s_cum;                       // stage 6 reuses cum/att
+  for (int e = threadIdx.x; e < LOC_CH * 2 * CONV_K; e += THREADS) s_conv[e] = a.conv[e];
+  for (int e = threadIdx.x; e < LOC_CH * D; e += THREADS)
+    s_lwT[(e % LOC_CH) * D + e / LOC_CH] = a.lw[e];
+  for (int e = threadIdx.x; e < D; e += THREADS) s_v[e] = a.v[e];
+  for (int b = threadIdx.x; b < B; b += THREADS) {
+    s_cur[b] = 0;
+    s_stop[b] = 0;
+    s_valid[b] = 0;
+    s_src[b] = 0;
+  }
+  __syncthreads();
+
+  // the rows of item `it` of a stage over `units` output units
+  auto item = [&](int it, int& j, int& b0, int& nb) {
+    j = it / tiles;
+    b0 = (it % tiles) * RT;
+    nb = min(RT, B - b0);
+  };
+  auto row = [&](int b0, int rr) { return min(b0 + rr, B - 1); };
+
+  bool held = false;
+  for (int g = 0; g < (int)a.n_groups; ++g) {
+    bool all_frozen = true;
+    for (int b = 0; b < B; ++b) all_frozen &= s_stop[b] != 0;
+    if (!(all_frozen && held)) {
+      // ---- 1, 2: prenet on each row's previous last frame ----
+      for (int it = gw; it < P1 * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows x;
+        x.na = n_mels;
+        for (int rr = 0; rr < RT; ++rr) {
+          const int b = row(b0, rr);
+          x.a[rr] = pp(wk.mel, Fp, s_cur[b], b, B) + (r - 1) * n_mels;
+          x.b[rr] = nullptr;
+        }
+        float acc[1][RT];
+        row_dots<1>(a.w1p, j, 0, n_mels, x, nb, acc);
+        if (lane < nb) wk.p1[(size_t)(b0 + lane) * P1 + j] = fmaxf(pick<1>(acc, 0, lane) + a.b1p[j], 0.f);
+      }
+      grid.sync();
+      for (int it = gw; it < P2 * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows x;
+        x.na = P1;
+        for (int rr = 0; rr < RT; ++rr) {
+          x.a[rr] = wk.p1 + (size_t)row(b0, rr) * P1;
+          x.b[rr] = nullptr;
+        }
+        float acc[1][RT];
+        row_dots<1>(a.w2p, j, 0, P1, x, nb, acc);
+        if (lane < nb) wk.p2[(size_t)(b0 + lane) * P2 + j] = fmaxf(pick<1>(acc, 0, lane) + a.b2p[j], 0.f);
+      }
+      grid.sync();
+      // ---- 3: attention GRUCell on [ctx | p] ----
+      for (int it = gw; it < D * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows xi, xh;
+        xi.na = E;
+        xh.na = D;
+        for (int rr = 0; rr < RT; ++rr) {
+          const int b = row(b0, rr);
+          xi.a[rr] = pp(wk.ctx, E, s_cur[b], b, B);
+          xi.b[rr] = wk.p2 + (size_t)b * P2;
+          xh.a[rr] = pp(wk.ah, D, s_cur[b], b, B);
+          xh.b[rr] = nullptr;
+        }
+        float gi[3][RT], gh[3][RT];
+        row_dots<3>(a.awi, j, D, E + P2, xi, nb, gi);
+        row_dots<3>(a.awh, j, D, D, xh, nb, gh);
+        if (lane < nb) {
+          const int b = b0 + lane;
+          const float rr_ = sigmoidf((pick<3>(gi, 0, lane) + a.abi[j]) + (pick<3>(gh, 0, lane) + a.abh[j]));
+          const float z = sigmoidf((pick<3>(gi, 1, lane) + a.abi[D + j]) + (pick<3>(gh, 1, lane) + a.abh[D + j]));
+          const float n = tanhf((pick<3>(gi, 2, lane) + a.abi[2 * D + j])
+                                + rr_ * (pick<3>(gh, 2, lane) + a.abh[2 * D + j]));
+          pp(wk.ah, D, s_cur[b] ^ 1, b, B)[j] =
+              (1.f - z) * n + z * __ldcg(pp(wk.ah, D, s_cur[b], b, B) + j);
+        }
+      }
+      grid.sync();
+      // ---- 4: query projection (W ah + W.b + L.b) ----
+      for (int it = gw; it < D * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows x;
+        x.na = D;
+        for (int rr = 0; rr < RT; ++rr) {
+          const int b = row(b0, rr);
+          x.a[rr] = pp(wk.ah, D, s_cur[b] ^ 1, b, B);
+          x.b[rr] = nullptr;
+        }
+        float acc[1][RT];
+        row_dots<1>(a.wq, j, 0, D, x, nb, acc);
+        if (lane < nb) wk.q[(size_t)(b0 + lane) * D + j] = pick<1>(acc, 0, lane) + a.qb[j];
+      }
+      grid.sync();
+      // ---- 5: LSA energies, a warp per (row, text position) ----
+      for (int e = threadIdx.x; e < B * D; e += THREADS) s_q[e] = __ldcg(wk.q + e);
+      for (int e = threadIdx.x; e < B * T; e += THREADS) {
+        const int b = e / T, t = e % T;
+        s_cum[e] = __ldcg(pp(wk.cum, Tp, s_cur[b], b, B) + t);
+        s_att[e] = __ldcg(pp(wk.att, Tp, s_cur[b], b, B) + t);
+      }
+      __syncthreads();
+      for (int pr = gw; pr < B * T; pr += nw) {
+        const int b = pr / T, t = pr % T;
+        const float* cum = s_cum + b * T;
+        const float* att = s_att + b * T;
+        float loc = 0.f;  // lane = location channel
+        const float* cw = s_conv + lane * 2 * CONV_K;
+        for (int k = 0; k < CONV_K; ++k) {
+          const int s = t + k - CONV_HALF;
+          if (s >= 0 && s < T) {
+            loc = fmaf(cw[k], cum[s], loc);
+            loc = fmaf(cw[CONV_K + k], att[s], loc);
+          }
+        }
+        const float* ep = a.encp + ((size_t)b * T + t) * D;
+        const float* q = s_q + b * D;
+        float u = 0.f;
+        for (int d = lane; d < D; d += 32) {
+          float ll = 0.f;
+          for (int f = 0; f < LOC_CH; ++f)
+            ll = fmaf(__shfl_sync(0xffffffffu, loc, f), s_lwT[f * D + d], ll);
+          const float arg = tanhf((q[d] + ep[d]) + ll);
+          u = fmaf(s_v[d], arg, u);
+        }
+        u = warp_sum(u);
+        if (lane == 0) wk.sig[(size_t)b * Tp + t] = sigmoidf(u) * a.mask[(size_t)b * T + t];
+      }
+      grid.sync();
+      // ---- 6: normalise, context, attention state ----
+      for (int b = warp; b < B; b += WARPS) {
+        float part = 0.f;
+        for (int t = lane; t < T; t += 32) part += __ldcg(wk.sig + (size_t)b * Tp + t);
+        part = warp_sum(part);
+        if (lane == 0) s_tot[b] = part;
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < B * T; e += THREADS) {
+        const int b = e / T, t = e % T;
+        s_scores[e] = __ldcg(wk.sig + (size_t)b * Tp + t) / s_tot[b];
+      }
+      __syncthreads();
+      for (int e = gt; e < B * (E + T); e += nt) {
+        const int b = e / (E + T), k = e % (E + T);
+        const int nx = s_cur[b] ^ 1;
+        const float* sc = s_scores + b * T;
+        if (k < E) {
+          const float* en = a.enc + (size_t)b * T * E + k;
+          float c = 0.f;
+          for (int t = 0; t < T; ++t) c = fmaf(sc[t], en[(size_t)t * E], c);
+          pp(wk.ctx, E, nx, b, B)[k] = c;
+        } else {
+          const int t = k - E;
+          pp(wk.att, Tp, nx, b, B)[t] = sc[t];
+          pp(wk.cum, Tp, nx, b, B)[t] = __ldcg(pp(wk.cum, Tp, s_cur[b], b, B) + t) + sc[t];
+        }
+      }
+      grid.sync();
+      // ---- 7: rnn_input on [ctx | ah] ----
+      for (int it = gw; it < L * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows x;
+        x.na = E;
+        for (int rr = 0; rr < RT; ++rr) {
+          const int b = row(b0, rr);
+          x.a[rr] = pp(wk.ctx, E, s_cur[b] ^ 1, b, B);
+          x.b[rr] = pp(wk.ah, D, s_cur[b] ^ 1, b, B);
+        }
+        float acc[1][RT];
+        row_dots<1>(a.wr, j, 0, E + D, x, nb, acc);
+        if (lane < nb) wk.xin[(size_t)(b0 + lane) * L + j] = pick<1>(acc, 0, lane) + a.br[j];
+      }
+      grid.sync();
+      // ---- 8, 9: residual LSTMCells ----
+      for (int layer = 0; layer < 2; ++layer) {
+        const float* wi = layer == 0 ? a.l1wi : a.l2wi;
+        const float* wh = layer == 0 ? a.l1wh : a.l2wh;
+        const float* bias = layer == 0 ? a.l1b : a.l2b;
+        const float* xin = layer == 0 ? wk.xin : wk.x1;
+        float* xout = layer == 0 ? wk.x1 : wk.x2;
+        float* hb = layer == 0 ? wk.h1 : wk.h2;
+        float* cb = layer == 0 ? wk.c1 : wk.c2;
+        for (int it = gw; it < L * tiles; it += nw) {
+          int j, b0, nb;
+          item(it, j, b0, nb);
+          Rows xi, xh;
+          xi.na = L;
+          xh.na = L;
+          for (int rr = 0; rr < RT; ++rr) {
+            const int b = row(b0, rr);
+            xi.a[rr] = xin + (size_t)b * L;
+            xi.b[rr] = nullptr;
+            xh.a[rr] = pp(hb, L, s_cur[b], b, B);
+            xh.b[rr] = nullptr;
+          }
+          float gi[4][RT], gh[4][RT];
+          row_dots<4>(wi, j, L, L, xi, nb, gi);
+          row_dots<4>(wh, j, L, L, xh, nb, gh);
+          if (lane < nb) {
+            const int b = b0 + lane;
+            const float ig = sigmoidf(pick<4>(gi, 0, lane) + pick<4>(gh, 0, lane) + bias[j]);
+            const float fg = sigmoidf(pick<4>(gi, 1, lane) + pick<4>(gh, 1, lane) + bias[L + j]);
+            const float gg = tanhf(pick<4>(gi, 2, lane) + pick<4>(gh, 2, lane) + bias[2 * L + j]);
+            const float og = sigmoidf(pick<4>(gi, 3, lane) + pick<4>(gh, 3, lane) + bias[3 * L + j]);
+            const float c = fg * __ldcg(pp(cb, L, s_cur[b], b, B) + j) + ig * gg;
+            const float h = og * tanhf(c);
+            pp(cb, L, s_cur[b] ^ 1, b, B)[j] = c;
+            pp(hb, L, s_cur[b] ^ 1, b, B)[j] = h;
+            xout[(size_t)b * L + j] = __ldcg(xin + (size_t)b * L + j) + h;
+          }
+        }
+        grid.sync();
+      }
+      // ---- 10: mel_proj, the r frames ----
+      for (int it = gw; it < F * tiles; it += nw) {
+        int j, b0, nb;
+        item(it, j, b0, nb);
+        Rows x;
+        x.na = L;
+        for (int rr = 0; rr < RT; ++rr) {
+          x.a[rr] = wk.x2 + (size_t)row(b0, rr) * L;
+          x.b[rr] = nullptr;
+        }
+        float acc[1][RT];
+        row_dots<1>(a.wm, j, 0, L, x, nb, acc);
+        if (lane < nb) {
+          const int b = b0 + lane;
+          pp(wk.mel, Fp, s_cur[b] ^ 1, b, B)[j] = pick<1>(acc, 0, lane);
+        }
+      }
+      grid.sync();
+      // ---- per-row stop test, commit or freeze (every block, same answer) ----
+      for (int b = warp; b < B; b += WARPS) {
+        const float* m = pp(wk.mel, Fp, s_cur[b] ^ 1, b, B);
+        bool below = true;
+        for (int f = lane; f < F; f += 32) below &= __ldcg(m + f) < thr;
+        below = __all_sync(0xffffffffu, below);
+        if (lane == 0) s_hit[b] = below && g * r > 10;
+      }
+      __syncthreads();
+      for (int b = threadIdx.x; b < B; b += THREADS) {
+        if (!s_stop[b]) {
+          ++s_valid[b];
+          s_stop[b] = s_hit[b];
+          s_cur[b] ^= 1;  // commit the row's new state
+          s_src[b] = s_cur[b];
+        } else {
+          s_src[b] = s_cur[b] ^ 1;  // the frozen state's output
+        }
+      }
+      __syncthreads();
+      held = all_frozen;  // every row frozen: this output is replayed
+    }
+    // ---- emit: each row's live group or its frozen replay ----
+    if (blockIdx.x == 0) {
+      for (int e = threadIdx.x; e < B * F; e += THREADS) {
+        const int b = e / F, f = e % F;
+        a.mel_out[((size_t)b * a.n_groups + g) * F + f] = __ldcg(pp(wk.mel, Fp, s_src[b], b, B) + f);
+      }
+      for (int e = threadIdx.x; e < B * T; e += THREADS) {
+        const int b = e / T, t = e % T;
+        a.att_out[((size_t)b * a.n_groups + g) * T + t] = __ldcg(pp(wk.att, Tp, s_src[b], b, B) + t);
+      }
+    }
+  }
+  if (blockIdx.x == 0)
+    for (int b = threadIdx.x; b < B; b += THREADS) a.n_valid[b] = s_valid[b];
+}
+
+size_t batch_shared_bytes(const BatchArgs& a) {
+  return (size_t)(LOC_CH * 2 * CONV_K + LOC_CH * a.D + a.D + a.B * a.D + 2 * a.B * a.T
+                  + a.B) * sizeof(float)
+         + (size_t)5 * a.B * sizeof(int);
+}
+
+int launch_coop(const void* fn, void* kargs, size_t smem, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {kargs};
+  e = cudaLaunchCooperativeKernel(fn, dim3(sms), dim3(THREADS), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
 // Floats of workspace the launch needs (zero-filled by the caller).
@@ -381,24 +849,24 @@ int64_t wr_taco_decode_work_floats(const DecodeArgs* args) {
 
 // Launches the decode on `stream`; returns the CUDA error code (0 = launched).
 int wr_taco_decode(const DecodeArgs* args, void* stream) {
-  const void* fn = (const void*)taco_decode;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const size_t smem = shared_bytes(*args);
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   DecodeArgs a = *args;
-  void* kargs[] = {&a};
-  e = cudaLaunchCooperativeKernel(fn, dim3(sms), dim3(THREADS), kargs, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_coop((const void*)taco_decode, &a, shared_bytes(a), stream);
+}
+
+// B8: floats of workspace and bytes of shared memory a launch needs.
+int64_t wr_taco_decode_batch_work_floats(const BatchArgs* args) {
+  return BWork(nullptr, *args).size;
+}
+
+int64_t wr_taco_decode_batch_shared_bytes(const BatchArgs* args) {
+  return (int64_t)batch_shared_bytes(*args);
+}
+
+// B8: launches the batched decode on `stream`; returns the CUDA error code.
+int wr_taco_decode_batch(const BatchArgs* args, void* stream) {
+  BatchArgs a = *args;
+  return launch_coop((const void*)taco_decode_batch, &a, batch_shared_bytes(a),
+                     stream);
 }
 
 }  // extern "C"

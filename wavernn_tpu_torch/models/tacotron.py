@@ -4,9 +4,11 @@ forward of every mode).
 
 Module and parameter names follow the reference state dict
 (models/tacotron.py:289-519), so a reference ``.pyt`` loads with
-``load_state_dict(strict=True)``. Generation: the encoder runs as plain
-PyTorch, the whole free-running decoder loop runs in the decode kernel
-(ops/cuda_taco.py), then the postnet CBHG and ``post_proj``. Training
+``load_state_dict(strict=True)``. Generation: the encoder (length-aware
+for a padded batch), the whole free-running decoder loop in the decode
+kernel B2 (one sentence) or B8 (a batch, a stop per row; ops/cuda_taco.py),
+then the postnet CBHG and ``post_proj``; on CUDA the CBHG BiGRUs run on
+B5's forward kernel. Training
 (``forward``): the CBHG BiGRUs run on the GRU recurrence kernel B5
 (ops/cuda_gru.py) and the decoder's group recurrence on kernel B6 (teacher
 forcing) or B7 (attention forcing) (ops/cuda_taco_train.py).
@@ -23,7 +25,7 @@ from torch import nn
 from ..config import TTS_MODES, TacotronConfig
 from ..device import resolve_device
 from ..ops import layers as L
-from ..ops.cuda_taco import decode
+from ..ops.cuda_taco import decode, decode_batch
 from ..ops.cuda_taco_train import (af_operands, core_free_ref,
                                    decoder_af_train, decoder_tf_train,
                                    zoneout_masks)
@@ -107,16 +109,33 @@ class CBHG(nn.Module):
         self.rnn = nn.GRU(channels, channels, batch_first=True,
                           bidirectional=True)
 
-    def forward(self, x, training: bool = False, engine: str = "scan"):
+    def forward(self, x, training: bool = False, engine: str = "scan",
+                lens: Optional[torch.Tensor] = None):
         """(B, C_in, T) -> (B, T, 2*channels). ``training``: BatchNorm on
         batch statistics, taken before the bank's truncation to T
-        (tacotron.py:103-105). ``engine``: the BiGRU's (ops/layers.gru)."""
+        (tacotron.py:103-105). ``engine``: the BiGRU's (ops/layers.gru).
+        ``lens`` (B,): the true lengths of right-padded rows (generation
+        only). Pad positions are re-zeroed at every conv input, after the
+        bank's BatchNorm and after the max-pool, and the BiGRU runs
+        length-aware, so each row's valid outputs are those of the row run
+        alone (cbhg_apply, wavernn_tpu/models/tacotron.py:148-207)."""
         T = x.shape[-1]
+        zmask = None
+        if lens is not None:
+            zmask = (torch.arange(T, device=x.device)[None, None, :]
+                     < lens.to(x.device)[:, None, None]).to(x.dtype)
+            x = x * zmask
         residual = x
         h = torch.cat([blk(x, True, training)[:, :, :T]
                        for blk in self.conv1d_bank], dim=1)
+        if zmask is not None:   # BN(0) != 0: re-zero before pool and conv
+            h = h * zmask
         h = _maxpool_k2_s1(h)
+        if zmask is not None:
+            h = h * zmask
         c = self.conv_project1(h, True, training)
+        if zmask is not None:
+            c = c * zmask
         c = self.conv_project2(c, False, training)
         h = (c + residual).transpose(1, 2)
         if hasattr(self, "pre_highway"):
@@ -128,7 +147,7 @@ class CBHG(nn.Module):
                            g.bias_hh_l0),
                        (g.weight_ih_l0_reverse, g.weight_hh_l0_reverse,
                         g.bias_ih_l0_reverse, g.bias_hh_l0_reverse),
-                       engine=engine)
+                       lens=lens, engine=engine)
 
 
 class Encoder(nn.Module):
@@ -141,15 +160,17 @@ class Encoder(nn.Module):
                          tts.num_highways)
 
     def forward(self, ids, training: bool = False, engine: str = "scan",
-                rate: float = 0.5, masks=(None, None)):
+                rate: float = 0.5, masks=(None, None),
+                lens: Optional[torch.Tensor] = None):
         """(B, T_text) ids -> (B, T_text, 2*encoder_dims). ``training``:
         prenet dropout with the scaled keep-``masks`` and the CBHG in
-        training mode."""
+        training mode. ``lens``: see CBHG.forward (batched generation
+        encodes each right-padded row as it would alone)."""
         p = self.pre_net
         x = prenet(L.embedding(ids, self.embedding.weight), p.fc1.weight,
                    p.fc1.bias, p.fc2.weight, p.fc2.bias, rate, training,
                    masks)
-        return self.cbhg(x.transpose(1, 2), training, engine)
+        return self.cbhg(x.transpose(1, 2), training, engine, lens)
 
 
 class LSA(nn.Module):
@@ -435,26 +456,90 @@ def forward(model: Tacotron, x_ids, m, r: int,
 
 
 @torch.no_grad()
+def generate_core(model: Tacotron, ids, lens=None, r: int = 2,
+                  steps: int = 2000, timings: Optional[dict] = None):
+    """The device half of free-running generation (``_generate_kernel`` and
+    ``_generate_kernel_batch``, wavernn_tpu/models/tacotron.py:609-696):
+    ids (B, T_text) on the model's device, right-padded to the longest of
+    ``lens``. One row (no ``lens``) runs the decode kernel B2; a batch the
+    length-aware encoder, pad positions of its outputs zeroed, and the
+    batched kernel B8 under the rows' text mask. Then the postnet over every
+    group. Returns (mel (B, n_mels, steps), linear (B, n_mels, steps),
+    attn (B, steps // r, T_text), n_valid (B,)) on the device."""
+    tts, n_mels = model.tts, model.n_mels
+    dev = ids.device
+    # the CBHG BiGRUs: B5's forward kernel on CUDA, the plain loop on the CPU
+    eng = "kernel" if dev.type == "cuda" else "scan"
+    T = ids.shape[1]
+    with stage(timings, "encoder", dev):
+        enc = model.encoder(ids, engine=eng, lens=lens)
+        encp = L.linear(enc, model.encoder_proj.weight)
+        if lens is not None:
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < lens.to(dev)[:, None]).to(torch.float32)
+            # the length-aware encoder's pad positions hold garbage: zero
+            # them so the masked attention sees clean context planes
+            enc = enc * mask[..., None]
+            encp = encp * mask[..., None]
+    with stage(timings, "decode_kernel", dev):
+        args = (model.decoder_weights(), enc, encp)
+        tail = (r, steps, n_mels, tts.max_r, tts.stop_threshold)
+        if lens is None:
+            mel, attn, n_valid = decode(
+                *args, torch.ones(T, dtype=torch.float32, device=dev), *tail)
+        else:
+            mel, attn, n_valid = decode_batch(*args, mask, *tail)
+    with stage(timings, "postnet", dev):
+        linear = postnet(model, mel, engine=eng)
+    return mel, linear, attn, n_valid
+
+
+@torch.no_grad()
 def generate(model: Tacotron, x_ids, r: int, steps: int = 2000,
              device="cuda", timings: Optional[dict] = None):
     """Free-running inference (tacotron.py:420-480): batch-1 text ids ->
     (mel (n_mels, T), linear (n_mels, T), attn (T // r, T_text)) as numpy,
     trimmed after the group that triggered the stop."""
     dev = resolve_device(device, model)
-    tts, n_mels = model.tts, model.n_mels
     steps = -(-steps // r) * r
     ids = torch.as_tensor(np.asarray(x_ids), dtype=torch.long,
                           device=dev)[None]
-    with stage(timings, "encoder", dev):
-        enc = model.encoder(ids)
-        encp = L.linear(enc, model.encoder_proj.weight)
-    with stage(timings, "decode_kernel", dev):
-        mask = torch.ones(ids.shape[1], dtype=torch.float32, device=dev)
-        mel, attn, n_valid = decode(model.decoder_weights(), enc, encp, mask,
-                                    r, steps, n_mels, tts.max_r,
-                                    tts.stop_threshold)
-    with stage(timings, "postnet", dev):
-        linear = postnet(model, mel)
+    mel, linear, attn, n_valid = generate_core(model, ids, None, r, steps,
+                                               timings)
     T = min(int(n_valid[0]) * r, steps)
     return (mel[0, :, :T].cpu().numpy(), linear[0, :, :T].cpu().numpy(),
             attn[0, :T // r].cpu().numpy())
+
+
+def pad_ids(x_ids_list, device):
+    """Right-pad a list of id sequences: (ids (B, T_max), lens (B,))."""
+    lens = [len(x) for x in x_ids_list]
+    ids = np.zeros((len(lens), max(lens)), np.int64)
+    for i, x in enumerate(x_ids_list):
+        ids[i, :lens[i]] = np.asarray(x)
+    return (torch.as_tensor(ids, device=device),
+            torch.as_tensor(lens, dtype=torch.long, device=device))
+
+
+@torch.no_grad()
+def generate_batch(model: Tacotron, x_ids_list, r: int, steps: int = 2000,
+                   device="cuda", timings: Optional[dict] = None):
+    """Free-running decode of a batch of sentences (``generate_batch``,
+    wavernn_tpu/models/tacotron.py:699-742): the text right-padded to the
+    longest, masked out of the smooth attention's normalisation, each
+    utterance with its own stop. One sentence runs ``generate``'s path (B2,
+    no padding). Returns a list of numpy (mel, linear, attn) triples, each
+    trimmed after its own stop group (attn to its own text)."""
+    dev = resolve_device(device, model)
+    steps = -(-steps // r) * r
+    ids, lens = pad_ids(x_ids_list, dev)
+    mel, linear, attn, n_valid = generate_core(
+        model, ids, lens if len(x_ids_list) > 1 else None, r, steps, timings)
+    n_valid = n_valid.cpu().tolist()
+    outs = []
+    for b, x in enumerate(x_ids_list):
+        T = min(n_valid[b] * r, steps)
+        outs.append((mel[b, :, :T].cpu().numpy(),
+                     linear[b, :, :T].cpu().numpy(),
+                     attn[b, :T // r, :len(x)].cpu().numpy()))
+    return outs

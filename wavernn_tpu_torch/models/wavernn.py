@@ -7,10 +7,13 @@ Module and parameter names follow the reference state dict
 ``load_state_dict(strict=True)``. ``forward`` runs the two GRUs as the
 recurrence kernel B5 (ops/cuda_gru.py) with the core stack time-major, or
 as B5's plain step loop under autograd (``recurrence="scan"``).
-Generation runs the fused branch of the JAX package's
-``_generate_device``: MelResNet at frame rate, frame-rate folds, the fused
-sample-loop kernel (ops/cuda_gen.py), mu-law decode (RAW), the
-equal-power crossfade and the 20-frame tail fade.
+Generation (``generate``, ``generate_fast``, ``generate_multi``) runs both
+branches of the JAX package's ``_generate_device``: MelResNet at frame
+rate, frame-rate folds and the fused sample-loop kernel B1 when the folds
+are phase-aligned to mel frames; otherwise the upsampled sample-rate
+conditioning, folded or as one unbatched row, through the materialized
+kernel B3 (ops/cuda_gen.py); then mu-law decode (RAW), the equal-power
+crossfade and the 20-frame tail fade.
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ from ..config import DSPConfig, WaveRNNConfig
 from ..device import resolve_device
 from ..ops import layers as L
 from ..ops import polyphase as P
-from ..ops.cuda_gen import generate_fused
+from ..ops.cuda_gen import generate_fused, generate_materialized
 from ..ops.cuda_gru import gru_seq_ref, gru_seq_tm
-from ..ops.fold import tail_fade, xfade_and_unfold
+from ..ops import fold
+from ..ops.fold import fold_with_overlap, xfade_and_unfold
 from ..timing import stage
 
 
@@ -252,6 +256,18 @@ def fused_cond_ok(voc: WaveRNNConfig, dsp: DSPConfig, target: int,
     return 0 <= -geo.d_lo < geo.K
 
 
+def _fold_frames(mels_padded_row, aux_fr_row, total_len: int, target: int,
+                 overlap: int, geo):
+    """One utterance's frame-rate folds: mels_padded_row (n_mels, T + 2*pad),
+    aux_fr_row (4A, T) -> (frames (nf_loc, num_folds, C), fold_chunks)."""
+    num_folds, stride_f, fold_chunks, _ = P.fold_geometry(
+        total_len, target, overlap, geo.hop)
+    frames = P.build_folded_frames(mels_padded_row.t(), aux_fr_row.t(),
+                                   num_folds, stride_f, fold_chunks, geo.K,
+                                   geo.d_lo)
+    return frames, fold_chunks
+
+
 def fused_conditioning(model: WaveRNN, mels_padded, total_len: int,
                        target: int, overlap: int):
     """MelResNet at frame rate, the polyphase table and the frame-rate
@@ -260,60 +276,213 @@ def fused_conditioning(model: WaveRNN, mels_padded, total_len: int,
     geo = P.geometry(voc.upsample_factors, voc.pad)
     phi = P.phi_table(model.upsample.up_weights(), voc.upsample_factors, geo)
     aux_fr = model.upsample.resnet(mels_padded)
-    num_folds, stride_f, fold_chunks, _ = P.fold_geometry(
-        total_len, target, overlap, geo.hop)
-    frames = P.build_folded_frames(mels_padded[0].t(), aux_fr[0].t(),
-                                   num_folds, stride_f, fold_chunks, geo.K,
-                                   geo.d_lo)
+    frames, fold_chunks = _fold_frames(mels_padded[0], aux_fr[0], total_len,
+                                       target, overlap, geo)
     return frames, phi.contiguous(), geo, fold_chunks
 
 
+def _seed(noise, generator: Optional[torch.Generator]) -> int:
+    """The counter hash's seed, drawn from ``generator``; 0 when noise is
+    injected (the seed is then unused)."""
+    if noise is not None:
+        return 0
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator)
+               .item())
+
+
+def _samples(model: WaveRNN, mels, batched: bool, target: int, overlap: int,
+             noise, seed: int, timings, dev):
+    """The sample loop over one utterance's mels (1, n_mels, T_frames):
+    (folds, target + 2*overlap) when ``batched``, else (1, T_frames*hop).
+
+    Folds phase-aligned to mel frames run the fused kernel B1 on frame-rate
+    folds (``fused_cond_ok``); otherwise the mels are upsampled to sample
+    rate, folded when ``batched``, and run through the materialized kernel
+    B3 (_generate_device, wavernn_tpu/models/wavernn.py:283-358, and the
+    unbatched branch of generate, :657-683)."""
+    voc, dsp = model.voc, model.dsp
+    total_len = mels.shape[-1] * dsp.hop_length
+    fused = batched and fused_cond_ok(voc, dsp, target, overlap)
+    with stage(timings, "vocoder_conditioning", dev):
+        mels = torch.nn.functional.pad(mels, (voc.pad, voc.pad))
+        if fused:
+            frames, phi, geo, fold_chunks = fused_conditioning(
+                model, mels, total_len, target, overlap)
+        else:
+            mels_up, aux = model.upsample(mels)
+            if batched:
+                mels_up = fold_with_overlap(mels_up, target, overlap)
+                aux = fold_with_overlap(aux, target, overlap)
+    with stage(timings, "sample_kernel", dev):
+        if fused:
+            return generate_fused(model.core_weights(), frames, phi, geo.hop,
+                                  -geo.d_lo, fold_chunks, voc.mode,
+                                  noise=noise, seed=seed)
+        return generate_materialized(model.core_weights(), mels_up, aux,
+                                     voc.mode, noise=noise, seed=seed)[0]
+
+
+def mu_law_decode(y, n_classes: int):
+    """Expand mu-law samples in [-1, 1] (the RAW vocoder's output)."""
+    mu = n_classes - 1
+    return torch.sign(y) / mu * ((1 + mu) ** torch.abs(y) - 1)
+
+
 @torch.no_grad()
-def generate(model: WaveRNN, mels, *, target: Optional[int] = None,
-             overlap: Optional[int] = None, mu_law: bool = True,
-             noise=None, generator: Optional[torch.Generator] = None,
-             device="cuda", timings: Optional[dict] = None):
-    """Batched (folded) utterance generation (fatchord_version.py:169-264).
+def generate(model: WaveRNN, mels, *, batched: bool = True,
+             target: Optional[int] = None, overlap: Optional[int] = None,
+             mu_law: bool = True, noise=None,
+             generator: Optional[torch.Generator] = None, device="cuda",
+             timings: Optional[dict] = None):
+    """Utterance generation (fatchord_version.py:169-264; the JAX package's
+    ``generate``).
 
     mels: (1, n_mels, T_frames) normalized mel in [0, 1] (tensor or array).
-    noise: injected sampling uniforms for replay (see ops/cuda_gen.py);
-    None draws the kernel's counter-hash noise from a seed taken from
-    ``generator``. Returns the float64 waveform ((T_frames-1)*hop,) on
-    ``device``, with the reference's tail fade-out. On CUDA the sample
-    loop multiplies bfloat16 weights with float32 accumulation. ``timings``, when
-    given, receives the device milliseconds of each stage.
-
-    Only the fused-conditioning path is ported: target and overlap must
-    be multiples of hop (the materialized path is later work)."""
+    ``batched`` folds the utterance into ``target`` + 2*``overlap``-sample
+    segments generated as one batch and cross-faded back (the fused kernel
+    B1 when target and overlap are multiples of hop, the materialized
+    kernel B3 otherwise); ``batched=False`` generates one row over the
+    whole utterance on B3. noise: injected sampling uniforms for replay
+    (see ops/cuda_gen.py), (steps, rows, ...); None draws the kernels'
+    counter-hash noise from a seed taken from ``generator``. Returns the
+    float64 waveform ((T_frames-1)*hop,) on ``device``, with the
+    reference's tail fade-out. On CUDA the sample loop multiplies bfloat16
+    weights with float32 accumulation. ``timings``, when given, receives
+    the device milliseconds of each stage."""
     dev = resolve_device(device, model)
     voc, dsp = model.voc, model.dsp
     target = voc.target if target is None else target
     overlap = voc.overlap if overlap is None else overlap
-    mu_law = mu_law and voc.mode == "RAW"
-    if not fused_cond_ok(voc, dsp, target, overlap):
-        raise NotImplementedError(
-            "only fold-batched generation with target/overlap multiples of "
-            "hop (the fused sample-loop kernel) is ported")
     mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
     wave_len = (mels.shape[-1] - 1) * dsp.hop_length
-    total_len = mels.shape[-1] * dsp.hop_length
-    seed = 0
-    if noise is None:
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=generator).item())
-    with stage(timings, "vocoder_conditioning", dev):
-        mels = torch.nn.functional.pad(mels, (voc.pad, voc.pad))
-        frames, phi, geo, fold_chunks = fused_conditioning(
-            model, mels, total_len, target, overlap)
-    with stage(timings, "sample_kernel", dev):
-        samples = generate_fused(model.core_weights(), frames, phi, geo.hop,
-                                 -geo.d_lo, fold_chunks, voc.mode,
-                                 noise=noise, seed=seed)
+    samples = _samples(model, mels, batched, target, overlap, noise,
+                       _seed(noise, generator), timings, dev)
     with stage(timings, "crossfade", dev):
-        y = samples.to(torch.float64)
-        if mu_law:
-            mu = voc.n_classes(dsp.bits) - 1
-            y = torch.sign(y) / mu * ((1 + mu) ** torch.abs(y) - 1)
-        wav = xfade_and_unfold(y, overlap)[:wave_len]
-        wav = tail_fade(wav, 20 * dsp.hop_length)
-    return wav
+        return _post(model, samples.to(torch.float64),
+                     overlap if batched else None, wave_len, mu_law, True,
+                     full_ramp=False)
+
+
+@torch.no_grad()
+def generate_fast(model: WaveRNN, mels, *, target: Optional[int] = None,
+                  overlap: Optional[int] = None, mu_law: bool = True,
+                  noise=None, generator: Optional[torch.Generator] = None,
+                  device="cuda", tail_fade: bool = True,
+                  timings: Optional[dict] = None):
+    """The serving path's fold-batched generation (``generate_fast`` and
+    ``_generate_device``, wavernn_tpu/models/wavernn.py:283-391): the same
+    sample loop as ``generate(batched=True)`` with the mu-law decode and the
+    equal-power crossfade in float32 on the device. Returns the float32
+    wave ((T_frames-1)*hop,) on the device. ``tail_fade=False`` skips the
+    20-frame end fade, for callers that trim a bucket-padded wave and fade
+    at its true end."""
+    dev = resolve_device(device, model)
+    voc, dsp = model.voc, model.dsp
+    target = voc.target if target is None else target
+    overlap = voc.overlap if overlap is None else overlap
+    mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
+    wave_len = (mels.shape[-1] - 1) * dsp.hop_length
+    samples = _samples(model, mels, True, target, overlap, noise,
+                       _seed(noise, generator), timings, dev)
+    with stage(timings, "crossfade", dev):
+        return _post(model, samples, overlap, wave_len, mu_law, tail_fade)
+
+
+def _post(model: WaveRNN, samples, overlap: Optional[int], wave_len: int,
+          mu_law: bool, fade: bool, full_ramp: bool = True):
+    """One utterance's samples -> its wave, in the samples' dtype: mu-law
+    decode (RAW), the crossfade of its folds (``overlap``; None for one
+    unbatched row), the trim to ``wave_len`` and the 20-frame tail fade
+    (``fold.tail_fade``: the device paths' ``full_ramp``,
+    _multi_post_jit, wavernn_tpu/models/wavernn.py:591-613)."""
+    voc, dsp = model.voc, model.dsp
+    if mu_law and voc.mode == "RAW":
+        samples = mu_law_decode(samples, voc.n_classes(dsp.bits))
+    wav = samples[0] if overlap is None else xfade_and_unfold(samples,
+                                                              overlap)
+    wav = wav[:wave_len]
+    if not fade:
+        return wav
+    return fold.tail_fade(wav, 20 * dsp.hop_length, full_ramp=full_ramp)
+
+
+@torch.no_grad()
+def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
+                   overlap: Optional[int] = None, mu_law: bool = True,
+                   noise=None, generator: Optional[torch.Generator] = None,
+                   device="cuda", device_out: bool = False,
+                   tail_fade: bool = True, timings: Optional[dict] = None):
+    """Vocode a batch of utterances in one sample-loop launch
+    (wavernn_tpu/models/wavernn.py:394-541): one zero-padded MelResNet pass
+    over the batch, every utterance folded, all folds concatenated on the
+    fold axis into one launch (B1, or B3 when target and overlap are not
+    hop multiples), then a per-utterance post-pass.
+
+    mels_list: (n_mels, T) or (1, n_mels, T) mels in [0, 1]; noise: as in
+    ``generate``, over the combined fold batch. Returns a list of waves:
+    float32 tensors on the device with ``device_out`` (mu-law, crossfade
+    and fade in float32 there), else float64 numpy arrays crossfaded on the
+    device in float64 (``generate``'s precision). ``tail_fade=False`` skips
+    the 20-frame end fade."""
+    dev = resolve_device(device, model)
+    voc, dsp = model.voc, model.dsp
+    target = voc.target if target is None else target
+    overlap = voc.overlap if overlap is None else overlap
+    hop, pad = dsp.hop_length, voc.pad
+    mels = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+            for m in mels_list]
+    mels = [m[0] if m.dim() == 3 else m for m in mels]
+    n_frames = [m.shape[-1] for m in mels]
+    fused = fused_cond_ok(voc, dsp, target, overlap)
+    with stage(timings, "vocoder_conditioning", dev):
+        # zero-padding to a shared length leaves each utterance's valid
+        # region unchanged: every conv sees zeros right of its pad frames
+        # either way
+        T_max = -(-max(n_frames) // 64) * 64
+        batch = torch.stack([torch.nn.functional.pad(m, (0, T_max - n))
+                             for m, n in zip(mels, n_frames)])
+        mels_b = torch.nn.functional.pad(batch, (pad, pad))
+        counts = []
+        if fused:
+            geo = P.geometry(voc.upsample_factors, pad)
+            phi = P.phi_table(model.upsample.up_weights(),
+                              voc.upsample_factors, geo).contiguous()
+            aux_b = model.upsample.resnet(mels_b)
+            frames = []
+            for i, n in enumerate(n_frames):
+                fr, fold_chunks = _fold_frames(
+                    mels_b[i, :, :n + 2 * pad], aux_b[i, :, :n], n * hop,
+                    target, overlap, geo)
+                frames.append(fr)
+                counts.append(fr.shape[1])
+            frames = torch.cat(frames, dim=1)
+        else:
+            mu_b, au_b = model.upsample(mels_b)
+            folds_m, folds_a = [], []
+            for i, n in enumerate(n_frames):
+                folds_m.append(fold_with_overlap(mu_b[i:i + 1, :n * hop],
+                                                 target, overlap))
+                folds_a.append(fold_with_overlap(au_b[i:i + 1, :n * hop],
+                                                 target, overlap))
+                counts.append(folds_m[-1].shape[0])
+    seed = _seed(noise, generator)
+    with stage(timings, "sample_kernel", dev):
+        if fused:
+            samples = generate_fused(model.core_weights(), frames, phi,
+                                     geo.hop, -geo.d_lo, fold_chunks,
+                                     voc.mode, noise=noise, seed=seed)
+        else:
+            samples = generate_materialized(
+                model.core_weights(), torch.cat(folds_m), torch.cat(folds_a),
+                voc.mode, noise=noise, seed=seed)[0]
+    outs = []
+    with stage(timings, "crossfade", dev):
+        for y, n in zip(torch.split(samples, counts), n_frames):
+            if device_out:
+                outs.append(_post(model, y, overlap, (n - 1) * hop, mu_law,
+                                  tail_fade))
+            else:
+                outs.append(_post(model, y.to(torch.float64), overlap,
+                                  (n - 1) * hop, mu_law, tail_fade,
+                                  full_ramp=False).cpu().numpy())
+    return outs

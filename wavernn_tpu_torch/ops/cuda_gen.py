@@ -1,16 +1,23 @@
-"""Fused WaveRNN sample loop: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""WaveRNN sample loops: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Port of ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
-``_make_fused_kernel`` TPU kernel). The kernel
-(``csrc/sample_loop_fused.cu``) runs the whole autoregressive loop of every
-fold in one cooperative launch and upsamples its own conditioning from the
-frame-rate folded rows. ``generate_fused_ref`` is the same function in
-plain PyTorch: the polyphase reconstruction followed by
-``sample_loop.generate_scan``.
+Both kernels are arms of one templated body in
+``csrc/sample_loop_fused.cu`` that runs the whole autoregressive loop of
+every row in one cooperative launch:
 
-``generate_fused`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
+- B1, ``generate_fused``: port of
+  ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
+  ``_make_fused_kernel`` TPU kernel). It upsamples its own conditioning
+  from frame-rate folded rows. ``generate_fused_ref`` is the plain version:
+  the polyphase reconstruction followed by ``sample_loop.generate_scan``.
+- B3, ``generate_materialized``: port of ``generate_pallas`` and
+  ``generate_pallas_with_state`` (the ``_make_kernel`` TPU kernel, both
+  arms). It reads sample-rate conditioning and resumes from and snapshots
+  the RNN state. ``generate_materialized_ref`` is the plain version,
+  ``sample_loop.generate_scan_with_state``.
+
+Each wrapper runs the plain version for CPU tensors and launches its kernel
+for CUDA tensors; it never falls back from one to the other.
 
 Noise: injected uniforms in the layout (T, B, NU), NU = nr_mix + 1 for MOL
 (mixture pick | logistic draw) and n_classes for RAW, padded with 0.5 past
@@ -26,7 +33,7 @@ import torch
 
 from . import _build
 from .polyphase import reconstruct_from_folded
-from .sample_loop import generate_scan
+from .sample_loop import generate_scan_with_state
 
 _M32 = 0xFFFFFFFF
 MOL_U_SCALE = 1.0 - 2e-5
@@ -107,16 +114,38 @@ def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
     R, FC, A, NC, n_mels = _dims(core)
     B = frames.shape[1]
     T = fold_chunks * hop
-    nr_mix = NC // 3
     mels_up, aux_up = reconstruct_from_folded(frames, phi, hop, aux_tap,
                                               fold_chunks, n_mels)
+    return generate_scan_with_state(
+        core, mels_up, aux_up, mode,
+        _uniforms(noise, seed, T, B, mode, NC, frames.device))[0]
+
+
+def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
+    """The plain versions' noise: the injected stream or the counter hash,
+    split as ``generate_scan`` takes it."""
+    nr_mix = NC // 3
     if noise is None:
         u = counter_uniforms(seed, T, B, nr_mix + 1 if mode == "MOL" else NC,
-                             mode == "MOL", frames.device)
+                             mode == "MOL", device)
     else:
         u = noise_stream(noise, T, mode)
-    return generate_scan(core, mels_up, aux_up, mode,
-                         _split_noise(u, mode, nr_mix))
+    return _split_noise(u, mode, nr_mix)
+
+
+def generate_materialized_ref(core, mels_up, aux, mode: str, noise=None,
+                              seed: int = 0, init_state=None,
+                              state_snapshot_at=None):
+    """Plain version of the materialized kernel: the sample loop over
+    sample-rate conditioning with the RNN state in and out
+    (``sample_loop.generate_scan_with_state``).
+    Returns (samples (B, T), (h1 (B, R), h2 (B, R), x (B,)))."""
+    B, T, _ = mels_up.shape
+    NC = _dims(core)[3]
+    return generate_scan_with_state(
+        core, mels_up, aux, mode,
+        _uniforms(noise, seed, T, B, mode, NC, mels_up.device),
+        init_state, state_snapshot_at)
 
 
 _WEIGHT_FIELDS = ("w_imel", "w_ia1", "w_ix", "b_i", "wi1", "wh1", "bi1",
@@ -169,25 +198,59 @@ def round_core_like_kernel(core, compute_dtype=torch.bfloat16):
     return out
 
 
-class _FusedArgs(ctypes.Structure):
-    _fields_ = ([("frames", ctypes.c_void_p), ("phi", ctypes.c_void_p),
-                 ("noise", ctypes.c_void_p)]
+class _LoopArgs(ctypes.Structure):
+    """``LoopArgs`` of csrc/sample_loop_fused.cu, field for field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in
+                 ("frames", "phi", "cond", "noise")]
                 + [(f, ctypes.c_void_p) for f in _WEIGHT_FIELDS]
-                + [("out", ctypes.c_void_p), ("work", ctypes.c_void_p)]
+                + [(f, ctypes.c_void_p) for f in
+                   ("h1_0", "h2_0", "x_0", "snap_h1", "snap_h2", "snap_x",
+                    "out", "work")]
                 + [(f, ctypes.c_int64) for f in
                    ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
-                    "fold_chunks", "aux_tap", "mol", "seed", "bf16")])
+                    "fold_chunks", "aux_tap", "T", "span", "snapshot_at",
+                    "mol", "seed", "bf16")])
 
 
 def _lib():
     lib = _build.load("sample_loop_fused")
     if not getattr(lib, "_typed", False):
-        lib.wr_sample_loop_fused.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.wr_sample_loop_fused.restype = ctypes.c_int
-        lib.wr_sample_loop_fused_work_floats.argtypes = [ctypes.c_int64] * 4
-        lib.wr_sample_loop_fused_work_floats.restype = ctypes.c_int64
+        for fn in (lib.wr_sample_loop_fused, lib.wr_sample_loop_materialized):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.wr_sample_loop_work_floats.argtypes = [ctypes.c_int64] * 5
+        lib.wr_sample_loop_work_floats.restype = ctypes.c_int64
         lib._typed = True
     return lib
+
+
+def _check_kernel_call(core, mode: str, compute_dtype, dev):
+    """The checks both kernels share; returns the prepared weights."""
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
+                        f"{compute_dtype}")
+    if mode not in ("MOL", "RAW"):
+        raise ValueError(f"unknown mode {mode!r}")
+    R, FC, A, NC, n_mels = _dims(core)
+    if R % 8 or FC % 8:
+        raise ValueError("the kernel needs rnn_dims and fc_dims divisible "
+                         "by 8")
+    if mode == "MOL" and NC // 3 > 32:
+        raise ValueError("the kernel samples at most 32 mixtures")
+    w = _build.prepared("sample_loop_fused", core, compute_dtype,
+                        lambda: kernel_weights(core, compute_dtype))
+    for k in _WEIGHT_FIELDS:
+        want = torch.float32 if k in _F32_FIELDS else compute_dtype
+        _build.check_operand(w[k], k, want, w[k].shape, dev)
+    return w
+
+
+def _launch(entry: str, args: _LoopArgs, dev, what: str):
+    with torch.cuda.device(dev):
+        err = getattr(_lib(), entry)(ctypes.byref(args),
+                                     torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def generate_fused(core, frames, phi, hop: int, aux_tap: int,
@@ -210,57 +273,119 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
                                   fold_chunks, mode, noise, seed)
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
-                        f"{compute_dtype}")
+    dev = frames.device
+    w = _check_kernel_call(core, mode, compute_dtype, dev)
     R, FC, A, NC, n_mels = _dims(core)
     K = phi.shape[0]
     nf_loc, B, C = frames.shape
     T = fold_chunks * hop
     mol = mode == "MOL"
-    if mode not in ("MOL", "RAW"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if R % 8 or FC % 8:
-        raise ValueError("the kernel needs rnn_dims and fc_dims divisible "
-                         "by 8")
-    if mol and NC // 3 > 32:
-        raise ValueError("the kernel samples at most 32 mixtures")
-    dev = frames.device
     _build.check_operand(frames, "frames", torch.float32,
                          (fold_chunks + K - 1, B, n_mels + 4 * A), dev)
     _build.check_operand(phi, "phi", torch.float32, (K, hop), dev)
     if not 0 <= aux_tap < K:
         raise ValueError(f"aux_tap {aux_tap} outside the {K} frame taps")
-    w = _build.prepared("sample_loop_fused", core, compute_dtype,
-                        lambda: kernel_weights(core, compute_dtype))
-    for k in _WEIGHT_FIELDS:
-        want = torch.float32 if k in _F32_FIELDS else compute_dtype
-        _build.check_operand(w[k], k, want, w[k].shape, dev)
     u = None
     if noise is not None:
         u = noise_stream(noise, T, mode)
         _build.check_operand(u, "noise", torch.float32,
                              (T, B, NC // 3 + 1 if mol else NC), dev)
-    lib = _lib()
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
-    work = torch.zeros(lib.wr_sample_loop_fused_work_floats(B, R, FC, K),
+    work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, K, 1),
                        dtype=torch.float32, device=dev)
-    args = _FusedArgs(
+    args = _LoopArgs(
         frames=frames.data_ptr(), phi=phi.data_ptr(),
         noise=None if u is None else u.data_ptr(),
         out=out.data_ptr(), work=work.data_ptr(),
         B=B, R=R, FC=FC, A=A, n_mels=n_mels, NC=NC, K=K, hop=hop,
-        fold_chunks=fold_chunks, aux_tap=aux_tap, mol=int(mol),
-        seed=seed & _M32, bf16=int(compute_dtype == torch.bfloat16),
+        fold_chunks=fold_chunks, aux_tap=aux_tap, T=T, span=hop,
+        snapshot_at=T, mol=int(mol), seed=seed & _M32,
+        bf16=int(compute_dtype == torch.bfloat16),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
-    with torch.cuda.device(dev):
-        err = lib.wr_sample_loop_fused(
-            ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"fused sample-loop kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch("wr_sample_loop_fused", args, dev, "fused sample-loop")
     generate_fused.launches += 1
     return out
 
 
 generate_fused.launches = 0
+
+# conditioning rows (steps x batch rows) the materialized kernel projects
+# per span; its workspace holds one span
+SPAN_ROWS = 256
+
+
+def generate_materialized(core, mels_up, aux, mode: str, noise=None,
+                          seed: int = 0, init_state=None,
+                          state_snapshot_at=None,
+                          compute_dtype=torch.bfloat16):
+    """The materialized sample loop with state I/O,
+    ``generate_materialized_ref``'s contract.
+
+    mels_up (B, T, n_mels), aux (B, T, 4A) float32; noise: injected
+    uniforms (T, B, ...) or None for the counter hash keyed by ``seed``;
+    init_state: (h1, h2, x) to resume from, zeros when None;
+    state_snapshot_at: the step s in [0, T] whose entering state is
+    returned, the final state when None. One launch of T steps equals two
+    chained launches of T1 and T - T1 steps under the same noise.
+
+    CPU tensors run the plain version (float32 throughout); CUDA tensors
+    launch the kernel with matrices in ``compute_dtype``."""
+    if mels_up.device.type == "cpu":
+        return generate_materialized_ref(core, mels_up, aux, mode, noise,
+                                         seed, init_state, state_snapshot_at)
+    if mels_up.device.type != "cuda":
+        raise ValueError(f"no materialized sample loop for {mels_up.device}")
+    dev = mels_up.device
+    w = _check_kernel_call(core, mode, compute_dtype, dev)
+    R, FC, A, NC, n_mels = _dims(core)
+    B, T, _ = mels_up.shape
+    mol = mode == "MOL"
+    if T < 1:
+        raise ValueError("the sample loop needs at least one step")
+    s = T if state_snapshot_at is None else int(state_snapshot_at)
+    if not 0 <= s <= T:
+        raise ValueError(f"state_snapshot_at {s} outside [0, {T}]")
+    if tuple(mels_up.shape) != (B, T, n_mels) or tuple(aux.shape) != (
+            B, T, 4 * A):
+        raise ValueError(f"mels_up {tuple(mels_up.shape)} and aux "
+                         f"{tuple(aux.shape)} do not match the weights' "
+                         f"(B, T, {n_mels}) and (B, T, {4 * A})")
+    cond = torch.cat([mels_up, aux], dim=-1).transpose(0, 1).contiguous()
+    _build.check_operand(cond, "cond", torch.float32,
+                         (T, B, n_mels + 4 * A), dev)
+    u = None
+    if noise is not None:
+        u = noise_stream(noise, T, mode)
+        _build.check_operand(u, "noise", torch.float32,
+                             (T, B, NC // 3 + 1 if mol else NC), dev)
+    state = [None, None, None]
+    if init_state is not None:
+        for i, (v, name, shape) in enumerate(zip(
+                init_state, ("h1", "h2", "x"), ((B, R), (B, R), (B,)))):
+            state[i] = v.to(torch.float32).contiguous()
+            _build.check_operand(state[i], name, torch.float32, shape, dev)
+    snap = (torch.empty(B, R, dtype=torch.float32, device=dev),
+            torch.empty(B, R, dtype=torch.float32, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev))
+    span = max(1, min(T, SPAN_ROWS // B))
+    out = torch.empty(B, T, dtype=torch.float32, device=dev)
+    work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, 0, span),
+                       dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = _LoopArgs(
+        cond=cond.data_ptr(), noise=ptr(u), h1_0=ptr(state[0]),
+        h2_0=ptr(state[1]), x_0=ptr(state[2]), snap_h1=snap[0].data_ptr(),
+        snap_h2=snap[1].data_ptr(), snap_x=snap[2].data_ptr(),
+        out=out.data_ptr(), work=work.data_ptr(),
+        B=B, R=R, FC=FC, A=A, n_mels=n_mels, NC=NC, K=0, hop=1,
+        fold_chunks=0, aux_tap=0, T=T, span=span, snapshot_at=s,
+        mol=int(mol), seed=seed & _M32,
+        bf16=int(compute_dtype == torch.bfloat16),
+        **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
+    _launch("wr_sample_loop_materialized", args, dev,
+            "materialized sample-loop")
+    generate_materialized.launches += 1
+    return out, snap
+
+
+generate_materialized.launches = 0

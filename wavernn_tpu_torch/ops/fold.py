@@ -72,10 +72,14 @@ def xfade_and_unfold(y, overlap: int):
                       torch.cat([bodies, bounds], dim=1).reshape(-1)])
 
 
-def tail_fade(wav, n_fade: int):
-    """Linear fade to silence over the last ``n_fade`` samples."""
+def tail_fade(wav, n_fade: int, full_ramp: bool = False):
+    """Linear fade to silence over the last ``n_fade`` samples. A wave
+    shorter than that gets a ramp of its own length (the reference's host
+    fade) or, with ``full_ramp``, the tail of the ``n_fade``-sample ramp
+    (the JAX package's device paths)."""
     n = min(n_fade, wav.shape[0])
+    ramp = torch.linspace(1, 0, n_fade if full_ramp else n, dtype=wav.dtype,
+                          device=wav.device)
     wav = wav.clone()
-    wav[wav.shape[0] - n:] *= torch.linspace(1, 0, n, dtype=wav.dtype,
-                                             device=wav.device)
+    wav[wav.shape[0] - n:] *= ramp[ramp.shape[0] - n:]
     return wav

@@ -4,8 +4,8 @@ fatchord_version.py:201-241).
 
 The conditioning-side projections run as whole-sequence GEMMs before the
 loop; the loop body computes only the state-dependent products. This is
-the plain version that the fused sample-loop kernel (ops/cuda_gen.py) is
-held against.
+the plain version that both sample-loop kernels (ops/cuda_gen.py: the fused
+and the materialized one) are held against.
 """
 from __future__ import annotations
 
@@ -26,7 +26,22 @@ def generate_scan(core, mels_up, aux, mode: str, noise):
     noise: MOL ``(u_mix (T, B, nr_mix), u_s (T, B))`` uniforms in
     [1e-5, 1-1e-5], or RAW ``u (T, B, n_classes)``.
     Returns samples (B, T) float32 in [-1, 1]."""
+    return generate_scan_with_state(core, mels_up, aux, mode, noise)[0]
+
+
+def generate_scan_with_state(core, mels_up, aux, mode: str, noise,
+                             init_state=None, state_snapshot_at=None):
+    """``generate_scan`` with the RNN state in and out (port of
+    ``generate_scan_with_state``, wavernn_tpu/ops/sample_loop.py:65-148).
+
+    init_state: optional (h1 (B, R), h2 (B, R), x (B,)) to resume from;
+    zeros otherwise. state_snapshot_at: optional step s in [0, T]; the
+    returned state is the one entering step s, and with no s (or s = T)
+    the state after the last step. Returns (samples (B, T), (h1, h2, x))."""
     B, T, _ = mels_up.shape
+    if state_snapshot_at is not None and not 0 <= state_snapshot_at <= T:
+        raise ValueError(f"state_snapshot_at {state_snapshot_at} outside "
+                         f"[0, {T}]")
     R = core["rnn1.weight_hh_l0"].shape[1]
     FC = core["fc2.weight"].shape[0]
     A = aux.shape[-1] // 4
@@ -48,11 +63,16 @@ def generate_scan(core, mels_up, aux, mode: str, noise):
     w1_x, w2_x = w1[:, :R], w2[:, :FC]
     w3, b3 = core["fc3.weight"], core["fc3.bias"]
 
-    h1 = mels_up.new_zeros(B, R)
-    h2 = mels_up.new_zeros(B, R)
-    x = mels_up.new_zeros(B)
+    if init_state is None:
+        h1, h2, x = (mels_up.new_zeros(B, R), mels_up.new_zeros(B, R),
+                     mels_up.new_zeros(B))
+    else:
+        h1, h2, x = (s.to(mels_up.dtype) for s in init_state)
+    snap = None
     out = []
     for t in range(T):
+        if t == state_snapshot_at:
+            snap = (h1, h2, x)
         inp = i_cond[:, t] + x[:, None] * w_x
         h1 = gru_gates(linear(inp, wi1, bi1), linear(h1, wh1, bh1), h1)
         xr = inp + h1
@@ -68,4 +88,6 @@ def generate_scan(core, mels_up, aux, mode: str, noise):
         else:
             x = sample_raw_categorical_with_noise(logits, noise[t])
         out.append(x)
-    return torch.stack(out, dim=1)
+    samples = (torch.stack(out, dim=1) if out
+               else mels_up.new_zeros(B, 0))
+    return samples, ((h1, h2, x) if snap is None else snap)

@@ -1,6 +1,9 @@
 """Synthesis flows (port of ``wavernn_tpu.synthesis``): copy-synthesis of
 held-out items and text -> wav with the WaveRNN vocoder (reference
-gen_wavernn.py:11-35, gen_tacotron.py:142-173)."""
+gen_wavernn.py:11-35, gen_tacotron.py:142-173), and the serving paths:
+``tts_to_wav_fast`` (one sentence, device-resident, length-bucketed) and
+``tts_to_wav_batch`` (many sentences: one batched decode, one vocoder
+launch)."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -21,8 +24,10 @@ def tts_to_wav(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, text: str,
                cfg: Config, r: int, steps: int = 2000,
                generator: Optional[torch.Generator] = None, noise=None,
                target: Optional[int] = None, overlap: Optional[int] = None,
-               device="cuda", timings: Optional[dict] = None):
-    """Full text -> waveform with the fold-batched WaveRNN vocoder.
+               device="cuda", timings: Optional[dict] = None,
+               batched: bool = True):
+    """Full text -> waveform with the WaveRNN vocoder, fold-batched or, with
+    ``batched=False``, one unbatched row over the whole utterance.
 
     The postnet output conditions the vocoder, rescaled [-4, 4] -> [0, 1]
     (gen_tacotron.py:145). ``generator`` seeds the vocoder's sampling
@@ -34,12 +39,114 @@ def tts_to_wav(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, text: str,
     _, m, attention = taco.generate(tts_model, np.asarray(x), r, steps=steps,
                                     device=dev, timings=timings)
     m = np.clip((m + 4.0) / 8.0, 0.0, 1.0)
-    wav = wr.generate(voc_model, m[None],
+    wav = wr.generate(voc_model, m[None], batched=batched,
                       target=cfg.voc.target if target is None else target,
                       overlap=cfg.voc.overlap if overlap is None else overlap,
                       mu_law=cfg.dsp.mu_law, noise=noise, generator=generator,
                       device=dev, timings=timings)
     return wav.cpu().numpy(), m, attention
+
+
+MEL_BUCKETS = (256, 512, 1024, 2048)
+
+
+def _bucket(T_valid: int, steps: int, buckets) -> int:
+    """The smallest mel-length bucket that holds ``T_valid`` frames, at most
+    ``steps``: vocoder work tracks the utterance, not the decode bound."""
+    return min(next((b for b in sorted(buckets) if b >= T_valid), steps),
+               steps)
+
+
+def _host_wav(wav, T_valid: int, hop: int):
+    """The wave trimmed to its true length and faded there (the reference's
+    fade, fatchord_version.py:255-258), as float32 numpy."""
+    wave_valid = max(T_valid - 1, 1) * hop
+    wav = np.array(wav[:wave_valid].cpu().numpy(), dtype=np.float32)
+    n_fade = min(20 * hop, wave_valid)
+    wav[-n_fade:] *= np.linspace(1.0, 0.0, n_fade, dtype=wav.dtype)
+    return wav
+
+
+def tts_to_wav_fast(tts_model: taco.Tacotron, voc_model: wr.WaveRNN,
+                    text: str, cfg: Config, r: int, steps: int = 2000,
+                    mel_buckets=MEL_BUCKETS,
+                    generator: Optional[torch.Generator] = None, noise=None,
+                    target: Optional[int] = None,
+                    overlap: Optional[int] = None, device="cuda",
+                    timings: Optional[dict] = None):
+    """Serving-latency text -> wav (wavernn_tpu/synthesis.py:256-311): the
+    decode (B2) and the postnet stay on the device, ONE scalar (the stop
+    group) comes to the host to pick the smallest mel bucket that holds
+    the utterance, and the bucket-padded mel feeds ``generate_fast``
+    without a tail fade; the wave is trimmed to its true length and faded
+    there. Returns (wav float32 numpy, mel numpy (n_mels, T_valid))."""
+    dev = resolve_device(device, tts_model, voc_model)
+    steps = -(-steps // r) * r
+    ids = torch.as_tensor(text_to_sequence(text.strip(),
+                                           cfg.tts.cleaner_names),
+                          dtype=torch.long, device=dev)[None]
+    _, linear, _, n_valid = taco.generate_core(tts_model, ids, None, r, steps,
+                                               timings)
+    T_valid = min(int(n_valid[0]) * r, steps)          # one scalar sync
+    bucket = _bucket(T_valid, steps, mel_buckets)
+    # the postnet output conditions the vocoder; short utterances pad with
+    # the frozen frames the decoder produced anyway
+    mel01 = torch.clamp((linear[:, :, :bucket] + 4.0) / 8.0, 0.0, 1.0)
+    wav = wr.generate_fast(voc_model, mel01, target=target, overlap=overlap,
+                           mu_law=cfg.dsp.mu_law, noise=noise,
+                           generator=generator, device=dev, tail_fade=False,
+                           timings=timings)
+    return (_host_wav(wav, T_valid, cfg.dsp.hop_length),
+            mel01[0, :, :T_valid].cpu().numpy())
+
+
+def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
+                     cfg: Config, r: int, steps: int = 2000,
+                     mel_buckets=MEL_BUCKETS,
+                     generator: Optional[torch.Generator] = None, noise=None,
+                     target: Optional[int] = None,
+                     overlap: Optional[int] = None, device_out: bool = False,
+                     mesh=None, device="cuda",
+                     timings: Optional[dict] = None):
+    """Batched serving (wavernn_tpu/synthesis.py:127-253): N sentences ->
+    one masked batched decode (B8; B2 for one sentence) with a stop per
+    utterance -> one host sync of the N stop groups, each utterance's mel
+    cut to its bucket -> ``generate_multi``: every utterance's folds in one
+    sample-loop launch, post-processed on the device -> each wave trimmed
+    to its true length and faded there.
+
+    Returns a list of (wav float32 numpy, mel numpy (n_mels, T_valid)), or
+    with ``device_out`` a list of (wav tensor on the device, trimmed but
+    not faded, T_valid). ``noise`` covers the combined fold batch.
+    ``mesh`` (multi-device serving) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: multi-device serving is not ported yet (ROADMAP A11)")
+    dev = resolve_device(device, tts_model, voc_model)
+    steps = -(-steps // r) * r
+    seqs = [text_to_sequence(t.strip(), cfg.tts.cleaner_names)
+            for t in texts]
+    ids, lens = taco.pad_ids(seqs, dev)
+    _, linear, _, n_valid = taco.generate_core(
+        tts_model, ids, lens if len(seqs) > 1 else None, r, steps, timings)
+    n_valid = n_valid.cpu().tolist()          # one host sync of N scalars
+    mels, t_valids = [], []
+    for b, n in enumerate(n_valid):
+        T_valid = min(n * r, steps)
+        bucket = _bucket(T_valid, steps, mel_buckets)
+        mels.append(torch.clamp((linear[b, :, :bucket] + 4.0) / 8.0, 0.0,
+                                1.0))
+        t_valids.append(T_valid)
+    wavs = wr.generate_multi(voc_model, mels, target=target, overlap=overlap,
+                             mu_law=cfg.dsp.mu_law, noise=noise,
+                             generator=generator, device=dev,
+                             device_out=True, tail_fade=False,
+                             timings=timings)
+    hop = cfg.dsp.hop_length
+    if device_out:
+        return [(w[:max(t - 1, 1) * hop], t) for w, t in zip(wavs, t_valids)]
+    return [(_host_wav(w, t, hop), m[:, :t].cpu().numpy())
+            for w, m, t in zip(wavs, mels, t_valids)]
 
 
 def gen_testset(voc_model: wr.WaveRNN, test_set, samples: int, target: int,
@@ -48,8 +155,8 @@ def gen_testset(voc_model: wr.WaveRNN, test_set, samples: int, target: int,
                 device="cuda"):
     """Copy-synthesis of held-out items (gen_wavernn.py:11-35): saves the
     decoded ground truth next to the model's output, generated through the
-    fused, fold-batched ``wavernn.generate`` (the sample-loop kernel on
-    CUDA). Returns the paths of the generated wavs."""
+    fold-batched ``wavernn.generate`` (a sample-loop kernel on CUDA).
+    Returns the paths of the generated wavs."""
     generator = (generator if generator is not None
                  else torch.Generator().manual_seed(0))
     k = step // 1000
