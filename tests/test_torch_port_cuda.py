@@ -25,7 +25,10 @@ samples and the returned state within 2e-3 (as B1), and chained launches
 equal to one launch exactly. The batched decode (B8): as B2, every row's
 stop group identical. Streaming on the card against one unbatched launch:
 at least 99.9 % of samples within 1e-3 (cuDNN may convolve a window with
-another algorithm than the whole mel).
+another algorithm than the whole mel). The sparse arm (B9) of both sample
+loops: bit for bit the dense kernel's output on the same block-pruned
+weights (its lanes add the same live terms in the same order), float32 and
+bfloat16; and, float32, within 2e-3 of its plain version.
 """
 import copy
 
@@ -38,6 +41,7 @@ from wavernn_tpu_torch.models import tacotron as taco
 from wavernn_tpu_torch.models import wavernn as wr
 from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
 from wavernn_tpu_torch.ops import cuda_taco_train as ct
+from wavernn_tpu_torch.train import pruning
 from wavernn_tpu_torch.train import tacotron_train as tt
 
 pytestmark = pytest.mark.cuda
@@ -440,3 +444,100 @@ def test_streaming_matches_unbatched_offline(cuda):
     assert got.shape == (T,)
     share = float(((got - want[0]).abs() <= 1e-3).float().mean())
     assert share >= 0.999, share
+
+
+@pytest.mark.parametrize("mode,dtype", [("MOL", torch.float32),
+                                        ("MOL", torch.bfloat16),
+                                        ("RAW", torch.float32),
+                                        ("RAW", torch.bfloat16)])
+def test_sparse_arm_equals_dense_kernel(cuda, mode, dtype):
+    """B9 in B1 and B3 at rnn and fc 256, (128, 128) blocks pruned at
+    93.75 % (one live block of each gate split's four), 1, 3 and 10 rows
+    (10 crosses the kernel's 8-row tile): the sparse arm equals the dense
+    arm on the same masked weights exactly, matches its plain version
+    (float32), and counts its launches."""
+    gen = torch.Generator().manual_seed(11)
+    voc = wr.WaveRNN(WaveRNNConfig(mode=mode, rnn_dims=256, fc_dims=256,
+                                   compute_dims=16, res_out_dims=32,
+                                   res_blocks=1), DSPConfig())
+    voc.reset_parameters(gen)
+    voc = voc.to(cuda).eval()
+    params = dict(voc.named_parameters())
+    pruning.apply_masks(params, pruning.update_masks(
+        params, 100, pruning.wavernn_prune_spec(), 0, 100, 0.9375,
+        (128, 128)))
+    core = voc.core_weights()
+    pack = cuda_gen.pack_sparse(core, voc.voc)
+    assert sorted(pack.entries) == sorted(cuda_gen.STEP_MATRICES)
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    geo_phi = wr.fused_conditioning(
+        voc, torch.nn.functional.pad(torch.rand(1, 80, 8, generator=gen)
+                                     .to(cuda), (2, 2)), 8 * 275, 550, 275)
+    _, phi, geo, _ = geo_phi
+    chunks = 2
+    for B in (1, 3, 10):
+        T = chunks * geo.hop
+        u = cuda_gen.counter_uniforms(B, T, B, nu, mode == "MOL", cuda)
+        noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+        frames = torch.rand(chunks + geo.K - 1, B, 80 + 32,
+                            generator=gen).to(cuda)
+        fargs = (core, frames, phi, geo.hop, -geo.d_lo, chunks, mode)
+        mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+        au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+        with torch.no_grad():
+            n0 = (cuda_gen.generate_fused.sparse_launches,
+                  cuda_gen.generate_materialized.sparse_launches)
+            dense = cuda_gen.generate_fused(*fargs, noise=noise,
+                                            compute_dtype=dtype)
+            sparse = cuda_gen.generate_fused(*fargs, noise=noise,
+                                             compute_dtype=dtype,
+                                             sparse_packed=pack)
+            mdense, mst = cuda_gen.generate_materialized(
+                core, mu, au, mode, noise=noise, compute_dtype=dtype)
+            msparse, msst = cuda_gen.generate_materialized(
+                core, mu, au, mode, noise=noise, compute_dtype=dtype,
+                sparse_packed=pack)
+            assert (cuda_gen.generate_fused.sparse_launches,
+                    cuda_gen.generate_materialized.sparse_launches) \
+                == (n0[0] + 1, n0[1] + 1)
+            assert torch.equal(sparse, dense), B
+            assert torch.equal(msparse, mdense), B
+            for a, b in zip(msst, mst):
+                assert torch.equal(a, b), B
+            if dtype == torch.float32:
+                want = cuda_gen.generate_fused_ref(*fargs, noise=noise,
+                                                   sparse_packed=pack)
+                torch.testing.assert_close(sparse, want, atol=2e-3, rtol=0)
+                mwant, _ = cuda_gen.generate_materialized_ref(
+                    core, mu, au, mode, noise=noise, sparse_packed=pack)
+                torch.testing.assert_close(msparse, mwant, atol=2e-3, rtol=0)
+
+
+def test_sparse_arm_legacy_br8_equals_dense(cuda):
+    """The legacy schedule (``allow_br8``): (8, 128) block masks pack as
+    blocks of 128 output rows by 8 input columns, one chunk of one lane
+    each; the sparse arm still equals the dense arm exactly."""
+    gen = torch.Generator().manual_seed(12)
+    voc = wr.WaveRNN(WaveRNNConfig(rnn_dims=256, fc_dims=256,
+                                   compute_dims=16, res_out_dims=32,
+                                   res_blocks=1), DSPConfig())
+    voc.reset_parameters(gen)
+    voc = voc.to(cuda).eval()
+    params = dict(voc.named_parameters())
+    pruning.apply_masks(params, pruning.update_masks(
+        params, 100, pruning.wavernn_prune_spec(), 0, 100, 0.9375, (8, 128)))
+    core = voc.core_weights()
+    pack = cuda_gen.pack_sparse(core, voc.voc, allow_br8=True)
+    assert {pack.entries[n].br for n in ("wi1", "wh1", "wh2")} == {8}
+    B, T = 3, 400
+    mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+    au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            dense, _ = cuda_gen.generate_materialized(
+                core, mu, au, "MOL", seed=4, compute_dtype=dtype)
+            sparse, _ = cuda_gen.generate_materialized(
+                core, mu, au, "MOL", seed=4, compute_dtype=dtype,
+                sparse_packed=pack)
+            assert torch.equal(sparse, dense), dtype

@@ -49,6 +49,7 @@ from wavernn_tpu.data.dataset import collate_vocoder as j_collate
 from wavernn_tpu.models import distribution as jdist
 from wavernn_tpu.models import wavernn as jwr
 from wavernn_tpu.paths import Workspace as JWorkspace
+from wavernn_tpu.synthesis import gen_testset as j_gen_testset
 from wavernn_tpu.train import checkpoints as jck
 from wavernn_tpu.train import wavernn_train as jwt
 from wavernn_tpu.train.checkpoints import tree_to_flat
@@ -61,6 +62,7 @@ from wavernn_tpu_torch.data.prefetch import prefetch
 from wavernn_tpu_torch.models import distribution as dist
 from wavernn_tpu_torch.models import wavernn as wr
 from wavernn_tpu_torch.paths import Workspace
+from wavernn_tpu_torch.synthesis import gen_testset
 from wavernn_tpu_torch.train import checkpoints as ck
 from wavernn_tpu_torch.train import wavernn_train as wt
 
@@ -357,13 +359,50 @@ def test_cli_help_lists_reference_flags(capsys):
         assert flag in text, flag
 
 
-def test_cli_prune_and_missing_cuda_raise(tmp_path, monkeypatch):
+def test_cli_missing_cuda_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_wavernn.main(["--prune", "--force_cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_wavernn.main([])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_wavernn.main(["--prune"])
+
+
+def test_gen_testset_names_match_jax(tmp_path, monkeypatch):
+    """``gen_testset`` fold-batched and unbatched writes the JAX package's
+    file names, and the trainer's checkpoint generation follows
+    ``voc_gen_batched`` as the JAX trainer does."""
+    _, params, cfg, model = _models("MOL", seed=8)
+    rng = np.random.RandomState(9)
+    test_set = [(rng.uniform(0, 1, (80, 8)).astype(np.float32),
+                 rng.randint(0, 2 ** 16, 8 * HOP).astype(np.int64))]
+    jcfg = JConfig(voc=JVoc(mode="MOL", **VOC))
+    for batched in (True, False):
+        jdir, pdir = tmp_path / f"j{batched}", tmp_path / f"p{batched}"
+        j_gen_testset(params, test_set, 1, batched, 1100, 275, jdir, jcfg,
+                      step=3000, log=lambda *_: None)
+        paths = gen_testset(model, test_set, 1, batched, 1100, 275, pdir,
+                            cfg, step=3000, log=lambda *_: None,
+                            device="cpu")
+        names = sorted(p.name for p in jdir.iterdir())
+        assert sorted(p.name for p in pdir.iterdir()) == names
+        assert [p.name for p in paths] == [n for n in names
+                                           if "target.wav" not in n]
+    assert "3k_steps_1_gen_NOT_BATCHED.wav" in names
+    _dataset(tmp_path / "data", n_items=6)
+    hp = tmp_path / "hp_unbatched.py"
+    hp.write_text(
+        "".join(f"voc_{k} = {v!r}\n" for k, v in VOC.items())
+        + f"data_path = {str(tmp_path / 'data')!r}\n"
+        + "voc_model_id = 'ub'\nvoc_batch_size = 2\n"
+        + f"voc_seq_len = {SEQ}\nvoc_total_steps = 1\n"
+        + "voc_checkpoint_every = 1\nvoc_gen_at_checkpoint = 1\n"
+        + "voc_test_samples = 1\nvoc_gen_batched = False\n")
+    monkeypatch.chdir(tmp_path)
+    train_wavernn.main(["--hp_file", str(hp), "--force_cpu"])
+    assert sorted(p.name for p in (tmp_path / "model_outputs"
+                                   / "ub.wavernn").iterdir()) \
+        == ["0k_steps_1_gen_NOT_BATCHED.wav", "0k_steps_1_target.wav"]
 
 
 def test_prefetch_yields_tensors_in_order():

@@ -147,6 +147,42 @@ def test_cli_loads_both_formats_and_synthesizes(tmp_path):
     assert [p.name for p in out.iterdir()] == ["1_batchedTrue_5k.wav"]
 
 
+def test_quick_start_batched_flags_match_jax(tmp_path, capsys):
+    """quick_start's -b / -u / -a, as the JAX package's CLI has them: -u
+    generates unbatched and names the file batchedFalse; -a raises naming
+    A12; --out_dir and --steps say that they are the port's own."""
+    from wavernn_tpu.cli import quick_start as j_quick_start
+    with pytest.raises(SystemExit):
+        j_quick_start.main(["--help"])
+    jhelp = capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        quick_start.main(["--help"])
+    phelp = capsys.readouterr().out
+    for flag in ("--batched", "-b", "--unbatched", "-u", "--save_attention",
+                 "-a", "--input_text", "--voc_weights", "--tts_weights",
+                 "--pretrained_dir", "--hp_file", "--force_cpu"):
+        assert flag in jhelp and flag in phelp, flag
+    assert "--out_dir" not in jhelp and "--steps" not in jhelp
+    assert phelp.count("the port's own") == 2
+    voc_p, tts_p = _jax_params()
+    save_tree(tmp_path / "voc.npz", {"params": voc_p,
+                                     "meta": {"step": np.asarray(3000)}})
+    save_tree(tmp_path / "tts.npz", {"params": tts_p,
+                                     "meta": {"step": np.asarray(5000),
+                                              "r": np.asarray(2)}})
+    hp = tmp_path / "hparams_small.py"
+    hp.write_text("".join(f"voc_{k} = {v!r}\n" for k, v in VOC.items())
+                  + "".join(f"tts_{k} = {v!r}\n" for k, v in TTS.items()))
+    args = ["--hp_file", str(hp), "--voc_weights", str(tmp_path / "voc.npz"),
+            "--tts_weights", str(tmp_path / "tts.npz"), "--input_text",
+            "Hi.", "--steps", "16", "--force_cpu"]
+    out = tmp_path / "out"
+    quick_start.main(args + ["-u", "--out_dir", str(out)])
+    assert [p.name for p in out.iterdir()] == ["1_batchedFalse_5k.wav"]
+    with pytest.raises(NotImplementedError, match="A12"):
+        quick_start.main(args + ["-a"])
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pkgutil, importlib\n"

@@ -67,3 +67,15 @@ def load_tts_model(path, cfg: Config, device) -> Tuple[Tacotron, int, int]:
     model.load_state_dict(sd, strict=True)
     return (model.to(device).eval(), int(model.step.reshape(-1)[0]),
             int(model.decoder.r))
+
+
+def sparse_pack_or_dense(voc: WaveRNN, cfg: Config):
+    """``--sparse``: pack the vocoder's zero-block pattern once after
+    loading (ops/cuda_gen.pack_sparse); says so when nothing packs, and the
+    vocoder is then served dense (the JAX CLIs' message)."""
+    from ..ops.cuda_gen import pack_sparse
+    packed = pack_sparse(voc.core_weights(), cfg.voc)
+    if not packed.entries:
+        print("| --sparse: no (128,128)-block-sparse matrices found in the "
+              "checkpoint; serving dense")
+    return packed

@@ -7,6 +7,8 @@ gen_tacotron.py; the flag surface of ``wavernn_tpu.cli.gen_tacotron``).
 
 The device picks the engine: on CUDA the decode, sample-loop and GRU
 kernels run; ``--force_cpu`` runs their plain PyTorch versions on the CPU.
+``wavernn --sparse`` serves a block-pruned vocoder (``train_wavernn
+--prune``) through the sample loops' block-sparse arm.
 Checkpoints are the JAX trainer's ``.npz`` (either package writes them) or
 reference ``.pyt`` state dicts. Wavs go to ``model_outputs/<tts_id>.tacotron/``
 under the names the JAX package gives them.
@@ -20,7 +22,7 @@ import torch
 from ..dsp.audio import save_wav
 from ..synthesis import tts_to_wav, tts_to_wav_batch, tts_to_wav_fast
 from .common import load_config, load_tts_model, load_voc_model, \
-    make_workspace
+    make_workspace, sparse_pack_or_dense
 
 
 def main(argv=None):
@@ -49,7 +51,10 @@ def main(argv=None):
     wr_p.add_argument("--voc_weights", default=None)
     wr_p.add_argument("--tts_weights", default=None)
     wr_p.add_argument("--sparse", action="store_true",
-                      help="not ported yet (ROADMAP A9)")
+                      help="serve a block-pruned vocoder checkpoint through "
+                           "the sample loops' block-sparse arm (weights "
+                           "packed once at load; matrices that are not "
+                           "block-sparse stay dense)")
     wr_p.add_argument("--fast", action="store_true",
                       help="device-resident serving path (one scalar sync, "
                            "length-bucketed vocoder) instead of the "
@@ -73,9 +78,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--save_attention is not ported yet (ROADMAP A12: the "
             "attention plots)")
-    if args.sparse:
-        raise NotImplementedError(
-            "--sparse is not ported yet (ROADMAP A9, kernel B9)")
     device = "cpu" if args.force_cpu else "cuda"
     cfg = load_config(args.hp_file)
     ws = make_workspace(cfg)
@@ -85,6 +87,7 @@ def main(argv=None):
                                       or ws.tts_latest_weights, cfg, device)
     voc, voc_step = load_voc_model(args.voc_weights or ws.voc_latest_weights,
                                    cfg, device)
+    sparse_packed = sparse_pack_or_dense(voc, cfg) if args.sparse else None
     tts_k = tts_step // 1000
     batched = cfg.voc.gen_batched if args.batched is None else args.batched
     target = cfg.voc.target if args.target is None else args.target
@@ -117,7 +120,8 @@ def main(argv=None):
         print(f"| Generating {len(inputs)} sentences in one batch")
         outs = tts_to_wav_batch(tts, voc, inputs, cfg, r,
                                 generator=torch.Generator().manual_seed(1),
-                                target=target, overlap=overlap, device=device)
+                                target=target, overlap=overlap, device=device,
+                                sparse_packed=sparse_packed)
         for i, (wav, _) in enumerate(outs, 1):
             save_wav(wav, save_path(i, "wavernn_batchN"), cfg.dsp.sample_rate)
         print("Done.")
@@ -129,12 +133,14 @@ def main(argv=None):
         if args.fast:
             wav, _ = tts_to_wav_fast(tts, voc, text, cfg, r, generator=gen,
                                      target=target, overlap=overlap,
-                                     device=device)
+                                     device=device,
+                                     sparse_packed=sparse_packed)
             v_type = "wavernn_fast"
         else:
             wav, _, _ = tts_to_wav(tts, voc, text, cfg, r, generator=gen,
                                    target=target, overlap=overlap,
-                                   device=device, batched=batched)
+                                   device=device, batched=batched,
+                                   sparse_packed=sparse_packed)
             v_type = "wavernn_batched" if batched else "wavernn_unbatched"
         save_wav(wav, save_path(i, v_type), cfg.dsp.sample_rate)
     print("Done.")

@@ -4,7 +4,7 @@
 Loads Tacotron and WaveRNN weights (reference ``.pyt`` checkpoints,
 optionally inside the released zips, or the JAX trainer's ``.npz``) and
 synthesizes the standard test sentences with fold-batched generation
-(target 11000, overlap 550).
+(target 11000, overlap 550), or unbatched with ``-u``.
 
     python -m wavernn_tpu_torch.cli.quick_start \\
         --voc_weights pretrained/ljspeech.wavernn.mol.800k/latest_weights.pyt \\
@@ -36,17 +36,34 @@ def _maybe_unzip(pretrained_dir: Path):
 def main(argv=None):
     parser = argparse.ArgumentParser(description="TTS quick start (PyTorch)")
     parser.add_argument("--input_text", "-i", default=None)
+    parser.add_argument("--batched", "-b", dest="unbatched",
+                        action="store_false", help="fold-batched generation "
+                        "(the default, like quick_start.py:29)")
+    parser.add_argument("--unbatched", "-u", action="store_true")
+    # fold-batched unless -u: the two flags share a dest, and argparse would
+    # otherwise take --batched's store_false default (True) for it
+    parser.set_defaults(unbatched=False)
+    parser.add_argument("--save_attention", "-a", action="store_true",
+                        help="not ported yet (ROADMAP A12); raises")
     parser.add_argument("--voc_weights", default=None)
     parser.add_argument("--tts_weights", default=None)
     parser.add_argument("--pretrained_dir", default="pretrained")
     parser.add_argument("--hp_file", default=None)
-    parser.add_argument("--out_dir", default="quick_start_output")
+    parser.add_argument("--out_dir", default="quick_start_output",
+                        help="where the wavs go (the port's own flag; the "
+                             "JAX package writes to quick_start_output)")
     parser.add_argument("--steps", type=int, default=2000,
-                        help="most decoder frames per sentence")
+                        help="most decoder frames per sentence (the port's "
+                             "own flag; the JAX package fixes 2000)")
     parser.add_argument("--force_cpu", "-c", action="store_true",
                         help="run the plain PyTorch versions on the CPU")
     args = parser.parse_args(argv)
+    if args.save_attention:
+        raise NotImplementedError(
+            "--save_attention is not ported yet (ROADMAP A12: the attention "
+            "plots)")
     device = "cpu" if args.force_cpu else "cuda"
+    batched = not args.unbatched
 
     cfg = load_config(args.hp_file)
     pre = Path(args.pretrained_dir)
@@ -62,7 +79,8 @@ def main(argv=None):
     voc, voc_step = load_voc_model(voc_weights, cfg, device)
     tts, tts_step, r = load_tts_model(tts_weights, cfg, device)
     print(f"| WaveRNN {voc_step // 1000}k, Tacotron {tts_step // 1000}k, "
-          f"r={r}, target {cfg.voc.target}, overlap {cfg.voc.overlap}")
+          f"r={r}, " + (f"batched (target {cfg.voc.target}, overlap "
+                        f"{cfg.voc.overlap})" if batched else "unbatched"))
 
     if args.input_text:
         inputs = [args.input_text.strip()]
@@ -75,9 +93,9 @@ def main(argv=None):
         print(f"| Generating {i}/{len(inputs)}: {text[:40]}")
         gen = torch.Generator().manual_seed(i)
         wav, _, _ = tts_to_wav(tts, voc, text, cfg, r, steps=args.steps,
-                               generator=gen, device=device)
-        save_wav(wav, out_dir / f"{i}_batchedTrue_{tts_step // 1000}k.wav",
-                 cfg.dsp.sample_rate)
+                               generator=gen, device=device, batched=batched)
+        save_wav(wav, out_dir / f"{i}_batched{batched}_{tts_step // 1000}k"
+                 ".wav", cfg.dsp.sample_rate)
     print("Done.")
 
 

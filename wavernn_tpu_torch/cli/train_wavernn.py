@@ -12,6 +12,7 @@ package resumes the other's run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 
 import torch
@@ -35,8 +36,10 @@ def main(argv=None):
     parser.add_argument("--gta", "-g", action="store_true",
                         help="train on GTA features")
     parser.add_argument("--prune", action="store_true",
-                        help="magnitude pruning: not ported yet (ROADMAP "
-                             "A9/B9); raises")
+                        help="magnitude pruning with the cubic schedule of "
+                             "the voc_prune_* hparams ((128, 128) blocks "
+                             "by default, which gen_wavernn --sparse and "
+                             "gen_tacotron --sparse serve)")
     parser.add_argument("--hp_file", default=None)
     parser.add_argument("--force_cpu", "-c", action="store_true",
                         help="train on the CPU with the plain PyTorch "
@@ -47,9 +50,9 @@ def main(argv=None):
                              "training steps into this directory")
     args = parser.parse_args(argv)
     cfg = load_config(args.hp_file)
-    if args.prune or cfg.voc_train.prune:
-        raise NotImplementedError("pruning is not ported to the PyTorch "
-                                  "package yet (ROADMAP A9, kernel B9)")
+    if args.prune and not cfg.voc_train.prune:
+        cfg = dataclasses.replace(cfg, voc_train=dataclasses.replace(
+            cfg.voc_train, prune=True))
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     lr = args.lr or cfg.voc_train.lr
     batch_size = args.batch_size or cfg.voc_train.batch_size
@@ -73,17 +76,22 @@ def main(argv=None):
 
     total_steps = (10_000_000 if args.force_train
                    else cfg.voc_train.total_steps)
+    vt = cfg.voc_train
     for name, value in (
             ("Remaining", f"{(total_steps - state.step) // 1000}k Steps"),
             ("Batch Size", batch_size), ("LR", lr),
             ("Sequence Len", cfg.voc_train.seq_len), ("GTA Train", args.gta),
             ("Device", device), ("Recurrence", cfg.voc_train.recurrence),
-            ("Precision", cfg.voc_train.precision)):
+            ("Precision", cfg.voc_train.precision),
+            ("Pruning", (f"{vt.prune_sparsity:.2%} by step "
+                         f"{vt.prune_start + vt.prune_steps}"
+                         if vt.prune else "off"))):
         print(f"| {name}: {value}")
 
     def on_checkpoint(st):
         gen_testset(st.model, test_set, cfg.voc_train.gen_at_checkpoint,
-                    cfg.voc.target, cfg.voc.overlap, ws.voc_output, cfg,
+                    cfg.voc.gen_batched, cfg.voc.target, cfg.voc.overlap,
+                    ws.voc_output, cfg,
                     step=st.step,
                     generator=torch.Generator().manual_seed(args.seed),
                     device=device)

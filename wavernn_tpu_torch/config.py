@@ -94,8 +94,18 @@ class WaveRNNTrainConfig:
     # CUDA tensor (its plain version on a CPU tensor); "scan" runs the
     # plain step loop under autograd, explicitly asked for
     recurrence: str = "auto"
-    # magnitude pruning is not ported: the trainer raises when it is set
+    # magnitude pruning (reference notebooks/Pruning - Scratchpad.ipynb
+    # cells 4-6: cubic schedule, demo target 0.9375; train/pruning.py).
+    # prune_block (rows, cols) in the JAX package's (in, out) layout makes
+    # the zero pattern whole (128, 128) blocks that the sample loops' sparse
+    # arm skips; None = the notebook's unstructured masks
     prune: bool = False
+    prune_start: int = 20_000
+    prune_steps: int = 200_000
+    prune_sparsity: float = 0.9375
+    prune_every: int = 500
+    prune_block: Optional[Tuple[int, int]] = (128, 128)
+    prune_rnn_input: bool = True
 
     def __post_init__(self):
         if self.precision not in _PRECISIONS:
@@ -105,6 +115,9 @@ class WaveRNNTrainConfig:
         if self.recurrence not in ("auto", "scan", "pallas"):
             raise ValueError(
                 f"recurrence must be auto/scan/pallas, got {self.recurrence!r}")
+        if not 0.0 <= self.prune_sparsity < 1.0:
+            raise ValueError(
+                f"prune_sparsity must be in [0, 1), got {self.prune_sparsity}")
 
 
 TTS_MODES = ("teacher_forcing", "attention_forcing_online",
@@ -256,6 +269,15 @@ class Config:
             precision=g("voc_precision", "float32"),
             recurrence=g("voc_recurrence", "auto"),
             prune=g("voc_prune", False),
+            prune_start=g("voc_prune_start", 20_000),
+            prune_steps=g("voc_prune_steps", 200_000),
+            prune_sparsity=g("voc_prune_sparsity", 0.9375),
+            prune_every=g("voc_prune_every", 500),
+            prune_block=(tuple(g("voc_prune_block"))
+                         if g("voc_prune_block") is not None else
+                         (None if g("voc_prune_unstructured", False)
+                          else (128, 128))),
+            prune_rnn_input=g("voc_prune_rnn_input", True),
         )
         tts = TacotronConfig(
             embed_dims=g("tts_embed_dims", 256),

@@ -54,6 +54,24 @@
 // conditioning products run once per span of steps, with one more barrier;
 // its workspace is per span, so nothing but the output and the conditioning
 // stream grows with T.
+//
+// B9, the sparse arm (a runtime choice per matrix, LoopArgs::sp): replaces
+// wavernn_tpu/ops/pallas_gen.py, _sparse_mm, the block-sparse product of a
+// pruned model's per-step matrices inside both TPU kernels (B3's body and
+// B1's, packing in _pack_block_sparse / pack_sparse). For each of the six
+// per-step matrices (wi1, wh1, wi2x, wh2, w1x, w2x) that ops/cuda_gen.py
+// packed, the kernel reads its live (128 output rows x bw input columns)
+// blocks, in CSR order per 128-row block, instead of the dense matrix, and
+// runs only their multiply-adds; fc3 and the conditioning products stay
+// dense, and the gate arithmetic runs for every unit as before. What bounds
+// it: the same chain of dependent steps and grid barriers as the dense arm
+// (the weights it reads shrink ~16x at 93.75 % block sparsity; the barriers
+// and the staging of each step's rows into every block do not). What the
+// design does about that: nothing yet; it measures how much of a step the
+// dot products were. Its lanes keep the dense arm's lane-to-k mapping (lane
+// l sums the 8-column chunks c = l mod 32 in increasing c, each in element
+// order), and a dead block adds exactly +0 in the dense arm, so every
+// output equals the dense kernel's on the same masked weights bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +89,18 @@ constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr float MOL_U_SCALE = (float)(1.0 - 2e-5);
 
 }  // namespace
+
+// One packed matrix of the sparse arm (null row_ptr: the matrix is dense).
+// Row block rb (128 rows) holds blocks row_ptr[rb] .. row_ptr[rb+1] - 1, in
+// increasing input block col[e]; block e is val[e] (128, bw) row-major.
+struct SparseMat {
+  const int32_t* row_ptr;  // (rows/128 + 1,)
+  const int32_t* col;      // (L,)
+  const void* val;         // (L, 128, bw)  WT
+  int64_t bw;              // input columns per block: 128, or 8 (legacy)
+};
+
+constexpr int N_SPARSE = 6;  // wi1, wh1, wi2x, wh2, w1x, w2x
 
 // Mirrored field for field by ops/cuda_gen.py (ctypes): 8-byte fields only.
 struct LoopArgs {
@@ -110,6 +140,7 @@ struct LoopArgs {
   int64_t B, R, FC, A, n_mels, NC, K, hop, fold_chunks, aux_tap;
   int64_t T, span, snapshot_at;  // B3: steps, steps per conditioning span
   int64_t mol, seed, bf16;
+  SparseMat sp[N_SPARSE];  // B9: the packed per-step matrices, or nulls
 };
 
 namespace {
@@ -219,6 +250,80 @@ __device__ __forceinline__ void warp_dots(const WT* __restrict__ wa,
 #pragma unroll
     for (int b = 0; b < BT; ++b)
       if (b < nb) acc[g][b] = warp_sum(acc[g][b]);
+}
+
+// B9: warp_dots' sums for NG gate rows g*gstride + j of a packed matrix,
+// over its live blocks only. Lane l takes, of each live block, the one
+// 8-column chunk c with c = l (mod 32) if the block holds it: the chunks
+// warp_dots gives lane l, in the same increasing order, so each lane's sum
+// differs from warp_dots' only by the +0 terms of dead blocks.
+template <int NG, typename WT>
+__device__ __forceinline__ void sparse_dots(const SparseMat& sp, int j,
+                                            int gstride, int n, const float* s,
+                                            int nb, float (&acc)[NG][BT]) {
+  const int lane = threadIdx.x & 31;
+  const WT* val = (const WT*)sp.val;
+  const int bw = (int)sp.bw, cpb = bw / 8;  // 8-column chunks per block
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) acc[g][b] = 0.f;
+    const int r = g * gstride + j;
+    const int rb = r >> 7, ro = r & 127;
+    const int e1 = __ldg(sp.row_ptr + rb + 1);
+    for (int e = __ldg(sp.row_ptr + rb); e < e1; ++e) {
+      const int c0 = __ldg(sp.col + e) * cpb;
+      const int c = c0 + ((lane - c0) & 31);
+      if (c >= c0 + cpb) continue;
+      float w[8];
+      load8(val + ((size_t)e * 128 + ro) * bw + (c - c0) * 8, w);
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        if (b < nb) {
+          float a[8];
+          load8_shared(s + b * n + c * 8, a);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[g][b] = fmaf(w[k], a[k], acc[g][b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int b = 0; b < BT; ++b)
+      if (b < nb) acc[g][b] = warp_sum(acc[g][b]);
+}
+
+// The per-step products of one stage: warp_dots on the dense matrices, the
+// sparse arm on the packed ones. Each gate row's sum is independent of the
+// others, so splitting the two matrices changes no sum.
+template <int NA, int NB, typename WT>
+__device__ __forceinline__ void step_dots(const WT* wa, const SparseMat& sa,
+                                          const WT* wb, const SparseMat& sb,
+                                          int j, int gstride, int n,
+                                          const float* s_a, const float* s_b,
+                                          int nb, float (&acc)[NA + NB][BT]) {
+  if (!sa.row_ptr && (NB == 0 || !sb.row_ptr)) {
+    warp_dots<NA, NB>(wa, wb, j, gstride, n, s_a, s_b, nb, acc);
+    return;
+  }
+  float t[NA][BT];
+  if (sa.row_ptr) sparse_dots<NA, WT>(sa, j, gstride, n, s_a, nb, t);
+  else warp_dots<NA, 0>(wa, wa, j, gstride, n, s_a, s_a, nb, t);
+#pragma unroll
+  for (int g = 0; g < NA; ++g)
+#pragma unroll
+    for (int b = 0; b < BT; ++b) acc[g][b] = t[g][b];
+  if constexpr (NB > 0) {
+    float u[NB][BT];
+    if (sb.row_ptr) sparse_dots<NB, WT>(sb, j, gstride, n, s_b, nb, u);
+    else warp_dots<NB, 0>(wb, wb, j, gstride, n, s_b, s_b, nb, u);
+#pragma unroll
+    for (int g = 0; g < NB; ++g)
+#pragma unroll
+      for (int b = 0; b < BT; ++b) acc[NA + g][b] = u[g][b];
+  }
 }
 
 // Warp-wide dot of a weight row (any length) with a read-only vector.
@@ -426,7 +531,8 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
         __syncthreads();
         for (int j = gw; j < R; j += nw) {
           float acc[6][BT];
-          warp_dots<3, 3>(wi1, wh1, j, R, R, s_a, s_b, nb, acc);
+          step_dots<3, 3>(wi1, a.sp[0], wh1, a.sp[1], j, R, R, s_a, s_b, nb,
+                          acc);
           if (lane < nb) {
             float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
 #pragma unroll
@@ -459,7 +565,8 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
         __syncthreads();
         for (int j = gw; j < R; j += nw) {
           float acc[6][BT];
-          warp_dots<3, 3>(wi2x, wh2, j, R, R, s_a, s_b, nb, acc);
+          step_dots<3, 3>(wi2x, a.sp[2], wh2, a.sp[3], j, R, R, s_a, s_b, nb,
+                          acc);
           if (lane < nb) {
             float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
 #pragma unroll
@@ -487,6 +594,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
         float* dst = layer == 0 ? wk.hf1 : wk.hf2;
         const float* add = (layer == 0 ? wk.f1a : wk.f2a) + ci * FC;
         const WT* w = layer == 0 ? w1x : w2x;
+        const SparseMat sw = layer == 0 ? a.sp[4] : a.sp[5];
         const int n = layer == 0 ? R : FC;
         for (int b0 = 0; b0 < B; b0 += BT) {
           const int nb = min(BT, B - b0);
@@ -496,7 +604,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
           __syncthreads();
           for (int j = gw; j < FC; j += nw) {
             float acc[1][BT];
-            warp_dots<1, 0>(w, w, j, FC, n, s_a, s_a, nb, acc);
+            step_dots<1, 0>(w, sw, w, sw, j, FC, n, s_a, s_a, nb, acc);
             if (lane < nb) {
               float s = 0.f;
 #pragma unroll

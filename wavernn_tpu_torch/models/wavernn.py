@@ -13,7 +13,9 @@ rate, frame-rate folds and the fused sample-loop kernel B1 when the folds
 are phase-aligned to mel frames; otherwise the upsampled sample-rate
 conditioning, folded or as one unbatched row, through the materialized
 kernel B3 (ops/cuda_gen.py); then mu-law decode (RAW), the equal-power
-crossfade and the 20-frame tail fade.
+crossfade and the 20-frame tail fade. Each takes ``sparse_packed``
+(``ops/cuda_gen.pack_sparse`` of a pruned model's weights), which runs
+either kernel's block-sparse arm B9.
 """
 from __future__ import annotations
 
@@ -291,7 +293,7 @@ def _seed(noise, generator: Optional[torch.Generator]) -> int:
 
 
 def _samples(model: WaveRNN, mels, batched: bool, target: int, overlap: int,
-             noise, seed: int, timings, dev):
+             noise, seed: int, timings, dev, sparse_packed=None):
     """The sample loop over one utterance's mels (1, n_mels, T_frames):
     (folds, target + 2*overlap) when ``batched``, else (1, T_frames*hop).
 
@@ -317,9 +319,11 @@ def _samples(model: WaveRNN, mels, batched: bool, target: int, overlap: int,
         if fused:
             return generate_fused(model.core_weights(), frames, phi, geo.hop,
                                   -geo.d_lo, fold_chunks, voc.mode,
-                                  noise=noise, seed=seed)
+                                  noise=noise, seed=seed,
+                                  sparse_packed=sparse_packed)
         return generate_materialized(model.core_weights(), mels_up, aux,
-                                     voc.mode, noise=noise, seed=seed)[0]
+                                     voc.mode, noise=noise, seed=seed,
+                                     sparse_packed=sparse_packed)[0]
 
 
 def mu_law_decode(y, n_classes: int):
@@ -333,7 +337,7 @@ def generate(model: WaveRNN, mels, *, batched: bool = True,
              target: Optional[int] = None, overlap: Optional[int] = None,
              mu_law: bool = True, noise=None,
              generator: Optional[torch.Generator] = None, device="cuda",
-             timings: Optional[dict] = None):
+             timings: Optional[dict] = None, sparse_packed=None):
     """Utterance generation (fatchord_version.py:169-264; the JAX package's
     ``generate``).
 
@@ -348,7 +352,10 @@ def generate(model: WaveRNN, mels, *, batched: bool = True,
     float64 waveform ((T_frames-1)*hop,) on ``device``, with the
     reference's tail fade-out. On CUDA the sample loop multiplies bfloat16
     weights with float32 accumulation. ``timings``, when given, receives
-    the device milliseconds of each stage."""
+    the device milliseconds of each stage. ``sparse_packed``:
+    ``cuda_gen.pack_sparse(model.core_weights(), ...)`` of a block-pruned
+    model, packed once after loading; the sample loop's per-step products
+    then read only the live blocks (B9). An empty pack serves dense."""
     dev = resolve_device(device, model)
     voc, dsp = model.voc, model.dsp
     target = voc.target if target is None else target
@@ -356,7 +363,7 @@ def generate(model: WaveRNN, mels, *, batched: bool = True,
     mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
     wave_len = (mels.shape[-1] - 1) * dsp.hop_length
     samples = _samples(model, mels, batched, target, overlap, noise,
-                       _seed(noise, generator), timings, dev)
+                       _seed(noise, generator), timings, dev, sparse_packed)
     with stage(timings, "crossfade", dev):
         return _post(model, samples.to(torch.float64),
                      overlap if batched else None, wave_len, mu_law, True,
@@ -368,14 +375,14 @@ def generate_fast(model: WaveRNN, mels, *, target: Optional[int] = None,
                   overlap: Optional[int] = None, mu_law: bool = True,
                   noise=None, generator: Optional[torch.Generator] = None,
                   device="cuda", tail_fade: bool = True,
-                  timings: Optional[dict] = None):
+                  timings: Optional[dict] = None, sparse_packed=None):
     """The serving path's fold-batched generation (``generate_fast`` and
     ``_generate_device``, wavernn_tpu/models/wavernn.py:283-391): the same
     sample loop as ``generate(batched=True)`` with the mu-law decode and the
     equal-power crossfade in float32 on the device. Returns the float32
     wave ((T_frames-1)*hop,) on the device. ``tail_fade=False`` skips the
     20-frame end fade, for callers that trim a bucket-padded wave and fade
-    at its true end."""
+    at its true end. ``sparse_packed`` as in ``generate``."""
     dev = resolve_device(device, model)
     voc, dsp = model.voc, model.dsp
     target = voc.target if target is None else target
@@ -383,7 +390,7 @@ def generate_fast(model: WaveRNN, mels, *, target: Optional[int] = None,
     mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
     wave_len = (mels.shape[-1] - 1) * dsp.hop_length
     samples = _samples(model, mels, True, target, overlap, noise,
-                       _seed(noise, generator), timings, dev)
+                       _seed(noise, generator), timings, dev, sparse_packed)
     with stage(timings, "crossfade", dev):
         return _post(model, samples, overlap, wave_len, mu_law, tail_fade)
 
@@ -411,7 +418,8 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
                    overlap: Optional[int] = None, mu_law: bool = True,
                    noise=None, generator: Optional[torch.Generator] = None,
                    device="cuda", device_out: bool = False,
-                   tail_fade: bool = True, timings: Optional[dict] = None):
+                   tail_fade: bool = True, timings: Optional[dict] = None,
+                   sparse_packed=None):
     """Vocode a batch of utterances in one sample-loop launch
     (wavernn_tpu/models/wavernn.py:394-541): one zero-padded MelResNet pass
     over the batch, every utterance folded, all folds concatenated on the
@@ -423,7 +431,7 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
     float32 tensors on the device with ``device_out`` (mu-law, crossfade
     and fade in float32 there), else float64 numpy arrays crossfaded on the
     device in float64 (``generate``'s precision). ``tail_fade=False`` skips
-    the 20-frame end fade."""
+    the 20-frame end fade. ``sparse_packed`` as in ``generate``."""
     dev = resolve_device(device, model)
     voc, dsp = model.voc, model.dsp
     target = voc.target if target is None else target
@@ -470,11 +478,13 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
         if fused:
             samples = generate_fused(model.core_weights(), frames, phi,
                                      geo.hop, -geo.d_lo, fold_chunks,
-                                     voc.mode, noise=noise, seed=seed)
+                                     voc.mode, noise=noise, seed=seed,
+                                     sparse_packed=sparse_packed)
         else:
             samples = generate_materialized(
                 model.core_weights(), torch.cat(folds_m), torch.cat(folds_a),
-                voc.mode, noise=noise, seed=seed)[0]
+                voc.mode, noise=noise, seed=seed,
+                sparse_packed=sparse_packed)[0]
     outs = []
     with stage(timings, "crossfade", dev):
         for y, n in zip(torch.split(samples, counts), n_frames):

@@ -19,6 +19,14 @@ every row in one cooperative launch:
 Each wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors; it never falls back from one to the other.
 
+B9, block-sparse serving: ``pack_sparse`` packs the live (128, 128) blocks
+of a pruned vocoder's weights once (port of ``pack_sparse`` and
+``_pack_block_sparse``, wavernn_tpu/ops/pallas_gen.py:176-212, :412-458).
+Given ``sparse_packed=``, both kernels launch their sparse arm, which reads
+only the live blocks of the six per-step matrices (the ``_sparse_mm``
+product, :119-173); ``sparse_mm_ref`` is its plain version, and the plain
+sample loops take it for every packed matrix.
+
 Noise: injected uniforms in the layout (T, B, NU), NU = nr_mix + 1 for MOL
 (mixture pick | logistic draw) and n_classes for RAW, padded with 0.5 past
 the given length; or, when none are given, the counter hash of
@@ -109,8 +117,10 @@ def _dims(core):
 
 def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
                        fold_chunks: int, mode: str, noise=None,
-                       seed: int = 0) -> torch.Tensor:
-    """Plain version of the fused kernel: (num_folds, fold_chunks*hop)."""
+                       seed: int = 0, sparse_packed=None) -> torch.Tensor:
+    """Plain version of the fused kernel: (num_folds, fold_chunks*hop).
+    ``sparse_packed``: the per-step products of the packed matrices over
+    their live blocks (``sparse_mm_ref``)."""
     R, FC, A, NC, n_mels = _dims(core)
     B = frames.shape[1]
     T = fold_chunks * hop
@@ -118,7 +128,8 @@ def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
                                               fold_chunks, n_mels)
     return generate_scan_with_state(
         core, mels_up, aux_up, mode,
-        _uniforms(noise, seed, T, B, mode, NC, frames.device))[0]
+        _uniforms(noise, seed, T, B, mode, NC, frames.device),
+        sparse_packed=_active_pack(core, sparse_packed))[0]
 
 
 def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
@@ -135,17 +146,18 @@ def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
 
 def generate_materialized_ref(core, mels_up, aux, mode: str, noise=None,
                               seed: int = 0, init_state=None,
-                              state_snapshot_at=None):
+                              state_snapshot_at=None, sparse_packed=None):
     """Plain version of the materialized kernel: the sample loop over
     sample-rate conditioning with the RNN state in and out
-    (``sample_loop.generate_scan_with_state``).
+    (``sample_loop.generate_scan_with_state``), the packed matrices'
+    per-step products over their live blocks.
     Returns (samples (B, T), (h1 (B, R), h2 (B, R), x (B,)))."""
     B, T, _ = mels_up.shape
     NC = _dims(core)[3]
     return generate_scan_with_state(
         core, mels_up, aux, mode,
         _uniforms(noise, seed, T, B, mode, NC, mels_up.device),
-        init_state, state_snapshot_at)
+        init_state, state_snapshot_at, _active_pack(core, sparse_packed))
 
 
 _WEIGHT_FIELDS = ("w_imel", "w_ia1", "w_ix", "b_i", "wi1", "wh1", "bi1",
@@ -198,6 +210,193 @@ def round_core_like_kernel(core, compute_dtype=torch.bfloat16):
     return out
 
 
+# ---- B9: block-sparse packing and the plain block-sparse product ----
+
+SPARSE_BC = 128        # output rows per block
+SPARSE_BR_MXU = 128    # input columns per block: the production schedule
+SPARSE_BR = 8          # the legacy allow_br8 schedule
+# the six matrices whose per-step products the kernels' sparse arm reads,
+# in the order of LoopArgs::sp
+STEP_MATRICES = ("wi1", "wh1", "wi2x", "wh2", "w1x", "w2x")
+_PACK_SOURCES = ("rnn1.weight_ih_l0", "rnn1.weight_hh_l0",
+                 "rnn2.weight_ih_l0", "rnn2.weight_hh_l0", "fc1.weight",
+                 "fc2.weight")
+
+
+class SparseMatrix:
+    """One packed matrix (out, in): ``rows[j]``, the live input blocks of
+    output block j in increasing order; ``blocks`` (L, 128, br) float32,
+    the live blocks in (j, input block) order."""
+
+    def __init__(self, br: int, rows, blocks, shape):
+        self.br, self.rows, self.blocks = br, rows, blocks
+        self.shape = tuple(shape)
+        self._on = {}
+
+    def live(self) -> int:
+        return sum(len(r) for r in self.rows)
+
+    def on(self, device):
+        """(input block, output block) of each live block, and the blocks,
+        on ``device``; made once per device."""
+        if device not in self._on:
+            cols = [r for rj in self.rows for r in rj]
+            dst = [j for j, rj in enumerate(self.rows) for _ in rj]
+            self._on[device] = (torch.tensor(cols, device=device),
+                                torch.tensor(dst, device=device),
+                                self.blocks.to(device))
+        return self._on[device]
+
+
+def _pack_block_sparse(W, max_density: float = 0.5, br: int = SPARSE_BR_MXU):
+    """A masked weight (out, in) as a SparseMatrix of its live (128, br)
+    blocks, or None when more than ``max_density`` of its blocks are live
+    or its shape does not tile. A block is dead when every entry is exactly
+    zero, so skipping it changes no sum."""
+    W = W.detach().float()
+    O, I = W.shape
+    bc = SPARSE_BC
+    if I % br or O % bc:
+        return None
+    keep = (W.abs().reshape(O // bc, bc, I // br, br).sum(dim=(1, 3))
+            > 0.0).cpu()
+    if keep.float().mean() > max_density:
+        return None
+    rows = tuple(tuple(int(r) for r in torch.nonzero(keep[j]).flatten())
+                 for j in range(O // bc))
+    lives = [(j, r) for j, rj in enumerate(rows) for r in rj]
+    blocks = (torch.stack([W[j * bc:(j + 1) * bc, r * br:(r + 1) * br]
+                           for j, r in lives]) if lives
+              else W.new_zeros(0, bc, br))
+    return SparseMatrix(br, rows, blocks.contiguous(), W.shape)
+
+
+def sparse_mm_ref(op, m: SparseMatrix):
+    """Plain version of the block-sparse product: op (B, in) @ W.T over
+    the live blocks of W only -> (B, out) float32. Output blocks with no
+    live block are exactly 0."""
+    B = op.shape[0]
+    O, I = m.shape
+    bc, br = SPARSE_BC, m.br
+    out = op.new_zeros(B, O // bc, bc, dtype=torch.float32)
+    if m.blocks.shape[0]:
+        cols, dst, blocks = m.on(op.device)
+        opg = op.float().reshape(B, I // br, br)[:, cols]      # (B, L, br)
+        part = torch.einsum("blk,lok->blo", opg, blocks)      # (B, L, 128)
+        out.index_add_(1, dst, part)
+    return out.reshape(B, O)
+
+
+def _sources_sig(core):
+    return tuple((k, core[k].device, core[k].data_ptr(), core[k]._version,
+                  tuple(core[k].shape), core[k].dtype)
+                 for k in _PACK_SOURCES)
+
+
+class SparsePack:
+    """``pack_sparse``'s result: the packed matrices by kernel name
+    (``entries``), and the identity of the weights they were packed from.
+    Opaque to callers; pass it as ``sparse_packed=``."""
+
+    def __init__(self, entries, sig):
+        self.entries = entries
+        self._sig = sig
+        self._operands = {}
+
+    def mm(self, name: str, op):
+        return sparse_mm_ref(op, self.entries[name])
+
+    def check(self, core) -> None:
+        """Raise unless the pack was made from these weights as they are
+        now: an in-place update (a train step's masks, a load) makes it
+        stale, and a stale pack would serve the old weights' values."""
+        if _sources_sig(core) != self._sig:
+            raise ValueError(
+                "sparse_packed is stale: the vocoder's weights moved or "
+                "changed since pack_sparse; pack them again")
+
+    def kernel_operands(self, compute_dtype, dev):
+        """Per STEP_MATRICES name: (row_ptr int32 (out/128 + 1), col int32
+        (L,), blocks (L, 128, br) in ``compute_dtype``, br) on ``dev``, or
+        None for a matrix that stays dense. Made once per dtype."""
+        key = (compute_dtype, dev)
+        if key not in self._operands:
+            ops = []
+            for name in STEP_MATRICES:
+                m = self.entries.get(name)
+                if m is None:
+                    ops.append(None)
+                    continue
+                counts = [0] + [len(rj) for rj in m.rows]
+                row_ptr = torch.tensor(counts, dtype=torch.int64).cumsum(0)
+                col = [r for rj in m.rows for r in rj]
+                ops.append((row_ptr.to(torch.int32).to(dev),
+                            torch.tensor(col or [0], dtype=torch.int32,
+                                         device=dev),
+                            m.blocks.to(dev, compute_dtype).contiguous(),
+                            m.br))
+            self._operands[key] = ops
+        return self._operands[key]
+
+
+def pack_sparse(core, voc=None, allow_br8: bool = False) -> SparsePack:
+    """One-time packing of a masked vocoder's zero-block pattern (the JAX
+    package's ``pack_sparse``): the nine matrices of its ``host`` dict,
+    each packed when at most half of its (128, 128) blocks are live and
+    its shape tiles, else left dense. Whole blocks are (128 output rows,
+    128 input columns); the ragged aux tails ``wi2a``, ``w1a``, ``w2a``
+    (A input columns) do not tile and stay dense. ``allow_br8`` also
+    tries (128 output rows, 8 input columns) blocks, the legacy schedule,
+    for numerical tests of fine-grained masks.
+
+    core: the vocoder's weights by reference state-dict name
+    (``WaveRNN.core_weights()``); voc, when given, must name the same
+    widths. Packing again from unchanged weights returns the same pack
+    (``_build.prepared``'s rule); serving packs once after loading."""
+    R = core["rnn1.weight_hh_l0"].shape[1]
+    FC = core["fc2.weight"].shape[0]
+    if voc is not None and (voc.rnn_dims, voc.fc_dims) != (R, FC):
+        raise ValueError(f"voc widths ({voc.rnn_dims}, {voc.fc_dims}) do "
+                         f"not match the weights' ({R}, {FC})")
+    sources = {k: core[k] for k in _PACK_SOURCES}
+
+    def make():
+        wi2, w1, w2 = (core["rnn2.weight_ih_l0"], core["fc1.weight"],
+                       core["fc2.weight"])
+        host = {"wi1": core["rnn1.weight_ih_l0"],
+                "wh1": core["rnn1.weight_hh_l0"],
+                "wi2x": wi2[:, :R], "wi2a": wi2[:, R:],
+                "wh2": core["rnn2.weight_hh_l0"],
+                "w1x": w1[:, :R], "w1a": w1[:, R:],
+                "w2x": w2[:, :FC], "w2a": w2[:, FC:]}
+        brs = (SPARSE_BR_MXU, SPARSE_BR) if allow_br8 else (SPARSE_BR_MXU,)
+        entries = {}
+        for name, W in host.items():
+            for br in brs:
+                m = _pack_block_sparse(W, br=br)
+                if m is not None:
+                    entries[name] = m
+                    break
+        return SparsePack(entries, _sources_sig(core))
+    return _build.prepared("pack_sparse", sources, allow_br8, make)
+
+
+def _active_pack(core, sparse_packed):
+    """The pack the sample loop runs with: None for no pack or an empty
+    one (nothing sparse enough: the weights are served dense, as the JAX
+    package serves them); raises on a stale pack."""
+    if sparse_packed is None or not sparse_packed.entries:
+        return None
+    sparse_packed.check(core)
+    return sparse_packed
+
+
+class _SparseMat(ctypes.Structure):
+    """``SparseMat`` of csrc/sample_loop_fused.cu."""
+    _fields_ = [("row_ptr", ctypes.c_void_p), ("col", ctypes.c_void_p),
+                ("val", ctypes.c_void_p), ("bw", ctypes.c_int64)]
+
+
 class _LoopArgs(ctypes.Structure):
     """``LoopArgs`` of csrc/sample_loop_fused.cu, field for field."""
     _fields_ = ([(f, ctypes.c_void_p) for f in
@@ -209,7 +408,20 @@ class _LoopArgs(ctypes.Structure):
                 + [(f, ctypes.c_int64) for f in
                    ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
                     "fold_chunks", "aux_tap", "T", "span", "snapshot_at",
-                    "mol", "seed", "bf16")])
+                    "mol", "seed", "bf16")]
+                + [("sp", _SparseMat * len(STEP_MATRICES))])
+
+
+def _sparse_args(pack, compute_dtype, dev):
+    """LoopArgs::sp for ``pack`` (all null, the dense arm, for None)."""
+    sp = (_SparseMat * len(STEP_MATRICES))()
+    if pack is not None:
+        for i, ops in enumerate(pack.kernel_operands(compute_dtype, dev)):
+            if ops is not None:
+                row_ptr, col, val, br = ops
+                sp[i] = _SparseMat(row_ptr.data_ptr(), col.data_ptr(),
+                                   val.data_ptr(), br)
+    return sp
 
 
 def _lib():
@@ -255,7 +467,7 @@ def _launch(entry: str, args: _LoopArgs, dev, what: str):
 
 def generate_fused(core, frames, phi, hop: int, aux_tap: int,
                    fold_chunks: int, mode: str, noise=None, seed: int = 0,
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, sparse_packed=None):
     """Sample loop with in-kernel conditioning upsample.
 
     core: the vocoder's weights by reference state-dict name;
@@ -267,14 +479,19 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
 
     CPU tensors run the plain version (float32 throughout); CUDA tensors
     launch the kernel with matrices in ``compute_dtype``, split and cast
-    once per weight set (``_build.prepared``)."""
+    once per weight set (``_build.prepared``). ``sparse_packed``
+    (``pack_sparse`` of these weights): the kernel's sparse arm, which
+    reads only the packed matrices' live blocks; an empty pack serves
+    dense."""
     if frames.device.type == "cpu":
         return generate_fused_ref(core, frames, phi, hop, aux_tap,
-                                  fold_chunks, mode, noise, seed)
+                                  fold_chunks, mode, noise, seed,
+                                  sparse_packed)
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
     dev = frames.device
     w = _check_kernel_call(core, mode, compute_dtype, dev)
+    pack = _active_pack(core, sparse_packed)
     R, FC, A, NC, n_mels = _dims(core)
     K = phi.shape[0]
     nf_loc, B, C = frames.shape
@@ -301,13 +518,17 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
         fold_chunks=fold_chunks, aux_tap=aux_tap, T=T, span=hop,
         snapshot_at=T, mol=int(mol), seed=seed & _M32,
         bf16=int(compute_dtype == torch.bfloat16),
+        sp=_sparse_args(pack, compute_dtype, dev),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
     _launch("wr_sample_loop_fused", args, dev, "fused sample-loop")
     generate_fused.launches += 1
+    generate_fused.sparse_launches += pack is not None
     return out
 
 
+# launches of the kernel, either arm; of its sparse arm (B9)
 generate_fused.launches = 0
+generate_fused.sparse_launches = 0
 
 # conditioning rows (steps x batch rows) the materialized kernel projects
 # per span; its workspace holds one span
@@ -317,7 +538,7 @@ SPAN_ROWS = 256
 def generate_materialized(core, mels_up, aux, mode: str, noise=None,
                           seed: int = 0, init_state=None,
                           state_snapshot_at=None,
-                          compute_dtype=torch.bfloat16):
+                          compute_dtype=torch.bfloat16, sparse_packed=None):
     """The materialized sample loop with state I/O,
     ``generate_materialized_ref``'s contract.
 
@@ -329,14 +550,17 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
     chained launches of T1 and T - T1 steps under the same noise.
 
     CPU tensors run the plain version (float32 throughout); CUDA tensors
-    launch the kernel with matrices in ``compute_dtype``."""
+    launch the kernel with matrices in ``compute_dtype``;
+    ``sparse_packed`` as in ``generate_fused``."""
     if mels_up.device.type == "cpu":
         return generate_materialized_ref(core, mels_up, aux, mode, noise,
-                                         seed, init_state, state_snapshot_at)
+                                         seed, init_state, state_snapshot_at,
+                                         sparse_packed)
     if mels_up.device.type != "cuda":
         raise ValueError(f"no materialized sample loop for {mels_up.device}")
     dev = mels_up.device
     w = _check_kernel_call(core, mode, compute_dtype, dev)
+    pack = _active_pack(core, sparse_packed)
     R, FC, A, NC, n_mels = _dims(core)
     B, T, _ = mels_up.shape
     mol = mode == "MOL"
@@ -381,11 +605,14 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
         fold_chunks=0, aux_tap=0, T=T, span=span, snapshot_at=s,
         mol=int(mol), seed=seed & _M32,
         bf16=int(compute_dtype == torch.bfloat16),
+        sp=_sparse_args(pack, compute_dtype, dev),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
     _launch("wr_sample_loop_materialized", args, dev,
             "materialized sample-loop")
     generate_materialized.launches += 1
+    generate_materialized.sparse_launches += pack is not None
     return out, snap
 
 
 generate_materialized.launches = 0
+generate_materialized.sparse_launches = 0

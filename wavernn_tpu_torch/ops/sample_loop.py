@@ -30,14 +30,19 @@ def generate_scan(core, mels_up, aux, mode: str, noise):
 
 
 def generate_scan_with_state(core, mels_up, aux, mode: str, noise,
-                             init_state=None, state_snapshot_at=None):
+                             init_state=None, state_snapshot_at=None,
+                             sparse_packed=None):
     """``generate_scan`` with the RNN state in and out (port of
     ``generate_scan_with_state``, wavernn_tpu/ops/sample_loop.py:65-148).
 
     init_state: optional (h1 (B, R), h2 (B, R), x (B,)) to resume from;
     zeros otherwise. state_snapshot_at: optional step s in [0, T]; the
     returned state is the one entering step s, and with no s (or s = T)
-    the state after the last step. Returns (samples (B, T), (h1, h2, x))."""
+    the state after the last step. sparse_packed: a block-sparse pack of
+    these weights (``cuda_gen.pack_sparse``): each per-step product of a
+    packed matrix runs over its live blocks only (``cuda_gen.sparse_mm_ref``),
+    the conditioning products and fc3 stay dense. Returns (samples (B, T),
+    (h1, h2, x))."""
     B, T, _ = mels_up.shape
     if state_snapshot_at is not None and not 0 <= state_snapshot_at <= T:
         raise ValueError(f"state_snapshot_at {state_snapshot_at} outside "
@@ -62,6 +67,11 @@ def generate_scan_with_state(core, mels_up, aux, mode: str, noise,
     bi2, bh2 = core["rnn2.bias_ih_l0"], core["rnn2.bias_hh_l0"]
     w1_x, w2_x = w1[:, :R], w2[:, :FC]
     w3, b3 = core["fc3.weight"], core["fc3.bias"]
+    packed = {} if sparse_packed is None else sparse_packed.entries
+
+    def mm(name, op, w):
+        return linear(op, w) if name not in packed else sparse_packed.mm(
+            name, op)
 
     if init_state is None:
         h1, h2, x = (mels_up.new_zeros(B, R), mels_up.new_zeros(B, R),
@@ -74,13 +84,14 @@ def generate_scan_with_state(core, mels_up, aux, mode: str, noise,
         if t == state_snapshot_at:
             snap = (h1, h2, x)
         inp = i_cond[:, t] + x[:, None] * w_x
-        h1 = gru_gates(linear(inp, wi1, bi1), linear(h1, wh1, bh1), h1)
+        h1 = gru_gates(mm("wi1", inp, wi1) + bi1, mm("wh1", h1, wh1) + bh1,
+                       h1)
         xr = inp + h1
-        gi2 = linear(xr, wi2_x) + gi2_cond[:, t] + bi2
-        h2 = gru_gates(gi2, linear(h2, wh2, bh2), h2)
+        gi2 = mm("wi2x", xr, wi2_x) + gi2_cond[:, t] + bi2
+        h2 = gru_gates(gi2, mm("wh2", h2, wh2) + bh2, h2)
         x2 = xr + h2
-        hf = torch.relu(linear(x2, w1_x) + f1_cond[:, t])
-        hf = torch.relu(linear(hf, w2_x) + f2_cond[:, t])
+        hf = torch.relu(mm("w1x", x2, w1_x) + f1_cond[:, t])
+        hf = torch.relu(mm("w2x", hf, w2_x) + f2_cond[:, t])
         logits = linear(hf, w3, b3)
         if mode == "MOL":
             x = sample_from_discretized_mix_logistic_with_noise(

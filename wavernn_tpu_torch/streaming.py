@@ -24,6 +24,9 @@ after exactly the block's steps, so any ``chunk_frames`` works.
 
 Latency: ``pad`` frames of lookahead (2 frames = 25 ms at hop 275 /
 22.05 kHz) plus one ``chunk_frames`` block of compute.
+
+A block-pruned model streams through B3's sparse arm: pass
+``sparse_packed=cuda_gen.pack_sparse(model.core_weights(), ...)``.
 """
 from __future__ import annotations
 
@@ -35,16 +38,6 @@ import torch
 from .device import resolve_device
 from .models.wavernn import WaveRNN, mu_law_decode
 from .ops.cuda_gen import generate_materialized
-
-
-def _refuse(sparse_packed, mesh=None):
-    if sparse_packed is not None:
-        raise NotImplementedError(
-            "sparse_packed: block-sparse serving is not ported yet (ROADMAP "
-            "A9, kernel B9)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device streaming is not ported yet (ROADMAP A11)")
 
 
 def _as_noise(noise, dev):
@@ -72,8 +65,10 @@ class _Blocks:
     carried state."""
 
     def __init__(self, model: WaveRNN, chunk_frames: int, mu_law: bool,
-                 noise, generator, device, device_out: bool):
+                 noise, generator, device, device_out: bool,
+                 sparse_packed=None):
         self.model = model
+        self._sparse = sparse_packed
         self.dev = resolve_device(device, model)
         self.voc, self.dsp = model.voc, model.dsp
         self.chunk_frames = chunk_frames
@@ -98,7 +93,7 @@ class _Blocks:
         return generate_materialized(
             self.model.core_weights(), mels_up, aux, self.voc.mode,
             noise=noise, seed=0 if noise is not None else self._seed(),
-            init_state=state)
+            init_state=state, sparse_packed=self._sparse)
 
     def _emit(self, y):
         """One block's samples of one stream as the caller gets them."""
@@ -140,6 +135,9 @@ class StreamingVocoder(_Blocks):
     the device (one per completed block, possibly empty), mu-law decoded
     there, instead of one host array, so a serving loop can enqueue the
     next block while this one's audio is still in flight.
+
+    sparse_packed: ``cuda_gen.pack_sparse`` of a block-pruned model's
+    weights; every block runs B3's sparse arm (B9).
     """
 
     def __init__(self, model: WaveRNN, chunk_frames: int = 24,
@@ -147,9 +145,8 @@ class StreamingVocoder(_Blocks):
                  generator: Optional[torch.Generator] = None,
                  device="cuda", device_out: bool = False,
                  sparse_packed=None):
-        _refuse(sparse_packed)
         super().__init__(model, chunk_frames, mu_law, noise, generator,
-                         device, device_out)
+                         device, device_out, sparse_packed)
         self._noise_at = 0
         # mel buffer starts with the offline path's left padding
         self._buf = self._zeros(self.dsp.num_mels, self.voc.pad)
@@ -232,8 +229,8 @@ class MultiStreamVocoder(_Blocks):
     from a seed taken from ``generator``; every lane gets its own draws.
 
     device_out=True: results are lists of device tensors (one per block)
-    instead of host arrays (see StreamingVocoder). ``mesh`` (multi-device)
-    and ``sparse_packed`` (block-sparse weights) are not ported.
+    instead of host arrays (see StreamingVocoder). ``sparse_packed``: as in
+    StreamingVocoder. ``mesh`` (multi-device) is not ported.
     """
 
     def __init__(self, model: WaveRNN, n_streams: int, chunk_frames: int = 24,
@@ -241,9 +238,12 @@ class MultiStreamVocoder(_Blocks):
                  generator: Optional[torch.Generator] = None,
                  device="cuda", device_out: bool = False,
                  sparse_packed=None, mesh=None):
-        _refuse(sparse_packed, mesh)
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device streaming is not ported yet (ROADMAP "
+                "A11)")
         super().__init__(model, chunk_frames, mu_law, noise, generator,
-                         device, device_out)
+                         device, device_out, sparse_packed)
         self.n_streams = n_streams
         R = self.voc.rnn_dims
         self._state = (self._zeros(n_streams, R), self._zeros(n_streams, R),

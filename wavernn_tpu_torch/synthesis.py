@@ -3,7 +3,9 @@ held-out items and text -> wav with the WaveRNN vocoder (reference
 gen_wavernn.py:11-35, gen_tacotron.py:142-173), and the serving paths:
 ``tts_to_wav_fast`` (one sentence, device-resident, length-bucketed) and
 ``tts_to_wav_batch`` (many sentences: one batched decode, one vocoder
-launch)."""
+launch). Every flow takes ``sparse_packed``: the ``ops/cuda_gen.pack_sparse``
+of a block-pruned vocoder, served through the sample loops' sparse arm (B9).
+"""
 from __future__ import annotations
 
 from pathlib import Path
@@ -25,7 +27,7 @@ def tts_to_wav(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, text: str,
                generator: Optional[torch.Generator] = None, noise=None,
                target: Optional[int] = None, overlap: Optional[int] = None,
                device="cuda", timings: Optional[dict] = None,
-               batched: bool = True):
+               batched: bool = True, sparse_packed=None):
     """Full text -> waveform with the WaveRNN vocoder, fold-batched or, with
     ``batched=False``, one unbatched row over the whole utterance.
 
@@ -43,7 +45,8 @@ def tts_to_wav(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, text: str,
                       target=cfg.voc.target if target is None else target,
                       overlap=cfg.voc.overlap if overlap is None else overlap,
                       mu_law=cfg.dsp.mu_law, noise=noise, generator=generator,
-                      device=dev, timings=timings)
+                      device=dev, timings=timings,
+                      sparse_packed=sparse_packed)
     return wav.cpu().numpy(), m, attention
 
 
@@ -73,7 +76,7 @@ def tts_to_wav_fast(tts_model: taco.Tacotron, voc_model: wr.WaveRNN,
                     generator: Optional[torch.Generator] = None, noise=None,
                     target: Optional[int] = None,
                     overlap: Optional[int] = None, device="cuda",
-                    timings: Optional[dict] = None):
+                    timings: Optional[dict] = None, sparse_packed=None):
     """Serving-latency text -> wav (wavernn_tpu/synthesis.py:256-311): the
     decode (B2) and the postnet stay on the device, ONE scalar (the stop
     group) comes to the host to pick the smallest mel bucket that holds
@@ -95,7 +98,7 @@ def tts_to_wav_fast(tts_model: taco.Tacotron, voc_model: wr.WaveRNN,
     wav = wr.generate_fast(voc_model, mel01, target=target, overlap=overlap,
                            mu_law=cfg.dsp.mu_law, noise=noise,
                            generator=generator, device=dev, tail_fade=False,
-                           timings=timings)
+                           timings=timings, sparse_packed=sparse_packed)
     return (_host_wav(wav, T_valid, cfg.dsp.hop_length),
             mel01[0, :, :T_valid].cpu().numpy())
 
@@ -107,7 +110,7 @@ def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
                      target: Optional[int] = None,
                      overlap: Optional[int] = None, device_out: bool = False,
                      mesh=None, device="cuda",
-                     timings: Optional[dict] = None):
+                     timings: Optional[dict] = None, sparse_packed=None):
     """Batched serving (wavernn_tpu/synthesis.py:127-253): N sentences ->
     one masked batched decode (B8; B2 for one sentence) with a stop per
     utterance -> one host sync of the N stop groups, each utterance's mel
@@ -141,7 +144,7 @@ def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
                              mu_law=cfg.dsp.mu_law, noise=noise,
                              generator=generator, device=dev,
                              device_out=True, tail_fade=False,
-                             timings=timings)
+                             timings=timings, sparse_packed=sparse_packed)
     hop = cfg.dsp.hop_length
     if device_out:
         return [(w[:max(t - 1, 1) * hop], t) for w, t in zip(wavs, t_valids)]
@@ -149,14 +152,20 @@ def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
             for w, m, t in zip(wavs, mels, t_valids)]
 
 
-def gen_testset(voc_model: wr.WaveRNN, test_set, samples: int, target: int,
-                overlap: int, save_path, cfg: Config, step: int = 0,
-                generator: Optional[torch.Generator] = None, log=print,
-                device="cuda"):
+def _batch_str(batched: bool, target: int, overlap: int) -> str:
+    return (f"gen_batched_target{target}_overlap{overlap}" if batched
+            else "gen_NOT_BATCHED")
+
+
+def gen_testset(voc_model: wr.WaveRNN, test_set, samples: int, batched: bool,
+                target: int, overlap: int, save_path, cfg: Config,
+                step: int = 0, generator: Optional[torch.Generator] = None,
+                log=print, device="cuda", sparse_packed=None):
     """Copy-synthesis of held-out items (gen_wavernn.py:11-35): saves the
-    decoded ground truth next to the model's output, generated through the
-    fold-batched ``wavernn.generate`` (a sample-loop kernel on CUDA).
-    Returns the paths of the generated wavs."""
+    decoded ground truth next to the model's output, generated through
+    ``wavernn.generate``, fold-batched or unbatched (a sample-loop kernel
+    on CUDA), under the JAX package's file names. Returns the paths of the
+    generated wavs."""
     generator = (generator if generator is not None
                  else torch.Generator().manual_seed(0))
     k = step // 1000
@@ -172,11 +181,47 @@ def gen_testset(voc_model: wr.WaveRNN, test_set, samples: int, target: int,
             gt = label_2_float(x.astype(np.float64), bits)
         save_wav(gt, save_path / f"{k}k_steps_{i + 1}_target.wav",
                  cfg.dsp.sample_rate)
-        wav = wr.generate(voc_model, m[None], target=target, overlap=overlap,
-                          mu_law=cfg.dsp.mu_law, generator=generator,
-                          device=device)
-        path = (save_path / f"{k}k_steps_{i + 1}_gen_batched_target{target}"
-                f"_overlap{overlap}.wav")
+        wav = wr.generate(voc_model, m[None], batched=batched, target=target,
+                          overlap=overlap, mu_law=cfg.dsp.mu_law,
+                          generator=generator, device=device,
+                          sparse_packed=sparse_packed)
+        path = save_path / (f"{k}k_steps_{i + 1}_"
+                            f"{_batch_str(batched, target, overlap)}.wav")
         save_wav(wav.cpu().numpy(), path, cfg.dsp.sample_rate)
         out.append(path)
+    return out
+
+
+def gen_from_file(voc_model: wr.WaveRNN, load_path, save_path, batched: bool,
+                  target: int, overlap: int, cfg: Config, step: int = 0,
+                  generator: Optional[torch.Generator] = None,
+                  device="cuda", sparse_packed=None):
+    """Vocode a saved [0, 1] mel ``.npy`` of shape (n_mels, frames)
+    (gen_wavernn.py:38-65). A ``.wav`` input needs the mel analysis, which
+    is not ported (ROADMAP A12: ``dsp/mel.py``). Saves and returns the
+    wave (float64 numpy)."""
+    load_path, save_path = Path(load_path), Path(save_path)
+    if load_path.suffix == ".wav":
+        raise NotImplementedError(
+            "gen_from_file: a .wav input needs dsp/mel.py, which is not "
+            "ported yet (ROADMAP A12); pass a [0, 1] mel .npy")
+    if load_path.suffix != ".npy":
+        raise ValueError(f"Expected .wav or .npy, got {load_path.suffix}")
+    mel = np.load(load_path)
+    if mel.ndim != 2 or mel.shape[0] != cfg.dsp.num_mels:
+        raise ValueError(
+            f"Expected a numpy array shaped (n_mels, n_hops), got {mel.shape}")
+    if mel.max() >= 1.01 or mel.min() <= -0.01:
+        raise ValueError(f"Expected spectrogram range in [0,1], got "
+                         f"[{mel.min()}, {mel.max()}]")
+    generator = (generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    wav = wr.generate(voc_model, mel[None].astype(np.float32),
+                      batched=batched, target=target, overlap=overlap,
+                      mu_law=cfg.dsp.mu_law, generator=generator,
+                      device=device, sparse_packed=sparse_packed)
+    out = wav.cpu().numpy()
+    save_wav(out, save_path / (f"__{load_path.stem}__{step // 1000}k_steps_"
+                               f"{_batch_str(batched, target, overlap)}.wav"),
+             cfg.dsp.sample_rate)
     return out

@@ -5,7 +5,9 @@ Loss: RAW -> cross-entropy over 2**bits classes; MOL -> the discretized
 mixture-of-logistics NLL, in float32 either way. The optimizer is optax's
 ``chain(clip_by_global_norm(4), adam(lr))``: the clip is written out with
 optax's rule, Adam is ``torch.optim.Adam`` with optax's constants. One
-device only: the JAX package's data-parallel mesh is not ported.
+device only: the JAX package's data-parallel mesh is not ported. With
+``voc_prune`` the loop prunes as the JAX loop does (train/pruning.py): the
+masks of step t are applied to the weights after its optimizer update.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..config import Config, DSPConfig, WaveRNNConfig
 from ..models import wavernn as wr
 from ..models.distribution import discretized_mix_logistic_loss
 from ..timing import stage
+from .pruning import Pruner, apply_masks, wavernn_prune_spec
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -124,7 +127,7 @@ def loss_and_grads(model, x, y, mels, voc: WaveRNNConfig, compute_dtype=None,
 
 def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
                precision: str = "float32", recurrence: str = "auto",
-               timings: Optional[dict] = None) -> dict:
+               timings: Optional[dict] = None, masks=None) -> dict:
     """One optimizer step on ``state`` in place. Returns {"loss",
     "grad_norm"} as device scalars (no host synchronisation).
 
@@ -135,12 +138,18 @@ def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
     statistics were written by the forward; the optimizer never touches
     them, so they stand after the update as in the JAX step.
     ``timings``, when given, receives CUDA-event records of the forward,
-    backward and optimizer stages."""
+    backward and optimizer stages. ``masks``: pruning masks by parameter
+    name (train/pruning.py), multiplied into the weights in place after the
+    update, so the next forward sees pruned weights (reference
+    Pruner.apply_or_not); Adam's moments are left as they are, as in the
+    JAX step."""
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else None
     loss, grads = loss_and_grads(state.model, x, y, mels, voc, compute_dtype,
                                  recurrence, timings)
     with stage(timings, "optimizer", x.device):
         gnorm = state.opt.step(grads)
+        if masks is not None:
+            apply_masks(dict(state.model.named_parameters()), masks)
     state.step += 1
     return {"loss": loss, "grad_norm": gnorm}
 
@@ -166,15 +175,20 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
     from .checkpoints import save_checkpoint
 
     vt = cfg.voc_train
-    if vt.prune:
-        raise NotImplementedError("pruning is not ported yet (ROADMAP A9, "
-                                  "kernel B9)")
     lr = vt.lr if lr is None else lr
     total_steps = vt.total_steps if total_steps is None else total_steps
     checkpoint_every = (vt.checkpoint_every if checkpoint_every is None
                         else checkpoint_every)
     state.opt.set_lr(lr)
     dev = next(state.model.parameters()).device
+    params = dict(state.model.named_parameters())
+    pruner = None
+    if vt.prune:
+        pruner = Pruner(wavernn_prune_spec(vt.prune_rnn_input),
+                        vt.prune_start, vt.prune_steps, vt.prune_sparsity,
+                        vt.prune_every, block=vt.prune_block)
+        if state.step > vt.prune_start:   # resume: recompute at step t
+            pruner.restart(params, state.step)
 
     metrics_log = MetricsLogger(workspace.voc_metrics)
     timer = StepTimer()
@@ -192,8 +206,10 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
         i = 0
         for x, y, m in prefetch(dataset, device=dev):
             i += 1
+            masks = (pruner.masks_for_step(params, state.step)
+                     if pruner is not None else None)
             metrics = train_step(state, x, y, m, cfg.voc, vt.precision,
-                                 vt.recurrence)
+                                 vt.recurrence, masks=masks)
             running += metrics["loss"]
             bad_loss += (~torch.isfinite(metrics["loss"])).int()
             bad_grad += (~torch.isfinite(metrics["grad_norm"])).int()
