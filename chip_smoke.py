@@ -109,8 +109,33 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            bfloat16 as b1), the two timed in turns with the clocks read;
            microseconds per step of both at 1, 10 and 50 rows; B3's sparse
            arm at one row and one streaming block against the dense arm
+  seam     B4b, B1's state arm, and exact-seam generation at the full
+           default Config: B4b against its plain version at 10 folds x 4
+           hop-chunks from a given state with a snapshot at target +
+           overlap (float32 MOL and RAW, every fold and the state within
+           2e-3; bfloat16 at least 99 % within 1e-3); one launch against two
+           chained at a chunk boundary and a snapshot there against the
+           shorter launch's state (bit for bit); the sequential oracle at
+           target 11000 / overlap 550 over 3 folds (the fused seam after 2
+           passes against one one-row fused launch, the materialized seam
+           against one unbatched B3 launch, bit for bit); then
+           ``parallel.gen_sharded.generate_sharded(seam_passes=2)`` on the
+           main 400-frame mel: wall s, x_realtime, each pass's seam error
+           and exact launch counts (3 of B4b, none of B1 or B3), crossfade
+           mode and ``generate_fast`` beside it; B4b timed in turns with the
+           plain B1 at the b1 shape (B1, B4b, B4b, B1), clocks read around
+  b10      B10, the sample loop on pre-projected streams
+           (``ops/cuda_gen2.generate_v2``), at the full default Config:
+           against its plain version at 10 rows x 1,100 steps (injected
+           noise, MOL and RAW: float32 weights and streams within 2e-3,
+           bfloat16 at least 99 % within 1e-3; the counter hash from a
+           seed); its entry point on the main mel upsampled and folded, its
+           one launch counted; its kernel timed in turns with B3 (B3, B10,
+           B10, B3) at B3's two shapes (10 x 12,100 and 1 x 12,100), the
+           entry point and the stream projections on their own, clocks
+           read around each set
 
-Then the card's name and power limit, the kernels JSON line (eleven
+Then the card's name and power limit, the kernels JSON line (thirteen
 kernels), and last the device line. Comparisons run with TF32 off (cuDNN convolutions default to
 TF32). Exits 2 without CUDA or outside a checkout of the repository.
 """
@@ -255,6 +280,20 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def once_ms(fn):
+    """(ms of one call of ``fn`` on CUDA events, its result): for the plain
+    versions, eager step loops that take seconds and need no warm-up."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
 def step_kernels(fn, names, top: int = 0):
     """One call of ``fn`` under torch.profiler (device activity only): its
     kernel count, the ms the device was busy with them (the union of their
@@ -302,6 +341,27 @@ def b1_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes):
     nbytes = n_w * wbytes + 4 * (n_f32 + frames + K * (T // fold_chunks)
                                  + B * T)
     return flops, nbytes
+
+
+def b4b_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes):
+    """(FLOPs, bytes) of B1's state arm: B1's work plus the state (h1, h2,
+    x) read in and the snapshot written out, float32."""
+    flops, nbytes = b1_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K,
+                            wbytes)
+    return flops, nbytes + 4 * 2 * (2 * B * R + B)
+
+
+def b10_work(B, T, R, FC, NC, wbytes, sbytes):
+    """(FLOPs, bytes) of the pre-projected loop: six products a step (W_h1,
+    W_i2x, W_h2, fc1, fc2, fc3); the six matrices in ``wbytes``, the float32
+    vectors (w_Ix, wxw1, wxw2, b_h1, b_h2, b_3), the five streams in
+    ``sbytes`` (R + 3R + 3R + 2 FC a row-step), each read once, and the
+    samples written once."""
+    per_sample = 2 * (3 * 3 * R * R + FC * R + FC * FC + NC * FC)
+    n_w = 3 * 3 * R * R + FC * R + FC * FC + NC * FC
+    nbytes = (n_w * wbytes + 4 * (R + 4 * 3 * R + NC)
+              + sbytes * T * B * (7 * R + 2 * FC) + 4 * B * T)
+    return B * T * per_sample, nbytes
 
 
 def b9_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes, live,
@@ -864,21 +924,26 @@ def b8_inputs(tts, seqs, dev):
 def launch_counts():
     """Every kernel's launch count, by kernel name (the sample loops count
     every launch of either arm; sample_loop_sparse, B9, their sparse
-    arm's)."""
-    from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
+    arm's; sample_loop_fused_state, B4b, B1's state arm's)."""
+    from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
     return {"sample_loop_fused": cuda_gen.generate_fused.launches,
             "sample_loop_materialized": cuda_gen.generate_materialized.launches,
             "sample_loop_sparse": (cuda_gen.generate_fused.sparse_launches
                                    + cuda_gen.generate_materialized
                                    .sparse_launches),
+            "sample_loop_fused_state": cuda_gen.generate_fused_with_state
+            .launches,
+            "sample_loop_v2": cuda_gen2.generate_v2.launches,
             "taco_decode": cuda_taco.decode.launches,
             "taco_decode_batch": cuda_taco.decode_batch.launches,
             "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches}
 
 
 def zero_counts():
-    from wavernn_tpu_torch.ops import cuda_gen, cuda_gru, cuda_taco
+    from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
     cuda_gen.generate_fused.launches = 0
+    cuda_gen.generate_fused_with_state.launches = 0
+    cuda_gen2.generate_v2.launches = 0
     cuda_gen.generate_materialized.launches = 0
     cuda_gen.generate_fused.sparse_launches = 0
     cuda_gen.generate_materialized.sparse_launches = 0
@@ -1478,6 +1543,343 @@ def phase_sparse(cfg, dev, voc, mel, tol):
     if not ok:
         raise AssertionError("sparse: B9 disagrees with the dense kernel or "
                              "its plain version")
+    return res
+
+
+def phase_seam(cfg, dev, voc, mel, tol):
+    """B4b, B1's state arm, and exact-seam generation at the full default
+    Config: B4b against its plain version (10 folds x 4 hop-chunks from a
+    given state, snapshot at target + overlap; float32 MOL and RAW within
+    ``tol``, bfloat16 at least 99 % within 1e-3); one launch against two
+    chained at a chunk boundary and a snapshot there against the shorter
+    launch's state (bit for bit, injected noise); the sequential oracle at
+    target 11000 / overlap 550 over 3 folds (the fused seam after 2 passes
+    against one one-row fused launch, the materialized seam against one
+    unbatched B3 launch, bit for bit); then ``generate_sharded
+    (seam_passes=2)`` on the main mel (launches counted: 3 of B4b, none of
+    B1 or B3), crossfade mode and ``generate_fast`` beside it; and B4b
+    timed in turns with B1 at the b1 shape, the clocks read around them.
+    Returns the results."""
+    import numpy as np
+    import torch
+    from wavernn_tpu_torch.config import WaveRNNConfig
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    from wavernn_tpu_torch.ops import polyphase as P
+    from wavernn_tpu_torch.ops.fold import fold_with_overlap
+    from wavernn_tpu_torch.parallel import gen_sharded as gs
+    pad = torch.nn.functional.pad
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(4321)
+    R, FC, A = cfg.voc.rnn_dims, cfg.voc.fc_dims, cfg.voc.aux_dims
+    res, oks = {}, {}
+
+    def rand_state(B):
+        return tuple(t.to(dev) for t in (torch.rand(B, R, generator=gen) - 0.5,
+                                         torch.rand(B, R, generator=gen) - 0.5,
+                                         torch.rand(B, generator=gen) * 2 - 1))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    with torch.no_grad():
+        # ---- B4b against its plain version; chaining ----
+        for mode in ("MOL", "RAW"):
+            v = wr.WaveRNN(WaveRNNConfig(mode=mode), cfg.dsp)
+            v.reset_parameters(gen)
+            v = v.to(dev).eval()
+            core = v.core_weights()
+            mels = torch.rand(1, 80, 30, generator=gen).to(dev)
+            frames, phi, geo, chunks = wr.fused_conditioning(
+                v, pad(mels, (2, 2)), 30 * 275, 550, 275)
+            B, T = frames.shape[1], chunks * geo.hop
+            NC = core["fc3.weight"].shape[0]
+            nu = NC // 3 + 1 if mode == "MOL" else NC
+            u = cg.counter_uniforms(98, T, B, nu, mode == "MOL", dev)
+            noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+            args = (core, frames, phi, geo.hop, -geo.d_lo, chunks, mode)
+            state = rand_state(B)
+            kw = dict(noise=noise, init_state=state, state_snapshot_at=825)
+            got, st = cg.generate_fused_with_state(*args, compute_dtype=f32,
+                                                   **kw)
+            ref, st_p = cg.generate_fused_with_state_ref(*args, **kw)
+            chk, oks[mode] = check_b1_f32(f"{mode}_f32", got, ref, tol)
+            res.update(chk)
+            err = max(float((a - b).abs().max()) for a, b in zip(st, st_p))
+            res[f"{mode}_f32_state_max_abs_err"] = err
+            oks[mode] = oks[mode] and err <= tol
+            if mode != "MOL":
+                continue
+            got16, _ = cg.generate_fused_with_state(*args, **kw)
+            ref16, _ = cg.generate_fused_with_state_ref(
+                cg.round_core_like_kernel(core), *args[1:], **kw)
+            chk, oks["bf16"] = check_b1_bf16(got16, ref16)
+            res.update(chk)
+            # chained at chunk boundary 2 (bfloat16, as the seams run)
+            c1 = 2
+            T1 = c1 * geo.hop
+            y, st = cg.generate_fused_with_state(*args, noise=noise,
+                                                 init_state=state)
+            y1, st1 = cg.generate_fused_with_state(
+                core, frames[:c1 + geo.K - 1].contiguous(), phi, geo.hop,
+                -geo.d_lo, c1, mode, noise=tuple(n[:T1] for n in noise),
+                init_state=state)
+            y2, st2 = cg.generate_fused_with_state(
+                core, frames[c1:].contiguous(), phi, geo.hop, -geo.d_lo,
+                chunks - c1, mode, noise=tuple(n[T1:] for n in noise),
+                init_state=st1)
+            _, snap = cg.generate_fused_with_state(
+                *args, noise=noise, init_state=state, state_snapshot_at=T1)
+            res["chained_equal_one_launch"] = bool(
+                torch.equal(torch.cat([y1, y2], dim=1), y) and same(st2, st))
+            res["snapshot_equal_shorter_launch"] = same(snap, st1)
+        res["b4b_shape"] = [B, T]
+
+        # ---- the sequential oracle at the default target and overlap ----
+        core = voc.core_weights()
+        target, overlap, n = cfg.voc.target, cfg.voc.overlap, 3
+        seg, L = target + overlap, target + 2 * overlap
+        total = n * seg + overlap
+        n_fr = total // 275
+        u = cg.counter_uniforms(77, total, 1, 11, True, dev)
+        g = (torch.arange(n, device=dev)[None] * seg
+             + torch.arange(L, device=dev)[:, None])
+        noise_1, noise_f = (u[..., :10], u[..., 10]), (u[g, 0, :10],
+                                                       u[g, 0, 10])
+        mels_p = pad(torch.rand(1, 80, n_fr, generator=gen).to(dev), (2, 2))
+        frames, phi, geo, chunks = wr.fused_conditioning(
+            voc, mels_p, total, target, overlap)
+        one = P.build_folded_frames(mels_p[0].t(),
+                                    voc.upsample.resnet(mels_p)[0].t(), 1, 0,
+                                    n_fr, geo.K, geo.d_lo)
+        seq = cg.generate_fused(core, one, phi, geo.hop, -geo.d_lo, n_fr,
+                                "MOL", noise=noise_1)
+        y, errs = gs.generate_exact_seam_fused(
+            core, frames, phi, geo.hop, -geo.d_lo, chunks, "MOL", target,
+            overlap, seam_passes=n - 1, noise=noise_f)
+        res["oracle"] = {"folds": n, "steps": total, "fused_seam_errs":
+                         errs.tolist(), "fused_equal_sequential": bool(
+                             torch.equal(gs.concat_folds(y, target, overlap,
+                                                         total), seq[0]))}
+        mu, au = voc.upsample(mels_p)
+        seq, _ = cg.generate_materialized(core, mu, au, "MOL", noise=noise_1)
+        y, errs = gs.generate_exact_seam(
+            core, fold_with_overlap(mu, target, overlap),
+            fold_with_overlap(au, target, overlap), "MOL", target, overlap,
+            seam_passes=n - 1, noise=noise_f)
+        res["oracle"]["materialized_seam_errs"] = errs.tolist()
+        res["oracle"]["materialized_equal_sequential"] = bool(torch.equal(
+            gs.concat_folds(y, target, overlap, total), seq[0]))
+
+        # ---- the path: generate_sharded on the main mel ----
+        mels = torch.as_tensor(mel)[None].to(dev)
+        frames, phi, geo, chunks = wr.fused_conditioning(
+            voc, pad(mels, (2, 2)), mels.shape[-1] * 275, target, overlap)
+        # each pass's seam error (and the warm-up of the timed call)
+        _, errs = gs.generate_exact_seam_fused(
+            core, frames, phi, geo.hop, -geo.d_lo, chunks, cfg.voc.mode,
+            target, overlap, seam_passes=2, seed=5)
+        errs = errs.tolist()
+    path = {}
+    for tag, passes in (("seam", 2), ("crossfade", 0)):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        wav = gs.generate_sharded(voc, mels, seam_passes=passes, device=dev,
+                                  generator=torch.Generator().manual_seed(5))
+        wall = time.perf_counter() - t0
+        audio = len(wav) / cfg.dsp.sample_rate
+        path[tag] = {"wall_s": wall, "audio_s": audio,
+                     "x_realtime": audio / wall, "launches": launch_counts(),
+                     "wav_finite": bool(np.isfinite(wav).all()),
+                     "wav_abs_max": float(np.abs(wav).max())}
+    path["crossfade"]["last_stats"] = dict(gs.last_stats)
+    path["seam"]["seam_errs"] = errs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = wr.generate_fast(voc, mels, device=dev,
+                           generator=torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path["generate_fast"] = {"wall_s": wall, "x_realtime":
+                             wav.numel() / cfg.dsp.sample_rate / wall}
+    res["path"] = path
+    seam_l, xf_l = path["seam"]["launches"], path["crossfade"]["launches"]
+
+    # ---- B4b timed in turns with B1 at the b1 shape ----
+    with torch.no_grad():
+        args = (core, frames, phi, geo.hop, -geo.d_lo, chunks, cfg.voc.mode)
+        B, T = frames.shape[1], chunks * geo.hop
+        state = rand_state(B)
+        kw = dict(seed=5, init_state=state, state_snapshot_at=target + overlap)
+        clk = [gpu_clocks()]
+        b1a, _ = cuda_ms(lambda: cg.generate_fused(*args, seed=5), 2)
+        b4a, (got, _) = cuda_ms(lambda: cg.generate_fused_with_state(
+            *args, **kw), 2)
+        b4b, _ = cuda_ms(lambda: cg.generate_fused_with_state(*args, **kw), 2)
+        b1b, _ = cuda_ms(lambda: cg.generate_fused(*args, seed=5), 2)
+        clk.append(gpu_clocks())
+        p_ms, (ref, _) = once_ms(lambda: cg.generate_fused_with_state_ref(
+            cg.round_core_like_kernel(core), *args[1:], **kw))
+        chk, ok_t = check_b1_bf16(got, ref)
+    fl, by = b4b_work(B, T, chunks, R, FC, A, 80, 30, geo.K, 2)
+    b_ms, b_by = bound(fl, by, PEAK_BF16)
+    res["timing"] = {"folds": B, "steps": T, "b1_ms": [b1a, b1b],
+                     "b4b_ms": [b4a, b4b], "ms": min(b4a, b4b),
+                     "b1_min_ms": min(b1a, b1b),
+                     "b4b_over_b1": min(b4a, b4b) / min(b1a, b1b),
+                     "us_per_step": 1e3 * min(b4a, b4b) / T,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "flops": fl, "bytes": by, "clocks": clk, "check": chk}
+    res["max_abs_err"] = max(res["MOL_f32_max_abs_err"],
+                             res["MOL_f32_state_max_abs_err"],
+                             res["RAW_f32_max_abs_err"],
+                             res["RAW_f32_state_max_abs_err"])
+    ok = (all(oks.values()) and ok_t and res["chained_equal_one_launch"]
+          and res["snapshot_equal_shorter_launch"]
+          and res["oracle"]["fused_equal_sequential"]
+          and res["oracle"]["materialized_equal_sequential"]
+          and seam_l["sample_loop_fused_state"] == 3
+          and seam_l["sample_loop_fused"] == 0
+          and seam_l["sample_loop_materialized"] == 0
+          and xf_l["sample_loop_fused"] == 1
+          and xf_l["sample_loop_fused_state"] == 0
+          and errs[-1] <= errs[0] + 1e-6
+          and path["seam"]["wav_finite"] and path["crossfade"]["wav_finite"]
+          and path["seam"]["wav_abs_max"] <= 1.0
+          and path["crossfade"]["wav_abs_max"] <= math.sqrt(2) + 1e-6)
+    emit("seam", ok=ok, tolerance=tol, **res)
+    if not ok:
+        raise AssertionError("seam: B4b disagrees with its plain version, a "
+                             "handoff is not exact, or the seam path did not "
+                             "run on B4b")
+    return res
+
+
+def phase_b10(cfg, dev, voc, mel, tol):
+    """B10, the loop on pre-projected streams, at the full default Config:
+    against its plain version at 10 rows x 1,100 steps (injected noise,
+    MOL and RAW, float32 weights and streams within ``tol``; bfloat16 at
+    least 99 % within 1e-3; the counter hash from a seed); ``generate_v2``
+    on the main mel upsampled and folded, its launch counted; then timed in
+    turns with B3 at B3's two shapes (10 x 12,100 and 1 x 12,100), B10's
+    kernel on streams projected beforehand (``launch_v2``), the entry
+    point and the stream projections on their own, the clocks read around
+    each set; its plain version at the first shape. Returns the results."""
+    import torch
+    from wavernn_tpu_torch.config import WaveRNNConfig
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    from wavernn_tpu_torch.ops import cuda_gen2 as cg2
+    from wavernn_tpu_torch.ops.fold import fold_with_overlap
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(8765)
+    R, FC = cfg.voc.rnn_dims, cfg.voc.fc_dims
+    A4 = 4 * cfg.voc.aux_dims
+    res, oks = {}, {}
+    with torch.no_grad():
+        for mode in ("MOL", "RAW"):
+            v = wr.WaveRNN(WaveRNNConfig(mode=mode), cfg.dsp)
+            v.reset_parameters(gen)
+            core = v.to(dev).eval().core_weights()
+            B, T = 10, 1100
+            mu = torch.rand(B, T, 80, generator=gen).to(dev)
+            au = (torch.rand(B, T, A4, generator=gen) * 2 - 1).to(dev)
+            NC = core["fc3.weight"].shape[0]
+            nu = NC // 3 + 1 if mode == "MOL" else NC
+            u = cg.counter_uniforms(97, T, B, nu, mode == "MOL", dev)
+            noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+            got = cg2.generate_v2(core, mu, au, mode, noise=noise,
+                                  compute_dtype=f32, stream_dtype=f32)
+            ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                      stream_dtype=f32)
+            chk, oks[mode] = check_b1_f32(f"{mode}_f32", got, ref, tol)
+            res.update(chk)
+            if mode != "MOL":
+                continue
+            got = cg2.generate_v2(core, mu, au, mode, noise=noise)
+            ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                      compute_dtype=bf16)
+            chk, oks["bf16"] = check_b1_bf16(got, ref)
+            res.update(chk)
+            got = cg2.generate_v2(core, mu, au, mode, seed=2025,
+                                  compute_dtype=f32, stream_dtype=f32)
+            ref = cg2.generate_v2_ref(core, mu, au, mode, seed=2025,
+                                      stream_dtype=f32)
+            chk, oks["prng"] = check_b1_f32("prng", got, ref, tol)
+            res.update(chk)
+        res["check_shape"] = [B, T]
+        # ---- the entry point on the main mel, upsampled and folded ----
+        core, mode = voc.core_weights(), cfg.voc.mode
+        mels = torch.as_tensor(mel)[None].to(dev)
+        mu, au = voc.upsample(torch.nn.functional.pad(mels, (2, 2)))
+        muf = fold_with_overlap(mu, cfg.voc.target, cfg.voc.overlap)
+        auf = fold_with_overlap(au, cfg.voc.target, cfg.voc.overlap)
+        torch.cuda.synchronize()
+        zero_counts()
+        y = cg2.generate_v2(core, muf, auf, mode, seed=7)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        res["path"] = {"rows": muf.shape[0], "steps": muf.shape[1],
+                       "launches": launches,
+                       "finite": bool(y.isfinite().all()),
+                       "abs_max": float(y.abs().max())}
+        # ---- timed in turns with B3 at its two shapes ----
+        T = muf.shape[1]
+        timing = {}
+        for tag, (m, a) in (("folds", (muf, auf)),
+                            ("unbatched", (mu[:, :T].contiguous(),
+                                           au[:, :T].contiguous()))):
+            streams = cg2.v2_streams(core, m, a)
+
+            def b3():
+                return cg.generate_materialized(core, m, a, mode, seed=7)[0]
+
+            def b10_kernel():
+                return cg2.launch_v2(core, *streams, mode, seed=7)
+            clk = [gpu_clocks()]
+            t3a, _ = cuda_ms(b3, 1)
+            t10a, got = cuda_ms(b10_kernel, 1)
+            t10b, _ = cuda_ms(b10_kernel, 1)
+            t3b, _ = cuda_ms(b3, 1)
+            clk.append(gpu_clocks())
+            call_ms, _ = cuda_ms(lambda: cg2.generate_v2(core, m, a, mode,
+                                                         seed=7), 1)
+            streams_ms, _ = cuda_ms(lambda: cg2.v2_streams(core, m, a), 2)
+            B = m.shape[0]
+            fl, by = b10_work(B, T, R, FC, 30, 2, 2)
+            b_ms, b_by = bound(fl, by, PEAK_BF16)
+            k10, k3 = min(t10a, t10b), min(t3a, t3b)
+            timing[tag] = {"B": B, "steps": T, "b3_ms": [t3a, t3b],
+                           "b10_ms": [t10a, t10b], "ms": k10,
+                           "b10_call_ms": call_ms, "streams_ms": streams_ms,
+                           "us_per_step_b10": 1e3 * k10 / T,
+                           "us_per_step_b3": 1e3 * k3 / T,
+                           "b10_over_b3": k10 / k3, "bound_ms": b_ms,
+                           "bound_by": b_by, "flops": fl, "bytes": by,
+                           "clocks": clk}
+            if tag == "folds":
+                # the plain version on the same streams and seed, at the
+                # numbers the kernel multiplies
+                p_ms, ref = once_ms(lambda: cg2.generate_v2_ref(
+                    core, m, a, mode, seed=7, compute_dtype=bf16))
+                chk, ok_t = check_b1_bf16(got, ref)
+                timing[tag].update(plain_ms=p_ms, check=chk)
+            else:
+                ok_t = bool(got.isfinite().all() and got.abs().max() <= 1)
+            timing[tag]["ok"] = ok_t
+        res["timing"] = timing
+    res["max_abs_err"] = max(res["MOL_f32_max_abs_err"],
+                             res["RAW_f32_max_abs_err"],
+                             res["prng_max_abs_err"])
+    ok = (all(oks.values()) and all(t["ok"] for t in timing.values())
+          and launches["sample_loop_v2"] == 1
+          and sum(launches.values()) == 1
+          and res["path"]["finite"] and res["path"]["abs_max"] <= 1.0)
+    emit("b10", ok=ok, tolerance=tol, **res)
+    if not ok:
+        raise AssertionError("b10: B10 disagrees with its plain version or "
+                             "its entry point did not launch it")
     return res
 
 
@@ -2551,6 +2953,10 @@ def main() -> int:
 
     # ---- sparse: B9 at the b1 shape, one row and one streaming block ----
     sparse = phase_sparse(cfg, dev, voc, mel, TOL)
+    # ---- seam: B4b and exact-seam generation; b10: the pre-projected
+    # loop, each with its timings ----
+    seam = phase_seam(cfg, dev, voc, mel, TOL)
+    b10 = phase_b10(cfg, dev, voc, mel, TOL)
 
     kernels = [
         {"name": "sample_loop_fused", "route": "cuda", "source": B1_SOURCE,
@@ -2642,6 +3048,23 @@ def main() -> int:
          "ms": sparse["ms"], "plain_ms": sparse["plain_ms"],
          "bound_ms": sparse["bound_ms"], "bound_by": sparse["bound_by"],
          "library_ms": None},
+        {"name": "sample_loop_fused_state", "route": "cuda",
+         "source": B1_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gen.py:673",
+         "launches": seam["path"]["seam"]["launches"]
+         ["sample_loop_fused_state"],
+         "max_abs_err": seam["max_abs_err"], "ms": seam["timing"]["ms"],
+         "plain_ms": seam["timing"]["plain_ms"],
+         "bound_ms": seam["timing"]["bound_ms"],
+         "bound_by": seam["timing"]["bound_by"], "library_ms": None},
+        {"name": "sample_loop_v2", "route": "cuda", "source": B1_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gen2.py:59",
+         "launches": b10["path"]["launches"]["sample_loop_v2"],
+         "max_abs_err": b10["max_abs_err"],
+         "ms": b10["timing"]["folds"]["ms"],
+         "plain_ms": b10["timing"]["folds"]["plain_ms"],
+         "bound_ms": b10["timing"]["folds"]["bound_ms"],
+         "bound_by": b10["timing"]["folds"]["bound_by"], "library_ms": None},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,7 +28,11 @@ at least 99.9 % of samples within 1e-3 (cuDNN may convolve a window with
 another algorithm than the whole mel). The sparse arm (B9) of both sample
 loops: bit for bit the dense kernel's output on the same block-pruned
 weights (its lanes add the same live terms in the same order), float32 and
-bfloat16; and, float32, within 2e-3 of its plain version.
+bfloat16; and, float32, within 2e-3 of its plain version. B1's state arm
+(B4b): as B3, samples and state within 2e-3, chained launches and the
+exact seams' sequential oracle bit for bit. The pre-projected loop (B10):
+float32 within 2e-3; bfloat16 weights and streams, at least 99 % of
+samples within 1e-3 of the plain version at the same roundings.
 """
 import copy
 
@@ -541,3 +545,158 @@ def test_sparse_arm_legacy_br8_equals_dense(cuda):
                 core, mu, au, "MOL", seed=4, compute_dtype=dtype,
                 sparse_packed=pack)
             assert torch.equal(sparse, dense), dtype
+
+
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_fused_state_kernel_matches_plain_and_chains(cuda, mode):
+    """B4b, B1's state arm, at 3 rows x 6 hop chunks from a given state:
+    against its plain version with a snapshot inside the launch (float32
+    weights, 2e-3); then one launch equals two chained at chunk boundary 2
+    (the second from frames[2:] and the noise from step 2*hop on), bit for
+    bit, and a snapshot at that boundary equals the shorter launch's final
+    state. B1's own count does not move."""
+    voc, gen = _small_voc(mode, cuda, 21)
+    B, chunks, c1 = 3, 6, 2
+    _, phi, geo, _ = wr.fused_conditioning(
+        voc, torch.nn.functional.pad(torch.rand(1, 80, 8, generator=gen)
+                                     .to(cuda), (2, 2)), 8 * 275, 550, 275)
+    hop, tap = geo.hop, -geo.d_lo
+    T, T1 = chunks * hop, c1 * hop
+    frames = torch.rand(chunks + geo.K - 1, B, 80 + 32,
+                        generator=gen).to(cuda)
+    state = tuple(t.to(cuda) for t in (torch.rand(B, 64, generator=gen) - 0.5,
+                                       torch.rand(B, 64, generator=gen) - 0.5,
+                                       torch.rand(B, generator=gen) - 0.5))
+    NC = voc.core_weights()["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    u = cuda_gen.counter_uniforms(6, T, B, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    cut = (lambda n, a, b: tuple(v[a:b] for v in n) if mode == "MOL"
+           else n[a:b])
+    core = voc.core_weights()
+    f32 = torch.float32
+    with torch.no_grad():
+        before = (cuda_gen.generate_fused.launches,
+                  cuda_gen.generate_fused_with_state.launches)
+        y, snap = cuda_gen.generate_fused_with_state(
+            core, frames, phi, hop, tap, chunks, mode, noise=noise,
+            init_state=state, state_snapshot_at=700, compute_dtype=f32)
+        y_p, snap_p = cuda_gen.generate_fused_with_state_ref(
+            core, frames, phi, hop, tap, chunks, mode, noise=noise,
+            init_state=state, state_snapshot_at=700)
+        assert (cuda_gen.generate_fused.launches,
+                cuda_gen.generate_fused_with_state.launches) == (
+                    before[0], before[1] + 1)
+        torch.testing.assert_close(y, y_p, atol=2e-3, rtol=0)
+        for a, b in zip(snap, snap_p):
+            torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
+        y, st = cuda_gen.generate_fused_with_state(
+            core, frames, phi, hop, tap, chunks, mode, noise=noise,
+            init_state=state, compute_dtype=f32)
+        y1, st1 = cuda_gen.generate_fused_with_state(
+            core, frames[:c1 + geo.K - 1].contiguous(), phi, hop, tap, c1,
+            mode, noise=cut(noise, 0, T1), init_state=state,
+            compute_dtype=f32)
+        y2, st2 = cuda_gen.generate_fused_with_state(
+            core, frames[c1:].contiguous(), phi, hop, tap, chunks - c1, mode,
+            noise=cut(noise, T1, T), init_state=st1, compute_dtype=f32)
+        _, snap = cuda_gen.generate_fused_with_state(
+            core, frames, phi, hop, tap, chunks, mode, noise=noise,
+            init_state=state, state_snapshot_at=T1, compute_dtype=f32)
+        # with no state in and a snapshot at T, B4b is B1 bit for bit
+        b1 = cuda_gen.generate_fused(core, frames, phi, hop, tap, chunks,
+                                     mode, noise=noise, compute_dtype=f32)
+        b4 = cuda_gen.generate_fused_with_state(
+            core, frames, phi, hop, tap, chunks, mode, noise=noise,
+            compute_dtype=f32)[0]
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    for a, b in zip(st2, st):
+        assert torch.equal(a, b)
+    for a, b in zip(snap, st1):
+        assert torch.equal(a, b)
+    assert torch.equal(b4, b1)
+
+
+def test_exact_seams_reproduce_one_sequential_launch(cuda):
+    """The sequential oracle (tests/test_seam.py:21-65) on the card: on an
+    utterance that folds exactly into 3 folds, with the noise laid out so
+    that fold i's local step j is global step i*seg + j, 2 passes of the
+    fused seam (B4b) equal one one-row fused launch over the whole span,
+    and 2 passes of the materialized seam (B3) one unbatched B3 launch, bit
+    for bit (each row's sums run in one order whatever the batch)."""
+    from wavernn_tpu_torch.ops import fold
+    from wavernn_tpu_torch.ops import polyphase as P
+    from wavernn_tpu_torch.parallel import gen_sharded as gs
+    voc, gen = _small_voc("MOL", cuda, 22)
+    core = voc.core_weights()
+    target, overlap, n = 550, 275, 3
+    seg, L = target + overlap, target + 2 * overlap
+    total = n * seg + overlap
+    u = cuda_gen.counter_uniforms(8, total, 1, 11, True, cuda)
+    g = (torch.arange(n, device=cuda)[None] * seg
+         + torch.arange(L, device=cuda)[:, None])
+    noise_1 = (u[..., :10], u[..., 10])
+    noise_f = (u[g, 0, :10], u[g, 0, 10])
+    mels = torch.rand(1, 80, total // 275, generator=gen).to(cuda)
+    mels_p = torch.nn.functional.pad(mels, (2, 2))
+    with torch.no_grad():
+        frames, phi, geo, chunks = wr.fused_conditioning(
+            voc, mels_p, total, target, overlap)
+        one = P.build_folded_frames(mels_p[0].t(),
+                                    voc.upsample.resnet(mels_p)[0].t(), 1, 0,
+                                    total // 275, geo.K, geo.d_lo)
+        for dtype in (torch.float32, torch.bfloat16):
+            seq = cuda_gen.generate_fused(core, one, phi, geo.hop, -geo.d_lo,
+                                          total // 275, "MOL",
+                                          noise=noise_1, compute_dtype=dtype)
+            y, _ = gs.generate_exact_seam_fused(
+                core, frames, phi, geo.hop, -geo.d_lo, chunks, "MOL", target,
+                overlap, seam_passes=n - 1, noise=noise_f,
+                compute_dtype=dtype)
+            assert torch.equal(gs.concat_folds(y, target, overlap, total),
+                               seq[0]), dtype
+        mu, au = voc.upsample(mels_p)
+        seq, _ = cuda_gen.generate_materialized(core, mu, au, "MOL",
+                                                noise=noise_1)
+        y, _ = gs.generate_exact_seam(
+            core, fold.fold_with_overlap(mu, target, overlap),
+            fold.fold_with_overlap(au, target, overlap), "MOL", target,
+            overlap, seam_passes=n - 1, noise=noise_f)
+    assert torch.equal(gs.concat_folds(y, target, overlap, total), seq[0])
+
+
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_v2_kernel_matches_plain(cuda, mode):
+    """B10 at 3 rows x 500 steps against its plain version: float32
+    weights and streams within 2e-3 (summation order only); bfloat16
+    weights and streams, at least 99 % of samples within 1e-3 of the plain
+    version at the same roundings; the counter hash from a seed."""
+    from wavernn_tpu_torch.ops import cuda_gen2
+    voc, gen = _small_voc(mode, cuda, 23)
+    core = voc.core_weights()
+    B, T = 3, 500
+    mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+    au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    u = cuda_gen.counter_uniforms(9, T, B, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    f32, bf16 = torch.float32, torch.bfloat16
+    with torch.no_grad():
+        before = cuda_gen2.generate_v2.launches
+        got = cuda_gen2.generate_v2(core, mu, au, mode, noise=noise,
+                                    compute_dtype=f32, stream_dtype=f32)
+        assert cuda_gen2.generate_v2.launches == before + 1
+        want = cuda_gen2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                         stream_dtype=f32)
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+        got = cuda_gen2.generate_v2(core, mu, au, mode, noise=noise)
+        want = cuda_gen2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                         compute_dtype=bf16)
+        share = float(((got - want).abs() <= 1e-3).float().mean())
+        assert share >= 0.99, share
+        got = cuda_gen2.generate_v2(core, mu, au, mode, seed=31,
+                                    compute_dtype=f32, stream_dtype=f32)
+        want = cuda_gen2.generate_v2_ref(core, mu, au, mode, seed=31,
+                                         stream_dtype=f32)
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=0)

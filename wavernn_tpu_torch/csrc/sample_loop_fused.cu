@@ -1,18 +1,27 @@
 // WaveRNN sample loops for Hopper (sm_90a): the whole autoregressive
 // generation of every row in ONE cooperative launch. One templated body
-// serves both TPU kernels; the arm is a compile-time flag.
+// serves the three TPU sample-loop kernels; the arm, and whether it carries
+// the RNN state in and out, are compile-time flags.
 //
 // Replaces:
-//   FUSED = true   (B1): wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel
+//   ARM_FUSED      (B1): wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel
 //                  (called through generate_pallas_fused), the TPU kernel
 //                  that upsamples its own conditioning from frame-rate folded
 //                  rows and runs the sample loop;
-//   FUSED = false  (B3, with B4's state I/O): pallas_gen.py, _make_kernel
+//   ARM_FUSED with STATE (B4b): the same maker with with_state=True (called
+//                  through generate_pallas_fused_with_state), B1 resuming
+//                  from and snapshotting the RNN state: the exact-seam
+//                  passes on frame-rate folds;
+//   ARM_MAT        (B3, with B4a's state I/O): pallas_gen.py, _make_kernel
 //                  (with_state False and True, called through
 //                  generate_pallas and generate_pallas_with_state), the
 //                  materialized sample loop that streams sample-rate
 //                  conditioning in and can resume from and snapshot the RNN
-//                  state.
+//                  state;
+//   ARM_V2         (B10): wavernn_tpu/ops/pallas_gen2.py, _make_kernel
+//                  (called through generate_pallas_v2), the sample loop on
+//                  five conditioning streams pre-projected outside the loop
+//                  into gate space, six products a step.
 //
 // What it computes, per row b and sample t:
 //   B1, t = c*hop + i (chunk c, phase i), once per chunk c (hoisted, as the
@@ -32,9 +41,16 @@
 //     x   = MOL sample (Gumbel mixture pick + inverse-CDF logistic, log-scale
 //           clamped at log 1e-14) or RAW Gumbel-argmax, from injected
 //           uniforms or the counter hash below.
-//   B3 state: (h1, h2, x) start from the given state (zeros when none), and
-//   the state entering step snapshot_at (the final state when it is T) is
-//   written out, so two chained launches of T/2 steps equal one of T.
+//   State (B3, B4b): (h1, h2, x) start from the given state (zeros when
+//   none), and the state entering step snapshot_at (the final state when it
+//   is T) is written out, so two chained launches equal one. B1 is the same
+//   arm without the state code, so its steps carry no test for it.
+//   B10, from the streams i, gi1, gi2, f1, f2 (rows t*B + b, bf16 or f32)
+//   and the folded vectors wxw1 = W_i1 w_Ix, wxw2 = W_i2x w_Ix:
+//     h1  = GRU gates(gi1[t] + x*wxw1, h1 @ W_h1 + b_h1);  xr = i[t] + x*w_Ix + h1
+//     h2  = GRU gates(gi2[t] + x*wxw2 + h1 @ W_i2x, h2 @ W_h2 + b_h2)
+//     x2  = xr + h2;  hf = relu(fc2(relu(x2 @ W_1x + f1[t])) + f2[t]), etc.
+//   No conditioning product runs in the launch, so it has no span barrier.
 //
 // What bounds it: latency, not bytes or FLOPs. Counted once, the work is
 // small for the card (each step multiplies the ~3.69M core weights, 7.4 MB
@@ -53,7 +69,10 @@
 // stage never overwrites what another block is still reading. B3's
 // conditioning products run once per span of steps, with one more barrier;
 // its workspace is per span, so nothing but the output and the conditioning
-// stream grows with T.
+// stream grows with T. B10 reads each step's rows of its five streams
+// (9.2 KB a row in bf16 at R = FC = 512) where the gates and the fc layers
+// need them, and runs five barriers a step, as B1 does; its stage 1 has
+// one product (h1 @ W_h1) where B1 and B3 have two.
 //
 // B9, the sparse arm (a runtime choice per matrix, LoopArgs::sp): replaces
 // wavernn_tpu/ops/pallas_gen.py, _sparse_mm, the block-sparse product of a
@@ -87,6 +106,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int BT = 8;  // rows per shared-memory tile
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr float MOL_U_SCALE = (float)(1.0 - 2e-5);
+
+// the body's arms
+constexpr int ARM_FUSED = 0;  // B1, B4b: conditioning from frame-rate folds
+constexpr int ARM_MAT = 1;    // B3: sample-rate conditioning rows
+constexpr int ARM_V2 = 2;     // B10: pre-projected gate-space streams
 
 }  // namespace
 
@@ -129,17 +153,24 @@ struct LoopArgs {
   const float* b2;      // (FC,)
   const void* w3;       // (NC, FC)      WT
   const float* b3;      // (NC,)
-  const float* h1_0;    // B3: (B, R) initial state, or null for zeros
-  const float* h2_0;    // B3: (B, R)
-  const float* x_0;     // B3: (B,)
-  float* snap_h1;       // B3: (B, R) the state entering step snapshot_at
-  float* snap_h2;       // B3: (B, R)
-  float* snap_x;        // B3: (B,)
+  const float* h1_0;    // B3, B4b: (B, R) initial state, or null for zeros
+  const float* h2_0;    // (B, R)
+  const float* x_0;     // (B,)
+  float* snap_h1;       // B3, B4b: (B, R) the state entering snapshot_at
+  float* snap_h2;       // (B, R)
+  float* snap_x;        // (B,)
   float* out;           // (B, T) f32
   float* work;          // zeroed workspace, see Work below
+  const void* s_i;      // B10: (T, B, R) streams, bf16 or f32 (stream_bf16)
+  const void* s_gi1;    // B10: (T, B, 3R)
+  const void* s_gi2;    // B10: (T, B, 3R)
+  const void* s_f1;     // B10: (T, B, FC)
+  const void* s_f2;     // B10: (T, B, FC)
+  const float* wxw1;    // B10: (3R,)
+  const float* wxw2;    // B10: (3R,)
   int64_t B, R, FC, A, n_mels, NC, K, hop, fold_chunks, aux_tap;
   int64_t T, span, snapshot_at;  // B3: steps, steps per conditioning span
-  int64_t mol, seed, bf16;
+  int64_t mol, seed, bf16, stream_bf16;
   SparseMat sp[N_SPARSE];  // B9: the packed per-step matrices, or nulls
 };
 
@@ -185,6 +216,12 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
+}
+
+// B10: element i of a conditioning stream, bf16 or f32
+__device__ __forceinline__ float load_stream(const void* p, size_t i,
+                                             bool bf16) {
+  return bf16 ? load1((const __nv_bfloat16*)p + i) : load1((const float*)p + i);
 }
 
 __device__ __forceinline__ void load8_shared(const float* p, float (&a)[8]) {
@@ -367,8 +404,8 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-// B3: copy the state entering the current step (block 0 only; other blocks
-// write only the other ping-pong buffer and x after later barriers).
+// B3, B4b: copy the state entering the current step (block 0 only; other
+// blocks write only the other ping-pong buffer and x after later barriers).
 __device__ void snapshot(const LoopArgs& a, const float* h1, const float* h2,
                          const float* x, int B, int R) {
   if (blockIdx.x != 0) return;
@@ -379,23 +416,25 @@ __device__ void snapshot(const LoopArgs& a, const float* h1, const float* h2,
   for (int b = threadIdx.x; b < B; b += THREADS) a.snap_x[b] = __ldcg(x + b);
 }
 
-template <typename WT, bool FUSED>
+template <typename WT, int ARM, bool STATE>
 __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
+  constexpr bool FUSED = ARM == ARM_FUSED, V2 = ARM == ARM_V2;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int B = (int)a.B, R = (int)a.R, FC = (int)a.FC, A = (int)a.A;
   const int n_mels = (int)a.n_mels, NC = (int)a.NC, K = FUSED ? (int)a.K : 0;
   const int hop = (int)a.hop, C = n_mels + 4 * A;
   const int T = FUSED ? (int)(a.fold_chunks * a.hop) : (int)a.T;
-  const int span = FUSED ? hop : (int)a.span;
-  const bool mol = a.mol != 0;
+  // B10 has no conditioning to project: its one span is the whole launch
+  const int span = FUSED ? hop : V2 ? T : (int)a.span;
+  const bool mol = a.mol != 0, sbf = a.stream_bf16 != 0;
   const int nr = NC / 3;
   const int NU = mol ? nr + 1 : NC;
   const uint32_t key = lowbias32((uint32_t)a.seed);
   const int DM = R > FC ? R : FC;
   float* s_a = smem;            // (BT, DM)
   float* s_b = smem + BT * DM;  // (BT, R)
-  Work wk(a.work, B, R, FC, K, FUSED ? 1 : span);
+  Work wk(a.work, B, R, FC, K, FUSED ? 1 : V2 ? 0 : span);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // units spread over blocks first, so every SM gets a share of each stage
@@ -416,7 +455,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
   const WT* w2a = (const WT*)a.w2a;
   const WT* w3 = (const WT*)a.w3;
 
-  if constexpr (!FUSED) {
+  if constexpr (STATE) {
     // resume from the given state (the workspace arrives zeroed); the first
     // conditioning span's barrier orders these writes before step 0
     for (int e = gt; e < B * R; e += nt) {
@@ -466,7 +505,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
           if (lane == 0) wk.f2a[(size_t)b * FC + v] = s + a.b2[v];
         }
       }
-    } else {
+    } else if constexpr (ARM == ARM_MAT) {
       // ---- the span's conditioning: base, gi2a, f1a, f2a for its
       // n_steps * B rows of cond (row q = i*B + b is step t0 + i) ----
       const int rows = n_steps * B;
@@ -500,99 +539,181 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
         }
       }
     }
-    grid.sync();
+    if constexpr (!V2) grid.sync();
 
     for (int i = 0; i < n_steps; ++i) {
       const int t = t0 + i;
       // B1 keeps one conditioning row per chunk; B3 one per step of the span
-      const size_t ci = FUSED ? 0 : (size_t)i * B;
+      const size_t ci = ARM == ARM_MAT ? (size_t)i * B : 0;
       float* h1_cur = wk.h1 + (size_t)(t & 1) * B * R;
       float* h1_nxt = wk.h1 + (size_t)((t + 1) & 1) * B * R;
       float* h2_cur = wk.h2 + (size_t)(t & 1) * B * R;
       float* h2_nxt = wk.h2 + (size_t)((t + 1) & 1) * B * R;
-      if constexpr (!FUSED) {
+      if constexpr (STATE) {
         if (t == a.snapshot_at) snapshot(a, h1_cur, h2_cur, wk.x, B, R);
       }
 
-      // ---- stage 1: inp, GRU1, xr ----
-      for (int b0 = 0; b0 < B; b0 += BT) {
-        const int nb = min(BT, B - b0);
-        __syncthreads();
-        for (int e = threadIdx.x; e < nb * R; e += THREADS) {
-          const int b = b0 + e / R, k = e % R;
-          float v = __ldcg(wk.base + (ci + b) * R + k) + __ldcg(wk.x + b) * a.w_ix[k];
-          if constexpr (FUSED) {
-            for (int j = 0; j < K; ++j)
-              v = v + a.phi[j * hop + i] * __ldcg(wk.ps + ((size_t)j * B + b) * R + k);
-          }
-          s_a[e] = v;
-          s_b[e] = __ldcg(h1_cur + (size_t)b * R + k);
-        }
-        __syncthreads();
-        for (int j = gw; j < R; j += nw) {
-          float acc[6][BT];
-          step_dots<3, 3>(wi1, a.sp[0], wh1, a.sp[1], j, R, R, s_a, s_b, nb,
-                          acc);
-          if (lane < nb) {
-            float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+      if constexpr (V2) {
+        // ---- B10 stage 1: GRU1 on the gi1 stream, xr ----
+        for (int b0 = 0; b0 < B; b0 += BT) {
+          const int nb = min(BT, B - b0);
+          __syncthreads();
+          for (int e = threadIdx.x; e < nb * R; e += THREADS)
+            s_a[e] = __ldcg(h1_cur + (size_t)b0 * R + e);
+          __syncthreads();
+          for (int j = gw; j < R; j += nw) {
+            float acc[3][BT];
+            step_dots<3, 0>(wh1, a.sp[1], wh1, a.sp[1], j, R, R, s_a, s_a, nb,
+                            acc);
+            if (lane < nb) {
+              float hr = 0.f, hz = 0.f, hn = 0.f;
 #pragma unroll
-            for (int b = 0; b < BT; ++b)
-              if (b == lane) {
-                gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
-                hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
-              }
-            const int b = lane;
-            const float r = sigmoidf((gr + a.bi1[j]) + (hr + a.bh1[j]));
-            const float z = sigmoidf((gz + a.bi1[R + j]) + (hz + a.bh1[R + j]));
-            const float n = tanhf((gn + a.bi1[2 * R + j]) + r * (hn + a.bh1[2 * R + j]));
-            const float h = (1.f - z) * n + z * s_b[b * R + j];
-            h1_nxt[(size_t)(b0 + b) * R + j] = h;
-            wk.xr[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+              for (int b = 0; b < BT; ++b)
+                if (b == lane) {
+                  hr = acc[0][b]; hz = acc[1][b]; hn = acc[2][b];
+                }
+              const int b = lane;
+              const size_t row = (size_t)t * B + b0 + b;
+              const float xv = __ldcg(wk.x + b0 + b);
+              const float* g1 = a.wxw1;
+              const float gr = load_stream(a.s_gi1, row * 3 * R + j, sbf) + xv * g1[j];
+              const float gz = load_stream(a.s_gi1, row * 3 * R + R + j, sbf) + xv * g1[R + j];
+              const float gn = load_stream(a.s_gi1, row * 3 * R + 2 * R + j, sbf) + xv * g1[2 * R + j];
+              const float r = sigmoidf(gr + (hr + a.bh1[j]));
+              const float z = sigmoidf(gz + (hz + a.bh1[R + j]));
+              const float n = tanhf(gn + r * (hn + a.bh1[2 * R + j]));
+              const float h = (1.f - z) * n + z * s_a[b * R + j];
+              h1_nxt[(size_t)(b0 + b) * R + j] = h;
+              const float inp = load_stream(a.s_i, row * R + j, sbf) + xv * a.w_ix[j];
+              wk.xr[(size_t)(b0 + b) * R + j] = inp + h;
+            }
           }
         }
-      }
-      grid.sync();
+        grid.sync();
 
-      // ---- stage 2: GRU2 on [xr | a2], x2 ----
-      for (int b0 = 0; b0 < B; b0 += BT) {
-        const int nb = min(BT, B - b0);
-        __syncthreads();
-        for (int e = threadIdx.x; e < nb * R; e += THREADS) {
-          const size_t g = (size_t)b0 * R + e;
-          s_a[e] = __ldcg(wk.xr + g);
-          s_b[e] = __ldcg(h2_cur + g);
-        }
-        __syncthreads();
-        for (int j = gw; j < R; j += nw) {
-          float acc[6][BT];
-          step_dots<3, 3>(wi2x, a.sp[2], wh2, a.sp[3], j, R, R, s_a, s_b, nb,
-                          acc);
-          if (lane < nb) {
-            float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+        // ---- B10 stage 2: GRU2 on the gi2 stream and the new h1, x2 ----
+        for (int b0 = 0; b0 < B; b0 += BT) {
+          const int nb = min(BT, B - b0);
+          __syncthreads();
+          for (int e = threadIdx.x; e < nb * R; e += THREADS) {
+            const size_t g = (size_t)b0 * R + e;
+            s_a[e] = __ldcg(h1_nxt + g);
+            s_b[e] = __ldcg(h2_cur + g);
+          }
+          __syncthreads();
+          for (int j = gw; j < R; j += nw) {
+            float acc[6][BT];
+            step_dots<3, 3>(wi2x, a.sp[2], wh2, a.sp[3], j, R, R, s_a, s_b,
+                            nb, acc);
+            if (lane < nb) {
+              float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
 #pragma unroll
-            for (int b = 0; b < BT; ++b)
-              if (b == lane) {
-                gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
-                hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
-              }
-            const int b = lane;
-            const float* ga = wk.gi2a + (ci + b0 + b) * 3 * R;  // a2 terms + bi2
-            const float r = sigmoidf((gr + __ldcg(ga + j)) + (hr + a.bh2[j]));
-            const float z = sigmoidf((gz + __ldcg(ga + R + j)) + (hz + a.bh2[R + j]));
-            const float n = tanhf((gn + __ldcg(ga + 2 * R + j)) + r * (hn + a.bh2[2 * R + j]));
-            const float h = (1.f - z) * n + z * s_b[b * R + j];
-            h2_nxt[(size_t)(b0 + b) * R + j] = h;
-            wk.x2[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+              for (int b = 0; b < BT; ++b)
+                if (b == lane) {
+                  gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
+                  hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
+                }
+              const int b = lane;
+              const size_t row = (size_t)t * B + b0 + b;
+              const float xv = __ldcg(wk.x + b0 + b);
+              const float* g2 = a.wxw2;
+              // (stream + x*wxw2) + h1 @ W_i2x, the TPU kernel's order
+              gr = (load_stream(a.s_gi2, row * 3 * R + j, sbf) + xv * g2[j]) + gr;
+              gz = (load_stream(a.s_gi2, row * 3 * R + R + j, sbf) + xv * g2[R + j]) + gz;
+              gn = (load_stream(a.s_gi2, row * 3 * R + 2 * R + j, sbf) + xv * g2[2 * R + j]) + gn;
+              const float r = sigmoidf(gr + (hr + a.bh2[j]));
+              const float z = sigmoidf(gz + (hz + a.bh2[R + j]));
+              const float n = tanhf(gn + r * (hn + a.bh2[2 * R + j]));
+              const float h = (1.f - z) * n + z * s_b[b * R + j];
+              h2_nxt[(size_t)(b0 + b) * R + j] = h;
+              wk.x2[(size_t)(b0 + b) * R + j] =
+                  __ldcg(wk.xr + (size_t)(b0 + b) * R + j) + h;
+            }
           }
         }
+        grid.sync();
+      } else {
+        // ---- stage 1: inp, GRU1, xr ----
+        for (int b0 = 0; b0 < B; b0 += BT) {
+          const int nb = min(BT, B - b0);
+          __syncthreads();
+          for (int e = threadIdx.x; e < nb * R; e += THREADS) {
+            const int b = b0 + e / R, k = e % R;
+            float v = __ldcg(wk.base + (ci + b) * R + k) + __ldcg(wk.x + b) * a.w_ix[k];
+            if constexpr (FUSED) {
+              for (int j = 0; j < K; ++j)
+                v = v + a.phi[j * hop + i] * __ldcg(wk.ps + ((size_t)j * B + b) * R + k);
+            }
+            s_a[e] = v;
+            s_b[e] = __ldcg(h1_cur + (size_t)b * R + k);
+          }
+          __syncthreads();
+          for (int j = gw; j < R; j += nw) {
+            float acc[6][BT];
+            step_dots<3, 3>(wi1, a.sp[0], wh1, a.sp[1], j, R, R, s_a, s_b, nb,
+                            acc);
+            if (lane < nb) {
+              float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+#pragma unroll
+              for (int b = 0; b < BT; ++b)
+                if (b == lane) {
+                  gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
+                  hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
+                }
+              const int b = lane;
+              const float r = sigmoidf((gr + a.bi1[j]) + (hr + a.bh1[j]));
+              const float z = sigmoidf((gz + a.bi1[R + j]) + (hz + a.bh1[R + j]));
+              const float n = tanhf((gn + a.bi1[2 * R + j]) + r * (hn + a.bh1[2 * R + j]));
+              const float h = (1.f - z) * n + z * s_b[b * R + j];
+              h1_nxt[(size_t)(b0 + b) * R + j] = h;
+              wk.xr[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+            }
+          }
+        }
+        grid.sync();
+
+        // ---- stage 2: GRU2 on [xr | a2], x2 ----
+        for (int b0 = 0; b0 < B; b0 += BT) {
+          const int nb = min(BT, B - b0);
+          __syncthreads();
+          for (int e = threadIdx.x; e < nb * R; e += THREADS) {
+            const size_t g = (size_t)b0 * R + e;
+            s_a[e] = __ldcg(wk.xr + g);
+            s_b[e] = __ldcg(h2_cur + g);
+          }
+          __syncthreads();
+          for (int j = gw; j < R; j += nw) {
+            float acc[6][BT];
+            step_dots<3, 3>(wi2x, a.sp[2], wh2, a.sp[3], j, R, R, s_a, s_b, nb,
+                            acc);
+            if (lane < nb) {
+              float gr = 0.f, gz = 0.f, gn = 0.f, hr = 0.f, hz = 0.f, hn = 0.f;
+#pragma unroll
+              for (int b = 0; b < BT; ++b)
+                if (b == lane) {
+                  gr = acc[0][b]; gz = acc[1][b]; gn = acc[2][b];
+                  hr = acc[3][b]; hz = acc[4][b]; hn = acc[5][b];
+                }
+              const int b = lane;
+              const float* ga = wk.gi2a + (ci + b0 + b) * 3 * R;  // a2 terms + bi2
+              const float r = sigmoidf((gr + __ldcg(ga + j)) + (hr + a.bh2[j]));
+              const float z = sigmoidf((gz + __ldcg(ga + R + j)) + (hz + a.bh2[R + j]));
+              const float n = tanhf((gn + __ldcg(ga + 2 * R + j)) + r * (hn + a.bh2[2 * R + j]));
+              const float h = (1.f - z) * n + z * s_b[b * R + j];
+              h2_nxt[(size_t)(b0 + b) * R + j] = h;
+              wk.x2[(size_t)(b0 + b) * R + j] = s_a[b * R + j] + h;
+            }
+          }
+        }
+        grid.sync();
       }
-      grid.sync();
 
       // ---- stages 3 and 4: fc1, fc2 (ReLU) ----
       for (int layer = 0; layer < 2; ++layer) {
         const float* src = layer == 0 ? wk.x2 : wk.hf1;
         float* dst = layer == 0 ? wk.hf1 : wk.hf2;
         const float* add = (layer == 0 ? wk.f1a : wk.f2a) + ci * FC;
+        const void* add_v2 = layer == 0 ? a.s_f1 : a.s_f2;  // B10's stream
         const WT* w = layer == 0 ? w1x : w2x;
         const SparseMat sw = layer == 0 ? a.sp[4] : a.sp[5];
         const int n = layer == 0 ? R : FC;
@@ -611,7 +732,9 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
               for (int b = 0; b < BT; ++b)
                 if (b == lane) s = acc[0][b];
               const size_t o = (size_t)(b0 + lane) * FC + j;
-              dst[o] = fmaxf(s + __ldcg(add + o), 0.f);
+              const float c = V2 ? load_stream(add_v2, (size_t)t * B * FC + o, sbf)
+                                 : __ldcg(add + o);
+              dst[o] = fmaxf(s + c, 0.f);
             }
           }
         }
@@ -672,7 +795,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop(LoopArgs a) {
       grid.sync();
     }
   }
-  if constexpr (!FUSED) {
+  if constexpr (STATE) {
     if (a.snapshot_at == T)
       snapshot(a, wk.h1 + (size_t)(T & 1) * B * R, wk.h2 + (size_t)(T & 1) * B * R,
                wk.x, B, R);
@@ -712,7 +835,8 @@ int launch(const void* fn, const LoopArgs* args, void* stream) {
 extern "C" {
 
 // Floats of workspace a launch needs (zero-filled by the caller): K mel taps
-// (B1; 0 for B3), `span` rows of conditioning products per row (B1: 1).
+// (B1; 0 otherwise), `span` rows of conditioning products per row (B1: 1;
+// B10: 0).
 int64_t wr_sample_loop_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K,
                                    int64_t span) {
   return K * B * R + span * B * (R + 3 * R + 2 * FC) + 4 * B * R + 2 * B * R
@@ -722,15 +846,29 @@ int64_t wr_sample_loop_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K,
 // B1: launches the fused loop on `stream`; returns the CUDA error code
 // (0 = launched).
 int wr_sample_loop_fused(const LoopArgs* args, void* stream) {
-  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, true>
-                           : (const void*)sample_loop<float, true>,
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, ARM_FUSED, false>
+                           : (const void*)sample_loop<float, ARM_FUSED, false>,
+                args, stream);
+}
+
+// B4b: the fused loop with state I/O.
+int wr_sample_loop_fused_state(const LoopArgs* args, void* stream) {
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, ARM_FUSED, true>
+                           : (const void*)sample_loop<float, ARM_FUSED, true>,
                 args, stream);
 }
 
 // B3: launches the materialized loop with state I/O on `stream`.
 int wr_sample_loop_materialized(const LoopArgs* args, void* stream) {
-  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, false>
-                           : (const void*)sample_loop<float, false>,
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, ARM_MAT, true>
+                           : (const void*)sample_loop<float, ARM_MAT, true>,
+                args, stream);
+}
+
+// B10: the loop on pre-projected streams.
+int wr_sample_loop_v2(const LoopArgs* args, void* stream) {
+  return launch(args->bf16 ? (const void*)sample_loop<__nv_bfloat16, ARM_V2, false>
+                           : (const void*)sample_loop<float, ARM_V2, false>,
                 args, stream);
 }
 

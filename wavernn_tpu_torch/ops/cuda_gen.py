@@ -1,15 +1,21 @@
 """WaveRNN sample loops: the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-Both kernels are arms of one templated body in
+The kernels are arms of one templated body in
 ``csrc/sample_loop_fused.cu`` that runs the whole autoregressive loop of
-every row in one cooperative launch:
+every row in one cooperative launch (its third arm, B10, has its wrapper
+in ``ops/cuda_gen2.py``):
 
 - B1, ``generate_fused``: port of
   ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
   ``_make_fused_kernel`` TPU kernel). It upsamples its own conditioning
   from frame-rate folded rows. ``generate_fused_ref`` is the plain version:
   the polyphase reconstruction followed by ``sample_loop.generate_scan``.
+- B4b, ``generate_fused_with_state``: port of
+  ``generate_pallas_fused_with_state`` (``_make_fused_kernel`` with
+  ``with_state=True``, pallas_gen.py:856-873): B1 resuming from and
+  snapshotting the RNN state, the exact-seam passes' kernel.
+  ``generate_fused_with_state_ref`` is its plain version.
 - B3, ``generate_materialized``: port of ``generate_pallas`` and
   ``generate_pallas_with_state`` (the ``_make_kernel`` TPU kernel, both
   arms). It reads sample-rate conditioning and resumes from and snapshots
@@ -121,7 +127,20 @@ def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
     """Plain version of the fused kernel: (num_folds, fold_chunks*hop).
     ``sparse_packed``: the per-step products of the packed matrices over
     their live blocks (``sparse_mm_ref``)."""
-    R, FC, A, NC, n_mels = _dims(core)
+    return generate_fused_with_state_ref(
+        core, frames, phi, hop, aux_tap, fold_chunks, mode, noise, seed,
+        sparse_packed=sparse_packed)[0]
+
+
+def generate_fused_with_state_ref(core, frames, phi, hop: int, aux_tap: int,
+                                  fold_chunks: int, mode: str, noise=None,
+                                  seed: int = 0, init_state=None,
+                                  state_snapshot_at=None, sparse_packed=None):
+    """Plain version of the fused kernel with state I/O: the polyphase
+    reconstruction, then ``generate_scan_with_state`` from ``init_state``
+    with the snapshot at ``state_snapshot_at``. Returns (samples
+    (num_folds, fold_chunks*hop), (h1, h2, x))."""
+    _, _, _, NC, n_mels = _dims(core)
     B = frames.shape[1]
     T = fold_chunks * hop
     mels_up, aux_up = reconstruct_from_folded(frames, phi, hop, aux_tap,
@@ -129,7 +148,7 @@ def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
     return generate_scan_with_state(
         core, mels_up, aux_up, mode,
         _uniforms(noise, seed, T, B, mode, NC, frames.device),
-        sparse_packed=_active_pack(core, sparse_packed))[0]
+        init_state, state_snapshot_at, _active_pack(core, sparse_packed))
 
 
 def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
@@ -404,11 +423,12 @@ class _LoopArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _WEIGHT_FIELDS]
                 + [(f, ctypes.c_void_p) for f in
                    ("h1_0", "h2_0", "x_0", "snap_h1", "snap_h2", "snap_x",
-                    "out", "work")]
+                    "out", "work", "s_i", "s_gi1", "s_gi2", "s_f1", "s_f2",
+                    "wxw1", "wxw2")]
                 + [(f, ctypes.c_int64) for f in
                    ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
                     "fold_chunks", "aux_tap", "T", "span", "snapshot_at",
-                    "mol", "seed", "bf16")]
+                    "mol", "seed", "bf16", "stream_bf16")]
                 + [("sp", _SparseMat * len(STEP_MATRICES))])
 
 
@@ -427,7 +447,8 @@ def _sparse_args(pack, compute_dtype, dev):
 def _lib():
     lib = _build.load("sample_loop_fused")
     if not getattr(lib, "_typed", False):
-        for fn in (lib.wr_sample_loop_fused, lib.wr_sample_loop_materialized):
+        for fn in (lib.wr_sample_loop_fused, lib.wr_sample_loop_fused_state,
+                   lib.wr_sample_loop_materialized, lib.wr_sample_loop_v2):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.wr_sample_loop_work_floats.argtypes = [ctypes.c_int64] * 5
@@ -487,11 +508,86 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
         return generate_fused_ref(core, frames, phi, hop, aux_tap,
                                   fold_chunks, mode, noise, seed,
                                   sparse_packed)
+    pack = _active_pack(core, sparse_packed)
+    out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
+                        noise, seed, compute_dtype, pack, None)
+    generate_fused.launches += 1
+    generate_fused.sparse_launches += pack is not None
+    return out
+
+
+# launches of the kernel, either arm; of its sparse arm (B9)
+generate_fused.launches = 0
+generate_fused.sparse_launches = 0
+
+
+def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
+                              fold_chunks: int, mode: str, noise=None,
+                              seed: int = 0, init_state=None,
+                              state_snapshot_at=None,
+                              compute_dtype=torch.bfloat16):
+    """B4b: ``generate_fused`` resuming from and snapshotting the RNN state
+    (``generate_pallas_fused_with_state``'s contract, with
+    ``generate_materialized``'s convention for the snapshot).
+
+    init_state: (h1 (B, R), h2 (B, R), x (B,)) to resume from, zeros when
+    None; state_snapshot_at: the step s in [0, T] whose entering state is
+    returned, the final state when None. A launch covers whole hop chunks,
+    so two chained launches split at a chunk boundary c1 (the second takes
+    ``frames[c1:]`` and the noise from step c1*hop on) equal one launch.
+    Returns (samples (B, fold_chunks*hop), (h1, h2, x)).
+
+    CPU tensors run the plain version (float32 throughout); CUDA tensors
+    launch B1's state arm with matrices in ``compute_dtype``. Dense only:
+    the exact-seam passes run a pruned model's masked weights dense, as
+    the JAX package does."""
+    if frames.device.type == "cpu":
+        return generate_fused_with_state_ref(
+            core, frames, phi, hop, aux_tap, fold_chunks, mode, noise, seed,
+            init_state, state_snapshot_at)
+    state = (init_state, state_snapshot_at)
+    out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
+                        noise, seed, compute_dtype, None, state)
+    generate_fused_with_state.launches += 1
+    return out
+
+
+# launches of B1's state arm (B4b)
+generate_fused_with_state.launches = 0
+
+
+def _state_operands(init_state, state_snapshot_at, B: int, R: int, T: int,
+                    dev):
+    """The state arm's operands: (h1_0, h2_0, x_0) float32 or Nones, the
+    snapshot buffers (h1, h2, x) and the snapshot step in [0, T]."""
+    s = T if state_snapshot_at is None else int(state_snapshot_at)
+    if not 0 <= s <= T:
+        raise ValueError(f"state_snapshot_at {s} outside [0, {T}]")
+    state = [None, None, None]
+    if init_state is not None:
+        for i, (v, name, shape) in enumerate(zip(
+                init_state, ("h1", "h2", "x"), ((B, R), (B, R), (B,)))):
+            state[i] = v.to(torch.float32).contiguous()
+            _build.check_operand(state[i], name, torch.float32, shape, dev)
+    snap = (torch.empty(B, R, dtype=torch.float32, device=dev),
+            torch.empty(B, R, dtype=torch.float32, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev))
+    return state, snap, s
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
+                  seed, compute_dtype, pack, state):
+    """One launch of the fused loop on CUDA tensors: B1 (``state`` None),
+    or its state arm B4b (``state`` = (init_state, state_snapshot_at)),
+    which also returns the snapshot."""
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
     dev = frames.device
     w = _check_kernel_call(core, mode, compute_dtype, dev)
-    pack = _active_pack(core, sparse_packed)
     R, FC, A, NC, n_mels = _dims(core)
     K = phi.shape[0]
     nf_loc, B, C = frames.shape
@@ -502,33 +598,36 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     _build.check_operand(phi, "phi", torch.float32, (K, hop), dev)
     if not 0 <= aux_tap < K:
         raise ValueError(f"aux_tap {aux_tap} outside the {K} frame taps")
+    if fold_chunks < 1:
+        raise ValueError("the sample loop needs at least one hop chunk")
     u = None
     if noise is not None:
         u = noise_stream(noise, T, mode)
         _build.check_operand(u, "noise", torch.float32,
                              (T, B, NC // 3 + 1 if mol else NC), dev)
+    st, snap, s = ([None] * 3, (None,) * 3, T) if state is None else \
+        _state_operands(*state, B, R, T, dev)
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, K, 1),
                        dtype=torch.float32, device=dev)
     args = _LoopArgs(
-        frames=frames.data_ptr(), phi=phi.data_ptr(),
-        noise=None if u is None else u.data_ptr(),
+        frames=frames.data_ptr(), phi=phi.data_ptr(), noise=_ptr(u),
+        h1_0=_ptr(st[0]), h2_0=_ptr(st[1]), x_0=_ptr(st[2]),
+        snap_h1=_ptr(snap[0]), snap_h2=_ptr(snap[1]), snap_x=_ptr(snap[2]),
         out=out.data_ptr(), work=work.data_ptr(),
         B=B, R=R, FC=FC, A=A, n_mels=n_mels, NC=NC, K=K, hop=hop,
         fold_chunks=fold_chunks, aux_tap=aux_tap, T=T, span=hop,
-        snapshot_at=T, mol=int(mol), seed=seed & _M32,
+        snapshot_at=s, mol=int(mol), seed=seed & _M32,
         bf16=int(compute_dtype == torch.bfloat16),
         sp=_sparse_args(pack, compute_dtype, dev),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
-    _launch("wr_sample_loop_fused", args, dev, "fused sample-loop")
-    generate_fused.launches += 1
-    generate_fused.sparse_launches += pack is not None
-    return out
+    if state is None:
+        _launch("wr_sample_loop_fused", args, dev, "fused sample-loop")
+        return out
+    _launch("wr_sample_loop_fused_state", args, dev,
+            "fused sample-loop (state)")
+    return out, snap
 
-
-# launches of the kernel, either arm; of its sparse arm (B9)
-generate_fused.launches = 0
-generate_fused.sparse_launches = 0
 
 # conditioning rows (steps x batch rows) the materialized kernel projects
 # per span; its workspace holds one span
@@ -566,9 +665,6 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
     mol = mode == "MOL"
     if T < 1:
         raise ValueError("the sample loop needs at least one step")
-    s = T if state_snapshot_at is None else int(state_snapshot_at)
-    if not 0 <= s <= T:
-        raise ValueError(f"state_snapshot_at {s} outside [0, {T}]")
     if tuple(mels_up.shape) != (B, T, n_mels) or tuple(aux.shape) != (
             B, T, 4 * A):
         raise ValueError(f"mels_up {tuple(mels_up.shape)} and aux "
@@ -582,23 +678,15 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
         u = noise_stream(noise, T, mode)
         _build.check_operand(u, "noise", torch.float32,
                              (T, B, NC // 3 + 1 if mol else NC), dev)
-    state = [None, None, None]
-    if init_state is not None:
-        for i, (v, name, shape) in enumerate(zip(
-                init_state, ("h1", "h2", "x"), ((B, R), (B, R), (B,)))):
-            state[i] = v.to(torch.float32).contiguous()
-            _build.check_operand(state[i], name, torch.float32, shape, dev)
-    snap = (torch.empty(B, R, dtype=torch.float32, device=dev),
-            torch.empty(B, R, dtype=torch.float32, device=dev),
-            torch.empty(B, dtype=torch.float32, device=dev))
+    state, snap, s = _state_operands(init_state, state_snapshot_at, B, R, T,
+                                     dev)
     span = max(1, min(T, SPAN_ROWS // B))
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, 0, span),
                        dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
     args = _LoopArgs(
-        cond=cond.data_ptr(), noise=ptr(u), h1_0=ptr(state[0]),
-        h2_0=ptr(state[1]), x_0=ptr(state[2]), snap_h1=snap[0].data_ptr(),
+        cond=cond.data_ptr(), noise=_ptr(u), h1_0=_ptr(state[0]),
+        h2_0=_ptr(state[1]), x_0=_ptr(state[2]), snap_h1=snap[0].data_ptr(),
         snap_h2=snap[1].data_ptr(), snap_x=snap[2].data_ptr(),
         out=out.data_ptr(), work=work.data_ptr(),
         B=B, R=R, FC=FC, A=A, n_mels=n_mels, NC=NC, K=0, hop=1,
