@@ -102,6 +102,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            cuDNN's ``torch.nn.GRU`` at that shape as B5's library
            yardstick; the SM clock, its maximum and the active clock-limit
            reasons read before and after each timed kernel set
+  resident the resident sample-loop body (csrc/sample_loop_resident.cu,
+           which B1, B4b and B3 run on) against the original body's dense arm
+           (``_legacy=True``), bit for bit: B1 at the b1 shape (MOL and
+           RAW, float32 and bfloat16, injected noise and the counter hash)
+           and the main mel's 10 x 12,100; B4b from a state with a
+           snapshot, chained at a chunk boundary; B3 / B4a at 3 x 1,000 and
+           10 x 2,000 and two chained launches of 1,000; both bodies timed
+           in turns (old, new, new, old) with the clocks read: B1 at 1, 10,
+           32 and 50 rows over 8 hop-chunks and at 10 x 12,100, B4b there,
+           B3 at 1 and 10 x 12,100, their outputs held equal too; the
+           per-stage split of a B1 step at 1 and 10 rows (clock64() on
+           block 0); nvcc's registers, shared memory and spills for the new
+           instantiations
   sparse   B9, the sparse arm of B1 and B3, on the main vocoder's weights
            pruned at 93.75 % in (128, 128) blocks: at the b1 shape against
            the dense B1 on the same masked weights (bit for bit, bfloat16
@@ -135,14 +148,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            entry point and the stream projections on their own, clocks
            read around each set
 
-Then the card's name and power limit, the kernels JSON line (thirteen
-kernels), and last the device line. Comparisons run with TF32 off (cuDNN convolutions default to
-TF32). Exits 2 without CUDA or outside a checkout of the repository.
+The launch counts of main, serve, stream and seam show the resident
+body's launches and none of the original body's dense arm. Then the card's
+name and power limit, the kernels JSON line (sixteen kernels: B1, B3 and
+B4b on the resident body and on the original body, whose times come from
+the resident phase's turns), and last the device line. Comparisons run
+with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
+or outside a checkout of the repository.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +175,7 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 B1_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_fused.cu"
+RES_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_resident.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
 B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
@@ -922,12 +941,23 @@ def b8_inputs(tts, seqs, dev):
 
 
 def launch_counts():
-    """Every kernel's launch count, by kernel name (the sample loops count
-    every launch of either arm; sample_loop_sparse, B9, their sparse
-    arm's; sample_loop_fused_state, B4b, B1's state arm's)."""
+    """Every kernel's launch count, by kernel name (sample_loop_fused,
+    _materialized and _fused_state count B1's, B3's and B4b's launches on
+    either body; sample_loop_resident, _resident_mat and _resident_state
+    those on the resident body; sample_loop_old_dense the original body's
+    dense arm, the yardstick no serving path reaches; sample_loop_sparse,
+    B9, the original body's sparse arm)."""
     from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
-    return {"sample_loop_fused": cuda_gen.generate_fused.launches,
-            "sample_loop_materialized": cuda_gen.generate_materialized.launches,
+    fused, state = cuda_gen.generate_fused, cuda_gen.generate_fused_with_state
+    mat = cuda_gen.generate_materialized
+    return {"sample_loop_fused": fused.launches,
+            "sample_loop_materialized": mat.launches,
+            "sample_loop_resident": fused.resident_launches,
+            "sample_loop_resident_mat": mat.resident_launches,
+            "sample_loop_resident_state": state.resident_launches,
+            "sample_loop_old_dense": (fused.legacy_launches
+                                      + state.legacy_launches
+                                      + mat.legacy_launches),
             "sample_loop_sparse": (cuda_gen.generate_fused.sparse_launches
                                    + cuda_gen.generate_materialized
                                    .sparse_launches),
@@ -941,6 +971,10 @@ def launch_counts():
 
 def zero_counts():
     from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
+    for fn in (cuda_gen.generate_fused, cuda_gen.generate_fused_with_state,
+               cuda_gen.generate_materialized):
+        fn.resident_launches = 0
+        fn.legacy_launches = 0
     cuda_gen.generate_fused.launches = 0
     cuda_gen.generate_fused_with_state.launches = 0
     cuda_gen2.generate_v2.launches = 0
@@ -1146,19 +1180,22 @@ def phase_serve(cfg, dev, tts, voc):
         generator=torch.Generator().manual_seed(1), device=dev,
         timings=tm)],
         {"taco_decode_batch": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
-         "taco_decode": 0, "sample_loop_materialized": 0})
+         "taco_decode": 0, "sample_loop_materialized": 0,
+         "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_fast", lambda tm: [tts_to_wav_fast(
         tts, voc, five[0], cfg, 2, steps=400,
         generator=torch.Generator().manual_seed(2), device=dev,
         timings=tm)[0]],
         {"taco_decode": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
-         "taco_decode_batch": 0, "sample_loop_materialized": 0})
+         "taco_decode_batch": 0, "sample_loop_materialized": 0,
+         "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_unbatched", lambda tm: [tts_to_wav(
         tts, voc, five[0], cfg, 2, steps=100,
         generator=torch.Generator().manual_seed(3), device=dev, timings=tm,
         batched=False)[0]],
         {"taco_decode": 1, "sample_loop_materialized": 1, "gru_seq_fwd": 4,
-         "sample_loop_fused": 0, "taco_decode_batch": 0})
+         "sample_loop_fused": 0, "taco_decode_batch": 0,
+         "sample_loop_resident_mat": 1, "sample_loop_old_dense": 0})
 
     # the CLI in-process, from checkpoints in a temp workspace, on two
     # sentences (its decode bound is 2000 frames)
@@ -1186,7 +1223,8 @@ def phase_serve(cfg, dev, tts, voc):
                         for i in (1, 2)]
             run("cli_gen_tacotron_batch_sentences", cli,
                 {"taco_decode_batch": 1, "sample_loop_fused": 1,
-                 "gru_seq_fwd": 4})
+                 "gru_seq_fwd": 4, "sample_loop_resident": 1,
+                 "sample_loop_old_dense": 0})
         finally:
             os.chdir(cwd)
     return counts
@@ -1222,7 +1260,10 @@ def phase_stream(cfg, dev, voc, mel):
     blocks += sv.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = launch_counts()["sample_loop_materialized"]
+    lc = launch_counts()
+    launched = lc["sample_loop_materialized"]
+    on_resident = (lc["sample_loop_resident_mat"] == launched
+                   and lc["sample_loop_old_dense"] == 0)
     got = torch.cat(blocks)
     err = (got - want[0]).abs()
     res = {"frames": frames, "samples": got.numel(), "blocks": len(blocks),
@@ -1231,9 +1272,10 @@ def phase_stream(cfg, dev, voc, mel):
            "max_abs_err": float(err.max()), "wall_s": wall,
            "block_ms": 1e3 * wall / len(blocks),
            "block_audio_ms": 1e3 * 24 * hop / sr,
-           "x_realtime": T / sr / wall, "launches": launched}
+           "x_realtime": T / sr / wall, "launches": launched,
+           "launches_on_resident_body": on_resident}
     ok = (got.shape == want[0].shape and res["share_within_1e-3"] >= 0.999
-          and launched == len(blocks))
+          and launched == len(blocks) and on_resident)
     emit("stream", case="streaming_vs_unbatched", ok=ok, **res)
     if not ok:
         raise AssertionError("stream: streamed samples disagree with the "
@@ -1264,7 +1306,11 @@ def phase_stream(cfg, dev, voc, mel):
             outs[sb] += ys
     torch.cuda.synchronize()
     mwall = time.perf_counter() - t0
-    launched += launch_counts()["sample_loop_materialized"]
+    lc = launch_counts()
+    launched += lc["sample_loop_materialized"]
+    on_resident = (lc["sample_loop_resident_mat"]
+                   == lc["sample_loop_materialized"] > 0
+                   and lc["sample_loop_old_dense"] == 0)
     shares, equal = [], []
     for b in range(n):
         solo = StreamingVocoder(voc, chunk_frames=24, noise=(
@@ -1278,8 +1324,9 @@ def phase_stream(cfg, dev, voc, mel):
         equal.append(float((e == 0).float().mean()))
     mres = {"lanes": n, "frames_per_lane": W, "share_within_1e-3": shares,
             "share_equal": equal, "wall_s": mwall,
-            "x_realtime": n * W * hop / sr / mwall}
-    ok = min(shares) >= 0.999
+            "x_realtime": n * W * hop / sr / mwall,
+            "launches_on_resident_body": on_resident}
+    ok = min(shares) >= 0.999 and on_resident
     emit("stream", case="multistream_lanes_vs_solo", ok=ok, **mres)
     if not ok:
         raise AssertionError("stream: a lane disagrees with its solo stream")
@@ -1740,6 +1787,10 @@ def phase_seam(cfg, dev, voc, mel, tol):
           and res["oracle"]["fused_equal_sequential"]
           and res["oracle"]["materialized_equal_sequential"]
           and seam_l["sample_loop_fused_state"] == 3
+          and seam_l["sample_loop_resident_state"] == 3
+          and seam_l["sample_loop_old_dense"] == 0
+          and xf_l["sample_loop_resident"] == 1
+          and xf_l["sample_loop_old_dense"] == 0
           and seam_l["sample_loop_fused"] == 0
           and seam_l["sample_loop_materialized"] == 0
           and xf_l["sample_loop_fused"] == 1
@@ -1753,6 +1804,313 @@ def phase_seam(cfg, dev, voc, mel, tol):
         raise AssertionError("seam: B4b disagrees with its plain version, a "
                              "handoff is not exact, or the seam path did not "
                              "run on B4b")
+    return res
+
+
+def phase_resident(cfg, dev, voc, mel, build_log, tol):
+    """The resident body (csrc/sample_loop_resident.cu) against the original
+    body's dense arm (``_legacy=True``), bit for bit: B1 at the b1 shape
+    (10 folds x 4 hop-chunks; MOL and RAW, float32 and bfloat16, injected
+    noise and the counter hash) and at the main mel's 10 x 12,100; B4b from
+    a state with a snapshot inside, chained at a chunk boundary; B3 / B4a
+    at 3 x 1,000 and 10 x 2,000 from a state with a snapshot inside, and
+    two chained launches of 1,000; many rows (B1 at 128 rows in both
+    dtypes and 500 in bfloat16, B4b and B3 at 200 rows in float32: past
+    132 blocks, the per-row regions in device memory where the plan puts
+    them there). The original body's dense arm also against its plain
+    version on the same inputs, within ``tol`` (B1 at the b1 shape, MOL and
+    RAW; B4b from the state; B3 at 3 x 1,000 from the state; float32,
+    injected noise): its entries' errors in the kernels line. Then both
+    bodies timed in turns (old, new, new, old), the SM clock and
+    clock-limit reasons read around each set: B1 at 1, 10, 32, 50 and 128
+    rows over 8 hop-chunks, at 500 rows over 2 and at the main path's
+    10 x 12,100, B4b there, B3 at 1 x 12,100 and 10 x 12,100 (the main mel
+    upsampled and folded), each timed pair's outputs held equal too (32
+    rows and more take the several-tile path); the per-stage split of a B1
+    step at 1 and 10 rows (clock64() on block 0,
+    ``generate_fused_profiled``); nvcc's registers, shared memory and
+    spills for the new instantiations. Returns the results."""
+    import torch
+    from wavernn_tpu_torch.config import WaveRNNConfig
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    from wavernn_tpu_torch.ops.fold import fold_with_overlap
+    f32, bf16 = torch.float32, torch.bfloat16
+    pad = torch.nn.functional.pad
+    gen = torch.Generator().manual_seed(9876)
+    R, FC, A = cfg.voc.rnn_dims, cfg.voc.fc_dims, cfg.voc.aux_dims
+    # nvcc -Xptxas -v for each instantiation: its name, registers, shared
+    # memory (static; the plan's dynamic bytes are below) and spills
+    ptxas = [ln.split("info    : ")[-1].strip()
+             for ln in build_log.splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the plan's dynamic shared memory a block and, where the per-row
+    # regions moved to device memory, their bytes a block there
+    plans = {f"{dn}_{B}_rows": [p.smem_bytes, p.row_bytes] for dn, dt in (
+        ("bf16", torch.bfloat16), ("f32", torch.float32))
+        for B in (1, 10, 50, 128, 500)
+        for p in [cg.resident_plan(R, FC, 30, A, 80, B, sms, dt, 5)]}
+    exact, res = {}, {"ptxas": ptxas, "smem_and_row_bytes": plans,
+                      "spills": [ln for ln in ptxas
+                                 if re.search(r"\b[1-9]\d* bytes spill", ln)]}
+    # the original body's dense arm against its plain version: errors, oks
+    old_plain, old_ok = {}, {}
+
+    def hold_old(tag, old, ref):
+        """``old`` (samples, or samples and state) of the original body
+        against the plain version's ``ref``, float32: the samples by
+        check_b1_f32, the state's largest difference within ``tol``."""
+        got, want = (old, ref) if isinstance(old, torch.Tensor) else \
+            (old[0], ref[0])
+        chk, ok = check_b1_f32(tag, got, want, tol)
+        old_plain.update(chk)
+        if not isinstance(old, torch.Tensor):
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(old[1], ref[1]))
+            old_plain[f"{tag}_state_max_abs_err"] = err
+            ok = ok and err <= tol
+        old_ok[tag] = ok
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return bool(torch.equal(a, b))
+        return all(same(x, y) for x, y in zip(a, b))
+
+    def rand_state(B):
+        return tuple(t.to(dev) for t in (torch.rand(B, R, generator=gen) - 0.5,
+                                         torch.rand(B, R, generator=gen) - 0.5,
+                                         torch.rand(B, generator=gen) * 2 - 1))
+
+    def uniforms(seed, T, B, NC, mode):
+        nu = NC // 3 + 1 if mode == "MOL" else NC
+        u = cg.counter_uniforms(seed, T, B, nu, mode == "MOL", dev)
+        return (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+
+    def cut(noise, a, b):
+        return tuple(v[a:b] for v in noise) if isinstance(noise, tuple) \
+            else noise[a:b]
+
+    dts = (("f32", f32), ("bf16", bf16))
+    with torch.no_grad():
+        # ---- B1 and B4b at the b1 shape ----
+        for mode in ("MOL", "RAW"):
+            v = wr.WaveRNN(WaveRNNConfig(mode=mode), cfg.dsp)
+            v.reset_parameters(gen)
+            core = v.to(dev).eval().core_weights()
+            mels = torch.rand(1, 80, 30, generator=gen).to(dev)
+            frames, phi, geo, chunks = wr.fused_conditioning(
+                v, pad(mels, (2, 2)), 30 * 275, 550, 275)
+            B, T = frames.shape[1], chunks * geo.hop
+            noise = uniforms(61, T, B, core["fc3.weight"].shape[0], mode)
+            args = (core, frames, phi, geo.hop, -geo.d_lo, chunks, mode)
+            for dn, dt in dts:
+                for nn, nz in (("noise", {"noise": noise}),
+                               ("hash", {"seed": 62})):
+                    old = cg.generate_fused(*args, compute_dtype=dt,
+                                            _legacy=True, **nz)
+                    exact[f"b1_{mode}_{dn}_{nn}"] = same(
+                        cg.generate_fused(*args, compute_dtype=dt, **nz),
+                        old)
+                    if dn == "f32" and nn == "noise":
+                        hold_old(f"b1_{mode}_f32", old,
+                                 cg.generate_fused_ref(*args, noise=noise))
+                state = rand_state(B)
+                kw = dict(noise=noise, init_state=state,
+                          state_snapshot_at=825, compute_dtype=dt)
+                old = cg.generate_fused_with_state(*args, **kw, _legacy=True)
+                exact[f"b4b_{mode}_{dn}_snapshot_825"] = same(
+                    cg.generate_fused_with_state(*args, **kw), old)
+                if dn == "f32" and mode == "MOL":
+                    kw.pop("compute_dtype")
+                    hold_old("b4b_MOL_f32", old,
+                             cg.generate_fused_with_state_ref(*args, **kw))
+            c1, K = 2, geo.K
+            T1 = c1 * geo.hop
+            state = rand_state(B)
+            y, st = cg.generate_fused_with_state(*args, noise=noise,
+                                                 init_state=state)
+            y1, st1 = cg.generate_fused_with_state(
+                core, frames[:c1 + K - 1].contiguous(), phi, geo.hop,
+                -geo.d_lo, c1, mode, noise=cut(noise, 0, T1),
+                init_state=state)
+            y2, st2 = cg.generate_fused_with_state(
+                core, frames[c1:].contiguous(), phi, geo.hop, -geo.d_lo,
+                chunks - c1, mode, noise=cut(noise, T1, T), init_state=st1)
+            _, snap = cg.generate_fused_with_state(
+                *args, noise=noise, init_state=state, state_snapshot_at=T1)
+            old = cg.generate_fused_with_state(*args, noise=noise,
+                                               init_state=state, _legacy=True)
+            exact[f"b4b_{mode}_equal_old_body"] = same((y, st), old)
+            exact[f"b4b_{mode}_chained_equal_one_launch"] = (
+                same(torch.cat([y1, y2], dim=1), y) and same(st2, st))
+            exact[f"b4b_{mode}_snapshot_equal_shorter_launch"] = same(snap,
+                                                                     st1)
+        res["b1_shape"] = [B, T]
+        # ---- B1 at the main mel's 10 x 12,100 ----
+        core, mode = voc.core_weights(), cfg.voc.mode
+        mels = torch.as_tensor(mel)[None].to(dev)
+        frames, phi, geo, chunks = wr.fused_conditioning(
+            voc, pad(mels, (2, 2)), mels.shape[-1] * 275, cfg.voc.target,
+            cfg.voc.overlap)
+        margs = (core, frames, phi, geo.hop, -geo.d_lo, chunks, mode)
+        Bm, Tm = frames.shape[1], chunks * geo.hop
+        for dn, dt in dts:
+            exact[f"b1_main_{dn}_hash"] = same(
+                cg.generate_fused(*margs, seed=5, compute_dtype=dt),
+                cg.generate_fused(*margs, seed=5, compute_dtype=dt,
+                                  _legacy=True))
+        res["main_shape"] = [Bm, Tm]
+        # ---- B3 / B4a ----
+        for B3, T3 in ((3, 1000), (10, 2000)):
+            mu = torch.rand(B3, T3, 80, generator=gen).to(dev)
+            au = (torch.rand(B3, T3, 4 * A, generator=gen) * 2 - 1).to(dev)
+            noise = uniforms(63, T3, B3, 30, mode)
+            state = rand_state(B3)
+            for dn, dt in dts:
+                for nn, nz in (("noise", {"noise": noise}),
+                               ("hash", {"seed": 64})):
+                    kw = dict(init_state=state, state_snapshot_at=T3 // 3,
+                              compute_dtype=dt, **nz)
+                    old = cg.generate_materialized(core, mu, au, mode, **kw,
+                                                   _legacy=True)
+                    exact[f"b3_{B3}x{T3}_{dn}_{nn}"] = same(
+                        cg.generate_materialized(core, mu, au, mode, **kw),
+                        old)
+                    if B3 == 3 and dn == "f32" and nn == "noise":
+                        kw.pop("compute_dtype")
+                        hold_old("b3_3x1000_f32", old,
+                                 cg.generate_materialized_ref(core, mu, au,
+                                                              mode, **kw))
+            if B3 == 10:
+                y, st = cg.generate_materialized(core, mu, au, mode,
+                                                 noise=noise)
+                y1, st1 = cg.generate_materialized(
+                    core, mu[:, :1000], au[:, :1000], mode,
+                    noise=cut(noise, 0, 1000))
+                y2, st2 = cg.generate_materialized(
+                    core, mu[:, 1000:], au[:, 1000:], mode,
+                    noise=cut(noise, 1000, 2000), init_state=st1)
+                exact["b3_chained_1000_equal_one_launch"] = (
+                    same(torch.cat([y1, y2], dim=1), y) and same(st2, st))
+        # ---- many rows: more than one row a sampling block, and the
+        # per-row regions in device memory where the plan moves them ----
+        many = {}
+        for nb, dn, dt in ((128, "bf16", bf16), (128, "f32", f32),
+                           (500, "bf16", bf16)):
+            fr = torch.rand(2 + geo.K - 1, nb, frames.shape[2],
+                            generator=gen).to(dev)
+            a2 = (core, fr, phi, geo.hop, -geo.d_lo, 2, mode)
+            exact[f"b1_{nb}_rows_{dn}_hash"] = same(
+                cg.generate_fused(*a2, seed=65, compute_dtype=dt),
+                cg.generate_fused(*a2, seed=65, compute_dtype=dt,
+                                  _legacy=True))
+            many[f"b1_{nb}_rows_{dn}"] = cg.resident_plan(
+                R, FC, 30, A, 80, nb, sms, dt, geo.K).rows_global
+        state = rand_state(200)
+        fr = torch.rand(2 + geo.K - 1, 200, frames.shape[2],
+                        generator=gen).to(dev)
+        a2 = (core, fr, phi, geo.hop, -geo.d_lo, 2, mode)
+        kw = dict(seed=66, init_state=state, state_snapshot_at=300,
+                  compute_dtype=f32)
+        exact["b4b_200_rows_f32_snapshot_300"] = same(
+            cg.generate_fused_with_state(*a2, **kw),
+            cg.generate_fused_with_state(*a2, **kw, _legacy=True))
+        mu = torch.rand(200, 300, 80, generator=gen).to(dev)
+        au = (torch.rand(200, 300, 4 * A, generator=gen) * 2 - 1).to(dev)
+        kw = dict(seed=67, init_state=state, state_snapshot_at=100,
+                  compute_dtype=f32)
+        exact["b3_200x300_f32_hash"] = same(
+            cg.generate_materialized(core, mu, au, mode, **kw),
+            cg.generate_materialized(core, mu, au, mode, **kw, _legacy=True))
+        many["b4b_b3_200_rows_f32"] = cg.resident_plan(
+            R, FC, 30, A, 80, 200, sms, f32, geo.K).rows_global
+        res["many_rows_per_row_regions_in_device_memory"] = many
+    torch.cuda.synchronize()
+    res["exact"] = exact
+    res["old_body_vs_plain"] = old_plain
+    res["old_body_vs_plain_ok"] = old_ok
+
+    # ---- both bodies timed in turns, their outputs held equal too ----
+    def turns(old, new, reps, per=1.0):
+        clk = [gpu_clocks()]
+        o1, out_old = cuda_ms(old, reps)
+        n1, out_new = cuda_ms(new, reps)
+        n2, _ = cuda_ms(new, reps)
+        o2, _ = cuda_ms(old, reps)
+        clk.append(gpu_clocks())
+        return {"old": [per * o1, per * o2], "new": [per * n1, per * n2],
+                "speedup": min(o1, o2) / min(n1, n2),
+                "new_faster": max(n1, n2) < min(o1, o2), "clocks": clk,
+                "equal": same(out_new, out_old)}
+
+    timing = {}
+    with torch.no_grad():
+        for nb, nc in ((1, 8), (10, 8), (32, 8), (50, 8), (128, 8),
+                       (500, 2)):
+            fr = torch.rand(nc + geo.K - 1, nb, frames.shape[2],
+                            generator=gen).to(dev)
+            a8 = (core, fr, phi, geo.hop, -geo.d_lo, nc, mode)
+            timing[f"b1_{nb}_rows_us_per_step"] = turns(
+                lambda: cg.generate_fused(*a8, seed=5, _legacy=True),
+                lambda: cg.generate_fused(*a8, seed=5), 2 if nb < 128 else 1,
+                1e3 / (nc * geo.hop))
+        timing["b1_main_ms"] = turns(
+            lambda: cg.generate_fused(*margs, seed=5, _legacy=True),
+            lambda: cg.generate_fused(*margs, seed=5), 1)
+        state = rand_state(Bm)
+        kw = dict(seed=5, init_state=state,
+                  state_snapshot_at=cfg.voc.target + cfg.voc.overlap)
+        timing["b4b_main_ms"] = turns(
+            lambda: cg.generate_fused_with_state(*margs, **kw, _legacy=True),
+            lambda: cg.generate_fused_with_state(*margs, **kw), 1)
+        mu, au = voc.upsample(pad(mels, (2, 2)))
+        muf = fold_with_overlap(mu, cfg.voc.target, cfg.voc.overlap)
+        auf = fold_with_overlap(au, cfg.voc.target, cfg.voc.overlap)
+        T3 = muf.shape[1]
+        for tag, (m3, a3) in (("b3_folds_ms", (muf, auf)),
+                              ("b3_unbatched_ms", (mu[:, :T3].contiguous(),
+                                                   au[:, :T3].contiguous()))):
+            timing[tag] = turns(
+                lambda: cg.generate_materialized(core, m3, a3, mode, seed=7,
+                                                 _legacy=True),
+                lambda: cg.generate_materialized(core, m3, a3, mode, seed=7),
+                1)
+            timing[tag]["shape"] = list(m3.shape[:2])
+        # ---- the per-stage split of a B1 step, block 0 ----
+        clock = gpu_clocks()
+        mhz = float(clock.split(" MHz")[0]) if " MHz" in clock else None
+        split = {}
+        for nb in (1, 10):
+            fr = torch.rand(8 + geo.K - 1, nb, frames.shape[2],
+                            generator=gen).to(dev)
+            _, cyc, steps = cg.generate_fused_profiled(
+                core, fr, phi, geo.hop, -geo.d_lo, 8, mode, seed=5)
+            split[nb] = {st: {k: v / steps for k, v in kinds.items()}
+                         for st, kinds in cyc.items() if st != "prologue"}
+            split[nb]["step_cycles"] = sum(sum(k.values()) for k in
+                                           split[nb].values())
+            if mhz:
+                split[nb]["step_us_at_sm_clock"] = (split[nb]["step_cycles"]
+                                                    / mhz)
+        res["split_cycles_per_step"] = split
+        res["split_sm_clock"] = clock
+    res["timing"] = timing
+    res["faster"] = {k: v["new_faster"] for k, v in timing.items()}
+    exact.update({f"timed_{k}": v["equal"] for k, v in timing.items()})
+    res["old_body_max_abs_err"] = {
+        "b1": max(old_plain["b1_MOL_f32_max_abs_err"],
+                  old_plain["b1_RAW_f32_max_abs_err"]),
+        "b4b": max(old_plain["b4b_MOL_f32_max_abs_err"],
+                   old_plain["b4b_MOL_f32_state_max_abs_err"]),
+        "b3": max(old_plain["b3_3x1000_f32_max_abs_err"],
+                  old_plain["b3_3x1000_f32_state_max_abs_err"])}
+    ok = all(exact.values()) and all(old_ok.values())
+    emit("resident", ok=ok, tolerance=tol, **res)
+    if not ok:
+        raise AssertionError("resident: the resident body differs from the "
+                             "original body's dense arm, or that arm from "
+                             "its plain version")
     return res
 
 
@@ -2041,7 +2399,8 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    launches = {k: counts[k] for k in ("sample_loop_fused", "taco_decode",
+    launches = {k: counts[k] for k in ("sample_loop_fused",
+                                       "sample_loop_resident", "taco_decode",
                                        "gru_seq_fwd")}
     audio_s = len(wav) / cfg.dsp.sample_rate
     stages = elapsed_ms(timings)
@@ -2066,6 +2425,8 @@ def main() -> int:
     # folds can reach sqrt(2)
     if not (finite and peak <= math.sqrt(2) + 1e-9
             and all(launches.values())
+            and counts["sample_loop_resident"] == counts["sample_loop_fused"]
+            and counts["sample_loop_old_dense"] == 0
             and counts["sample_loop_materialized"] == 0):
         raise AssertionError("main path: bad wave or a kernel never ran")
 
@@ -2951,6 +3312,9 @@ def main() -> int:
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
 
+    # ---- resident: the redesigned body against the original body ----
+    resident = phase_resident(cfg, dev, voc, mel,
+                              logs.get("sample_loop_resident", ""), TOL)
     # ---- sparse: B9 at the b1 shape, one row and one streaming block ----
     sparse = phase_sparse(cfg, dev, voc, mel, TOL)
     # ---- seam: B4b and exact-seam generation; b10: the pre-projected
@@ -2958,16 +3322,42 @@ def main() -> int:
     seam = phase_seam(cfg, dev, voc, mel, TOL)
     b10 = phase_b10(cfg, dev, voc, mel, TOL)
 
+    # B1, B3 and B4b run on the resident body; their original body's entries
+    # keep its times from the resident phase's turns, its errors against
+    # the plain versions there, and its launches on the paths: none
+    rt, old_err = resident["timing"], resident["old_body_max_abs_err"]
+    b1_err = max(b1["MOL"]["f32_injected_max_abs_err"],
+                 b1["MOL"]["prng_max_abs_err"], b1_main["f32_max_abs_err"])
+    b1_by = "operations" if fl / PEAK_BF16 >= by / PEAK_BYTES else "bytes"
+    b3_err = max(b3["f32_odd_max_abs_err"], b3["f32_odd_state_max_abs_err"])
+    unb = serve_counts["tts_to_wav_unbatched"]
+    seam_l = seam["path"]["seam"]["launches"]
     kernels = [
+        {"name": "sample_loop_resident", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:673",
+         "launches": launches["sample_loop_resident"],
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain,
+         "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None},
+        {"name": "sample_loop_resident_mat", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:220",
+         "launches": unb["sample_loop_resident_mat"] + stream_b3,
+         "max_abs_err": b3_err, "ms": b3_t["folds"]["ms"],
+         "plain_ms": b3_t["folds"]["plain_ms"],
+         "bound_ms": b3_t["folds"]["bound_ms"],
+         "bound_by": b3_t["folds"]["bound_by"], "library_ms": None},
+        {"name": "sample_loop_resident_state", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:673",
+         "launches": seam_l["sample_loop_resident_state"],
+         "max_abs_err": seam["max_abs_err"], "ms": seam["timing"]["ms"],
+         "plain_ms": seam["timing"]["plain_ms"],
+         "bound_ms": seam["timing"]["bound_ms"],
+         "bound_by": seam["timing"]["bound_by"], "library_ms": None},
         {"name": "sample_loop_fused", "route": "cuda", "source": B1_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gen.py:673",
-         "launches": launches["sample_loop_fused"],
-         "max_abs_err": max(b1["MOL"]["f32_injected_max_abs_err"],
-                            b1["MOL"]["prng_max_abs_err"],
-                            b1_main["f32_max_abs_err"]),
-         "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
-         "bound_by": "operations" if fl / PEAK_BF16 >= by / PEAK_BYTES
-         else "bytes", "library_ms": None},
+         "launches": counts["sample_loop_old_dense"],
+         "max_abs_err": old_err["b1"], "ms": min(rt["b1_main_ms"]["old"]),
+         "plain_ms": b1_plain, "bound_ms": b1_bound, "bound_by": b1_by,
+         "library_ms": None},
         {"name": "taco_decode", "route": "cuda", "source": B2_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco.py:74",
          "launches": launches["taco_decode"],
@@ -2979,11 +3369,9 @@ def main() -> int:
          else "bytes", "library_ms": None},
         {"name": "sample_loop_materialized", "route": "cuda",
          "source": B1_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:220",
-         "launches": (serve_counts["tts_to_wav_unbatched"]
-                      ["sample_loop_materialized"] + stream_b3),
-         "max_abs_err": max(b3["f32_odd_max_abs_err"],
-                            b3["f32_odd_state_max_abs_err"]),
-         "ms": b3_t["folds"]["ms"], "plain_ms": b3_t["folds"]["plain_ms"],
+         "launches": unb["sample_loop_old_dense"],
+         "max_abs_err": old_err["b3"], "ms": min(rt["b3_folds_ms"]["old"]),
+         "plain_ms": b3_t["folds"]["plain_ms"],
          "bound_ms": b3_t["folds"]["bound_ms"],
          "bound_by": b3_t["folds"]["bound_by"], "library_ms": None},
         {"name": "taco_decode_batch", "route": "cuda", "source": B2_SOURCE,
@@ -3051,9 +3439,9 @@ def main() -> int:
         {"name": "sample_loop_fused_state", "route": "cuda",
          "source": B1_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gen.py:673",
-         "launches": seam["path"]["seam"]["launches"]
-         ["sample_loop_fused_state"],
-         "max_abs_err": seam["max_abs_err"], "ms": seam["timing"]["ms"],
+         "launches": seam_l["sample_loop_old_dense"],
+         "max_abs_err": old_err["b4b"],
+         "ms": min(rt["b4b_main_ms"]["old"]),
          "plain_ms": seam["timing"]["plain_ms"],
          "bound_ms": seam["timing"]["bound_ms"],
          "bound_by": seam["timing"]["bound_by"], "library_ms": None},

@@ -700,3 +700,150 @@ def test_v2_kernel_matches_plain(cuda, mode):
         want = cuda_gen2.generate_v2_ref(core, mu, au, mode, seed=31,
                                          stream_dtype=f32)
         torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+def _resident_case(mode, cuda, seed, rnn, fc):
+    gen = torch.Generator().manual_seed(seed)
+    voc = wr.WaveRNN(WaveRNNConfig(mode=mode, rnn_dims=rnn, fc_dims=fc,
+                                   compute_dims=16, res_out_dims=32,
+                                   res_blocks=1), DSPConfig())
+    voc.reset_parameters(gen)
+    return voc.to(cuda).eval().core_weights(), gen
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_resident_fused_equals_legacy_body(cuda, mode, dtype):
+    """B1 and B4b on the resident body against the original body's dense arm,
+    bit for bit: rnn 256 (one or two units a block on the card's SMs), fc
+    128 (some blocks own no fc unit), 10 rows in more than one 8-row tile
+    of the old body, injected noise and the counter hash; B4b from a given
+    state with a snapshot inside, chained at a chunk boundary. The routing
+    counts: the resident body's launches, none of the old dense arm's
+    unless asked for."""
+    core, gen = _resident_case(mode, cuda, 31, 256, 128)
+    B, chunks, c1, hop, K = 10, 4, 2, 275, 5
+    frames = torch.rand(chunks + K - 1, B, 80 + 32, generator=gen).to(cuda)
+    phi = torch.rand(K, hop, generator=gen).to(cuda)
+    T, T1 = chunks * hop, c1 * hop
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    u = cuda_gen.counter_uniforms(7, T, B, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    cut = (lambda n, a, b: tuple(v[a:b] for v in n) if mode == "MOL"
+           else n[a:b])
+    state = tuple(t.to(cuda) for t in (torch.rand(B, 256, generator=gen) - .5,
+                                       torch.rand(B, 256, generator=gen) - .5,
+                                       torch.rand(B, generator=gen) - .5))
+    args = (core, frames, phi, hop, 2, chunks, mode)
+    kw = dict(compute_dtype=dtype)
+    with torch.no_grad():
+        before = (cuda_gen.generate_fused.resident_launches,
+                  cuda_gen.generate_fused.legacy_launches)
+        for nz in ({"noise": noise}, {"seed": 11}):
+            new = cuda_gen.generate_fused(*args, **nz, **kw)
+            old = cuda_gen.generate_fused(*args, **nz, **kw, _legacy=True)
+            assert torch.equal(new, old), nz.keys()
+        assert (cuda_gen.generate_fused.resident_launches,
+                cuda_gen.generate_fused.legacy_launches) == (
+                    before[0] + 2, before[1] + 2)
+        skw = dict(noise=noise, init_state=state, state_snapshot_at=700, **kw)
+        new = cuda_gen.generate_fused_with_state(*args, **skw)
+        old = cuda_gen.generate_fused_with_state(*args, **skw, _legacy=True)
+        assert torch.equal(new[0], old[0]) and _same(new[1], old[1])
+        y, st = cuda_gen.generate_fused_with_state(
+            *args, noise=noise, init_state=state, **kw)
+        y1, st1 = cuda_gen.generate_fused_with_state(
+            core, frames[:c1 + K - 1].contiguous(), phi, hop, 2, c1, mode,
+            noise=cut(noise, 0, T1), init_state=state, **kw)
+        y2, st2 = cuda_gen.generate_fused_with_state(
+            core, frames[c1:].contiguous(), phi, hop, 2, chunks - c1, mode,
+            noise=cut(noise, T1, T), init_state=st1, **kw)
+        _, snap = cuda_gen.generate_fused_with_state(
+            *args, noise=noise, init_state=state, state_snapshot_at=T1, **kw)
+        old = cuda_gen.generate_fused_with_state(
+            *args, noise=noise, init_state=state, **kw, _legacy=True)
+    assert torch.equal(y, old[0]) and _same(st, old[1])
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and _same(st2, st)
+    assert _same(snap, st1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_resident_materialized_equals_legacy_body(cuda, mode, dtype):
+    """B3 with B4a on the resident body against the original body's dense
+    arm, bit for bit, at the same narrow widths: 3 rows x 300 steps from a
+    given state with a snapshot inside, injected noise and the counter
+    hash; two chained launches of 150 equal one."""
+    core, gen = _resident_case(mode, cuda, 32, 256, 128)
+    B, T, T1 = 3, 300, 150
+    mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+    au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    u = cuda_gen.counter_uniforms(8, T, B, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    cut = (lambda n, a, b: tuple(v[a:b] for v in n) if mode == "MOL"
+           else n[a:b])
+    state = tuple(t.to(cuda) for t in (torch.rand(B, 256, generator=gen) - .5,
+                                       torch.rand(B, 256, generator=gen) - .5,
+                                       torch.rand(B, generator=gen) - .5))
+    kw = dict(compute_dtype=dtype)
+    with torch.no_grad():
+        for nz in ({"noise": noise}, {"seed": 12}):
+            skw = dict(init_state=state, state_snapshot_at=100, **nz, **kw)
+            new = cuda_gen.generate_materialized(core, mu, au, mode, **skw)
+            old = cuda_gen.generate_materialized(core, mu, au, mode, **skw,
+                                                 _legacy=True)
+            assert torch.equal(new[0], old[0]) and _same(new[1], old[1])
+        y, st = cuda_gen.generate_materialized(core, mu, au, mode,
+                                               noise=noise, **kw)
+        y1, st1 = cuda_gen.generate_materialized(
+            core, mu[:, :T1], au[:, :T1], mode, noise=cut(noise, 0, T1), **kw)
+        y2, st2 = cuda_gen.generate_materialized(
+            core, mu[:, T1:], au[:, T1:], mode, noise=cut(noise, T1, T),
+            init_state=st1, **kw)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and _same(st2, st)
+
+
+@pytest.mark.parametrize("rows,dtype", [(128, torch.bfloat16),
+                                        (128, torch.float32),
+                                        (500, torch.bfloat16)])
+def test_resident_many_rows_equals_legacy_body(cuda, rows, dtype):
+    """Past 64 rows at the default rnn and fc widths (512), bit for bit
+    against the original body's dense arm: B1 over two hop chunks (bench
+    .py's 128 folds; 500 rows, several a sampling block) and B3 with B4a
+    from a given state with a snapshot inside, under the counter hash. In
+    float32 at 128 rows and at 500 the plan keeps the per-row regions in
+    device memory, in bfloat16 at 128 in shared memory."""
+    core, gen = _resident_case("MOL", cuda, 33, 512, 512)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = cuda_gen.resident_plan(512, 512, 30, 8, 80, rows, sms, dtype, 5)
+    assert plan.rows_global == (rows == 500 or dtype == torch.float32)
+    chunks, hop, K = 2, 275, 5
+    frames = torch.rand(chunks + K - 1, rows, 80 + 32,
+                        generator=gen).to(cuda)
+    phi = torch.rand(K, hop, generator=gen).to(cuda)
+    args = (core, frames, phi, hop, 2, chunks, "MOL")
+    T = 120
+    mu = torch.rand(rows, T, 80, generator=gen).to(cuda)
+    au = (torch.rand(rows, T, 32, generator=gen) * 2 - 1).to(cuda)
+    state = tuple(t.to(cuda) for t in (
+        torch.rand(rows, 512, generator=gen) - .5,
+        torch.rand(rows, 512, generator=gen) - .5,
+        torch.rand(rows, generator=gen) - .5))
+    skw = dict(seed=14, init_state=state, state_snapshot_at=50,
+               compute_dtype=dtype)
+    with torch.no_grad():
+        new = cuda_gen.generate_fused(*args, seed=13, compute_dtype=dtype)
+        old = cuda_gen.generate_fused(*args, seed=13, compute_dtype=dtype,
+                                      _legacy=True)
+        new3 = cuda_gen.generate_materialized(core, mu, au, "MOL", **skw)
+        old3 = cuda_gen.generate_materialized(core, mu, au, "MOL", **skw,
+                                              _legacy=True)
+    assert torch.equal(new, old)
+    assert torch.equal(new3[0], old3[0]) and _same(new3[1], old3[1])

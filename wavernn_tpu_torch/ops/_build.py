@@ -21,7 +21,8 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sample_loop_fused", "taco_decode", "gru_seq", "taco_train")
+SOURCES = ("sample_loop_fused", "sample_loop_resident", "taco_decode",
+           "gru_seq", "taco_train")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

@@ -1,10 +1,16 @@
 """WaveRNN sample loops: the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-The kernels are arms of one templated body in
-``csrc/sample_loop_fused.cu`` that runs the whole autoregressive loop of
-every row in one cooperative launch (its third arm, B10, has its wrapper
-in ``ops/cuda_gen2.py``):
+Two kernel bodies run the whole autoregressive loop of every row in one
+cooperative launch. Dense weights run on ``csrc/sample_loop_resident.cu``
+(weights resident in shared memory, activations read as step-tagged
+words instead of behind a grid barrier, the conditioning built once per
+row; its launch plan is ``resident_plan``). The original body,
+``csrc/sample_loop_fused.cu``, runs B9's sparse arm (``sparse_packed=``)
+and B10 (``ops/cuda_gen2.py``); its dense arm stays launchable through
+the wrappers' private ``_legacy=True``, the yardstick the resident body
+is held to bit for bit and timed against.
+``loop_body`` says which body a call runs on. The kernels:
 
 - B1, ``generate_fused``: port of
   ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
@@ -457,6 +463,243 @@ def _lib():
     return lib
 
 
+# ---- the resident body (csrc/sample_loop_resident.cu) ----
+
+# the shared memory one block may use on Hopper (H100, H200)
+SMEM_BUDGET = 232_448
+# fc3 stays in shared memory up to this size (MOL's 30 classes: 30 KB in
+# bfloat16, 60 KB in float32); RAW's 512 classes read it from L2
+W3_RESIDENT_MAX = 64 * 1024
+# the kernel's warps a block and rows a warp takes in a GRU stage
+RESIDENT_WARPS = 8
+GRU_ROWS = 8
+# the mel taps a sampling block preloads (the kernel's KMAX), and the
+# columns of a conditioning dot (cond_dots: four a lane)
+RESIDENT_MAX_TAPS = 8
+RESIDENT_MAX_COND = 128
+# ResArgs::off, in the kernel's Region order
+RESIDENT_REGIONS = ("mbar", "prof", "wi1", "wh1", "wi2x", "wh2", "w1x",
+                    "w2x", "w3", "w_imel", "w_ia1", "wi2a", "w1a", "w2a",
+                    "gh1", "gh2", "own_h1", "own_h2", "plane", "x_own",
+                    "logits", "consts", "tile_a", "tile_b")
+# the regions that grow with the row count: the hidden sums, the owned
+# units' state and the conditioning planes (block-private, so they may lie
+# in device memory where shared memory is short)
+ROW_REGIONS = ("gh1", "gh2", "own_h1", "own_h2", "plane")
+_PROF_STAGES = ("prologue", "gru1", "gru2", "fc1", "fc2", "sample")
+_PROF_KINDS = ("first_poll", "wait", "products", "draw", "deferred",
+               "other")
+
+
+class ResidentPlan:
+    """The resident body's launch plan for one shape: ``G`` blocks (one per
+    SM); block g owns the R-wide units ``units_r[g]`` of the GRU stages and
+    the FC-wide units ``units_fc[g]`` of fc1/fc2 (-1 pads the slots it
+    lacks); with ``exclusive``, the B sampling blocks own none, and fc3's
+    rows (only they hold them) share the unit weights' bytes; the byte
+    offset of each region (``offsets``, by RESIDENT_REGIONS name) and
+    ``smem_bytes`` of shared memory in all; with ``rows_global``, the
+    per-row regions (ROW_REGIONS) lie instead in a device buffer of
+    ``row_bytes`` a block, their offsets counted from its slice;
+    ``tile_rows`` rows of activations a fetch brings in; whether fc3's rows
+    are resident (``w3_resident``)."""
+
+    def __init__(self, G, units_r, units_fc, sizes, tile_rows, w3_resident,
+                 exclusive=False, alias_w3=False, rows_global=False):
+        self.G, self.units_r, self.units_fc = G, units_r, units_fc
+        self.UR, self.UF = len(units_r[0]), len(units_fc[0])
+        self.tile_rows, self.w3_resident = tile_rows, w3_resident
+        self.exclusive, self.alias_w3 = exclusive, alias_w3
+        self.rows_global = rows_global
+        self.sizes = sizes
+        self.offsets, off, goff = {}, 0, 0
+        for name in RESIDENT_REGIONS:
+            size = -(-sizes[name] // 16) * 16
+            if rows_global and name in ROW_REGIONS:
+                self.offsets[name] = goff
+                goff += size
+                continue
+            self.offsets[name] = off
+            if not (alias_w3 and name == "w3"):
+                off += size
+        if alias_w3:
+            self.offsets["w3"] = self.offsets["wi1"]
+        self.smem_bytes, self.row_bytes = off, goff
+
+
+def _own(n: int, G: int, first: int = 0):
+    """Units 0..n-1 dealt to blocks first..G-1 in turn (block g's slot s:
+    unit (g - first) + s*(G - first)); blocks below ``first`` own none."""
+    owners = G - first
+    per = -(-n // owners)
+    return [[(g - first) + s * owners
+             if g >= first and (g - first) + s * owners < n else -1
+             for s in range(per)] for g in range(G)]
+
+
+def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
+                  sms: int, compute_dtype=torch.bfloat16, taps: int = 0,
+                  budget: int = SMEM_BUDGET) -> ResidentPlan:
+    """The resident body's plan for B rows on ``sms`` SMs with matrices in
+    ``compute_dtype`` and ``taps`` mel taps (B1's K; B3: 0): every block's
+    owned units, region layout and tile rows (tile_b also holds a sampled
+    row's base, taps and w_Ix: taps + 2 rows at least). The per-row
+    regions stay in shared memory while a tile of min(B, GRU_ROWS) rows
+    still fits beside them, else they move to device memory (many rows:
+    from 378 at the default widths in bfloat16, from 65 in float32), so any
+    row count runs. Raises ValueError, naming the budget, when a block's
+    weights and one row of tiles do not fit ``budget`` bytes."""
+    if sms < 1 or B < 1:
+        raise ValueError(f"need at least one SM and one row (sms {sms}, "
+                         f"B {B})")
+    if max(n_mels, A) > RESIDENT_MAX_COND:
+        raise ValueError(f"the resident sample loop's conditioning dots take "
+                         f"at most {RESIDENT_MAX_COND} columns a row: n_mels "
+                         f"{n_mels}, aux_dims {A}")
+    wb = 2 if compute_dtype == torch.bfloat16 else 4
+    w3_resident = NC * FC * wb <= W3_RESIDENT_MAX
+    # few rows: the sampling blocks own no unit, so the others' deferred
+    # products and B3's conditioning run while the rows are sampled; only
+    # while each of the others still has at most one GRU item a warp
+    exclusive = (B < sms and -(-R // (sms - B)) * -(-B // GRU_ROWS)
+                 <= RESIDENT_WARPS)
+    first = B if exclusive else 0
+    units_r, units_fc = _own(R, sms, first), _own(FC, sms, first)
+    UR, UF = len(units_r[0]), len(units_fc[0])
+    alias_w3 = exclusive and w3_resident and (
+        NC * FC <= UR * 12 * R + UF * (R + FC))
+    sizes = {"mbar": 16, "prof": 8 * len(_PROF_STAGES) * len(_PROF_KINDS),
+             "wi1": UR * 3 * R * wb, "wh1": UR * 3 * R * wb,
+             "wi2x": UR * 3 * R * wb, "wh2": UR * 3 * R * wb,
+             "w1x": UF * R * wb, "w2x": UF * FC * wb,
+             "w3": NC * FC * wb if w3_resident else 0,
+             "w_imel": UR * n_mels * wb, "w_ia1": UR * A * wb,
+             "wi2a": UR * 3 * A * wb, "w1a": UF * A * wb,
+             "w2a": UF * A * wb,
+             "gh1": UR * 3 * B * 4, "gh2": UR * 3 * B * 4,
+             "own_h1": UR * B * 4, "own_h2": UR * B * 4,
+             "plane": 2 * (3 * UR + 2 * UF) * B * 4,
+             "x_own": -(-B // sms) * 4, "logits": NC * 4,
+             "consts": (UR * 13 + UF * 2) * 4 + (UR + UF) * 4,
+             "tile_a": 0, "tile_b": 0}
+
+    def tiles(rows):
+        return rows * max(R, FC) * 4 + max(rows, taps + 2) * R * 4
+
+    def tile_rows(rows_global):
+        fixed = ResidentPlan(sms, units_r, units_fc, sizes, 0, w3_resident,
+                             exclusive, alias_w3, rows_global).smem_bytes
+        rows = max(0, min(B, (budget - fixed) // ((max(R, FC) + R) * 4)))
+        while rows >= 1 and fixed + tiles(rows) > budget:
+            rows -= 1
+        return rows, fixed
+
+    rows_global = False
+    rows, fixed = tile_rows(False)
+    if rows < min(B, GRU_ROWS):
+        rows_global = True
+        rows, fixed = tile_rows(True)
+    if rows < 1:
+        raise ValueError(
+            f"the resident sample loop needs {fixed + tiles(1):,} bytes of "
+            f"shared memory a block (R {R}, FC {FC}, {NC} classes, {B} rows, "
+            f"{compute_dtype} weights on {sms} SMs), over the {budget:,}-byte "
+            "budget")
+    sizes["tile_a"] = rows * max(R, FC) * 4
+    sizes["tile_b"] = max(rows, taps + 2) * R * 4
+    return ResidentPlan(sms, units_r, units_fc, sizes, rows, w3_resident,
+                        exclusive, alias_w3, rows_global)
+
+
+def loop_body(core, sparse_packed=None, legacy: bool = False) -> str:
+    """The kernel body a CUDA call runs on: "fused"
+    (csrc/sample_loop_fused.cu) for a non-empty ``sparse_packed`` (B9) or
+    the private ``legacy`` yardstick, "resident"
+    (csrc/sample_loop_resident.cu) for everything dense."""
+    if _active_pack(core, sparse_packed) is not None or legacy:
+        return "fused"
+    return "resident"
+
+
+class _ResArgs(ctypes.Structure):
+    """``ResArgs`` of csrc/sample_loop_resident.cu, field for field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in
+                 ("frames", "phi", "cond", "noise")]
+                + [(f, ctypes.c_void_p) for f in _WEIGHT_FIELDS]
+                + [(f, ctypes.c_void_p) for f in
+                   ("h1_0", "h2_0", "x_0", "snap_h1", "snap_h2", "snap_x",
+                    "out", "work", "units_r", "units_fc", "prof", "rows")]
+                + [(f, ctypes.c_int64) for f in
+                   ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
+                    "fold_chunks", "aux_tap", "T", "snapshot_at", "mol",
+                    "seed", "bf16", "G", "UR", "UF", "TR", "w3_resident",
+                    "exclusive", "smem_bytes", "row_bytes")]
+                + [("off", ctypes.c_int64 * len(RESIDENT_REGIONS))])
+
+
+def _resident_lib():
+    lib = _build.load("sample_loop_resident")
+    if not getattr(lib, "_typed", False):
+        for fn in (lib.wr_resident_fused, lib.wr_resident_fused_state,
+                   lib.wr_resident_materialized, lib.wr_resident_profile):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.wr_resident_work_floats.argtypes = [ctypes.c_int64] * 4
+        lib.wr_resident_work_floats.restype = ctypes.c_int64
+        lib._typed = True
+    return lib
+
+
+_unit_tables: dict = {}
+
+
+def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
+                     prof=None, **fields):
+    """One launch of the resident body: its plan for this shape and card,
+    the unit tables on ``dev`` (made once per plan), a zeroed workspace;
+    ``fields`` fill the rest of ResArgs."""
+    R, FC, A, NC = fields["R"], fields["FC"], fields["A"], fields["NC"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = resident_plan(R, FC, NC, A, fields["n_mels"], B, sms,
+                         compute_dtype, K)
+    # the ownership depends on the row count where the sampling blocks own
+    # no unit
+    key = (R, FC, sms, B if plan.exclusive else 0, dev)
+    if key not in _unit_tables:
+        _unit_tables[key] = tuple(
+            torch.tensor(u, dtype=torch.int32, device=dev)
+            for u in (plan.units_r, plan.units_fc))
+    ur, uf = _unit_tables[key]
+    if prof is not None and plan.rows_global:
+        raise ValueError(f"the profiling instantiation keeps the per-row "
+                         f"regions in shared memory: {B} rows need them in "
+                         "device memory")
+    for k in ("wi1", "wh1", "wi2x", "wh2", "w1x", "w2x", "w3"):
+        if w[k].data_ptr() % 16:
+            raise ValueError(f"{k} is not 16-byte aligned for the bulk copy")
+    lib = _resident_lib()
+    work = torch.zeros(lib.wr_resident_work_floats(B, R, FC, K),
+                       dtype=torch.float32, device=dev)
+    rows = (torch.zeros(plan.G * plan.row_bytes // 4, dtype=torch.float32,
+                        device=dev) if plan.rows_global else None)
+    args = _ResArgs(
+        work=work.data_ptr(), units_r=ur.data_ptr(), units_fc=uf.data_ptr(),
+        prof=_ptr(prof), rows=_ptr(rows), B=B, K=K,
+        bf16=int(compute_dtype == torch.bfloat16),
+        G=plan.G, UR=plan.UR, UF=plan.UF, TR=plan.tile_rows,
+        w3_resident=int(plan.w3_resident), exclusive=int(plan.exclusive),
+        smem_bytes=plan.smem_bytes, row_bytes=plan.row_bytes,
+        off=(ctypes.c_int64 * len(RESIDENT_REGIONS))(
+            *(plan.offsets[n] for n in RESIDENT_REGIONS)),
+        **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS}, **fields)
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(ctypes.byref(args),
+                                  torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"resident sample-loop kernel ({entry}) launch "
+                           f"failed: CUDA error {err}")
+
+
 def _check_kernel_call(core, mode: str, compute_dtype, dev):
     """The checks both kernels share; returns the prepared weights."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
@@ -488,7 +731,8 @@ def _launch(entry: str, args: _LoopArgs, dev, what: str):
 
 def generate_fused(core, frames, phi, hop: int, aux_tap: int,
                    fold_chunks: int, mode: str, noise=None, seed: int = 0,
-                   compute_dtype=torch.bfloat16, sparse_packed=None):
+                   compute_dtype=torch.bfloat16, sparse_packed=None,
+                   _legacy: bool = False):
     """Sample loop with in-kernel conditioning upsample.
 
     core: the vocoder's weights by reference state-dict name;
@@ -503,29 +747,37 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     once per weight set (``_build.prepared``). ``sparse_packed``
     (``pack_sparse`` of these weights): the kernel's sparse arm, which
     reads only the packed matrices' live blocks; an empty pack serves
-    dense."""
+    dense. Dense weights run on the resident body (``loop_body``);
+    ``_legacy`` runs them on the original body instead, as the yardstick."""
     if frames.device.type == "cpu":
         return generate_fused_ref(core, frames, phi, hop, aux_tap,
                                   fold_chunks, mode, noise, seed,
                                   sparse_packed)
     pack = _active_pack(core, sparse_packed)
+    resident = loop_body(core, sparse_packed, _legacy) == "resident"
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
-                        noise, seed, compute_dtype, pack, None)
+                        noise, seed, compute_dtype, pack, None, resident)
     generate_fused.launches += 1
+    generate_fused.resident_launches += resident
     generate_fused.sparse_launches += pack is not None
+    generate_fused.legacy_launches += _legacy and pack is None
     return out
 
 
-# launches of the kernel, either arm; of its sparse arm (B9)
+# launches of B1 on either body; on the resident body; of the original
+# body's sparse arm (B9); of its dense arm (the private yardstick)
 generate_fused.launches = 0
+generate_fused.resident_launches = 0
 generate_fused.sparse_launches = 0
+generate_fused.legacy_launches = 0
 
 
 def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
                               fold_chunks: int, mode: str, noise=None,
                               seed: int = 0, init_state=None,
                               state_snapshot_at=None,
-                              compute_dtype=torch.bfloat16):
+                              compute_dtype=torch.bfloat16,
+                              _legacy: bool = False):
     """B4b: ``generate_fused`` resuming from and snapshotting the RNN state
     (``generate_pallas_fused_with_state``'s contract, with
     ``generate_materialized``'s convention for the snapshot).
@@ -540,20 +792,25 @@ def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
     CPU tensors run the plain version (float32 throughout); CUDA tensors
     launch B1's state arm with matrices in ``compute_dtype``. Dense only:
     the exact-seam passes run a pruned model's masked weights dense, as
-    the JAX package does."""
+    the JAX package does. The resident body runs it; ``_legacy`` the PR
+    1-7 body's state arm."""
     if frames.device.type == "cpu":
         return generate_fused_with_state_ref(
             core, frames, phi, hop, aux_tap, fold_chunks, mode, noise, seed,
             init_state, state_snapshot_at)
     state = (init_state, state_snapshot_at)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
-                        noise, seed, compute_dtype, None, state)
+                        noise, seed, compute_dtype, None, state, not _legacy)
     generate_fused_with_state.launches += 1
+    generate_fused_with_state.resident_launches += not _legacy
+    generate_fused_with_state.legacy_launches += _legacy
     return out
 
 
-# launches of B1's state arm (B4b)
+# launches of B4b on either body; on the resident body; on the original body
 generate_fused_with_state.launches = 0
+generate_fused_with_state.resident_launches = 0
+generate_fused_with_state.legacy_launches = 0
 
 
 def _state_operands(init_state, state_snapshot_at, B: int, R: int, T: int,
@@ -580,10 +837,12 @@ def _ptr(t):
 
 
 def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
-                  seed, compute_dtype, pack, state):
+                  seed, compute_dtype, pack, state, resident, prof=None):
     """One launch of the fused loop on CUDA tensors: B1 (``state`` None),
     or its state arm B4b (``state`` = (init_state, state_snapshot_at)),
-    which also returns the snapshot."""
+    which also returns the snapshot; on the resident body or (``resident``
+    False) the original body. ``prof``: the resident body's profiling
+    instantiation, its cycles written there."""
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
     dev = frames.device
@@ -608,6 +867,23 @@ def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
     st, snap, s = ([None] * 3, (None,) * 3, T) if state is None else \
         _state_operands(*state, B, R, T, dev)
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
+    if resident:
+        if K > RESIDENT_MAX_TAPS:
+            raise ValueError(f"the resident sample loop preloads at most "
+                             f"{RESIDENT_MAX_TAPS} mel taps, got {K}")
+        entry = ("wr_resident_profile" if prof is not None
+                 else "wr_resident_fused" if state is None
+                 else "wr_resident_fused_state")
+        _resident_launch(
+            entry, w, dev, compute_dtype, B, K, prof,
+            frames=frames.data_ptr(), phi=phi.data_ptr(), noise=_ptr(u),
+            h1_0=_ptr(st[0]), h2_0=_ptr(st[1]), x_0=_ptr(st[2]),
+            snap_h1=_ptr(snap[0]), snap_h2=_ptr(snap[1]),
+            snap_x=_ptr(snap[2]), out=out.data_ptr(), R=R, FC=FC, A=A,
+            n_mels=n_mels, NC=NC, hop=hop, fold_chunks=fold_chunks,
+            aux_tap=aux_tap, T=T, snapshot_at=s, mol=int(mol),
+            seed=seed & _M32)
+        return out if state is None else (out, snap)
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, K, 1),
                        dtype=torch.float32, device=dev)
     args = _LoopArgs(
@@ -637,7 +913,8 @@ SPAN_ROWS = 256
 def generate_materialized(core, mels_up, aux, mode: str, noise=None,
                           seed: int = 0, init_state=None,
                           state_snapshot_at=None,
-                          compute_dtype=torch.bfloat16, sparse_packed=None):
+                          compute_dtype=torch.bfloat16, sparse_packed=None,
+                          _legacy: bool = False):
     """The materialized sample loop with state I/O,
     ``generate_materialized_ref``'s contract.
 
@@ -650,16 +927,34 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
 
     CPU tensors run the plain version (float32 throughout); CUDA tensors
     launch the kernel with matrices in ``compute_dtype``;
-    ``sparse_packed`` as in ``generate_fused``."""
+    ``sparse_packed`` and ``_legacy`` as in ``generate_fused``."""
     if mels_up.device.type == "cpu":
         return generate_materialized_ref(core, mels_up, aux, mode, noise,
                                          seed, init_state, state_snapshot_at,
                                          sparse_packed)
+    pack = _active_pack(core, sparse_packed)
+    resident = loop_body(core, sparse_packed, _legacy) == "resident"
+    out = _materialized_launch(core, mels_up, aux, mode, noise, seed,
+                               init_state, state_snapshot_at, compute_dtype,
+                               pack, resident)
+    generate_materialized.launches += 1
+    generate_materialized.resident_launches += resident
+    generate_materialized.sparse_launches += pack is not None
+    generate_materialized.legacy_launches += not resident and pack is None
+    return out
+
+
+def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
+                         state_snapshot_at, compute_dtype, pack, resident,
+                         prof=None):
+    """One launch of the materialized loop on CUDA tensors, on the resident
+    body or (``resident`` False) the original body; returns (samples,
+    snapshot). ``prof``: the resident body's profiling instantiation, its
+    cycles written there."""
     if mels_up.device.type != "cuda":
         raise ValueError(f"no materialized sample loop for {mels_up.device}")
     dev = mels_up.device
     w = _check_kernel_call(core, mode, compute_dtype, dev)
-    pack = _active_pack(core, sparse_packed)
     R, FC, A, NC, n_mels = _dims(core)
     B, T, _ = mels_up.shape
     mol = mode == "MOL"
@@ -680,8 +975,19 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
                              (T, B, NC // 3 + 1 if mol else NC), dev)
     state, snap, s = _state_operands(init_state, state_snapshot_at, B, R, T,
                                      dev)
-    span = max(1, min(T, SPAN_ROWS // B))
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
+    if resident:
+        _resident_launch(
+            "wr_resident_materialized" if prof is None
+            else "wr_resident_profile", w, dev, compute_dtype, B, 0, prof,
+            cond=cond.data_ptr(), noise=_ptr(u), h1_0=_ptr(state[0]),
+            h2_0=_ptr(state[1]), x_0=_ptr(state[2]),
+            snap_h1=snap[0].data_ptr(), snap_h2=snap[1].data_ptr(),
+            snap_x=snap[2].data_ptr(), out=out.data_ptr(), R=R, FC=FC, A=A,
+            n_mels=n_mels, NC=NC, hop=1, T=T, snapshot_at=s, mol=int(mol),
+            seed=seed & _M32)
+        return out, snap
+    span = max(1, min(T, SPAN_ROWS // B))
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, 0, span),
                        dtype=torch.float32, device=dev)
     args = _LoopArgs(
@@ -697,10 +1003,54 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
     _launch("wr_sample_loop_materialized", args, dev,
             "materialized sample-loop")
-    generate_materialized.launches += 1
-    generate_materialized.sparse_launches += pack is not None
     return out, snap
 
 
+# as generate_fused's counts
 generate_materialized.launches = 0
+generate_materialized.resident_launches = 0
 generate_materialized.sparse_launches = 0
+generate_materialized.legacy_launches = 0
+
+
+def generate_fused_profiled(core, frames, phi, hop: int, aux_tap: int,
+                            fold_chunks: int, mode: str, seed: int = 0):
+    """B1 on the resident body's profiling instantiation (bfloat16
+    matrices, the counter hash): its samples and the per-stage split of a
+    step, clock64() cycles of block 0's thread 0 summed over the launch,
+    by stage (prologue, gru1, gru2, fc1, fc2, sample) and kind (its first
+    poll pass over the stage's tagged inputs, the wait for the rest and
+    the block, its products and gate tails (stage 5: fc3), the draw
+    (stage 5), the deferred work (the next step's hidden products, the
+    next index's conditioning, the sampler's preload), the rest: B3's copy
+    of the next step's rows, the sampler's store of v), with the step
+    count. Not a serving
+    path; its launches are not counted."""
+    prof = _prof_buffer(frames.device)
+    out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
+                        None, seed, torch.bfloat16, None, None, True, prof)
+    return (out,) + _prof_split(prof)
+
+
+def generate_materialized_profiled(core, mels_up, aux, mode: str,
+                                   seed: int = 0):
+    """``generate_fused_profiled`` for B3: its samples and the per-stage
+    split of a step on the resident body's profiling instantiation."""
+    prof = _prof_buffer(mels_up.device)
+    out = _materialized_launch(core, mels_up, aux, mode, None, seed, None,
+                               None, torch.bfloat16, None, True, prof)[0]
+    return (out,) + _prof_split(prof)
+
+
+def _prof_buffer(device):
+    return torch.zeros(len(_PROF_STAGES) * len(_PROF_KINDS) + 1,
+                       dtype=torch.int64, device=device)
+
+
+def _prof_split(prof):
+    """(cycles by stage and kind, the step count) of a profiled launch."""
+    cyc = prof.tolist()
+    split = {st: {kd: cyc[i * len(_PROF_KINDS) + j]
+                  for j, kd in enumerate(_PROF_KINDS)}
+             for i, st in enumerate(_PROF_STAGES)}
+    return split, cyc[-1]
