@@ -103,7 +103,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            yardstick; the SM clock, its maximum and the active clock-limit
            reasons read before and after each timed kernel set
   resident the resident sample-loop body (csrc/sample_loop_resident.cu,
-           which B1, B4b and B3 run on) against the original body's dense arm
+           which every sample loop runs on) against the original body's dense arm
            (``_legacy=True``), bit for bit: B1 at the b1 shape (MOL and
            RAW, float32 and bfloat16, injected noise and the counter hash)
            and the main mel's 10 x 12,100; B4b from a state with a
@@ -113,15 +113,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            32 and 50 rows over 8 hop-chunks and at 10 x 12,100, B4b there,
            B3 at 1 and 10 x 12,100, their outputs held equal too; the
            per-stage split of a B1 step at 1 and 10 rows (clock64() on
-           block 0); nvcc's registers, shared memory and spills for the new
-           instantiations
-  sparse   B9, the sparse arm of B1 and B3, on the main vocoder's weights
-           pruned at 93.75 % in (128, 128) blocks: at the b1 shape against
-           the dense B1 on the same masked weights (bit for bit, bfloat16
-           and float32) and its plain version (float32 within 2e-3,
-           bfloat16 as b1), the two timed in turns with the clocks read;
-           microseconds per step of both at 1, 10 and 50 rows; B3's sparse
-           arm at one row and one streaming block against the dense arm
+           block 0); nvcc's registers, shared memory and spills for every
+           instantiation of the body (``spills`` lists any)
+  sparse   B9, the sparse arm of B1 and B3 on the resident body, on the main
+           vocoder's weights pruned at 93.75 % in (128, 128) blocks: bit for
+           bit against the original body's sparse arm (``_legacy=True``)
+           and the resident dense arm on the same masked weights, at the b1
+           shape (bfloat16 and float32), at 1 / 10 / 50 / 128 / 500 rows,
+           B3 at one row (both dtypes, chained), a RAW vocoder and the
+           allow_br8 (128, 8) blocks (B1 in both dtypes, noise and hash; B3
+           at one row), one streaming block against the dense one; against
+           its plain version (float32 within 2e-3, bfloat16 as b1); timed
+           in turns with the original body's sparse arm (new, old, old,
+           new) at the b1 shape, at 1, 10 and 50 rows and B3 at one
+           streaming block's 6,600 steps, beside the dense arms' turns,
+           clocks read; the per-stage split of a sparse B1 step at 1 and 10
+           rows; ``generate_fast`` on the main mel, dense and sparse
   seam     B4b, B1's state arm, and exact-seam generation at the full
            default Config: B4b against its plain version at 10 folds x 4
            hop-chunks from a given state with a snapshot at target +
@@ -138,21 +145,26 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            mode and ``generate_fast`` beside it; B4b timed in turns with the
            plain B1 at the b1 shape (B1, B4b, B4b, B1), clocks read around
   b10      B10, the sample loop on pre-projected streams
-           (``ops/cuda_gen2.generate_v2``), at the full default Config:
-           against its plain version at 10 rows x 1,100 steps (injected
-           noise, MOL and RAW: float32 weights and streams within 2e-3,
-           bfloat16 at least 99 % within 1e-3; the counter hash from a
-           seed); its entry point on the main mel upsampled and folded, its
-           one launch counted; its kernel timed in turns with B3 (B3, B10,
-           B10, B3) at B3's two shapes (10 x 12,100 and 1 x 12,100), the
-           entry point and the stream projections on their own, clocks
-           read around each set
+           (``ops/cuda_gen2.generate_v2``) on the resident body, at the
+           full default Config: bit for bit against the original body's arm
+           (weights and streams in float32 and bfloat16, MOL and RAW, noise
+           and hash, at 10 x 1,100, 1 row and 200 rows); against its plain
+           version at 10 rows x 1,100 steps (injected noise, MOL and RAW:
+           float32 weights and streams within 2e-3, bfloat16 at least 99 %
+           within 1e-3; the counter hash from a seed); its entry point on
+           the main mel upsampled and folded, its one launch counted on the
+           resident body; its kernel timed in turns with the original
+           body's (new, old, old, new) at B3's two shapes (10 x 12,100 and
+           1 x 12,100), beside the resident B3, the entry point and the
+           stream projections, clocks read around each set; the per-stage
+           split of a B10 step at 1 and 10 rows
 
-The launch counts of main, serve, stream and seam show the resident
-body's launches and none of the original body's dense arm. Then the card's
-name and power limit, the kernels JSON line (sixteen kernels: B1, B3 and
-B4b on the resident body and on the original body, whose times come from
-the resident phase's turns), and last the device line. Comparisons run
+The launch counts of main, serve, stream, prune, sparse, seam and b10 show
+the resident body's launches and none of the original body's. Then the
+card's name and power limit, the kernels JSON line (nineteen kernels: B1,
+B3, B4b, B9 in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9 and
+B10 on the original body, whose times come from the turns), and last the
+device line. Comparisons run
 with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
 or outside a checkout of the repository.
 """
@@ -391,6 +403,16 @@ def b9_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K, wbytes, live,
     blocks' columns and ``n_rows`` row pointers)."""
     flops, nbytes = b1_work(B, T, fold_chunks, R, FC, A, n_mels, NC, K,
                             wbytes)
+    cut = 4 * 3 * R * R + FC * R + FC * FC - live * 128 * 128
+    return (flops - 2 * B * T * cut,
+            nbytes - cut * wbytes + 4 * (live + n_rows))
+
+
+def b9_mat_work(B, T, R, FC, A, n_mels, NC, wbytes, live, n_rows):
+    """(FLOPs, bytes) of B3's sparse arm: B3's work with the six per-step
+    matrices cut to their ``live`` (128, 128) blocks, plus the packs'
+    int32 indices."""
+    flops, nbytes = b3_work(B, T, R, FC, A, n_mels, NC, wbytes)
     cut = 4 * 3 * R * R + FC * R + FC * FC - live * 128 * 128
     return (flops - 2 * B * T * cut,
             nbytes - cut * wbytes + 4 * (live + n_rows))
@@ -943,27 +965,30 @@ def b8_inputs(tts, seqs, dev):
 def launch_counts():
     """Every kernel's launch count, by kernel name (sample_loop_fused,
     _materialized and _fused_state count B1's, B3's and B4b's launches on
-    either body; sample_loop_resident, _resident_mat and _resident_state
-    those on the resident body; sample_loop_old_dense the original body's
-    dense arm, the yardstick no serving path reaches; sample_loop_sparse,
-    B9, the original body's sparse arm)."""
+    either body and arm; sample_loop_resident, _resident_mat and
+    _resident_state the resident body's dense arms; _resident_sparse and
+    _resident_mat_sparse its sparse arms (B9), _resident_v2 its B10;
+    sample_loop_old_dense the original body's dense arms, sample_loop_sparse
+    its sparse arm and sample_loop_v2 its B10: the yardsticks no serving
+    path reaches)."""
     from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
     fused, state = cuda_gen.generate_fused, cuda_gen.generate_fused_with_state
-    mat = cuda_gen.generate_materialized
+    mat, v2 = cuda_gen.generate_materialized, cuda_gen2.generate_v2
     return {"sample_loop_fused": fused.launches,
             "sample_loop_materialized": mat.launches,
             "sample_loop_resident": fused.resident_launches,
             "sample_loop_resident_mat": mat.resident_launches,
             "sample_loop_resident_state": state.resident_launches,
+            "sample_loop_resident_sparse": fused.sparse_launches,
+            "sample_loop_resident_mat_sparse": mat.sparse_launches,
+            "sample_loop_resident_v2": v2.resident_launches,
             "sample_loop_old_dense": (fused.legacy_launches
                                       + state.legacy_launches
                                       + mat.legacy_launches),
-            "sample_loop_sparse": (cuda_gen.generate_fused.sparse_launches
-                                   + cuda_gen.generate_materialized
-                                   .sparse_launches),
-            "sample_loop_fused_state": cuda_gen.generate_fused_with_state
-            .launches,
-            "sample_loop_v2": cuda_gen2.generate_v2.launches,
+            "sample_loop_sparse": (fused.legacy_sparse_launches
+                                   + mat.legacy_sparse_launches),
+            "sample_loop_fused_state": state.launches,
+            "sample_loop_v2": v2.legacy_launches,
             "taco_decode": cuda_taco.decode.launches,
             "taco_decode_batch": cuda_taco.decode_batch.launches,
             "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches}
@@ -972,15 +997,13 @@ def launch_counts():
 def zero_counts():
     from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
     for fn in (cuda_gen.generate_fused, cuda_gen.generate_fused_with_state,
-               cuda_gen.generate_materialized):
+               cuda_gen.generate_materialized, cuda_gen2.generate_v2):
+        fn.launches = 0
         fn.resident_launches = 0
         fn.legacy_launches = 0
-    cuda_gen.generate_fused.launches = 0
-    cuda_gen.generate_fused_with_state.launches = 0
-    cuda_gen2.generate_v2.launches = 0
-    cuda_gen.generate_materialized.launches = 0
-    cuda_gen.generate_fused.sparse_launches = 0
-    cuda_gen.generate_materialized.sparse_launches = 0
+    for fn in (cuda_gen.generate_fused, cuda_gen.generate_materialized):
+        fn.sparse_launches = 0
+        fn.legacy_sparse_launches = 0
     cuda_taco.decode.launches = 0
     cuda_taco.decode_batch.launches = 0
     cuda_gru.gru_seq_tm.fwd_launches = 0
@@ -1430,7 +1453,8 @@ def phase_prune(cfg, dev):
           and all(v is not None for v in live.values())
           and 14 <= res["live_total"] <= 16
           and all(v >= 0.75 for v in dead.values())
-          and sl["sample_loop_sparse"] == 1 and sl["sample_loop_fused"] == 1
+          and sl["sample_loop_resident_sparse"] == 1
+          and sl["sample_loop_fused"] == 1 and sl["sample_loop_sparse"] == 0
           and len(wavs) == 1 and res["serve_pcm_peak"][0] > 0
           and not res["serving_dense_said"])
     emit("prune", ok=ok, **res)
@@ -1440,76 +1464,167 @@ def phase_prune(cfg, dev):
     return res
 
 
-def phase_sparse(cfg, dev, voc, mel, tol):
-    """B9, the sparse arm of B1 and B3, on the main vocoder's weights pruned
-    at 93.75 % in (128, 128) blocks: at the b1 shape (the main mel, 10
-    folds x 12,100 steps) against the dense B1 on the same masked weights
-    (bit for bit, bfloat16 and float32) and against its plain version
-    (float32 within ``tol``; bfloat16 at least 99 % within 1e-3); the two
-    timed in turns (dense, sparse, sparse, dense) with the SM clock read
-    around them; per-step microseconds of both at 1, 10 and 50 rows; B3's
-    sparse arm at one row and one streaming block against the dense ones.
-    Returns the results."""
-    import copy
+def turns(new, old, reps, per=1.0, same=None):
+    """``new`` and ``old`` timed in turns (new, old, old, new) with the SM
+    clock and clock-limit reasons read around them: ms per call (times
+    ``per``), the ratio old / new of the better of each, whether every new
+    time beat every old one, and (``same``) whether their outputs agree."""
+    clk = [gpu_clocks()]
+    n1, out_new = cuda_ms(new, reps)
+    o1, out_old = cuda_ms(old, reps)
+    o2, _ = cuda_ms(old, reps)
+    n2, _ = cuda_ms(new, reps)
+    clk.append(gpu_clocks())
+    res = {"new": [per * n1, per * n2], "old": [per * o1, per * o2],
+           "speedup": min(o1, o2) / min(n1, n2),
+           "new_faster": max(n1, n2) < min(o1, o2), "clocks": clk}
+    if same is not None:
+        res["equal"] = bool(same(out_new, out_old))
+    return res
+
+
+def same_out(a, b):
+    """Bit-for-bit equality of two outputs (tensors or nested tuples)."""
     import torch
-    from wavernn_tpu_torch.models import wavernn as wr
-    from wavernn_tpu_torch.ops import cuda_gen as cg
-    from wavernn_tpu_torch.streaming import StreamingVocoder
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return all(same_out(x, y) for x, y in zip(a, b))
+
+
+def prune_like_production(voc, block=None):
+    """A copy of ``voc`` pruned as the reference fork's schedule ends:
+    B9_SPARSITY in B9_BLOCK blocks (or ``block``), prune_rnn_input."""
+    import copy
     from wavernn_tpu_torch.train import pruning
-    f32 = torch.float32
     pruned = copy.deepcopy(voc)
     params = dict(pruned.named_parameters())
     pruning.apply_masks(params, pruning.update_masks(
         params, 1, pruning.wavernn_prune_spec(True), 0, 1, B9_SPARSITY,
-        B9_BLOCK))
+        block or B9_BLOCK))
+    return pruned
+
+
+def phase_sparse(cfg, dev, voc, mel, tol):
+    """B9, the sparse arm of B1 and B3, on the resident body, on the main
+    vocoder's weights pruned at 93.75 % in (128, 128) blocks. Bit for bit:
+    the resident sparse arm against the original body's sparse arm
+    (``_legacy=True``) and against the resident dense arm on the same
+    masked weights, at the b1 shape (the main mel, 10 folds x 12,100
+    steps) in bfloat16 and float32, at 1 / 10 / 50 / 128 / 500 rows, B3 at
+    one row (and chained), MOL and RAW, injected noise and the counter
+    hash, (128, 128) and ``allow_br8`` packs; one streaming block against
+    the dense one. Against its plain version (float32 within ``tol``;
+    bfloat16 at least 99 % within 1e-3). Timed in turns with the original
+    body's sparse arm (resident, legacy, legacy, resident), the clocks read
+    around each set, at the b1 shape and at 1, 10 and 50 rows, beside the
+    dense resident arm (and its ratio to the original dense arm); B3's
+    sparse arm at one row; the per-stage split of a sparse step (clock64()
+    on block 0) at 1 and 10 rows; ``generate_fast`` dense and sparse.
+    Returns the results."""
+    import torch
+    from wavernn_tpu_torch.config import WaveRNNConfig
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.ops import cuda_gen as cg
+    from wavernn_tpu_torch.streaming import StreamingVocoder
+    f32 = torch.float32
+    pad = torch.nn.functional.pad
+    gen = torch.Generator().manual_seed(7531)
+    pruned = prune_like_production(voc)
     core = pruned.core_weights()
     pack = cg.pack_sparse(core, cfg.voc)
     live = sum(pack.entries[n].live() for n in cg.STEP_MATRICES)
     n_rows = sum(pack.entries[n].shape[0] // 128 + 1
                  for n in cg.STEP_MATRICES)
     res = {"live_blocks": live, "packed": sorted(pack.entries)}
+    exact = {}
     with torch.no_grad():
         mels = torch.as_tensor(mel)[None].to(dev)
         frames, phi, geo, chunks = wr.fused_conditioning(
-            pruned, torch.nn.functional.pad(mels, (2, 2)),
-            mels.shape[-1] * 275, cfg.voc.target, cfg.voc.overlap)
+            pruned, pad(mels, (2, 2)), mels.shape[-1] * 275, cfg.voc.target,
+            cfg.voc.overlap)
         args = (core, frames, phi, geo.hop, -geo.d_lo, chunks, cfg.voc.mode)
         B, T = frames.shape[1], chunks * geo.hop
 
-        def dense():
-            return cg.generate_fused(*args, seed=5)
+        def sparse(**kw):
+            return cg.generate_fused(*args, seed=5, sparse_packed=pack, **kw)
 
-        def sparse():
-            return cg.generate_fused(*args, seed=5, sparse_packed=pack)
-        clk = [gpu_clocks()]
-        d1, got_d = cuda_ms(dense, 3)
-        s1, got_s = cuda_ms(sparse, 3)
-        s2, _ = cuda_ms(sparse, 3)
-        d2, _ = cuda_ms(dense, 3)
-        clk.append(gpu_clocks())
-        res["b1_shape"] = {"folds": B, "steps": T, "dense_ms": [d1, d2],
-                           "sparse_ms": [s1, s2], "clocks": clk}
-        res["bf16_equal_dense"] = bool(torch.equal(got_s, got_d))
-        got32 = cg.generate_fused(*args, seed=5, compute_dtype=f32,
-                                  sparse_packed=pack)
-        res["f32_equal_dense"] = bool(torch.equal(
-            got32, cg.generate_fused(*args, seed=5, compute_dtype=f32)))
+        def dense(**kw):
+            return cg.generate_fused(*args, seed=5, **kw)
+        # ---- bit for bit at the b1 shape ----
+        got16 = sparse()
+        exact["b1_bf16_equal_legacy"] = same_out(got16, sparse(_legacy=True))
+        exact["b1_bf16_equal_dense"] = same_out(got16, dense())
+        got32 = sparse(compute_dtype=f32)
+        exact["b1_f32_equal_legacy"] = same_out(
+            got32, sparse(compute_dtype=f32, _legacy=True))
+        exact["b1_f32_equal_dense"] = same_out(got32, dense(compute_dtype=f32))
         ref32 = cg.generate_fused_ref(*args, seed=5, sparse_packed=pack)
         chk, ok32 = check_b1_f32("f32", got32, ref32, tol)
         res.update(chk)
         core16 = cg.round_core_like_kernel(core)
         pack16 = cg.pack_sparse(core16, cfg.voc)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        ref16 = cg.generate_fused_ref(core16, *args[1:], seed=5,
-                                      sparse_packed=pack16)
-        end.record()
-        end.synchronize()
-        res["plain_ms"] = start.elapsed_time(end)
-        chk, ok16 = check_b1_bf16(got_s, ref16)
+        res["plain_ms"], ref16 = once_ms(lambda: cg.generate_fused_ref(
+            core16, *args[1:], seed=5, sparse_packed=pack16))
+        chk, ok16 = check_b1_bf16(got16, ref16)
         res.update(chk)
-        # the vocoder half of a pruned serve (generate_fast on the main mel)
-        # by stage, dense and sparse: the sample loop's share
+        # ---- timed in turns at the b1 shape: the sparse arms, then the
+        # dense arms ----
+        res["b1_shape"] = {"folds": B, "steps": T}
+        res["b1_sparse_turns_ms"] = turns(sparse, lambda: sparse(_legacy=True),
+                                          1, same=same_out)
+        res["b1_dense_turns_ms"] = turns(dense, lambda: dense(_legacy=True), 1,
+                                         same=same_out)
+        # ---- rows: 1, 10 and 50 timed (8 hop-chunks), 128 and 500 checked
+        # (2 hop-chunks) ----
+        sweep = {}
+        for nb, nc in ((1, 8), (10, 8), (50, 8), (128, 2), (500, 2)):
+            fr = torch.rand(nc + geo.K - 1, nb, frames.shape[2],
+                            generator=gen).to(dev)
+            a8 = (core, fr, phi, geo.hop, -geo.d_lo, nc, cfg.voc.mode)
+            dts = (("bf16", torch.bfloat16), ("f32", f32)) if nb == 128 \
+                else (("bf16", torch.bfloat16),)
+            for dn, dt in dts:
+                new = cg.generate_fused(*a8, seed=6, sparse_packed=pack,
+                                        compute_dtype=dt)
+                exact[f"b1_{nb}_rows_{dn}_equal_legacy"] = same_out(
+                    new, cg.generate_fused(*a8, seed=6, sparse_packed=pack,
+                                           compute_dtype=dt, _legacy=True))
+                exact[f"b1_{nb}_rows_{dn}_equal_dense"] = same_out(
+                    new, cg.generate_fused(*a8, seed=6, compute_dtype=dt))
+            if nb > 50:
+                continue
+            per = 1e3 / (nc * geo.hop)
+            sweep[nb] = {
+                "sparse_us": turns(
+                    lambda: cg.generate_fused(*a8, seed=5, sparse_packed=pack),
+                    lambda: cg.generate_fused(*a8, seed=5, sparse_packed=pack,
+                                              _legacy=True), 1, per),
+                "dense_us": turns(
+                    lambda: cg.generate_fused(*a8, seed=5),
+                    lambda: cg.generate_fused(*a8, seed=5, _legacy=True), 1,
+                    per)}
+        res["us_per_step_by_rows"] = sweep
+        # ---- the per-stage split of a sparse step, block 0 ----
+        clock = gpu_clocks()
+        mhz = float(clock.split(" MHz")[0]) if " MHz" in clock else None
+        split = {}
+        for nb in (1, 10):
+            fr = torch.rand(8 + geo.K - 1, nb, frames.shape[2],
+                            generator=gen).to(dev)
+            _, cyc, steps = cg.generate_fused_profiled(
+                core, fr, phi, geo.hop, -geo.d_lo, 8, cfg.voc.mode, seed=5,
+                sparse_packed=pack)
+            split[nb] = {st: {k: v / steps for k, v in kinds.items()}
+                         for st, kinds in cyc.items() if st != "prologue"}
+            split[nb]["step_cycles"] = sum(sum(k.values()) for k in
+                                           split[nb].values())
+            if mhz:
+                split[nb]["step_us_at_sm_clock"] = (split[nb]["step_cycles"]
+                                                    / mhz)
+        res["split_cycles_per_step"] = split
+        res["split_sm_clock"] = clock
+        # ---- the vocoder half of a pruned serve (generate_fast on the main
+        # mel), dense and sparse: the sample loop's share ----
         from wavernn_tpu_torch.timing import elapsed_ms
         serve = {}
         for tag, sp in (("dense", None), ("sparse", pack)):
@@ -1528,34 +1643,36 @@ def phase_sparse(cfg, dev, voc, mel, tol):
                           "x_realtime": wav.numel() / cfg.dsp.sample_rate
                           / wall}
         res["generate_fast"] = serve
-        # microseconds per sample step at 1, 10 and 50 rows (random frames,
-        # 8 hop-chunks), dense and sparse in turns
-        sweep = {}
-        clk = [gpu_clocks()]
-        for nb in (1, 10, 50):
-            fr = torch.rand(8 + geo.K - 1, nb, frames.shape[2],
-                            generator=torch.Generator().manual_seed(nb)
-                            ).to(dev)
-            a8 = (core, fr, phi, geo.hop, -geo.d_lo, 8, cfg.voc.mode)
-            per = 1e3 / (8 * geo.hop)
-            sweep[nb] = {
-                "dense_us": per * cuda_ms(lambda: cg.generate_fused(
-                    *a8, seed=5), 2)[0],
-                "sparse_us": per * cuda_ms(lambda: cg.generate_fused(
-                    *a8, seed=5, sparse_packed=pack), 2)[0]}
-        clk.append(gpu_clocks())
-        res["us_per_step_by_rows"] = sweep
-        res["sweep_clocks"] = clk
-        # B3's sparse arm at one row, and one streaming block
-        mu, au = pruned.upsample(torch.nn.functional.pad(mels, (2, 2)))
+        # ---- B3's sparse arm at one row (2,000 steps, chained 1,000 +
+        # 1,000), timed in turns at one streaming block's 6,600 steps ----
+        mu, au = pruned.upsample(pad(mels, (2, 2)))
         mu1, au1 = mu[:, :2000].contiguous(), au[:, :2000].contiguous()
-        y_d, st_d = cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
-                                             seed=9)
-        y_s, st_s = cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
-                                             seed=9, sparse_packed=pack)
-        res["b3_1row_bf16_equal_dense"] = bool(
-            torch.equal(y_s, y_d) and all(torch.equal(a, b)
-                                          for a, b in zip(st_s, st_d)))
+        u = cg.counter_uniforms(54, 2000, 1, 11, True, dev)
+        nz = (u[..., :10], u[..., 10])
+
+        def cut(a, b):
+            return (nz[0][a:b], nz[1][a:b])
+        for dn, dt in (("bf16", torch.bfloat16), ("f32", f32)):
+            kw = dict(noise=nz, compute_dtype=dt)
+            new = cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
+                                           sparse_packed=pack, **kw)
+            exact[f"b3_1row_{dn}_equal_legacy"] = same_out(
+                new, cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
+                                              sparse_packed=pack,
+                                              _legacy=True, **kw))
+            exact[f"b3_1row_{dn}_equal_dense"] = same_out(
+                new, cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
+                                              **kw))
+        y1, st1 = cg.generate_materialized(
+            core, mu1[:, :1000], au1[:, :1000], cfg.voc.mode, noise=cut(0, 1000),
+            sparse_packed=pack)
+        y2, st2 = cg.generate_materialized(
+            core, mu1[:, 1000:], au1[:, 1000:], cfg.voc.mode,
+            noise=cut(1000, 2000), init_state=st1, sparse_packed=pack)
+        y, st = cg.generate_materialized(core, mu1, au1, cfg.voc.mode, noise=nz,
+                                         sparse_packed=pack)
+        exact["b3_chained_1000_equal_one_launch"] = (
+            same_out(torch.cat([y1, y2], dim=1), y) and same_out(st2, st))
         y32, _ = cg.generate_materialized(core, mu1, au1, cfg.voc.mode,
                                           seed=9, compute_dtype=f32,
                                           sparse_packed=pack)
@@ -1563,6 +1680,59 @@ def phase_sparse(cfg, dev, voc, mel, tol):
                                               seed=9, sparse_packed=pack)
         chk, ok3 = check_b1_f32("b3_1row_f32", y32, p32, tol)
         res.update(chk)
+        T3 = 24 * geo.hop
+        m3, a3 = mu[:, :T3].contiguous(), au[:, :T3].contiguous()
+        res["b3_block_turns_ms"] = turns(
+            lambda: cg.generate_materialized(core, m3, a3, cfg.voc.mode,
+                                             seed=7, sparse_packed=pack),
+            lambda: cg.generate_materialized(core, m3, a3, cfg.voc.mode,
+                                             seed=7, sparse_packed=pack,
+                                             _legacy=True), 1, same=same_out)
+        res["b3_block_dense_ms"] = cuda_ms(lambda: cg.generate_materialized(
+            core, m3, a3, cfg.voc.mode, seed=7), 1)[0]
+        core3 = cg.round_core_like_kernel(core)
+        res["b3_block_plain_ms"], _ = once_ms(
+            lambda: cg.generate_materialized_ref(
+                core3, m3, a3, cfg.voc.mode, seed=7,
+                sparse_packed=cg.pack_sparse(core3, cfg.voc)))
+        res["b3_block_shape"] = [1, T3]
+        # ---- RAW, and the allow_br8 schedule's (128, 8) blocks, at a
+        # narrow tile of the b1 shape (10 folds x 2 hop-chunks) ----
+        fr = torch.rand(2 + geo.K - 1, 10, frames.shape[2],
+                        generator=gen).to(dev)
+        for name, vk, block, br8 in (("raw", "RAW", None, False),
+                                      ("br8", "MOL", (8, 128), True)):
+            v = wr.WaveRNN(WaveRNNConfig(mode=vk), cfg.dsp)
+            v.reset_parameters(gen)
+            pv = prune_like_production(v.to(dev).eval(), block)
+            cv = pv.core_weights()
+            pk = cg.pack_sparse(cv, cfg.voc, allow_br8=br8)
+            exact[f"{name}_packed"] = set(cg.STEP_MATRICES) <= set(pk.entries)
+            a2 = (cv, fr, phi, geo.hop, -geo.d_lo, 2, vk)
+            nu = 11 if vk == "MOL" else cv["fc3.weight"].shape[0]
+            un = cg.counter_uniforms(55, 2 * geo.hop, 10, nu, vk == "MOL",
+                                     dev)
+            nzr = (un[..., :nu - 1], un[..., nu - 1]) if vk == "MOL" else un
+            for dn, dt in (("bf16", torch.bfloat16), ("f32", f32)):
+                for nn, nzk in (("noise", {"noise": nzr}), ("hash", {"seed": 8})):
+                    new = cg.generate_fused(*a2, sparse_packed=pk,
+                                            compute_dtype=dt, **nzk)
+                    exact[f"{name}_b1_{dn}_{nn}_equal_legacy"] = same_out(
+                        new, cg.generate_fused(*a2, sparse_packed=pk,
+                                               compute_dtype=dt, _legacy=True,
+                                               **nzk))
+                    exact[f"{name}_b1_{dn}_{nn}_equal_dense"] = same_out(
+                        new, cg.generate_fused(*a2, compute_dtype=dt, **nzk))
+            mur = mu1[:, :600].contiguous()
+            aur = au1[:, :600].contiguous()
+            new = cg.generate_materialized(cv, mur, aur, vk, seed=10,
+                                           sparse_packed=pk)
+            exact[f"{name}_b3_1row_equal_legacy"] = same_out(
+                new, cg.generate_materialized(cv, mur, aur, vk, seed=10,
+                                              sparse_packed=pk, _legacy=True))
+            exact[f"{name}_b3_1row_equal_dense"] = same_out(
+                new, cg.generate_materialized(cv, mur, aur, vk, seed=10))
+        # ---- one streaming block, sparse against dense ----
         u = cg.counter_uniforms(53, 24 * 275, 1, 11, True, dev)
         blocks = {}
         zero_counts()
@@ -1573,23 +1743,40 @@ def phase_sparse(cfg, dev, voc, mel, tol):
                                   sparse_packed=sp)
             blocks[tag] = sv.feed(mel[:, :24 + 2])
         res["stream_launches"] = launch_counts()
-        res["stream_block_equal_dense"] = (
+        exact["stream_block_equal_dense"] = (
             len(blocks["sparse"]) == len(blocks["dense"]) == 1
-            and bool(torch.equal(blocks["sparse"][0], blocks["dense"][0])))
+            and same_out(blocks["sparse"][0], blocks["dense"][0]))
     R, FC = cfg.voc.rnn_dims, cfg.voc.fc_dims
     fl, by = b9_work(B, T, chunks, R, FC, cfg.voc.aux_dims, 80, 30, geo.K, 2,
                      live, n_rows)
-    res.update(flops=fl, bytes=by, ms=min(s1, s2), dense_ms=min(d1, d2))
+    bt = res["b1_sparse_turns_ms"]
+    res.update(flops=fl, bytes=by, ms=min(bt["new"]), legacy_ms=min(bt["old"]),
+               dense_ms=min(res["b1_dense_turns_ms"]["new"]),
+               dense_legacy_ms=min(res["b1_dense_turns_ms"]["old"]))
     res["bound_ms"], res["bound_by"] = bound(fl, by, PEAK_BF16)
-    ok = (ok32 and ok16 and ok3 and res["bf16_equal_dense"]
-          and res["f32_equal_dense"] and res["b3_1row_bf16_equal_dense"]
-          and res["stream_block_equal_dense"]
-          and res["stream_launches"]["sample_loop_sparse"] == 1
+    fl3, by3 = b9_mat_work(1, T3, R, FC, cfg.voc.aux_dims, 80, 30, 2, live,
+                           n_rows)
+    res["b3_block_bound_ms"], res["b3_block_bound_by"] = bound(fl3, by3,
+                                                               PEAK_BF16)
+    exact.update({f"timed_{k}": v["equal"] for k, v in
+                  (("b1_sparse", res["b1_sparse_turns_ms"]),
+                   ("b1_dense", res["b1_dense_turns_ms"]),
+                   ("b3_block", res["b3_block_turns_ms"]))})
+    res["exact"] = exact
+    res["faster"] = {"b1_shape": res["b1_sparse_turns_ms"]["new_faster"],
+                     "b3_block": res["b3_block_turns_ms"]["new_faster"],
+                     **{f"{nb}_rows": v["sparse_us"]["new_faster"]
+                        for nb, v in sweep.items()}}
+    sl = res["stream_launches"]
+    ok = (ok32 and ok16 and ok3 and all(exact.values())
+          and sl["sample_loop_resident_mat_sparse"] == 1
+          and sl["sample_loop_resident_mat"] == 1
+          and sl["sample_loop_sparse"] == 0 and sl["sample_loop_old_dense"] == 0
           and sorted(pack.entries) == sorted(cg.STEP_MATRICES))
     emit("sparse", ok=ok, tolerance=tol, **res)
     if not ok:
-        raise AssertionError("sparse: B9 disagrees with the dense kernel or "
-                             "its plain version")
+        raise AssertionError("sparse: B9 disagrees with the original body, "
+                             "the dense kernel or its plain version")
     return res
 
 
@@ -1821,7 +2008,7 @@ def phase_resident(cfg, dev, voc, mel, build_log, tol):
     version on the same inputs, within ``tol`` (B1 at the b1 shape, MOL and
     RAW; B4b from the state; B3 at 3 x 1,000 from the state; float32,
     injected noise): its entries' errors in the kernels line. Then both
-    bodies timed in turns (old, new, new, old), the SM clock and
+    bodies timed in turns (new, old, old, new), the SM clock and
     clock-limit reasons read around each set: B1 at 1, 10, 32, 50 and 128
     rows over 8 hop-chunks, at 500 rows over 2 and at the main path's
     10 x 12,100, B4b there, B3 at 1 x 12,100 and 10 x 12,100 (the main mel
@@ -2032,18 +2219,6 @@ def phase_resident(cfg, dev, voc, mel, build_log, tol):
     res["old_body_vs_plain_ok"] = old_ok
 
     # ---- both bodies timed in turns, their outputs held equal too ----
-    def turns(old, new, reps, per=1.0):
-        clk = [gpu_clocks()]
-        o1, out_old = cuda_ms(old, reps)
-        n1, out_new = cuda_ms(new, reps)
-        n2, _ = cuda_ms(new, reps)
-        o2, _ = cuda_ms(old, reps)
-        clk.append(gpu_clocks())
-        return {"old": [per * o1, per * o2], "new": [per * n1, per * n2],
-                "speedup": min(o1, o2) / min(n1, n2),
-                "new_faster": max(n1, n2) < min(o1, o2), "clocks": clk,
-                "equal": same(out_new, out_old)}
-
     timing = {}
     with torch.no_grad():
         for nb, nc in ((1, 8), (10, 8), (32, 8), (50, 8), (128, 8),
@@ -2052,18 +2227,20 @@ def phase_resident(cfg, dev, voc, mel, build_log, tol):
                             generator=gen).to(dev)
             a8 = (core, fr, phi, geo.hop, -geo.d_lo, nc, mode)
             timing[f"b1_{nb}_rows_us_per_step"] = turns(
+                lambda: cg.generate_fused(*a8, seed=5),
                 lambda: cg.generate_fused(*a8, seed=5, _legacy=True),
-                lambda: cg.generate_fused(*a8, seed=5), 2 if nb < 128 else 1,
-                1e3 / (nc * geo.hop))
+                2 if nb < 128 else 1, 1e3 / (nc * geo.hop), same)
         timing["b1_main_ms"] = turns(
-            lambda: cg.generate_fused(*margs, seed=5, _legacy=True),
-            lambda: cg.generate_fused(*margs, seed=5), 1)
+            lambda: cg.generate_fused(*margs, seed=5),
+            lambda: cg.generate_fused(*margs, seed=5, _legacy=True), 1,
+            same=same)
         state = rand_state(Bm)
         kw = dict(seed=5, init_state=state,
                   state_snapshot_at=cfg.voc.target + cfg.voc.overlap)
         timing["b4b_main_ms"] = turns(
+            lambda: cg.generate_fused_with_state(*margs, **kw),
             lambda: cg.generate_fused_with_state(*margs, **kw, _legacy=True),
-            lambda: cg.generate_fused_with_state(*margs, **kw), 1)
+            1, same=same)
         mu, au = voc.upsample(pad(mels, (2, 2)))
         muf = fold_with_overlap(mu, cfg.voc.target, cfg.voc.overlap)
         auf = fold_with_overlap(au, cfg.voc.target, cfg.voc.overlap)
@@ -2072,10 +2249,9 @@ def phase_resident(cfg, dev, voc, mel, build_log, tol):
                               ("b3_unbatched_ms", (mu[:, :T3].contiguous(),
                                                    au[:, :T3].contiguous()))):
             timing[tag] = turns(
-                lambda: cg.generate_materialized(core, m3, a3, mode, seed=7,
-                                                 _legacy=True),
                 lambda: cg.generate_materialized(core, m3, a3, mode, seed=7),
-                1)
+                lambda: cg.generate_materialized(core, m3, a3, mode, seed=7,
+                                                 _legacy=True), 1, same=same)
             timing[tag]["shape"] = list(m3.shape[:2])
         # ---- the per-stage split of a B1 step, block 0 ----
         clock = gpu_clocks()
@@ -2115,15 +2291,23 @@ def phase_resident(cfg, dev, voc, mel, build_log, tol):
 
 
 def phase_b10(cfg, dev, voc, mel, tol):
-    """B10, the loop on pre-projected streams, at the full default Config:
-    against its plain version at 10 rows x 1,100 steps (injected noise,
-    MOL and RAW, float32 weights and streams within ``tol``; bfloat16 at
-    least 99 % within 1e-3; the counter hash from a seed); ``generate_v2``
-    on the main mel upsampled and folded, its launch counted; then timed in
-    turns with B3 at B3's two shapes (10 x 12,100 and 1 x 12,100), B10's
-    kernel on streams projected beforehand (``launch_v2``), the entry
-    point and the stream projections on their own, the clocks read around
-    each set; its plain version at the first shape. Returns the results."""
+    """B10, the loop on pre-projected streams, on the resident body
+    (``ARM_V2``), at the full default Config: against the original body's
+    arm (``_legacy=True``) bit for bit, float32 and bfloat16 weights with
+    float32 and bfloat16 streams, MOL and RAW, injected noise and the
+    counter hash, at 10 rows x 1,100 steps, 1 row and 200 rows (the per-row
+    regions in device memory in float32, the streams read in place);
+    against its plain version at 10 x 1,100 (float32 weights and streams
+    within ``tol``; bfloat16 at least 99 % within 1e-3; the counter hash
+    from a seed); ``generate_v2`` on the main mel upsampled and folded, its
+    one launch counted on the resident body; then its kernel
+    (``launch_v2`` on streams projected beforehand, the gather into the
+    plan's order included) timed in turns with the original body's (new,
+    old, old, new) at B3's two shapes (10 x 12,100 and 1 x 12,100), beside
+    the resident B3 there, the entry point and the stream projections on
+    their own, clocks read around each set; the per-stage split of a B10
+    step at 1 and 10 rows; its plain version at the first shape. Returns
+    the results."""
     import torch
     from wavernn_tpu_torch.config import WaveRNNConfig
     from wavernn_tpu_torch.models import wavernn as wr
@@ -2134,39 +2318,54 @@ def phase_b10(cfg, dev, voc, mel, tol):
     gen = torch.Generator().manual_seed(8765)
     R, FC = cfg.voc.rnn_dims, cfg.voc.fc_dims
     A4 = 4 * cfg.voc.aux_dims
-    res, oks = {}, {}
+    res, oks, exact = {}, {}, {}
     with torch.no_grad():
         for mode in ("MOL", "RAW"):
             v = wr.WaveRNN(WaveRNNConfig(mode=mode), cfg.dsp)
             v.reset_parameters(gen)
             core = v.to(dev).eval().core_weights()
-            B, T = 10, 1100
-            mu = torch.rand(B, T, 80, generator=gen).to(dev)
-            au = (torch.rand(B, T, A4, generator=gen) * 2 - 1).to(dev)
             NC = core["fc3.weight"].shape[0]
             nu = NC // 3 + 1 if mode == "MOL" else NC
-            u = cg.counter_uniforms(97, T, B, nu, mode == "MOL", dev)
-            noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
-            got = cg2.generate_v2(core, mu, au, mode, noise=noise,
-                                  compute_dtype=f32, stream_dtype=f32)
-            ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
-                                      stream_dtype=f32)
-            chk, oks[mode] = check_b1_f32(f"{mode}_f32", got, ref, tol)
-            res.update(chk)
-            if mode != "MOL":
-                continue
-            got = cg2.generate_v2(core, mu, au, mode, noise=noise)
-            ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
-                                      compute_dtype=bf16)
-            chk, oks["bf16"] = check_b1_bf16(got, ref)
-            res.update(chk)
-            got = cg2.generate_v2(core, mu, au, mode, seed=2025,
-                                  compute_dtype=f32, stream_dtype=f32)
-            ref = cg2.generate_v2_ref(core, mu, au, mode, seed=2025,
-                                      stream_dtype=f32)
-            chk, oks["prng"] = check_b1_f32("prng", got, ref, tol)
-            res.update(chk)
-        res["check_shape"] = [B, T]
+            for B, T in ((10, 1100), (1, 1100), (200, 120)):
+                mu = torch.rand(B, T, 80, generator=gen).to(dev)
+                au = (torch.rand(B, T, A4, generator=gen) * 2 - 1).to(dev)
+                u = cg.counter_uniforms(97, T, B, nu, mode == "MOL", dev)
+                noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" \
+                    else u
+                for wn, wd in (("f32", f32), ("bf16", bf16)):
+                    for sn, sd in (("f32", f32), ("bf16", bf16)):
+                        for nn, nz in (("noise", {"noise": noise}),
+                                       ("hash", {"seed": 98})):
+                            if B != 10 and nn == "noise":
+                                continue
+                            kw = dict(compute_dtype=wd, stream_dtype=sd, **nz)
+                            exact[f"{mode}_{B}x{T}_w{wn}_s{sn}_{nn}"] = \
+                                same_out(cg2.generate_v2(core, mu, au, mode,
+                                                         **kw),
+                                         cg2.generate_v2(core, mu, au, mode,
+                                                         _legacy=True, **kw))
+                if B != 10:
+                    continue
+                got = cg2.generate_v2(core, mu, au, mode, noise=noise,
+                                      compute_dtype=f32, stream_dtype=f32)
+                ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                          stream_dtype=f32)
+                chk, oks[mode] = check_b1_f32(f"{mode}_f32", got, ref, tol)
+                res.update(chk)
+                if mode != "MOL":
+                    continue
+                got = cg2.generate_v2(core, mu, au, mode, noise=noise)
+                ref = cg2.generate_v2_ref(core, mu, au, mode, noise=noise,
+                                          compute_dtype=bf16)
+                chk, oks["bf16"] = check_b1_bf16(got, ref)
+                res.update(chk)
+                got = cg2.generate_v2(core, mu, au, mode, seed=2025,
+                                      compute_dtype=f32, stream_dtype=f32)
+                ref = cg2.generate_v2_ref(core, mu, au, mode, seed=2025,
+                                          stream_dtype=f32)
+                chk, oks["prng"] = check_b1_f32("prng", got, ref, tol)
+                res.update(chk)
+        res["check_shape"] = [10, 1100]
         # ---- the entry point on the main mel, upsampled and folded ----
         core, mode = voc.core_weights(), cfg.voc.mode
         mels = torch.as_tensor(mel)[None].to(dev)
@@ -2182,7 +2381,7 @@ def phase_b10(cfg, dev, voc, mel, tol):
                        "launches": launches,
                        "finite": bool(y.isfinite().all()),
                        "abs_max": float(y.abs().max())}
-        # ---- timed in turns with B3 at its two shapes ----
+        # ---- timed in turns with the original body's arm, beside B3 ----
         T = muf.shape[1]
         timing = {}
         for tag, (m, a) in (("folds", (muf, auf)),
@@ -2190,54 +2389,76 @@ def phase_b10(cfg, dev, voc, mel, tol):
                                            au[:, :T].contiguous()))):
             streams = cg2.v2_streams(core, m, a)
 
-            def b3():
-                return cg.generate_materialized(core, m, a, mode, seed=7)[0]
-
-            def b10_kernel():
-                return cg2.launch_v2(core, *streams, mode, seed=7)
+            def b10(legacy=False):
+                return cg2.launch_v2(core, *streams, mode, seed=7,
+                                     _legacy=legacy)
+            tt = turns(b10, lambda: b10(True), 1, same=same_out)
             clk = [gpu_clocks()]
-            t3a, _ = cuda_ms(b3, 1)
-            t10a, got = cuda_ms(b10_kernel, 1)
-            t10b, _ = cuda_ms(b10_kernel, 1)
-            t3b, _ = cuda_ms(b3, 1)
-            clk.append(gpu_clocks())
+            b3_ms, _ = cuda_ms(lambda: cg.generate_materialized(
+                core, m, a, mode, seed=7)[0], 1)
             call_ms, _ = cuda_ms(lambda: cg2.generate_v2(core, m, a, mode,
                                                          seed=7), 1)
             streams_ms, _ = cuda_ms(lambda: cg2.v2_streams(core, m, a), 2)
+            clk.append(gpu_clocks())
             B = m.shape[0]
             fl, by = b10_work(B, T, R, FC, 30, 2, 2)
             b_ms, b_by = bound(fl, by, PEAK_BF16)
-            k10, k3 = min(t10a, t10b), min(t3a, t3b)
-            timing[tag] = {"B": B, "steps": T, "b3_ms": [t3a, t3b],
-                           "b10_ms": [t10a, t10b], "ms": k10,
+            k10 = min(tt["new"])
+            timing[tag] = {"B": B, "steps": T, "turns_ms": tt, "ms": k10,
+                           "legacy_ms": min(tt["old"]), "b3_ms": b3_ms,
                            "b10_call_ms": call_ms, "streams_ms": streams_ms,
                            "us_per_step_b10": 1e3 * k10 / T,
-                           "us_per_step_b3": 1e3 * k3 / T,
-                           "b10_over_b3": k10 / k3, "bound_ms": b_ms,
+                           "us_per_step_legacy": 1e3 * min(tt["old"]) / T,
+                           "us_per_step_b3": 1e3 * b3_ms / T,
+                           "b10_over_b3": k10 / b3_ms, "bound_ms": b_ms,
                            "bound_by": b_by, "flops": fl, "bytes": by,
                            "clocks": clk}
+            exact[f"timed_{tag}"] = tt["equal"]
             if tag == "folds":
                 # the plain version on the same streams and seed, at the
                 # numbers the kernel multiplies
                 p_ms, ref = once_ms(lambda: cg2.generate_v2_ref(
                     core, m, a, mode, seed=7, compute_dtype=bf16))
-                chk, ok_t = check_b1_bf16(got, ref)
+                chk, ok_t = check_b1_bf16(b10(), ref)
                 timing[tag].update(plain_ms=p_ms, check=chk)
             else:
+                got = b10()
                 ok_t = bool(got.isfinite().all() and got.abs().max() <= 1)
             timing[tag]["ok"] = ok_t
         res["timing"] = timing
+        res["faster"] = {k: v["turns_ms"]["new_faster"]
+                         for k, v in timing.items()}
+        # ---- the per-stage split of a B10 step, block 0 ----
+        clock = gpu_clocks()
+        mhz = float(clock.split(" MHz")[0]) if " MHz" in clock else None
+        split = {}
+        for nb in (1, 10):
+            st = cg2.v2_streams(core, muf[:nb, :2200].contiguous(),
+                                auf[:nb, :2200].contiguous())
+            _, cyc, steps = cg2.generate_v2_profiled(core, *st, mode, seed=5)
+            split[nb] = {k: {kd: c / steps for kd, c in kinds.items()}
+                         for k, kinds in cyc.items() if k != "prologue"}
+            split[nb]["step_cycles"] = sum(sum(k.values()) for k in
+                                           split[nb].values())
+            if mhz:
+                split[nb]["step_us_at_sm_clock"] = (split[nb]["step_cycles"]
+                                                    / mhz)
+        res["split_cycles_per_step"] = split
+        res["split_sm_clock"] = clock
+    res["exact"] = exact
     res["max_abs_err"] = max(res["MOL_f32_max_abs_err"],
                              res["RAW_f32_max_abs_err"],
                              res["prng_max_abs_err"])
-    ok = (all(oks.values()) and all(t["ok"] for t in timing.values())
-          and launches["sample_loop_v2"] == 1
+    ok = (all(oks.values()) and all(exact.values())
+          and all(t["ok"] for t in timing.values())
+          and launches["sample_loop_resident_v2"] == 1
           and sum(launches.values()) == 1
           and res["path"]["finite"] and res["path"]["abs_max"] <= 1.0)
     emit("b10", ok=ok, tolerance=tol, **res)
     if not ok:
-        raise AssertionError("b10: B10 disagrees with its plain version or "
-                             "its entry point did not launch it")
+        raise AssertionError("b10: B10 disagrees with the original body or "
+                             "its plain version, or its entry point did not "
+                             "launch it")
     return res
 
 
@@ -3428,12 +3649,26 @@ def main() -> int:
                                if "bwd_max_abs_err" in r]),
          "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": b7b_bound,
          "bound_by": b7b_by, "library_ms": None},
+        {"name": "sample_loop_resident_sparse", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:119",
+         "launches": prune["serve_launches"]["sample_loop_resident_sparse"],
+         "max_abs_err": sparse["f32_max_abs_err"], "ms": sparse["ms"],
+         "plain_ms": sparse["plain_ms"], "bound_ms": sparse["bound_ms"],
+         "bound_by": sparse["bound_by"], "library_ms": None},
+        {"name": "sample_loop_resident_mat_sparse", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:119",
+         "launches": sparse["stream_launches"]
+         ["sample_loop_resident_mat_sparse"],
+         "max_abs_err": sparse["b3_1row_f32_max_abs_err"],
+         "ms": min(sparse["b3_block_turns_ms"]["new"]),
+         "plain_ms": sparse["b3_block_plain_ms"],
+         "bound_ms": sparse["b3_block_bound_ms"],
+         "bound_by": sparse["b3_block_bound_by"], "library_ms": None},
         {"name": "sample_loop_sparse", "route": "cuda", "source": B1_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gen.py:119",
          "launches": prune["serve_launches"]["sample_loop_sparse"],
-         "max_abs_err": max(sparse["f32_max_abs_err"],
-                            sparse["b3_1row_f32_max_abs_err"]),
-         "ms": sparse["ms"], "plain_ms": sparse["plain_ms"],
+         "max_abs_err": sparse["f32_max_abs_err"],
+         "ms": sparse["legacy_ms"], "plain_ms": sparse["plain_ms"],
          "bound_ms": sparse["bound_ms"], "bound_by": sparse["bound_by"],
          "library_ms": None},
         {"name": "sample_loop_fused_state", "route": "cuda",
@@ -3445,11 +3680,19 @@ def main() -> int:
          "plain_ms": seam["timing"]["plain_ms"],
          "bound_ms": seam["timing"]["bound_ms"],
          "bound_by": seam["timing"]["bound_by"], "library_ms": None},
+        {"name": "sample_loop_resident_v2", "route": "cuda",
+         "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen2.py:59",
+         "launches": b10["path"]["launches"]["sample_loop_resident_v2"],
+         "max_abs_err": b10["max_abs_err"],
+         "ms": b10["timing"]["folds"]["ms"],
+         "plain_ms": b10["timing"]["folds"]["plain_ms"],
+         "bound_ms": b10["timing"]["folds"]["bound_ms"],
+         "bound_by": b10["timing"]["folds"]["bound_by"], "library_ms": None},
         {"name": "sample_loop_v2", "route": "cuda", "source": B1_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gen2.py:59",
          "launches": b10["path"]["launches"]["sample_loop_v2"],
          "max_abs_err": b10["max_abs_err"],
-         "ms": b10["timing"]["folds"]["ms"],
+         "ms": b10["timing"]["folds"]["legacy_ms"],
          "plain_ms": b10["timing"]["folds"]["plain_ms"],
          "bound_ms": b10["timing"]["folds"]["bound_ms"],
          "bound_by": b10["timing"]["folds"]["bound_by"], "library_ms": None},

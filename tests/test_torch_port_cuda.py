@@ -26,13 +26,15 @@ equal to one launch exactly. The batched decode (B8): as B2, every row's
 stop group identical. Streaming on the card against one unbatched launch:
 at least 99.9 % of samples within 1e-3 (cuDNN may convolve a window with
 another algorithm than the whole mel). The sparse arm (B9) of both sample
-loops: bit for bit the dense kernel's output on the same block-pruned
-weights (its lanes add the same live terms in the same order), float32 and
+loops, on the resident body: bit for bit the dense kernel's output on the
+same block-pruned weights (its lanes add the same live terms in the same
+order) and the original body's sparse arm (``_legacy=True``), float32 and
 bfloat16; and, float32, within 2e-3 of its plain version. B1's state arm
 (B4b): as B3, samples and state within 2e-3, chained launches and the
 exact seams' sequential oracle bit for bit. The pre-projected loop (B10):
 float32 within 2e-3; bfloat16 weights and streams, at least 99 % of
-samples within 1e-3 of the plain version at the same roundings.
+samples within 1e-3 of the plain version at the same roundings; on the
+resident body bit for bit the original body's arm.
 """
 import copy
 
@@ -457,9 +459,10 @@ def test_streaming_matches_unbatched_offline(cuda):
 def test_sparse_arm_equals_dense_kernel(cuda, mode, dtype):
     """B9 in B1 and B3 at rnn and fc 256, (128, 128) blocks pruned at
     93.75 % (one live block of each gate split's four), 1, 3 and 10 rows
-    (10 crosses the kernel's 8-row tile): the sparse arm equals the dense
-    arm on the same masked weights exactly, matches its plain version
-    (float32), and counts its launches."""
+    (10 crosses the old body's 8-row tile): the resident sparse arm equals
+    the dense arm on the same masked weights and the original body's
+    sparse arm exactly, matches its plain version (float32), and counts
+    its launches on the resident body."""
     gen = torch.Generator().manual_seed(11)
     voc = wr.WaveRNN(WaveRNNConfig(mode=mode, rnn_dims=256, fc_dims=256,
                                    compute_dims=16, res_out_dims=32,
@@ -509,6 +512,14 @@ def test_sparse_arm_equals_dense_kernel(cuda, mode, dtype):
             assert torch.equal(msparse, mdense), B
             for a, b in zip(msst, mst):
                 assert torch.equal(a, b), B
+            old = cuda_gen.generate_fused(*fargs, noise=noise,
+                                          compute_dtype=dtype,
+                                          sparse_packed=pack, _legacy=True)
+            mold = cuda_gen.generate_materialized(
+                core, mu, au, mode, noise=noise, compute_dtype=dtype,
+                sparse_packed=pack, _legacy=True)
+            assert torch.equal(sparse, old), B
+            assert _same((msparse, msst), mold), B
             if dtype == torch.float32:
                 want = cuda_gen.generate_fused_ref(*fargs, noise=noise,
                                                    sparse_packed=pack)
@@ -521,7 +532,8 @@ def test_sparse_arm_equals_dense_kernel(cuda, mode, dtype):
 def test_sparse_arm_legacy_br8_equals_dense(cuda):
     """The legacy schedule (``allow_br8``): (8, 128) block masks pack as
     blocks of 128 output rows by 8 input columns, one chunk of one lane
-    each; the sparse arm still equals the dense arm exactly."""
+    each; the resident sparse arm still equals the dense arm and the
+    original body's sparse arm exactly."""
     gen = torch.Generator().manual_seed(12)
     voc = wr.WaveRNN(WaveRNNConfig(rnn_dims=256, fc_dims=256,
                                    compute_dims=16, res_out_dims=32,
@@ -544,7 +556,11 @@ def test_sparse_arm_legacy_br8_equals_dense(cuda):
             sparse, _ = cuda_gen.generate_materialized(
                 core, mu, au, "MOL", seed=4, compute_dtype=dtype,
                 sparse_packed=pack)
+            old, _ = cuda_gen.generate_materialized(
+                core, mu, au, "MOL", seed=4, compute_dtype=dtype,
+                sparse_packed=pack, _legacy=True)
             assert torch.equal(sparse, dense), dtype
+            assert torch.equal(sparse, old), dtype
 
 
 @pytest.mark.parametrize("mode", ["MOL", "RAW"])
@@ -712,7 +728,9 @@ def _resident_case(mode, cuda, seed, rnn, fc):
 
 
 def _same(a, b):
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_same(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -847,3 +865,151 @@ def test_resident_many_rows_equals_legacy_body(cuda, rows, dtype):
                                               _legacy=True)
     assert torch.equal(new, old)
     assert torch.equal(new3[0], old3[0]) and _same(new3[1], old3[1])
+
+
+def _pruned_case(mode, cuda, seed, rnn, fc, block=(128, 128)):
+    core, gen = _resident_case(mode, cuda, seed, rnn, fc)
+    params = {k: v for k, v in core.items() if k in cuda_gen._PACK_SOURCES}
+    core = dict(core)
+    g = torch.Generator().manual_seed(seed)
+    for k, w in params.items():   # a random 1 in 16 of each matrix's blocks
+        O, I = w.shape
+        keep = torch.rand(O // block[0], -(-I // block[1]), generator=g) \
+            < 1 / 16
+        keep[0, 0] = True
+        m = keep.repeat_interleave(block[0], 0).repeat_interleave(
+            block[1], 1)[:, :I].to(cuda)
+        core[k] = w * m
+    return core, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_resident_sparse_equals_legacy_body(cuda, mode, dtype):
+    """B9 on the resident body against the original body's sparse arm and
+    the resident dense arm on the same masked weights, bit for bit, at a
+    narrow model (rnn 256, fc 128: some blocks own no fc unit, so their
+    done words carry the step): B1 at 1 and 10 rows under injected noise
+    and the counter hash, B3 with B4a from a state with a snapshot inside,
+    chained launches equal to one; the routing counts."""
+    core, gen = _pruned_case(mode, cuda, 41, 256, 128)
+    pack = cuda_gen.pack_sparse(core)
+    assert pack.entries
+    chunks, hop, K = 3, 275, 5
+    phi = torch.rand(K, hop, generator=gen).to(cuda)
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    kw = dict(compute_dtype=dtype, sparse_packed=pack)
+    with torch.no_grad():
+        for B in (1, 10):
+            frames = torch.rand(chunks + K - 1, B, 80 + 32,
+                                generator=gen).to(cuda)
+            T = chunks * hop
+            u = cuda_gen.counter_uniforms(B, T, B, nu, mode == "MOL", cuda)
+            noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+            args = (core, frames, phi, hop, 2, chunks, mode)
+            for nz in ({"noise": noise}, {"seed": 15}):
+                n0 = (cuda_gen.generate_fused.sparse_launches,
+                      cuda_gen.generate_fused.legacy_sparse_launches)
+                new = cuda_gen.generate_fused(*args, **nz, **kw)
+                old = cuda_gen.generate_fused(*args, **nz, **kw, _legacy=True)
+                dense = cuda_gen.generate_fused(*args, **nz,
+                                                compute_dtype=dtype)
+                assert (cuda_gen.generate_fused.sparse_launches,
+                        cuda_gen.generate_fused.legacy_sparse_launches) == (
+                            n0[0] + 1, n0[1] + 1)
+                assert torch.equal(new, old) and torch.equal(new, dense), B
+        B, T, T1 = 3, 300, 150
+        mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+        au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+        state = tuple(t.to(cuda) for t in (
+            torch.rand(B, 256, generator=gen) - .5,
+            torch.rand(B, 256, generator=gen) - .5,
+            torch.rand(B, generator=gen) - .5))
+        skw = dict(seed=16, init_state=state, state_snapshot_at=100, **kw)
+        new = cuda_gen.generate_materialized(core, mu, au, mode, **skw)
+        old = cuda_gen.generate_materialized(core, mu, au, mode, **skw,
+                                             _legacy=True)
+        assert _same(new, old)
+        u = cuda_gen.counter_uniforms(8, T, B, nu, mode == "MOL", cuda)
+        noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+        cut = (lambda n, a, b: tuple(v[a:b] for v in n) if mode == "MOL"
+               else n[a:b])
+        y, st = cuda_gen.generate_materialized(core, mu, au, mode,
+                                               noise=noise, **kw)
+        y1, st1 = cuda_gen.generate_materialized(
+            core, mu[:, :T1], au[:, :T1], mode, noise=cut(noise, 0, T1), **kw)
+        y2, st2 = cuda_gen.generate_materialized(
+            core, mu[:, T1:], au[:, T1:], mode, noise=cut(noise, T1, T),
+            init_state=st1, **kw)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and _same(st2, st)
+
+
+@pytest.mark.parametrize("rows,dtype", [(128, torch.bfloat16),
+                                        (128, torch.float32),
+                                        (500, torch.bfloat16)])
+def test_resident_sparse_many_rows_equals_legacy_body(cuda, rows, dtype):
+    """B9 past 64 rows at rnn and fc 512 (several tiles of rows: each block
+    reads xr and x2 as written, its own units' columns with its live
+    chunks'; at 500 rows the per-row regions in device memory), bit for
+    bit against the original body's sparse arm: B1 over two hop chunks and
+    B3 from a given state, under the counter hash."""
+    core, gen = _pruned_case("MOL", cuda, 42, 512, 512)
+    pack = cuda_gen.pack_sparse(core)
+    chunks, hop, K = 2, 275, 5
+    frames = torch.rand(chunks + K - 1, rows, 80 + 32, generator=gen).to(cuda)
+    phi = torch.rand(K, hop, generator=gen).to(cuda)
+    args = (core, frames, phi, hop, 2, chunks, "MOL")
+    T = 100
+    mu = torch.rand(rows, T, 80, generator=gen).to(cuda)
+    au = (torch.rand(rows, T, 32, generator=gen) * 2 - 1).to(cuda)
+    state = tuple(t.to(cuda) for t in (
+        torch.rand(rows, 512, generator=gen) - .5,
+        torch.rand(rows, 512, generator=gen) - .5,
+        torch.rand(rows, generator=gen) - .5))
+    kw = dict(compute_dtype=dtype, sparse_packed=pack)
+    with torch.no_grad():
+        new = cuda_gen.generate_fused(*args, seed=17, **kw)
+        old = cuda_gen.generate_fused(*args, seed=17, **kw, _legacy=True)
+        skw = dict(seed=18, init_state=state, state_snapshot_at=40, **kw)
+        new3 = cuda_gen.generate_materialized(core, mu, au, "MOL", **skw)
+        old3 = cuda_gen.generate_materialized(core, mu, au, "MOL", **skw,
+                                              _legacy=True)
+    assert torch.equal(new, old)
+    assert _same(new3, old3)
+
+
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_resident_v2_equals_legacy_body(cuda, mode, sdtype):
+    """B10 on the resident body against the original body's arm, bit for
+    bit, both stream dtypes, MOL and RAW: at the narrow model (rnn 256, fc
+    128) at 1 and 10 rows under injected noise and the counter hash, and
+    at rnn and fc 512 over 200 rows (the per-row regions in device memory
+    in float32, the streams read in place); the routing counts."""
+    from wavernn_tpu_torch.ops import cuda_gen2
+    for rnn, fc, rows in ((256, 128, (1, 10)), (512, 512, (200,))):
+        core, gen = _resident_case(mode, cuda, 43, rnn, fc)
+        NC = core["fc3.weight"].shape[0]
+        nu = NC // 3 + 1 if mode == "MOL" else NC
+        with torch.no_grad():
+            for B in rows:
+                T = 400
+                mu = torch.rand(B, T, 80, generator=gen).to(cuda)
+                au = (torch.rand(B, T, 32, generator=gen) * 2 - 1).to(cuda)
+                u = cuda_gen.counter_uniforms(B, T, B, nu, mode == "MOL",
+                                              cuda)
+                noise = (u[..., :nu - 1], u[..., nu - 1]) \
+                    if mode == "MOL" else u
+                for dt in (torch.float32, torch.bfloat16):
+                    for nz in ({"noise": noise}, {"seed": 19}):
+                        kw = dict(compute_dtype=dt, stream_dtype=sdtype, **nz)
+                        n0 = (cuda_gen2.generate_v2.resident_launches,
+                              cuda_gen2.generate_v2.legacy_launches)
+                        new = cuda_gen2.generate_v2(core, mu, au, mode, **kw)
+                        old = cuda_gen2.generate_v2(core, mu, au, mode, **kw,
+                                                    _legacy=True)
+                        assert (cuda_gen2.generate_v2.resident_launches,
+                                cuda_gen2.generate_v2.legacy_launches) == (
+                                    n0[0] + 1, n0[1] + 1)
+                        assert torch.equal(new, old), (rnn, B, dt)

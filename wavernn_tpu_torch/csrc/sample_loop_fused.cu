@@ -3,6 +3,11 @@
 // serves the three TPU sample-loop kernels; the arm, and whether it carries
 // the RNN state in and out, are compile-time flags.
 //
+// No serving path runs this body: csrc/sample_loop_resident.cu runs every
+// arm below (dense, B9's sparse arm and B10). It stays as the yardstick
+// that body is held to bit for bit and timed against, reached only through
+// the wrappers' private `_legacy=True` (ops/cuda_gen.py, ops/cuda_gen2.py).
+//
 // Replaces:
 //   ARM_FUSED      (B1): wavernn_tpu/ops/pallas_gen.py, _make_fused_kernel
 //                  (called through generate_pallas_fused), the TPU kernel

@@ -1,16 +1,15 @@
 """WaveRNN sample loops: the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-Two kernel bodies run the whole autoregressive loop of every row in one
-cooperative launch. Dense weights run on ``csrc/sample_loop_resident.cu``
-(weights resident in shared memory, activations read as step-tagged
-words instead of behind a grid barrier, the conditioning built once per
-row; its launch plan is ``resident_plan``). The original body,
-``csrc/sample_loop_fused.cu``, runs B9's sparse arm (``sparse_packed=``)
-and B10 (``ops/cuda_gen2.py``); its dense arm stays launchable through
-the wrappers' private ``_legacy=True``, the yardstick the resident body
-is held to bit for bit and timed against.
-``loop_body`` says which body a call runs on. The kernels:
+Every CUDA sample loop runs on ``csrc/sample_loop_resident.cu`` (weights
+resident in shared memory, activations read as step-tagged words instead
+of behind a grid barrier, the conditioning built once per row; its launch
+plan is ``resident_plan``): B1, B4b, B3 with B4a, B9's sparse arm of B1
+and B3 (``sparse_packed=``) and B10 (``ops/cuda_gen2.py``). The original
+body, ``csrc/sample_loop_fused.cu``, runs only through the wrappers'
+private ``_legacy=True``: the yardstick each arm is held to bit for bit
+and timed against. ``loop_body`` says which body a call runs on. The
+kernels:
 
 - B1, ``generate_fused``: port of
   ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
@@ -34,10 +33,12 @@ for CUDA tensors; it never falls back from one to the other.
 B9, block-sparse serving: ``pack_sparse`` packs the live (128, 128) blocks
 of a pruned vocoder's weights once (port of ``pack_sparse`` and
 ``_pack_block_sparse``, wavernn_tpu/ops/pallas_gen.py:176-212, :412-458).
-Given ``sparse_packed=``, both kernels launch their sparse arm, which reads
-only the live blocks of the six per-step matrices (the ``_sparse_mm``
-product, :119-173); ``sparse_mm_ref`` is its plain version, and the plain
-sample loops take it for every packed matrix.
+Given ``sparse_packed=``, both kernels launch their sparse arm, which
+multiplies only the live 8-column chunks of the six per-step matrices'
+rows and polls only the activations those chunks read (the ``_sparse_mm``
+product, :119-173; its per-block table is ``resident_sparse_table``);
+``sparse_mm_ref`` is its plain version, and the plain sample loops take
+it for every packed matrix.
 
 Noise: injected uniforms in the layout (T, B, NU), NU = nr_mix + 1 for MOL
 (mixture pick | logistic draw) and n_classes for RAW, padded with 0.5 past
@@ -327,6 +328,7 @@ class SparsePack:
         self.entries = entries
         self._sig = sig
         self._operands = {}
+        self._tables = {}   # resident_sparse_table by plan, on its device
 
     def mm(self, name: str, op):
         return sparse_mm_ref(op, self.entries[name])
@@ -478,10 +480,16 @@ GRU_ROWS = 8
 RESIDENT_MAX_TAPS = 8
 RESIDENT_MAX_COND = 128
 # ResArgs::off, in the kernel's Region order
-RESIDENT_REGIONS = ("mbar", "prof", "wi1", "wh1", "wi2x", "wh2", "w1x",
-                    "w2x", "w3", "w_imel", "w_ia1", "wi2a", "w1a", "w2a",
-                    "gh1", "gh2", "own_h1", "own_h2", "plane", "x_own",
-                    "logits", "consts", "tile_a", "tile_b")
+RESIDENT_REGIONS = ("mbar", "sparse", "prof", "wi1", "wh1", "wi2x", "wh2",
+                    "w1x", "w2x", "w3", "w_imel", "w_ia1", "wi2a", "w1a",
+                    "w2a", "gh1", "gh2", "own_h1", "own_h2", "plane",
+                    "x_own", "logits", "consts", "tile_a", "tile_b",
+                    "x_all")
+# where the kernel finds B9's table (its SPARSE_OFF): right after mbar
+SPARSE_OFF = 16
+# the conditioning matrices' rows, which B10 (its streams pre-projected)
+# does not hold
+COND_REGIONS = ("w_imel", "w_ia1", "wi2a", "w1a", "w2a")
 # the regions that grow with the row count: the hidden sums, the owned
 # units' state and the conditioning planes (block-private, so they may lie
 # in device memory where shared memory is short)
@@ -489,6 +497,8 @@ ROW_REGIONS = ("gh1", "gh2", "own_h1", "own_h2", "plane")
 _PROF_STAGES = ("prologue", "gru1", "gru2", "fc1", "fc2", "sample")
 _PROF_KINDS = ("first_poll", "wait", "products", "draw", "deferred",
                "other")
+# B9's fetch lists, in the kernel's List order: the chunks each poll reads
+SPARSE_LISTS = ("v", "h1", "xr", "h2", "x2", "hf1")
 
 
 class ResidentPlan:
@@ -502,15 +512,21 @@ class ResidentPlan:
     per-row regions (ROW_REGIONS) lie instead in a device buffer of
     ``row_bytes`` a block, their offsets counted from its slice;
     ``tile_rows`` rows of activations a fetch brings in; whether fc3's rows
-    are resident (``w3_resident``)."""
+    are resident (``w3_resident``). B9 (``sparse``): ``sparse_words`` of
+    the block's table in shared memory; B10 (``v2``): ``slice_floats`` of
+    stream a step and block, two slots of them in the plane region (none
+    where the per-row regions lie in device memory: the kernel reads the
+    gathered streams in place)."""
 
     def __init__(self, G, units_r, units_fc, sizes, tile_rows, w3_resident,
-                 exclusive=False, alias_w3=False, rows_global=False):
+                 exclusive=False, alias_w3=False, rows_global=False,
+                 sparse_words=0, slice_floats=0):
         self.G, self.units_r, self.units_fc = G, units_r, units_fc
         self.UR, self.UF = len(units_r[0]), len(units_fc[0])
         self.tile_rows, self.w3_resident = tile_rows, w3_resident
         self.exclusive, self.alias_w3 = exclusive, alias_w3
         self.rows_global = rows_global
+        self.sparse_words, self.slice_floats = sparse_words, slice_floats
         self.sizes = sizes
         self.offsets, off, goff = {}, 0, 0
         for name in RESIDENT_REGIONS:
@@ -537,18 +553,43 @@ def _own(n: int, G: int, first: int = 0):
              for s in range(per)] for g in range(G)]
 
 
+SPARSE_HEAD = 16   # the kernel's N_HEAD
+
+
+def sparse_words(R: int, FC: int, UR: int, UF: int, G: int) -> int:
+    """32-bit words of B9's per-block table: a 16-word header, the owned
+    units' chunk masks (R units: 4 matrices x 3 gates, FC units: w1x and
+    w2x; a word per 32 chunks of a row), 8 list lengths, the SPARSE_LISTS
+    lists of uint16 chunk indices (an even count each), and a bit per
+    block that owns a unit (the done words the samplers poll)."""
+    nw_r, nw_f = -(-(R // 8) // 32), -(-(FC // 8) // 32)
+    lmax = (max(R, FC) // 8 + 1) & ~1
+    return (SPARSE_HEAD + UR * 12 * nw_r + UF * (nw_r + nw_f) + 8
+            + len(SPARSE_LISTS) * lmax // 2 + -(-G // 32))
+
+
+def v2_slice_floats(UR: int, UF: int, B: int) -> int:
+    """Floats of B10's stream slice a block reads a step: gi2 (UR, 3, B),
+    f1 and f2 (UF, B), gi1 (UR, 3, B), i (UR, B), padded to 16 bytes."""
+    return -(-(7 * UR + 2 * UF) * B // 4) * 4
+
+
 def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
                   sms: int, compute_dtype=torch.bfloat16, taps: int = 0,
-                  budget: int = SMEM_BUDGET) -> ResidentPlan:
+                  budget: int = SMEM_BUDGET, sparse: bool = False,
+                  v2: bool = False) -> ResidentPlan:
     """The resident body's plan for B rows on ``sms`` SMs with matrices in
-    ``compute_dtype`` and ``taps`` mel taps (B1's K; B3: 0): every block's
-    owned units, region layout and tile rows (tile_b also holds a sampled
-    row's base, taps and w_Ix: taps + 2 rows at least). The per-row
+    ``compute_dtype`` and ``taps`` mel taps (B1's K; B3, B10: 0): every
+    block's owned units, region layout and tile rows (tile_b also holds a
+    sampled row's base, taps and w_Ix: taps + 2 rows at least). The per-row
     regions stay in shared memory while a tile of min(B, GRU_ROWS) rows
     still fits beside them, else they move to device memory (many rows:
     from 378 at the default widths in bfloat16, from 65 in float32), so any
-    row count runs. Raises ValueError, naming the budget, when a block's
-    weights and one row of tiles do not fit ``budget`` bytes."""
+    row count runs. ``sparse``: B9's arm, with its table
+    (``sparse_words``); ``v2``: B10's, without the conditioning matrices,
+    its plane two slots of stream slices and the B samples in shared
+    memory. Raises ValueError, naming the budget, when a block's weights
+    and one row of tiles do not fit ``budget`` bytes."""
     if sms < 1 or B < 1:
         raise ValueError(f"need at least one SM and one row (sms {sms}, "
                          f"B {B})")
@@ -568,7 +609,10 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
     UR, UF = len(units_r[0]), len(units_fc[0])
     alias_w3 = exclusive and w3_resident and (
         NC * FC <= UR * 12 * R + UF * (R + FC))
-    sizes = {"mbar": 16, "prof": 8 * len(_PROF_STAGES) * len(_PROF_KINDS),
+    sw = sparse_words(R, FC, UR, UF, sms) if sparse else 0
+    pbv = v2_slice_floats(UR, UF, B) if v2 else 0
+    sizes = {"mbar": 32 if v2 else 16,
+             "prof": 8 * len(_PROF_STAGES) * len(_PROF_KINDS),
              "wi1": UR * 3 * R * wb, "wh1": UR * 3 * R * wb,
              "wi2x": UR * 3 * R * wb, "wh2": UR * 3 * R * wb,
              "w1x": UF * R * wb, "w2x": UF * FC * wb,
@@ -581,7 +625,11 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
              "plane": 2 * (3 * UR + 2 * UF) * B * 4,
              "x_own": -(-B // sms) * 4, "logits": NC * 4,
              "consts": (UR * 13 + UF * 2) * 4 + (UR + UF) * 4,
-             "tile_a": 0, "tile_b": 0}
+             "tile_a": 0, "tile_b": 0, "sparse": sw * 4,
+             "x_all": B * 4 if v2 else 0}
+    if v2:
+        sizes.update({n: 0 for n in COND_REGIONS})
+        sizes["plane"] = 2 * pbv * 4
 
     def tiles(rows):
         return rows * max(R, FC) * 4 + max(rows, taps + 2) * R * 4
@@ -598,6 +646,8 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
     rows, fixed = tile_rows(False)
     if rows < min(B, GRU_ROWS):
         rows_global = True
+        if v2:   # the kernel reads the gathered streams in place
+            sizes["plane"] = 0
         rows, fixed = tile_rows(True)
     if rows < 1:
         raise ValueError(
@@ -607,18 +657,150 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
             "budget")
     sizes["tile_a"] = rows * max(R, FC) * 4
     sizes["tile_b"] = max(rows, taps + 2) * R * 4
-    return ResidentPlan(sms, units_r, units_fc, sizes, rows, w3_resident,
-                        exclusive, alias_w3, rows_global)
+    plan = ResidentPlan(sms, units_r, units_fc, sizes, rows, w3_resident,
+                        exclusive, alias_w3, rows_global, sw, pbv)
+    assert not sparse or plan.offsets["sparse"] == SPARSE_OFF
+    return plan
+
+
+def chunk_masks(pack: SparsePack, R: int, FC: int):
+    """Per STEP_MATRICES name, (out, in / 8) bool: the live 8-column chunks
+    of each row, from the pack's live blocks (``rows``; a (128, br) block
+    covers br / 8 chunks of 128 rows); every chunk of a matrix the pack
+    left dense."""
+    shapes = {"wi1": (3 * R, R), "wh1": (3 * R, R), "wi2x": (3 * R, R),
+              "wh2": (3 * R, R), "w1x": (FC, R), "w2x": (FC, FC)}
+    out = {}
+    for name in STEP_MATRICES:
+        O, I = shapes[name]
+        m = pack.entries.get(name)
+        if m is None:
+            out[name] = torch.ones(O, I // 8, dtype=torch.bool)
+            continue
+        blk = torch.zeros(O // SPARSE_BC, I // m.br, dtype=torch.bool)
+        for j, rj in enumerate(m.rows):
+            blk[j, list(rj)] = True
+        out[name] = blk.repeat_interleave(SPARSE_BC, 0).repeat_interleave(
+            m.br // 8, 1)
+    return out
+
+
+def _mask_words(mask):
+    """(..., n) bool -> (..., ceil(n / 32)) int32: chunk c is bit c % 32 of
+    word c // 32."""
+    n = mask.shape[-1]
+    nw = -(-n // 32)
+    bits = torch.nn.functional.pad(mask.to(torch.int64), (0, nw * 32 - n))
+    v = (bits.reshape(*mask.shape[:-1], nw, 32)
+         << torch.arange(32, dtype=torch.int64)).sum(-1)
+    return (v - ((v >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def resident_sparse_table(plan: ResidentPlan, pack: SparsePack, R: int,
+                          FC: int, B: int):
+    """B9's per-block table for ``plan`` (G, sparse_words) int32, the
+    kernel's layout: a header (the mask words a row of R and of FC
+    columns, the list capacity, the offsets past the header of the w1x
+    masks, the w2x masks, the list lengths and the acting-block bits, R,
+    FC; words 10-11 the kernel fills), the owned units' chunk masks
+    (``chunk_masks``; R units (UR, wi1 wh1 wi2x wh2, 3 gates, words), then
+    w1x (UF, words) and w2x (UF, words); a padding slot's are 0), the
+    SPARSE_LISTS lengths (8 ints), the lists (uint16 chunk indices in
+    increasing order, two to a word), a bit per block that owns a unit. With one tile of rows (the block forms xr and x2 itself) v
+    covers the chunks of wi1, wi2x and w1x; h1 those of wi2x, w1x and wh1;
+    h2 those of w1x and wh2. With several (it reads xr and x2 as written)
+    v covers wi1's and its own units', xr wi2x's and its own, h1 wh1's, x2
+    w1x's, h2 wh2's. hf1 covers w2x's. v has at least chunk 0: stage 1
+    polls every row."""
+    G, UR, UF = plan.G, plan.UR, plan.UF
+    masks = chunk_masks(pack, R, FC)
+    ur, uf = torch.tensor(plan.units_r), torch.tensor(plan.units_fc)
+    vr, vf = ur >= 0, uf >= 0
+    urc, ufc = ur.clamp(min=0), uf.clamp(min=0)
+    rm = torch.stack([torch.stack([masks[n][gt * R + urc] for gt in range(3)],
+                                  dim=2)
+                      for n in ("wi1", "wh1", "wi2x", "wh2")], dim=2)
+    rm &= vr[:, :, None, None, None]               # (G, UR, 4, 3, R / 8)
+    f1 = masks["w1x"][ufc] & vf[..., None]         # (G, UF, R / 8)
+    f2 = masks["w2x"][ufc] & vf[..., None]         # (G, UF, FC / 8)
+    words = torch.cat([_mask_words(m).reshape(G, -1) for m in (rm, f1, f2)],
+                      dim=1)
+
+    def over_units(m):
+        return m.reshape(G, -1, m.shape[-1]).any(dim=1)
+    c1, ch1, c2, ch2 = (over_units(rm[:, :, i]) for i in range(4))
+    c3, c4 = over_units(f1), over_units(f2)
+    own = torch.zeros_like(c1)
+    for g in range(G):
+        own[g, urc[g][vr[g]] // 8] = True
+    none = torch.zeros_like(c1)
+    if plan.tile_rows >= B:
+        sets = (c1 | c2 | c3, c2 | c3 | ch1, none, c3 | ch2, none, c4)
+    else:
+        sets = (c1 | own, ch1, c2 | own, ch2, c3, c4)
+    lmax = (max(R, FC) // 8 + 1) & ~1
+    lens = torch.zeros(G, 8, dtype=torch.int32)
+    lists = torch.zeros(G, len(SPARSE_LISTS), lmax, dtype=torch.int32)
+    for li, cs in enumerate(sets):
+        if li == 0:
+            cs = cs.clone()
+            cs[~cs.any(dim=1), 0] = True
+        for g in range(G):
+            idx = torch.nonzero(cs[g]).flatten()
+            lens[g, li] = len(idx)
+            lists[g, li, :len(idx)] = idx.to(torch.int32)
+    pairs = lists.reshape(G, -1, 2)
+    packed = pairs[..., 0] | (pairs[..., 1] << 16)
+    nw_r, nw_f = -(-(R // 8) // 32), -(-(FC // 8) // 32)
+    f1_at = UR * 12 * nw_r
+    acting = (vr.any(dim=1) | vf.any(dim=1)).to(torch.bool)
+    act = _mask_words(acting[None])[0]
+    head = torch.zeros(SPARSE_HEAD, dtype=torch.int32)
+    head[:9] = torch.tensor([nw_r, nw_f, lmax, f1_at, f1_at + UF * nw_r,
+                             words.shape[1],
+                             words.shape[1] + 8 + packed.shape[1], R, FC])
+    table = torch.cat([head.expand(G, SPARSE_HEAD), words, lens, packed,
+                       act.expand(G, act.shape[0])], dim=1)
+    assert table.shape[1] == plan.sparse_words
+    return table
+
+
+def gather_streams(streams, plan: ResidentPlan):
+    """B10's five streams (i, gi1, gi2, f1, f2: (T, B, width), as
+    ``cuda_gen2.v2_streams`` returns them) gathered into the plan's unit
+    order, float32 (T, G, slice_floats): block g's slice of step t is gi2
+    (UR, 3, B), f1 (UF, B), f2 (UF, B), gi1 (UR, 3, B), i (UR, B), zero
+    for padding slots and past the end. One pass over the streams before
+    the launch, so each block copies its step's slice in one piece."""
+    s_i, s_g1, s_g2, s_f1, s_f2 = streams
+    T, B, _ = s_i.shape
+    dev = s_i.device
+    G = plan.G
+
+    def part(s, n_gates, units):
+        u = torch.tensor(units, device=dev)
+        idx = u.clamp(min=0).flatten()
+        width = s.shape[-1] // n_gates
+        x = s.reshape(T, B, n_gates, width)[..., idx].float()
+        x = x.reshape(T, B, n_gates, G, -1).permute(0, 3, 4, 2, 1)
+        x = x * (u >= 0).to(x.dtype)[None, :, :, None, None]
+        return x.reshape(T, G, -1)
+    parts = [part(s_g2, 3, plan.units_r), part(s_f1, 1, plan.units_fc),
+             part(s_f2, 1, plan.units_fc), part(s_g1, 3, plan.units_r),
+             part(s_i, 1, plan.units_r)]
+    pad = plan.slice_floats - sum(x.shape[-1] for x in parts)
+    parts.append(torch.zeros(T, G, pad, dtype=torch.float32, device=dev))
+    return torch.cat(parts, dim=2).contiguous()
 
 
 def loop_body(core, sparse_packed=None, legacy: bool = False) -> str:
-    """The kernel body a CUDA call runs on: "fused"
-    (csrc/sample_loop_fused.cu) for a non-empty ``sparse_packed`` (B9) or
-    the private ``legacy`` yardstick, "resident"
-    (csrc/sample_loop_resident.cu) for everything dense."""
-    if _active_pack(core, sparse_packed) is not None or legacy:
-        return "fused"
-    return "resident"
+    """The kernel body a CUDA call runs on: "resident"
+    (csrc/sample_loop_resident.cu) for every call, dense or with a
+    non-empty ``sparse_packed`` (B9's arm); "fused"
+    (csrc/sample_loop_fused.cu) only for the private ``legacy`` yardstick.
+    A stale pack raises first."""
+    _active_pack(core, sparse_packed)
+    return "fused" if legacy else "resident"
 
 
 class _ResArgs(ctypes.Structure):
@@ -628,12 +810,13 @@ class _ResArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _WEIGHT_FIELDS]
                 + [(f, ctypes.c_void_p) for f in
                    ("h1_0", "h2_0", "x_0", "snap_h1", "snap_h2", "snap_x",
-                    "out", "work", "units_r", "units_fc", "prof", "rows")]
+                    "out", "work", "units_r", "units_fc", "prof", "rows",
+                    "wxw1", "wxw2", "streams", "sparse")]
                 + [(f, ctypes.c_int64) for f in
                    ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
                     "fold_chunks", "aux_tap", "T", "snapshot_at", "mol",
                     "seed", "bf16", "G", "UR", "UF", "TR", "w3_resident",
-                    "exclusive", "smem_bytes", "row_bytes")]
+                    "exclusive", "smem_bytes", "row_bytes", "PBV", "SW")]
                 + [("off", ctypes.c_int64 * len(RESIDENT_REGIONS))])
 
 
@@ -641,10 +824,13 @@ def _resident_lib():
     lib = _build.load("sample_loop_resident")
     if not getattr(lib, "_typed", False):
         for fn in (lib.wr_resident_fused, lib.wr_resident_fused_state,
-                   lib.wr_resident_materialized, lib.wr_resident_profile):
+                   lib.wr_resident_materialized,
+                   lib.wr_resident_fused_sparse,
+                   lib.wr_resident_materialized_sparse, lib.wr_resident_v2,
+                   lib.wr_resident_profile):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.wr_resident_work_floats.argtypes = [ctypes.c_int64] * 4
+        lib.wr_resident_work_floats.argtypes = [ctypes.c_int64] * 5
         lib.wr_resident_work_floats.restype = ctypes.c_int64
         lib._typed = True
     return lib
@@ -654,14 +840,17 @@ _unit_tables: dict = {}
 
 
 def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
-                     prof=None, **fields):
+                     prof=None, pack=None, streams=None, **fields):
     """One launch of the resident body: its plan for this shape and card,
     the unit tables on ``dev`` (made once per plan), a zeroed workspace;
-    ``fields`` fill the rest of ResArgs."""
+    B9's table for ``pack`` (made once per pack and plan), B10's
+    ``streams`` gathered into the plan's order; ``fields`` fill the rest
+    of ResArgs."""
     R, FC, A, NC = fields["R"], fields["FC"], fields["A"], fields["NC"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = resident_plan(R, FC, NC, A, fields["n_mels"], B, sms,
-                         compute_dtype, K)
+                         compute_dtype, K, sparse=pack is not None,
+                         v2=streams is not None)
     # the ownership depends on the row count where the sampling blocks own
     # no unit
     key = (R, FC, sms, B if plan.exclusive else 0, dev)
@@ -677,18 +866,32 @@ def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
     for k in ("wi1", "wh1", "wi2x", "wh2", "w1x", "w2x", "w3"):
         if w[k].data_ptr() % 16:
             raise ValueError(f"{k} is not 16-byte aligned for the bulk copy")
+    table = gathered = None
+    if pack is not None:
+        tkey = (sms, B, compute_dtype, K, dev)
+        if tkey not in pack._tables:
+            pack._tables[tkey] = resident_sparse_table(plan, pack, R, FC,
+                                                       B).to(dev)
+        table = pack._tables[tkey]
+    if pack is not None and fields["T"] >= 1 << 29:
+        raise ValueError(f"the sparse arm tags steps in 29 bits: T "
+                         f"{fields['T']} is too long for one launch")
+    if streams is not None:
+        gathered = gather_streams(streams, plan)
     lib = _resident_lib()
-    work = torch.zeros(lib.wr_resident_work_floats(B, R, FC, K),
+    work = torch.zeros(lib.wr_resident_work_floats(B, R, FC, K, plan.G),
                        dtype=torch.float32, device=dev)
     rows = (torch.zeros(plan.G * plan.row_bytes // 4, dtype=torch.float32,
                         device=dev) if plan.rows_global else None)
     args = _ResArgs(
         work=work.data_ptr(), units_r=ur.data_ptr(), units_fc=uf.data_ptr(),
-        prof=_ptr(prof), rows=_ptr(rows), B=B, K=K,
+        prof=_ptr(prof), rows=_ptr(rows), sparse=_ptr(table),
+        streams=_ptr(gathered), B=B, K=K,
         bf16=int(compute_dtype == torch.bfloat16),
         G=plan.G, UR=plan.UR, UF=plan.UF, TR=plan.tile_rows,
         w3_resident=int(plan.w3_resident), exclusive=int(plan.exclusive),
         smem_bytes=plan.smem_bytes, row_bytes=plan.row_bytes,
+        PBV=plan.slice_floats, SW=plan.sparse_words,
         off=(ctypes.c_int64 * len(RESIDENT_REGIONS))(
             *(plan.offsets[n] for n in RESIDENT_REGIONS)),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS}, **fields)
@@ -745,10 +948,10 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     CPU tensors run the plain version (float32 throughout); CUDA tensors
     launch the kernel with matrices in ``compute_dtype``, split and cast
     once per weight set (``_build.prepared``). ``sparse_packed``
-    (``pack_sparse`` of these weights): the kernel's sparse arm, which
-    reads only the packed matrices' live blocks; an empty pack serves
-    dense. Dense weights run on the resident body (``loop_body``);
-    ``_legacy`` runs them on the original body instead, as the yardstick."""
+    (``pack_sparse`` of these weights): the kernel's sparse arm (B9), which
+    multiplies only the packed matrices' live blocks; an empty pack serves
+    dense. Both run on the resident body (``loop_body``); ``_legacy`` runs
+    them on the original body instead, as the yardstick."""
     if frames.device.type == "cpu":
         return generate_fused_ref(core, frames, phi, hop, aux_tap,
                                   fold_chunks, mode, noise, seed,
@@ -757,19 +960,26 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     resident = loop_body(core, sparse_packed, _legacy) == "resident"
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
                         noise, seed, compute_dtype, pack, None, resident)
-    generate_fused.launches += 1
-    generate_fused.resident_launches += resident
-    generate_fused.sparse_launches += pack is not None
-    generate_fused.legacy_launches += _legacy and pack is None
+    _count(generate_fused, resident, pack is not None)
     return out
 
 
-# launches of B1 on either body; on the resident body; of the original
-# body's sparse arm (B9); of its dense arm (the private yardstick)
+def _count(fn, resident: bool, sparse: bool):
+    """One launch of ``fn``'s kernel: its total, and the arm's own count."""
+    fn.launches += 1
+    arm = ("sparse_launches" if sparse else "resident_launches") if resident \
+        else ("legacy_sparse_launches" if sparse else "legacy_launches")
+    setattr(fn, arm, getattr(fn, arm) + 1)
+
+
+# launches of B1 on either body; of the resident body's dense arm and its
+# sparse arm (B9); of the original body's dense and sparse arms (the
+# private yardstick)
 generate_fused.launches = 0
 generate_fused.resident_launches = 0
 generate_fused.sparse_launches = 0
 generate_fused.legacy_launches = 0
+generate_fused.legacy_sparse_launches = 0
 
 
 def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
@@ -801,9 +1011,7 @@ def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
     state = (init_state, state_snapshot_at)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
                         noise, seed, compute_dtype, None, state, not _legacy)
-    generate_fused_with_state.launches += 1
-    generate_fused_with_state.resident_launches += not _legacy
-    generate_fused_with_state.legacy_launches += _legacy
+    _count(generate_fused_with_state, not _legacy, False)
     return out
 
 
@@ -872,10 +1080,11 @@ def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
             raise ValueError(f"the resident sample loop preloads at most "
                              f"{RESIDENT_MAX_TAPS} mel taps, got {K}")
         entry = ("wr_resident_profile" if prof is not None
+                 else "wr_resident_fused_sparse" if pack is not None
                  else "wr_resident_fused" if state is None
                  else "wr_resident_fused_state")
         _resident_launch(
-            entry, w, dev, compute_dtype, B, K, prof,
+            entry, w, dev, compute_dtype, B, K, prof, pack,
             frames=frames.data_ptr(), phi=phi.data_ptr(), noise=_ptr(u),
             h1_0=_ptr(st[0]), h2_0=_ptr(st[1]), x_0=_ptr(st[2]),
             snap_h1=_ptr(snap[0]), snap_h2=_ptr(snap[1]),
@@ -937,10 +1146,7 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
     out = _materialized_launch(core, mels_up, aux, mode, noise, seed,
                                init_state, state_snapshot_at, compute_dtype,
                                pack, resident)
-    generate_materialized.launches += 1
-    generate_materialized.resident_launches += resident
-    generate_materialized.sparse_launches += pack is not None
-    generate_materialized.legacy_launches += not resident and pack is None
+    _count(generate_materialized, resident, pack is not None)
     return out
 
 
@@ -978,8 +1184,10 @@ def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
     if resident:
         _resident_launch(
-            "wr_resident_materialized" if prof is None
-            else "wr_resident_profile", w, dev, compute_dtype, B, 0, prof,
+            "wr_resident_profile" if prof is not None
+            else "wr_resident_materialized_sparse" if pack is not None
+            else "wr_resident_materialized", w, dev, compute_dtype, B, 0,
+            prof, pack,
             cond=cond.data_ptr(), noise=_ptr(u), h1_0=_ptr(state[0]),
             h2_0=_ptr(state[1]), x_0=_ptr(state[2]),
             snap_h1=snap[0].data_ptr(), snap_h2=snap[1].data_ptr(),
@@ -1011,12 +1219,15 @@ generate_materialized.launches = 0
 generate_materialized.resident_launches = 0
 generate_materialized.sparse_launches = 0
 generate_materialized.legacy_launches = 0
+generate_materialized.legacy_sparse_launches = 0
 
 
 def generate_fused_profiled(core, frames, phi, hop: int, aux_tap: int,
-                            fold_chunks: int, mode: str, seed: int = 0):
-    """B1 on the resident body's profiling instantiation (bfloat16
-    matrices, the counter hash): its samples and the per-stage split of a
+                            fold_chunks: int, mode: str, seed: int = 0,
+                            sparse_packed=None):
+    """B1 (or, with ``sparse_packed``, its sparse arm B9) on the resident
+    body's profiling instantiation (bfloat16 matrices, the counter hash):
+    its samples and the per-stage split of a
     step, clock64() cycles of block 0's thread 0 summed over the launch,
     by stage (prologue, gru1, gru2, fc1, fc2, sample) and kind (its first
     poll pass over the stage's tagged inputs, the wait for the rest and
@@ -1028,7 +1239,8 @@ def generate_fused_profiled(core, frames, phi, hop: int, aux_tap: int,
     path; its launches are not counted."""
     prof = _prof_buffer(frames.device)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
-                        None, seed, torch.bfloat16, None, None, True, prof)
+                        None, seed, torch.bfloat16,
+                        _active_pack(core, sparse_packed), None, True, prof)
     return (out,) + _prof_split(prof)
 
 

@@ -19,9 +19,14 @@ h2 @ W_h2, fc1, fc2 and fc3. So with bf16 streams it is not the
 materialized loop B3: ``i`` is rounded before xr = i + x w_Ix + h1, and
 only its own plain loop, ``generate_v2_ref``, computes the same function.
 
-The kernel is the third arm of the templated body in
-``csrc/sample_loop_fused.cu`` (``ARM_V2``), one cooperative launch per
-call. Noise is the port's: injected uniforms in the (T, B, NU) layout of
+The kernel is the ``ARM_V2`` arm of the resident body,
+``csrc/sample_loop_resident.cu``, one cooperative launch per call: its
+stage 1 is gate arithmetic at each unit's owner once the row's sample
+arrives, and each block copies its step's slice of the streams, gathered
+once per launch into the plan's unit order (``cuda_gen.gather_streams``),
+a step ahead. The private ``_legacy=True`` runs the original body's arm
+(``csrc/sample_loop_fused.cu``), the yardstick it is held to bit for bit.
+Noise is the port's: injected uniforms in the (T, B, NU) layout of
 ``cuda_gen``, or the counter hash keyed by ``seed`` (the TPU kernel's
 ``pltpu.prng_random_bits`` in RAW mode, pallas_gen2.py:128-133, has no
 counterpart). The TPU's ``chunk`` and ``T_pad`` are grid artefacts and are
@@ -37,8 +42,9 @@ from ..models.distribution import (
 )
 from . import _build
 from .cuda_gen import (_M32, _WEIGHT_FIELDS, _LoopArgs, _check_kernel_call,
-                       _dims, _launch, _lib, _sparse_args, _uniforms,
-                       noise_stream)
+                       _count, _dims, _launch, _lib, _prof_buffer,
+                       _prof_split, _ptr, _resident_launch, _sparse_args,
+                       _uniforms, noise_stream)
 from .layers import gru_gates, linear
 
 _STREAM_DTYPES = (torch.bfloat16, torch.float32)
@@ -126,7 +132,8 @@ def v2_loop_ref(core, streams, vecs, mode: str, noise=None, seed: int = 0,
 
 
 def generate_v2(core, mels_up, aux, mode: str, noise=None, seed: int = 0,
-                compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16,
+                _legacy: bool = False):
     """B10: the sample loop on pre-projected streams, one launch.
 
     core: the vocoder's weights by reference state-dict name; mels_up
@@ -138,7 +145,8 @@ def generate_v2(core, mels_up, aux, mode: str, noise=None, seed: int = 0,
 
     CPU tensors run the plain version (float32 matrices); CUDA tensors
     project the streams with ``torch`` matrix products and launch the
-    kernel with the per-step matrices in ``compute_dtype``."""
+    kernel with the per-step matrices in ``compute_dtype`` (``_legacy``:
+    on the original body, the yardstick)."""
     if stream_dtype not in _STREAM_DTYPES:
         raise TypeError(f"stream_dtype must be bfloat16 or float32, got "
                         f"{stream_dtype}")
@@ -155,18 +163,40 @@ def generate_v2(core, mels_up, aux, mode: str, noise=None, seed: int = 0,
                          f"{tuple(aux.shape)} do not match the weights' "
                          f"(B, T, {n_mels}) and (B, T, {4 * A})")
     streams, vecs = v2_streams(core, mels_up, aux, stream_dtype)
-    return launch_v2(core, streams, vecs, mode, noise, seed, compute_dtype)
+    return launch_v2(core, streams, vecs, mode, noise, seed, compute_dtype,
+                     _legacy)
 
 
 def launch_v2(core, streams, vecs, mode: str, noise=None, seed: int = 0,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, _legacy: bool = False):
     """B10's one launch on streams already projected: ``streams`` and
     ``vecs`` as ``v2_streams`` returns them, CUDA tensors; the other
     arguments as ``generate_v2``'s. Returns samples (B, T) float32. CPU
     tensors run the plain version (``v2_loop_ref``, float32 matrices)."""
-    dev = streams[0].device
-    if dev.type == "cpu":
+    if streams[0].device.type == "cpu":
         return v2_loop_ref(core, streams, vecs, mode, noise, seed)
+    out = _v2_launch(core, streams, vecs, mode, noise, seed, compute_dtype,
+                     not _legacy)
+    _count(generate_v2, not _legacy, False)
+    return out
+
+
+def generate_v2_profiled(core, streams, vecs, mode: str, seed: int = 0):
+    """``launch_v2`` on the resident body's profiling instantiation
+    (bfloat16 matrices, the counter hash): its samples and the per-stage
+    split of a step, as ``cuda_gen.generate_fused_profiled`` returns it.
+    Not a serving path; its launches are not counted."""
+    prof = _prof_buffer(streams[0].device)
+    out = _v2_launch(core, streams, vecs, mode, None, seed, torch.bfloat16,
+                     True, prof)
+    return (out,) + _prof_split(prof)
+
+
+def _v2_launch(core, streams, vecs, mode, noise, seed, compute_dtype,
+               resident, prof=None):
+    """One launch of B10 on CUDA streams, on the resident body or
+    (``resident`` False) the original body."""
+    dev = streams[0].device
     if dev.type != "cuda":
         raise ValueError(f"no pre-projected sample loop for {dev}")
     w = _check_kernel_call(core, mode, compute_dtype, dev)
@@ -190,10 +220,18 @@ def launch_v2(core, streams, vecs, mode: str, noise=None, seed: int = 0,
         _build.check_operand(u, "noise", torch.float32,
                              (T, B, NC // 3 + 1 if mol else NC), dev)
     out = torch.empty(B, T, dtype=torch.float32, device=dev)
+    if resident:
+        _resident_launch(
+            "wr_resident_v2" if prof is None else "wr_resident_profile", w,
+            dev, compute_dtype, B, 0, prof, None, streams, noise=_ptr(u),
+            out=out.data_ptr(), wxw1=vecs[1].data_ptr(),
+            wxw2=vecs[2].data_ptr(), R=R, FC=FC, A=A, n_mels=n_mels, NC=NC,
+            hop=1, T=T, snapshot_at=T, mol=int(mol), seed=seed & _M32)
+        return out
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, 0, 0),
                        dtype=torch.float32, device=dev)
     args = _LoopArgs(
-        noise=None if u is None else u.data_ptr(),
+        noise=_ptr(u),
         out=out.data_ptr(), work=work.data_ptr(),
         s_i=streams[0].data_ptr(), s_gi1=streams[1].data_ptr(),
         s_gi2=streams[2].data_ptr(), s_f1=streams[3].data_ptr(),
@@ -207,9 +245,11 @@ def launch_v2(core, streams, vecs, mode: str, noise=None, seed: int = 0,
         sp=_sparse_args(None, compute_dtype, dev),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS})
     _launch("wr_sample_loop_v2", args, dev, "pre-projected sample-loop")
-    generate_v2.launches += 1
     return out
 
 
-# launches of B10 (through generate_v2 or launch_v2)
+# launches of B10 (through generate_v2 or launch_v2) on either body; on the
+# resident body; on the original body (the private yardstick)
 generate_v2.launches = 0
+generate_v2.resident_launches = 0
+generate_v2.legacy_launches = 0
