@@ -76,22 +76,37 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            branches at every ReLU, max-pool and L1 term, within 1e-4, or
            twice the float32 scan step's largest distance in its module
            where that is larger); steps/s, stage ms and a profiled step
-  b7       the Tacotron attention-forcing decoder recurrence kernels
-           (forward, and backward with d(aref), the prenet's and every other
-           weight gradient) against their plain versions: full width B 32,
-           T_text 150, 200 groups at r 2 (the AF configs' r); the odd shape;
-           eval mode (dropout masks of ones, zero zoneout masks, forward
-           only); float32, TF32 off
+  b7       the Tacotron attention-forcing decoder recurrence kernels on the
+           resident body (csrc/taco_train_resident.cu; forward, and backward
+           with d(aref), the prenet's and every other weight gradient)
+           against their plain versions: full width B 32, T_text 150, 200
+           groups at r 2 (the AF configs' r); the odd shape; eval mode
+           (dropout masks of ones, zero zoneout masks, forward only);
+           float32, TF32 off
+  b7res    the resident B7 body against the original body (csrc/
+           taco_train.cu's AF arm, ``_legacy=True``) at the b7 full shape:
+           every forward output and stream (the mel chain bit for bit, the
+           attention's largest difference), both backwards on the same
+           streams, crossed streams (each forward into the other body's
+           backward, against the plain backward on them), the original body
+           against the plain versions; B 8 and 16 at T_text 150 and B 32
+           at T_text 200 against the plain versions; both bodies timed in
+           turns (new, old, old, new), forward and backward, clocks read;
+           the per-stage split of a group (clock64() on block 0, the
+           profiling instantiation); nvcc's registers and spills of the new
+           kernels (a spill fails the phase)
   taco_af  inside taco_train's directory, from its TF checkpoint: attention
            references at r 2 (``create_attn_ref`` on B6), ``cli.
            train_tacotron`` in AF-online (the TF checkpoint as the frozen
            teacher, KL x 1.0) and AF-offline (those references, L1 x 200),
            3 steps each at batch 32 warm-started from it: B7's, B6's and
-           B5's launch counts, finite losses and gradient norms, the
-           checkpoint pairs; one full-width AF-offline step with the kernels
+           B5's launch counts (every B7 launch on the resident body, none on
+           the original), finite losses and gradient norms, the checkpoint
+           pairs; one full-width AF-offline step with the kernels
            against ``recurrence="scan"`` (the batch cut to 400 frames, the
            rule of taco_train's); steps/s and a profiled step of each mode
-           with B7's share of device time
+           with B7's share of device time, and B7's two bodies in turns at
+           that batch's shape
   timings  each kernel and its plain version at the main path's shapes
            and on its inputs, with CUDA events after warm-up, the least
            time the card could take for the same work, and the outputs
@@ -160,10 +175,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            split of a B10 step at 1 and 10 rows
 
 The launch counts of main, serve, stream, prune, sparse, seam and b10 show
-the resident body's launches and none of the original body's. Then the
-card's name and power limit, the kernels JSON line (nineteen kernels: B1,
-B3, B4b, B9 in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9 and
-B10 on the original body, whose times come from the turns), and last the
+the resident sample-loop body's launches and none of the original body's;
+taco_af's show the resident B7 body's and none of the original's. Then the
+card's name and power limit, the kernels JSON line (twenty-one kernels:
+B1, B3, B4b, B9 in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9
+and B10 on the original body, whose times come from the turns; B2, B5 and
+B6 forward and backward, B8; B7 forward and backward on the resident body,
+and on the original body with its times from b7res's turns), and last the
 device line. Comparisons run
 with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
 or outside a checkout of the repository.
@@ -191,6 +209,7 @@ RES_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_resident.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
 B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
+B7_SOURCE = "wavernn_tpu_torch/csrc/taco_train_resident.cu"
 # B5 tolerances. float32: summation order only, over 1375 steps. bfloat16
 # streams: ys/sv within a few bf16 ulps at |v| <= 1 (2**-8 each; a one-ulp
 # rounding flip of h is carried forward), gradients 3e-2 of the largest
@@ -661,14 +680,16 @@ def b7_case(B, T, G, r, dev, seed, train=True):
     return tuple(t.to(dev) for t in ins), weights
 
 
-def check_b7(ct, ins, weights, seed, backward=True):
+def check_b7(ct, ins, weights, seed, backward=True, legacy=False):
     """B7's forward kernel against ``core_af_ref`` (outputs and, when
     ``backward``, every stream), then the backward kernel against
     ``core_af_bwd_ref`` on the kernel's own streams and random cotangents
     of mel and scores: (result, ok). Relative errors are over each
-    output's largest entry."""
+    output's largest entry. ``legacy``: the original body (csrc/
+    taco_train.cu) in place of the resident one."""
     import torch
-    mel, sc, st = ct.decoder_af_fwd(*ins, weights, save=backward)
+    mel, sc, st = ct.decoder_af_fwd(*ins, weights, save=backward,
+                                    _legacy=legacy)
     mel_p, sc_p, st_p = ct.core_af_ref(*ins, *weights, save=backward)
     torch.cuda.synchronize()
     res = {"mel_rel_err": rel_err(mel, mel_p),
@@ -685,7 +706,8 @@ def check_b7(ct, ins, weights, seed, backward=True):
         gen = torch.Generator().manual_seed(seed)
         dmel = torch.randn(mel.shape, generator=gen).to(mel.device)
         dsc = torch.randn(sc.shape, generator=gen).to(mel.device)
-        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, weights)
+        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, weights,
+                                _legacy=legacy)
         want = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *weights)
         torch.cuda.synchronize()
         names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
@@ -1007,6 +1029,136 @@ def zero_counts():
     cuda_taco.decode.launches = 0
     cuda_taco.decode_batch.launches = 0
     cuda_gru.gru_seq_tm.fwd_launches = 0
+
+
+def ptxas_entries(log, key):
+    """nvcc -Xptxas -v's lines (stack frame and spills, registers) for each
+    entry function whose name holds ``key``, and the lines that show a
+    spill."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if key in m.group(1) else None
+            if cur:
+                out[cur] = []
+        elif cur and ("registers" in ln or "spill" in ln):
+            out[cur].append(ln.split("info    : ")[-1].strip())
+    spills = [f"{k}: {v}" for k, vs in out.items() for v in vs
+              if re.search(r"\b[1-9]\d* bytes spill", v)]
+    return out, spills
+
+
+def phase_b7res(ct, dev, build_log):
+    """B7's resident body (csrc/taco_train_resident.cu, which every AF
+    training path runs on) against the original body (``_legacy=True``)
+    and the plain versions. At the b7 full shape: every forward output and
+    stream of the two bodies compared (the mel chain's bit for bit, the
+    attention's by its largest difference: the normaliser is summed in
+    another order), and both backwards on the same streams; the original
+    body against the plain versions (its kernels-line errors); crossed
+    streams, the new forward's into the original backward and the original
+    forward's into the new backward, each against the plain backward on
+    those streams, within B6_TOL. Odd shapes: B 8 and 16 at T_text 150 and
+    B 32 at T_text 200, each held to the plain versions. Both bodies timed
+    in turns (new, old, old, new), forward and backward, the SM clock and
+    clock-limit reasons read around each set. The per-stage split of a
+    group from the profiling instantiation (clock64() on block 0, cycles a
+    group). nvcc's registers and spills for the new kernels (a spill in
+    taco_af_res_fwd or taco_af_res_bwd fails the phase). Returns the
+    results."""
+    import torch
+    res, oks = {}, {}
+    ptx, spills = ptxas_entries(build_log, "taco_af_res")
+    res["ptxas"], res["spills"] = ptx, spills
+    oks["no_spill"] = not [ln for ln in spills if "_prof" not in ln]
+    Bf, Tf, Gf, rf = B7_FULL
+    ins, w = b7_case(Bf, Tf, Gf, rf, dev, 51, True)
+    names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
+
+    def diff(a, b):
+        return 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+
+    with torch.no_grad():
+        mel, sc, st = ct.decoder_af_fwd(*ins, w, save=True)
+        mel_o, sc_o, st_o = ct.decoder_af_fwd(*ins, w, save=True,
+                                              _legacy=True)
+        fwd_diff = {"mel": diff(mel, mel_o), "scores": diff(sc, sc_o),
+                    **{k: diff(st[k], st_o[k]) for k in ct.AF_STREAMS}}
+        # the mel chain keeps the original's sums: bit for bit; the
+        # attention's outputs differ by the normaliser's order
+        chain = [k for k in fwd_diff if k not in ("scores", "cum", "div")]
+        res["fwd_max_abs_diff_vs_legacy"] = fwd_diff
+        res["fwd_chain_bit_for_bit"] = all(fwd_diff[k] == 0.0 for k in chain)
+        oks["fwd_chain_bit_for_bit"] = res["fwd_chain_bit_for_bit"]
+        g = torch.Generator().manual_seed(52)
+        dmel = torch.randn(mel.shape, generator=g).to(dev)
+        dsc = torch.randn(sc.shape, generator=g).to(dev)
+        new_b = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w)
+        old_b = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w, _legacy=True)
+        res["bwd_max_abs_diff_vs_legacy"] = {
+            n: diff(a, b) for n, a, b in zip(names, new_b, old_b)}
+        # crossed streams, each against the plain backward on them
+        ref = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+        cross_o = ct.decoder_af_bwd(dmel, dsc, st_o, sc_o, *ins, w)
+        ref_o = ct.core_af_bwd_ref(dmel, dsc, st_o, sc_o, *ins, *w)
+        torch.cuda.synchronize()
+        cross = {"new_fwd_into_legacy_bwd": max(
+                     rel_err(a, b) for a, b in zip(old_b, ref)),
+                 "legacy_fwd_into_new_bwd": max(
+                     rel_err(a, b) for a, b in zip(cross_o, ref_o))}
+        res["crossed_rel_err"] = cross
+        oks["crossed"] = (max(cross.values()) <= B6_TOL and all(
+            bool(t.isfinite().all()) for t in list(old_b) + list(cross_o)))
+        # the original body against the plain versions (its errors)
+        chk, oks["legacy_vs_plain"] = check_b7(ct, ins, w, 53, legacy=True)
+        res["legacy_vs_plain"] = {k: v for k, v in chk.items()
+                                  if k != "grad_rel_err"}
+        # odd shapes, each held to the plain versions
+        res["shapes"] = {}
+        for tag, shape in (("B8_T150", (8, 150, Gf, rf)),
+                           ("B16_T150", (16, 150, Gf, rf)),
+                           ("B32_T200", (32, 200, Gf, rf))):
+            i2, w2 = b7_case(*shape, dev, 54, True)
+            chk, oks[tag] = check_b7(ct, i2, w2, 55)
+            res["shapes"][tag] = {k: v for k, v in chk.items()
+                                  if k != "grad_rel_err"}
+        # both bodies in turns, forward and backward
+        res["turns"] = {
+            "fwd": turns(lambda: ct.decoder_af_fwd(*ins, w, save=True),
+                         lambda: ct.decoder_af_fwd(*ins, w, save=True,
+                                                   _legacy=True), 3),
+            "bwd": turns(lambda: ct.decoder_af_bwd(dmel, dsc, st, sc, *ins,
+                                                   w),
+                         lambda: ct.decoder_af_bwd(dmel, dsc, st, sc, *ins,
+                                                   w, _legacy=True), 3)}
+        oks["new_faster"] = all(t["new_faster"] for t in
+                                res["turns"].values())
+        # the per-stage split of a group on the new body
+        clk = [gpu_clocks()]
+        split = {}
+        for d_, labels, fn in (
+                ("fwd", ct.RES_PROF_FWD,
+                 lambda pr: ct.decoder_af_fwd(*ins, w, save=True,
+                                              _profile=pr)),
+                ("bwd", ct.RES_PROF_BWD,
+                 lambda pr: ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w,
+                                              _profile=pr))):
+            prof = torch.zeros(64, dtype=torch.int64, device=dev)
+            fn(prof)
+            cyc = prof.cpu().tolist()
+            split[d_] = {k: cyc[i] / Gf for i, k in enumerate(labels)}
+            split[d_]["total"] = sum(split[d_].values())
+        clk.append(gpu_clocks())
+        res["split_cycles_per_group"], res["split_clocks"] = split, clk
+    res["oks"] = oks
+    ok = all(oks.values())
+    emit("b7res", ok=ok, tolerance=B6_TOL, B=Bf, T_text=Tf, G=Gf, r=rf,
+         **res)
+    if not ok:
+        raise AssertionError("b7res: the resident B7 body failed a check: "
+                             + ", ".join(k for k, v in oks.items() if not v))
+    return res
 
 
 def phase_b3(cfg, dev, gen, tol):
@@ -2900,6 +3052,8 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"B7 {tag}: a kernel disagrees with its "
                                  "plain version")
+    # ---- b7res: the resident B7 body against the original body ----
+    b7res = phase_b7res(ct, dev, logs.get("taco_train_resident", ""))
 
     # ---- taco_train: the Tacotron trainer's CLI at full width ----
     from wavernn_tpu_torch.cli import train_tacotron
@@ -3122,11 +3276,19 @@ def main() -> int:
                 f"tts_init_weights_path = {str(tf_ckpt)!r}", *extra]) + "\n")
             for c in (ct.decoder_af, ct.decoder_tf, cuda_gru.gru_seq_tm):
                 c.fwd_launches = c.bwd_launches = 0
+            for body in ("resident", "legacy"):
+                for d_ in ("fwd", "bwd"):
+                    setattr(ct.decoder_af, f"{body}_{d_}_launches", 0)
             t0 = time.perf_counter()
             cli(hp_file=hp_af)
             cli_s = time.perf_counter() - t0
-            got = {"taco_af_fwd": ct.decoder_af.fwd_launches,
-                   "taco_af_bwd": ct.decoder_af.bwd_launches,
+            af = ct.decoder_af
+            got = {"taco_af_fwd": af.fwd_launches,
+                   "taco_af_bwd": af.bwd_launches,
+                   "taco_af_res_fwd": af.resident_fwd_launches,
+                   "taco_af_res_bwd": af.resident_bwd_launches,
+                   "taco_af_legacy_fwd": af.legacy_fwd_launches,
+                   "taco_af_legacy_bwd": af.legacy_bwd_launches,
                    "taco_tf_fwd": ct.decoder_tf.fwd_launches,
                    "taco_tf_bwd": ct.decoder_tf.bwd_launches,
                    "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
@@ -3136,7 +3298,10 @@ def main() -> int:
             # B7 1 + 1 a step; B5 4 + 4 for the student and, online, 2
             # forward for the teacher's encoder BiGRU; B6 forward once a
             # step for the online teacher (its postnet is skipped)
+            # every B7 launch on the resident body, none on the original
             want = {"taco_af_fwd": n_af, "taco_af_bwd": n_af,
+                    "taco_af_res_fwd": n_af, "taco_af_res_bwd": n_af,
+                    "taco_af_legacy_fwd": 0, "taco_af_legacy_bwd": 0,
                     "taco_tf_fwd": n_af if online else 0, "taco_tf_bwd": 0,
                     "gru_seq_fwd": (6 if online else 4) * n_af,
                     "gru_seq_bwd": 4 * n_af}
@@ -3285,7 +3450,22 @@ def main() -> int:
                 break
         torch.cuda.synchronize()
         af_loop_s = time.perf_counter() - t0
-        emit("taco_af", stage="speed", **af_speed,
+        # B7's two bodies in turns at this batch's shape (seeded inputs)
+        ins_a, w_a = b7_case(xa.shape[0], xa.shape[1], Ga, 2, dev, 56, True)
+        with torch.no_grad():
+            _, sc_a, st_a = ct.decoder_af_fwd(*ins_a, w_a, save=True)
+            dm_a = torch.randn(Ga, xa.shape[0], 160, device=dev)
+            ds_a = torch.randn_like(sc_a)
+            af_turns = {
+                "fwd": turns(lambda: ct.decoder_af_fwd(*ins_a, w_a, save=True),
+                             lambda: ct.decoder_af_fwd(*ins_a, w_a, save=True,
+                                                       _legacy=True), 3),
+                "bwd": turns(lambda: ct.decoder_af_bwd(dm_a, ds_a, st_a, sc_a,
+                                                       *ins_a, w_a),
+                             lambda: ct.decoder_af_bwd(dm_a, ds_a, st_a, sc_a,
+                                                       *ins_a, w_a,
+                                                       _legacy=True), 3)}
+        emit("taco_af", stage="speed", **af_speed, b7_turns=af_turns,
              steps_per_s_offline_loop=n_tt / af_loop_s,
              step_ms_offline_loop=1e3 * af_loop_s / n_tt,
              data_collate_host_ms=af_collate_ms, batch=xa.shape[0],
@@ -3435,8 +3615,11 @@ def main() -> int:
     fl7b, by7b = b7_work(*dims7, True)
     b7f_bound, b7f_by = bound(fl7f, by7f, PEAK_F32)
     b7b_bound, b7b_by = bound(fl7b, by7b, PEAK_F32)
-    af_total = {k: sum(v[k] for v in af_launches.values())
+    # B7's launches on the AF paths: the resident body's, the original's
+    af_total = {k: sum(v[f"taco_af_res_{k[-3:]}"] for v in af_launches.values())
                 for k in ("taco_af_fwd", "taco_af_bwd")}
+    af_legacy = {k: sum(v[k] for v in af_launches.values())
+                 for k in ("taco_af_legacy_fwd", "taco_af_legacy_bwd")}
     # B3 at the b1 shape (the main mel upsampled and folded: 10 folds x
     # 12,100 steps) and unbatched (1 x 12,100), bfloat16 matrices and
     # counter-hash noise as the serving paths call it; B8 at B 5 and 32
@@ -3634,14 +3817,14 @@ def main() -> int:
                                if "bwd_max_abs_err" in r]),
          "ms": b6_ms, "plain_ms": b6_plain, "bound_ms": b6b_bound,
          "bound_by": b6b_by, "library_ms": None},
-        {"name": "taco_af_fwd", "route": "cuda", "source": B6_SOURCE,
+        {"name": "taco_af_fwd", "route": "cuda", "source": B7_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:802",
          "launches": af_total["taco_af_fwd"],
          "max_abs_err": max([b7_main["fwd_max_abs_err"]]
                             + [r["fwd_max_abs_err"] for r in b7.values()]),
          "ms": f7_ms, "plain_ms": f7_plain, "bound_ms": b7f_bound,
          "bound_by": b7f_by, "library_ms": None},
-        {"name": "taco_af_bwd", "route": "cuda", "source": B6_SOURCE,
+        {"name": "taco_af_bwd", "route": "cuda", "source": B7_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:925",
          "launches": af_total["taco_af_bwd"],
          "max_abs_err": max([b7_main["bwd_max_abs_err"]]
@@ -3649,6 +3832,18 @@ def main() -> int:
                                if "bwd_max_abs_err" in r]),
          "ms": b7_ms, "plain_ms": b7_plain, "bound_ms": b7b_bound,
          "bound_by": b7b_by, "library_ms": None},
+        {"name": "taco_af_fwd_legacy", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:802",
+         "launches": af_legacy["taco_af_legacy_fwd"],
+         "max_abs_err": b7res["legacy_vs_plain"]["fwd_max_abs_err"],
+         "ms": min(b7res["turns"]["fwd"]["old"]), "plain_ms": f7_plain,
+         "bound_ms": b7f_bound, "bound_by": b7f_by, "library_ms": None},
+        {"name": "taco_af_bwd_legacy", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:925",
+         "launches": af_legacy["taco_af_legacy_bwd"],
+         "max_abs_err": b7res["legacy_vs_plain"]["bwd_max_abs_err"],
+         "ms": min(b7res["turns"]["bwd"]["old"]), "plain_ms": b7_plain,
+         "bound_ms": b7b_bound, "bound_by": b7b_by, "library_ms": None},
         {"name": "sample_loop_resident_sparse", "route": "cuda",
          "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:119",
          "launches": prune["serve_launches"]["sample_loop_resident_sparse"],

@@ -16,9 +16,12 @@ float32: mel, scores, the residual streams and every gradient within 1e-5
 of each tensor's largest entry (summation order only, over at most 7
 groups); a Tacotron train step's loss and gradients on the card within
 1e-4 of the CPU's (the whole model, other library kernels). The
-attention-forcing recurrence (B7), float32: mel, scores, the streams,
-d(aref) and every gradient within 1e-5 of each tensor's largest entry, as
-B6; an AF-offline train step with the kernels within 1e-5 (loss, relative)
+attention-forcing recurrence (B7), float32, on the resident body and on
+the original one (``_legacy=True``): mel, scores, the streams, d(aref) and
+every gradient within 1e-5 of each tensor's largest entry, as B6; either
+body's forward streams into the other's backward, within 1e-5 of the plain
+backward on them, and the two forwards' mel chains bit for bit (their
+normalisers sum in different orders); an AF-offline train step with the kernels within 1e-5 (loss, relative)
 and 1e-4 (each gradient of its largest entry) of the same step with
 ``recurrence="scan"`` on the card. The materialized sample loop (B3):
 samples and the returned state within 2e-3 (as B1), and chained launches
@@ -249,15 +252,23 @@ def _b7_inputs(B, T, G, r, dev, train, seed=0):
     return tuple(t.to(dev) for t in ins), weights
 
 
+@pytest.mark.parametrize("legacy", [False, True],
+                         ids=["resident", "legacy"])
 @pytest.mark.parametrize("B,T,G,r,train", [(5, 33, 7, 2, True),
                                            (3, 20, 6, 5, False)])
-def test_taco_af_kernels_match_plain(cuda, B, T, G, r, train):
+def test_taco_af_kernels_match_plain(cuda, B, T, G, r, train, legacy):
+    """Either B7 body (the resident one, and the original through the
+    private ``_legacy``) against the plain versions; each launch counted
+    on its body."""
     ins, w = _b7_inputs(B, T, G, r, cuda, train)
+    body = "legacy" if legacy else "resident"
     with torch.no_grad():
         before = ct.decoder_af.fwd_launches
-        mel, sc, st = ct.decoder_af_fwd(*ins, w, save=True)
+        own = getattr(ct.decoder_af, f"{body}_fwd_launches")
+        mel, sc, st = ct.decoder_af_fwd(*ins, w, save=True, _legacy=legacy)
         mel_p, sc_p, st_p = ct.core_af_ref(*ins, *w, save=True)
         assert ct.decoder_af.fwd_launches == before + 1
+        assert getattr(ct.decoder_af, f"{body}_fwd_launches") == own + 1
         assert _rel(mel, mel_p) <= 1e-5 and _rel(sc, sc_p) <= 1e-5
         for k in ct.AF_STREAMS:
             assert _rel(st[k], st_p[k]) <= 1e-5, k
@@ -265,14 +276,43 @@ def test_taco_af_kernels_match_plain(cuda, B, T, G, r, train):
         dmel = torch.randn(mel.shape, generator=gen).to(cuda)
         dsc = torch.randn(sc.shape, generator=gen).to(cuda)
         before = ct.decoder_af.bwd_launches
-        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w)
+        own = getattr(ct.decoder_af, f"{body}_bwd_launches")
+        got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w, _legacy=legacy)
         want = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *w)
         torch.cuda.synchronize()
         assert ct.decoder_af.bwd_launches == before + 1
+        assert getattr(ct.decoder_af, f"{body}_bwd_launches") == own + 1
     names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
     assert len(got) == len(names)
     for name, a, b in zip(names, got, want):
         assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
+
+
+def test_taco_af_crossed_streams(cuda):
+    """A forward of either B7 body feeds a backward of the other: the
+    resident forward's streams into the original backward and the
+    original's into the resident backward, each against the plain backward
+    on the same streams; the two forwards' mel chains bit for bit."""
+    ins, w = _b7_inputs(5, 33, 7, 2, cuda, True)
+    names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
+    with torch.no_grad():
+        fwd = {lg: ct.decoder_af_fwd(*ins, w, save=True, _legacy=lg)
+               for lg in (False, True)}
+        assert torch.equal(fwd[False][0], fwd[True][0])
+        for k in ct.AF_STREAMS:
+            if k not in ("cum", "div"):   # the normaliser's order differs
+                assert torch.equal(fwd[False][2][k], fwd[True][2][k]), k
+        gen = torch.Generator().manual_seed(3)
+        dmel = torch.randn(fwd[False][0].shape, generator=gen).to(cuda)
+        dsc = torch.randn(fwd[False][1].shape, generator=gen).to(cuda)
+        for lg in (False, True):
+            _, sc, st = fwd[lg]
+            got = ct.decoder_af_bwd(dmel, dsc, st, sc, *ins, w,
+                                    _legacy=not lg)
+            want = ct.core_af_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, want):
+                assert _rel(a, b) <= 1e-5, (lg, name)
 
 
 def test_taco_af_offline_step_kernels_match_scan(cuda):
@@ -292,9 +332,19 @@ def test_taco_af_offline_step_kernels_match_scan(cuda):
     out = {}
     for rec in ("auto", "scan"):
         before = ct.decoder_af.bwd_launches
+        res = (ct.decoder_af.resident_fwd_launches,
+               ct.decoder_af.resident_bwd_launches)
+        old = (ct.decoder_af.legacy_fwd_launches,
+               ct.decoder_af.legacy_bwd_launches)
         loss, _, _, _, g = tt.loss_and_grads_af(
             copy.deepcopy(model), x, m, aref, r, 200.0, True, rec, masks)
         assert ct.decoder_af.bwd_launches == before + (rec == "auto")
+        # the step's launches land on the resident body, none on the old
+        assert (ct.decoder_af.resident_fwd_launches,
+                ct.decoder_af.resident_bwd_launches) == tuple(
+                    n + (rec == "auto") for n in res)
+        assert (ct.decoder_af.legacy_fwd_launches,
+                ct.decoder_af.legacy_bwd_launches) == old
         out[rec] = (float(loss), g)
     (lk, gk), (ls, gs) = out["auto"], out["scan"]
     assert abs(lk - ls) <= 1e-5 * abs(ls)

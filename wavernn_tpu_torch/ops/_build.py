@@ -22,7 +22,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sample_loop_fused", "sample_loop_resident", "taco_decode",
-           "gru_seq", "taco_train")
+           "gru_seq", "taco_train", "taco_train_resident")
+# sources a source includes: its library rebuilds when they change
+INCLUDES = {"taco_train_resident": ("taco_train",)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -41,8 +43,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join((CSRC / f"{n}.cu").read_bytes()
+                    for n in (name,) + INCLUDES.get(name, ()))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

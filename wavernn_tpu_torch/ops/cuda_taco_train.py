@@ -28,6 +28,11 @@ composed with L as W01 (D, 62) (cumulative taps, then attention taps),
 qb = W.b + L.b, the LSTM biases summed, and mel_proj's rows of the r frames
 reordered frame-major (F = r * n_mels). float32 only.
 
+B7 runs on the resident body ``csrc/taco_train_resident.cu``
+(``taco_af_res_fwd`` / ``taco_af_res_bwd``; launch plan
+``af_resident_plan``); the AF arm of ``csrc/taco_train.cu`` is its
+yardstick, reached only through the wrappers' private ``_legacy=True``.
+
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise. Neither falls back to the other.
 """
@@ -472,6 +477,220 @@ def _lib():
     return lib
 
 
+# ---------------------------------------------------------------------------
+# the resident B7 body (csrc/taco_train_resident.cu)
+# ---------------------------------------------------------------------------
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+RES_THREADS = 256
+RES_WARPS = RES_THREADS // 32
+TC = 16                  # text positions an attention item covers
+NTAP = 2 * CONV_K        # the location weight's taps (cumulative, attention)
+RES_RB = 8               # batch rows a staged pass holds at most
+WINP = 48                # an item's window, padded
+# the attention scratch (floats): the forward's windows, sums and the
+# normaliser's partials; the backward's also the conv's input cotangents,
+# the taps' products P (16 x 62) and dp (16 x D)
+ATT_FWD_FLOATS = 2 * WINP + RES_WARPS * TC + TC + 16
+
+
+def att_bwd_floats(D: int, nc: int) -> int:
+    return (4 * WINP + RES_WARPS * TC + 2 * TC + 16 + TC * NTAP + _up4(nc)
+            + TC * D)
+
+
+H100_SMEM = 232448       # shared memory a block can opt into on the H100
+RES_FIELDS = ("nblk", "tp", "kc", "smem_bytes", "off_w01t", "off_att",
+              "off_x", "off_l1", "off_l2", "off_gw", "off_pv", "res_l1",
+              "res_l2", "upb_l", "nc", "ipb", "gw_global", "ctx_smem",
+              "epi_tt", "epi_gc")
+
+
+# the profiling instantiation's labels (FProf / BProf in the source): each
+# stage's own work, its attention items (between its arrival at the barrier
+# and its wait there), and the wait
+RES_PROF_FWD = ("prologue", "gru", "gru_wait", "query_rnn_input",
+                "query_rnn_input_wait", "lstm1", "lstm1_att", "lstm1_wait",
+                "lstm2", "lstm2_att", "lstm2_wait", "mel", "mel_att",
+                "mel_wait", "prenet1", "prenet1_att", "prenet1_wait",
+                "prenet2", "prenet2_att", "prenet2_wait", "epilogue")
+RES_PROF_BWD = ("prologue", "s1_mel_lstm2", "s1_att", "s1_wait", "s2_lstm1",
+                "s2_wait", "s3_dx0", "s3_att", "s3_wait",
+                "s4_rnn_input_query_gru", "s4_att", "s4_wait", "s7_dpre",
+                "s7_att", "s7_wait", "s8_dp1_dctx_dah", "s8_att", "s8_wait",
+                "s9_dprev", "s9_wait", "epilogue")
+
+
+class _ResPlan(ctypes.Structure):   # ResPlan in csrc/taco_train_resident.cu
+    _fields_ = [(f, ctypes.c_int64) for f in RES_FIELDS]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def af_resident_stages(dims) -> Dict[str, Dict[str, int]]:
+    """Output units of every matrix stage of the resident body, by
+    direction: unit j of a stage belongs to block j mod grid."""
+    D, E, L, F = dims["D"], dims["E"], dims["L"], dims["F"]
+    P1, P2, NM = dims["P1"], dims["P2"], dims["NM"]
+    return {"fwd": {"prenet1": P1, "prenet2": P2, "gru": D,
+                    "query_rnn_input": D + L, "lstm1": L, "lstm2": L,
+                    "mel": F},
+            "bwd": {"s1_mel_lstm2": L, "s2_lstm1": L, "s3_dx0": L,
+                    "s4_rnn_input_query_gru": E + D, "s7_dpre": P2,
+                    "s8_dp1_dctx_dah": P1 + E + D, "s9_dprev": NM}}
+
+
+def af_resident_plan(dims, sms: int = 132,
+                     smem_bytes: int = H100_SMEM) -> Dict[str, Dict[str, int]]:
+    """The resident B7 body's launch plan for ``dims`` (G, B, T, E, D, P1,
+    P2, L, F, NM) on ``sms`` SMs with ``smem_bytes`` of shared memory a
+    block: ``{"fwd": fields, "bwd": fields}``, each the ``ResPlan`` the
+    kernel reads (``RES_FIELDS``; offsets in floats).
+
+    One block per SM; unit j of a stage on block j mod grid
+    (``af_resident_stages``). Attention items of 16 text positions of one
+    utterance, item i on block i mod grid (``af_resident_items``). Shared
+    memory holds the location weight, the attention scratch and a staged
+    chunk of the stage inputs (``tp`` tiles of 8 batch rows by ``kc``
+    columns, at least 128 columns); in the forward then the rows of the
+    block's LSTM1 and LSTM2 units, each where it still fits (else the stage
+    reads them through L2), the rest widening the chunk; in the backward
+    the block's location-weight gradient, or, where that leaves no chunk,
+    its slice of the partials in device memory. The forward's context
+    product stages an utterance's enc when it fits (else reads it through
+    L2); the backward's contraction takes ``epi_tt`` positions a task and
+    ``epi_gc`` groups a chunk. Raises only where not even a chunk of one
+    tile fits, which the original body does not fit either."""
+    G, B, T, E, D = (dims[k] for k in ("G", "B", "T", "E", "D"))
+    P1, L = dims["P1"], dims["L"]
+    cap = smem_bytes // 4
+    nc = _cdiv(T, TC)
+    tiles = min(4, _cdiv(B, RES_RB))
+    base = dict(nblk=sms, nc=nc, ipb=_cdiv(B * nc, sms),
+                upb_l=_cdiv(L, sms), res_l1=0, res_l2=0, off_l1=0, off_l2=0,
+                off_gw=0, off_pv=0, gw_global=0, ctx_smem=0, epi_tt=0,
+                epi_gc=0)
+    w01t = _up4(NTAP * D)
+
+    def chunk(plan, room):
+        """tp and kc for a chunk in ``room`` floats at off_x."""
+        for tp in range(tiles, 0, -1):
+            kc = room // (RES_RB * tp)
+            kc = kc // 128 * 128 if kc >= 128 else 0
+            if kc:
+                plan.update(tp=tp, kc=kc)
+                return plan["off_x"] + RES_RB * tp * kc
+        raise ValueError(f"no resident B7 plan fits {dims} in "
+                         f"{smem_bytes} bytes of shared memory")
+
+    least = RES_RB * 128            # the smallest chunk: one tile, 128 columns
+    # forward: the chunk's least, then the LSTMs' rows, then a wider chunk
+    fwd = dict(base, off_w01t=4, off_att=4 + w01t)
+    fwd["off_x"] = fwd["off_att"] + _up4(ATT_FWD_FLOATS + nc)
+    end = fwd["off_x"] + RES_RB * tiles * 128
+    lstm = fwd["upb_l"] * 4 * 2 * L
+    for k in ("l1", "l2"):
+        if end + lstm <= cap:
+            fwd[f"res_{k}"], fwd[f"off_{k}"] = 1, end
+            end += lstm
+    # the resident rows sit after the chunk: move them behind its final size
+    room = cap - end + RES_RB * tiles * 128
+    stop = chunk(fwd, room)
+    shift = stop - (fwd["off_x"] + RES_RB * tiles * 128)
+    for k in ("l1", "l2"):
+        if fwd[f"res_{k}"]:
+            fwd[f"off_{k}"] += shift
+    end += shift
+    if 4 + T * E <= cap:
+        fwd["ctx_smem"] = 1
+        end = max(end, 4 + T * E)
+    fwd["smem_bytes"] = 4 * end
+
+    # backward
+    bwd = dict(base, off_w01t=4, off_att=4 + w01t)
+    bwd["off_pv"] = bwd["off_att"] + _up4(att_bwd_floats(D, nc))
+    fixed = bwd["off_pv"] + _up4(D)
+    if cap - fixed - w01t >= least:
+        bwd["off_gw"] = fixed
+        fixed += w01t
+    else:
+        bwd["gw_global"] = 1
+    bwd["off_x"] = fixed
+    end = chunk(bwd, cap - fixed)
+    E4 = E // 4
+    bwd["epi_tt"] = tt = max(1, min(TC, 8 * RES_THREADS // E4))
+    gc = min(G, (cap - 4 - tt * E) // (E + tt))
+    if gc < 1:
+        raise ValueError(f"no resident B7 plan fits {dims} in "
+                         f"{smem_bytes} bytes of shared memory")
+    bwd["epi_gc"] = gc
+    bwd["smem_bytes"] = 4 * max(end, 4 + tt * E + gc * (E + tt))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def af_resident_units(plan, units: int, block: int):
+    """The output units of a ``units``-wide stage that ``block`` owns, in
+    its order (the kernel's: k, k + grid, ...)."""
+    return list(range(block, units, plan["fwd"]["nblk"]))
+
+
+def af_resident_regions(plan, direction: str, dims) -> Dict[str, Tuple[int, int]]:
+    """The shared-memory regions of one direction's plan that the main loop
+    uses: name -> (offset, floats). The prologue's enc staging and the
+    backward's contraction reuse the whole space after the loop."""
+    p = plan[direction]
+    D, L, nc = dims["D"], dims["L"], p["nc"]
+    regions = {"mbarrier": (0, 4), "w01t": (p["off_w01t"], NTAP * D),
+               "attention": (p["off_att"], ATT_FWD_FLOATS + nc
+                             if direction == "fwd" else att_bwd_floats(D, nc)),
+               "chunk": (p["off_x"], RES_RB * p["tp"] * p["kc"])}
+    if direction == "fwd":
+        for k in ("l1", "l2"):
+            if p[f"res_{k}"]:
+                regions[f"lstm{k[1]}"] = (p[f"off_{k}"],
+                                          p["upb_l"] * 4 * 2 * L)
+    else:
+        regions["v_grad"] = (p["off_pv"], D)
+        if not p["gw_global"]:
+            regions["w01_grad"] = (p["off_gw"], NTAP * D)
+    return regions
+
+
+def af_resident_items(plan, B: int, T: int, block: int):
+    """The attention items of ``block`` in its order: (utterance, first
+    position, end position)."""
+    p = plan["fwd"]
+    nblk, nc = p["nblk"], p["nc"]
+    return [(it // nc, it % nc * TC, min(T, (it % nc + 1) * TC))
+            for it in range(block, B * nc, nblk)]
+
+
+def _res_lib():
+    lib = _build.load("taco_train_resident")
+    if not getattr(lib, "_typed", False):
+        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        for fn, args, res in (
+                (lib.wr_taco_af_res_fwd, [P, P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_af_res_bwd, [P, P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_af_res_fwd_work_floats, [P, P], I64),
+                (lib.wr_taco_af_res_bwd_work_floats, [P, P], I64)):
+            fn.argtypes, fn.restype = args, res
+        lib._typed = True
+    return lib
+
+
+def _device_plan(dims, dev):
+    props = torch.cuda.get_device_properties(dev)
+    return af_resident_plan(
+        dims, props.multi_processor_count,
+        getattr(props, "shared_memory_per_block_optin", H100_SMEM))
+
+
 def _dims(G, B, enc, weights) -> Dict[str, int]:
     d = dict(G=G, B=B, P2=weights[0].shape[1] - enc.shape[2], T=enc.shape[1],
              E=enc.shape[2], D=weights[4].shape[0], L=weights[8].shape[0],
@@ -523,9 +742,12 @@ def _rows(bc, kid, what):
     return bc
 
 
-def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
+def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
+              legacy=True, prof=None):
     """The forward kernel of either arm (TF: ``pre``; AF: ``af`` as in
-    ``_forward``): (mel, scores, streams or None)."""
+    ``_forward``; AF on the resident body unless ``legacy``, ``prof`` a
+    device int64 tensor of 64 counters for its profiling instantiation):
+    (mel, scores, streams or None)."""
     dev = enc.device
     f32 = torch.float32
     kid = "B6" if af is None else "B7"
@@ -561,33 +783,48 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
     if save:
         for k, t in streams.items():
             setattr(args, f"s_{k}", t.data_ptr())
-    lib = _lib()
-    if af is None:
-        args.bc = _rows(lib.wr_taco_tf_fwd_rows(ctypes.byref(args)), kid,
-                        "forward")
-    else:
+    if af is not None:
         xargs = _AfFwdArgs(
             **{k: t.data_ptr() for k, t in (
                 ("aref", aref), ("dm1", dm1), ("dm2", dm2), ("w1", w1),
                 ("b1", b1), ("w2", w2), ("b2", b2))},
             **{f"s_{k}": t.data_ptr() for k, t in extra.items()},
             P1=P1, NM=NM)
-        args.bc = _rows(lib.wr_taco_af_fwd_rows(ctypes.byref(args),
-                                                ctypes.byref(xargs)),
-                        kid, "forward")
-    work = torch.zeros(lib.wr_taco_tf_fwd_work_floats(ctypes.byref(args)),
-                       dtype=f32, device=dev)
-    args.work = work.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    if af is not None and not legacy:
+        lib = _res_lib()
+        plan = _ResPlan(**_device_plan(dict(d, P1=P1, NM=NM), dev)["fwd"])
+        work = torch.zeros(lib.wr_taco_af_res_fwd_work_floats(
+            ctypes.byref(args), ctypes.byref(plan)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            _run(lib.wr_taco_af_res_fwd(
+                ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(plan),
+                None if prof is None else prof.data_ptr(), stream), kid,
+                "forward")
+        _count_af("fwd", resident=True)
+    else:
+        lib = _lib()
         if af is None:
-            _run(lib.wr_taco_tf_fwd(ctypes.byref(args), stream), kid,
-                 "forward")
-            decoder_tf.fwd_launches += 1
+            args.bc = _rows(lib.wr_taco_tf_fwd_rows(ctypes.byref(args)), kid,
+                            "forward")
         else:
-            _run(lib.wr_taco_af_fwd(ctypes.byref(args), ctypes.byref(xargs),
-                                    stream), kid, "forward")
-            decoder_af.fwd_launches += 1
+            args.bc = _rows(lib.wr_taco_af_fwd_rows(ctypes.byref(args),
+                                                    ctypes.byref(xargs)),
+                            kid, "forward")
+        work = torch.zeros(lib.wr_taco_tf_fwd_work_floats(
+            ctypes.byref(args)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            if af is None:
+                _run(lib.wr_taco_tf_fwd(ctypes.byref(args), stream), kid,
+                     "forward")
+                decoder_tf.fwd_launches += 1
+            else:
+                _run(lib.wr_taco_af_fwd(ctypes.byref(args),
+                                        ctypes.byref(xargs), stream), kid,
+                     "forward")
+                _count_af("fwd", resident=False)
     if save:
         streams["div"] = streams["div"][..., 0]
         if af is not None:
@@ -596,9 +833,10 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
 
 
 def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
-              pre=None, af=None):
+              pre=None, af=None, legacy=True, prof=None):
     """The backward kernel of either arm and its weight-gradient
-    reductions: (d(pre) or d(aref), denc, dencp, weight gradients by
+    reductions (AF on the resident body unless ``legacy``; ``prof`` as in
+    ``_fwd_cuda``): (d(pre) or d(aref), denc, dencp, weight gradients by
     name)."""
     dev = enc.device
     f32 = torch.float32
@@ -633,16 +871,23 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     cw = dict(dgi=3 * D, dgh=3 * D, dq=D, dx0=L, dg1=4 * L, dg2=4 * L)
     for k in _COT:
         ptrs[f"c_{k}"] = torch.empty(G, B, cw[k], dtype=f32, device=dev)
+    resident = af is not None and not legacy
+    if resident:
+        plan = _device_plan(dict(d, P1=af[3].shape[0],
+                                 NM=af[3].shape[1]), dev)["bwd"]
+    # the location-weight and v partials: one per utterance (the original
+    # body), one per block of the grid (the resident body)
+    parts = plan["nblk"] if resident else B
     outs = dict(denc=torch.zeros_like(enc), dencp=torch.zeros_like(encp),
-                pw01=torch.zeros(B, 2 * CONV_K, D, dtype=f32, device=dev),
-                pv=torch.zeros(B, D, dtype=f32, device=dev))
+                pw01=torch.zeros(parts, 2 * CONV_K, D, dtype=f32, device=dev),
+                pv=torch.zeros(parts, D, dtype=f32, device=dev))
     if af is None:
         outs["dpre"] = torch.empty_like(pre)
     for k, wt in zip(WEIGHTS, weights):
         outs["dw01" if k == "W01" else f"d{k}"] = torch.empty_like(wt)
     ptrs.update(outs)
     args = _BwdArgs(**{k: v.data_ptr() for k, v in ptrs.items()}, **d)
-    lib = _lib()
+    lib = _res_lib() if resident else _lib()
     if af is None:
         args.bc = _rows(lib.wr_taco_tf_bwd_rows(ctypes.byref(args)), kid,
                         "backward")
@@ -657,22 +902,36 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
                       s_p1=streams["p1"].contiguous(), dmel=dmel)
         xargs = _AfBwdArgs(**{k: t.data_ptr() for k, t in
                               {**af_ins, **af_outs}.items()}, P1=P1, NM=NM)
-        args.bc = _rows(lib.wr_taco_af_bwd_rows(ctypes.byref(args),
-                                                ctypes.byref(xargs)),
-                        kid, "backward")
-    work = torch.zeros(lib.wr_taco_tf_bwd_work_floats(ctypes.byref(args)),
-                       dtype=f32, device=dev)
-    args.work = work.data_ptr()
+        if not resident:
+            args.bc = _rows(lib.wr_taco_af_bwd_rows(ctypes.byref(args),
+                                                    ctypes.byref(xargs)),
+                            kid, "backward")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if af is None:
-            _run(lib.wr_taco_tf_bwd(ctypes.byref(args), stream), kid,
-                 "backward")
-            decoder_tf.bwd_launches += 1
-        else:
-            _run(lib.wr_taco_af_bwd(ctypes.byref(args), ctypes.byref(xargs),
-                                    stream), kid, "backward")
-            decoder_af.bwd_launches += 1
+    if resident:
+        cplan = _ResPlan(**plan)
+        work = torch.zeros(lib.wr_taco_af_res_bwd_work_floats(
+            ctypes.byref(args), ctypes.byref(cplan)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            _run(lib.wr_taco_af_res_bwd(
+                ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(cplan),
+                None if prof is None else prof.data_ptr(), stream), kid,
+                "backward")
+        _count_af("bwd", resident=True)
+    else:
+        work = torch.zeros(lib.wr_taco_tf_bwd_work_floats(
+            ctypes.byref(args)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            if af is None:
+                _run(lib.wr_taco_tf_bwd(ctypes.byref(args), stream), kid,
+                     "backward")
+                decoder_tf.bwd_launches += 1
+            else:
+                _run(lib.wr_taco_af_bwd(ctypes.byref(args),
+                                        ctypes.byref(xargs), stream), kid,
+                     "backward")
+                _count_af("bwd", resident=False)
     grads = {k: outs["dw01" if k == "W01" else f"d{k}"] for k in WEIGHTS}
     if af is None:
         return outs["dpre"], outs["denc"], outs["dencp"], grads
@@ -742,24 +1001,31 @@ decoder_tf.fwd_launches = 0
 decoder_tf.bwd_launches = 0
 
 
-def decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp, weights, save: bool):
+def decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp, weights, save: bool,
+                   _legacy: bool = False, _profile=None):
     """AF forward over all groups (weights in ``AF_WEIGHTS`` order): (mel
     (G, B, F), scores (G, B, T), streams (``AF_STREAMS``) or None). CPU:
-    ``core_af_ref``; CUDA: the B7 forward kernel."""
+    ``core_af_ref``; CUDA: the B7 forward kernel on the resident body, or,
+    with the private ``_legacy``, on the original body (the yardstick).
+    ``_profile``: a device int64 tensor of 64 counters; the resident body's
+    profiling instantiation adds each stage's cycles on block 0 to it."""
     if enc.device.type == "cpu":
         return core_af_ref(aref, dm1, dm2, zm1, zm2, enc, encp, *weights,
                            save=save)
     if enc.device.type != "cuda":
         raise ValueError(f"no B7 kernel for {enc.device}")
     return _fwd_cuda(zm1, zm2, enc, encp, weights[4:], save,
-                     af=(aref, dm1, dm2) + tuple(weights[:4]))
+                     af=(aref, dm1, dm2) + tuple(weights[:4]),
+                     legacy=_legacy, prof=_profile)
 
 
 def decoder_af_bwd(dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2, enc,
-                   encp, weights):
+                   encp, weights, _legacy: bool = False, _profile=None):
     """AF backward over all groups: (daref, denc, dencp, weight gradients
     in ``AF_WEIGHTS`` order). CPU: ``core_af_bwd_ref``; CUDA: the B7
-    backward kernel and its weight-gradient reductions."""
+    backward kernel (the resident body, or the original with ``_legacy``)
+    and its weight-gradient reductions. Either backward takes either
+    forward's streams."""
     if enc.device.type == "cpu":
         return core_af_bwd_ref(dmel, dsc, streams, scores, aref, dm1, dm2,
                                zm1, zm2, enc, encp, *weights)
@@ -767,15 +1033,18 @@ def decoder_af_bwd(dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2, enc,
         raise ValueError(f"no B7 kernel for {enc.device}")
     daref, denc, dencp, grads = _bwd_cuda(
         dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights[4:],
-        af=(aref, dm1, dm2) + tuple(weights[:4]))
+        af=(aref, dm1, dm2) + tuple(weights[:4]), legacy=_legacy,
+        prof=_profile)
     return (daref, denc, dencp) + tuple(grads[k] for k in AF_WEIGHTS)
 
 
 class _DecoderAF(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, aref, dm1, dm2, zm1, zm2, enc, encp, *weights):
+    def forward(ctx, legacy, aref, dm1, dm2, zm1, zm2, enc, encp, *weights):
         mel, scores, streams = decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc,
-                                              encp, weights, save=True)
+                                              encp, weights, save=True,
+                                              _legacy=legacy)
+        ctx.legacy = legacy
         ctx.save_for_backward(aref, dm1, dm2, zm1, zm2, enc, encp, scores,
                               *weights, *(streams[k] for k in AF_STREAMS))
         return mel, scores
@@ -788,25 +1057,39 @@ class _DecoderAF(torch.autograd.Function):
         streams = dict(zip(AF_STREAMS, saved[8 + len(AF_WEIGHTS):]))
         daref, denc, dencp, *dw = decoder_af_bwd(
             dmel, dsc, streams, scores, aref, dm1, dm2, zm1, zm2, enc, encp,
-            weights)
-        return (daref, None, None, None, None, denc, dencp, *dw)
+            weights, _legacy=ctx.legacy)
+        return (None, daref, None, None, None, None, denc, dencp, *dw)
 
 
-def decoder_af(aref, dm1, dm2, zm1, zm2, enc, encp, weights):
+def decoder_af(aref, dm1, dm2, zm1, zm2, enc, encp, weights,
+               _legacy: bool = False):
     """The AF recurrence as kernels (B7), differentiable in aref, enc, encp
     and every weight (``AF_WEIGHTS`` order): (mel (G, B, F), scores (G, B,
-    T)). Without autograd the forward writes only the prenet's streams."""
+    T)). Without autograd the forward writes only the prenet's streams.
+    The private ``_legacy`` runs the original body (the yardstick)."""
     tensors = (aref, enc, encp) + tuple(weights)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _DecoderAF.apply(aref, dm1, dm2, zm1, zm2, enc, encp,
+        return _DecoderAF.apply(_legacy, aref, dm1, dm2, zm1, zm2, enc, encp,
                                 *weights)
     mel, scores, _ = decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp,
-                                    weights, save=False)
+                                    weights, save=False, _legacy=_legacy)
     return mel, scores
 
 
+def _count_af(direction: str, resident: bool):
+    """One B7 launch: its total, and its body's own count."""
+    body = "resident" if resident else "legacy"
+    for name in (f"{direction}_launches", f"{body}_{direction}_launches"):
+        setattr(decoder_af, name, getattr(decoder_af, name) + 1)
+
+
+# launches of B7 on either body, and on the resident and the original body
 decoder_af.fwd_launches = 0
 decoder_af.bwd_launches = 0
+decoder_af.resident_fwd_launches = 0
+decoder_af.resident_bwd_launches = 0
+decoder_af.legacy_fwd_launches = 0
+decoder_af.legacy_bwd_launches = 0
 
 
 def decoder_tf_train(dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2,
