@@ -59,17 +59,36 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            (128, 128)-block-dead weights and its pack (14 live blocks in
            the six per-step matrices); then ``cli.gen_wavernn --sparse`` on
            a held-out item, the sparse arm's launch count checked
-  b6       the Tacotron teacher-forcing decoder recurrence kernels
-           (forward, and backward with every weight gradient) against their
-           plain versions: full width B 32, T_text 150, 100 groups at r 7;
-           an odd shape B 5, T_text 33, 7 groups at r 2; eval mode (zero
-           zoneout masks, forward only); float32, TF32 off
+  b6       the Tacotron teacher-forcing decoder recurrence kernels on the
+           resident body (csrc/taco_tf_resident.cu; forward, and backward
+           with every weight gradient) against their plain versions: full
+           width B 32, T_text 150, 100 groups at r 7; an odd shape B 5,
+           T_text 33, 7 groups at r 2; eval mode (zero zoneout masks,
+           forward only); float32, TF32 off
+  b6res    the resident B6 body against the original body (csrc/
+           taco_train.cu's TF arm, ``_legacy=True``) at the b6 full shape:
+           every forward output and stream's largest difference (the bit for
+           bit ones named), both backwards on the same streams, crossed
+           streams (each forward into the other body's backward, against the
+           plain backward on them), the original body against the plain
+           versions; B 8 and 16 at T_text 150 and B 32 at T_text 200 (r 2,
+           200 groups), B 32 over 400 groups at r 2 (800 frames) and the
+           AF-online teacher's eval forward (B 32, r 2,
+           200 groups, zero zoneout, no streams) against the plain versions;
+           both bodies timed in turns (new, old, old, new) at the b6 full
+           shape, forward and backward, and at the teacher's shape, forward,
+           clocks read; the per-stage split of a group (clock64() on block
+           0); nvcc's registers, stack frames and spills of the new entries
+           and of B7's four (a spill or a stack frame in taco_tf_res_fwd /
+           _bwd fails the phase); the phase's own seconds
   taco_train
            Tacotron training at the full default Config(): a synthetic
            64-item TTS dataset in the reference layout, ``cli.
            train_tacotron`` in-process over a two-session schedule (r 7
-           then r 5, 6 steps), B6's and B5's launch counts, the checkpoint
-           pair; ``--force_gta`` and ``--force_attn`` from it; one
+           then r 5, 6 steps), B6's and B5's launch counts (every B6 launch
+           on the resident body, none on the original), the checkpoint
+           pair; ``--force_gta`` and ``--force_attn`` from it (their B6
+           launches on the resident body too); one
            full-width step with the kernels against ``recurrence="scan"``
            (same weights, batch and injected masks: the loss within 1e-4;
            each gradient held to a float64 scan step on the float32 step's
@@ -176,13 +195,15 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 
 The launch counts of main, serve, stream, prune, sparse, seam and b10 show
 the resident sample-loop body's launches and none of the original body's;
-taco_af's show the resident B7 body's and none of the original's. Then the
-card's name and power limit, the kernels JSON line (twenty-one kernels:
-B1, B3, B4b, B9 in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9
-and B10 on the original body, whose times come from the turns; B2, B5 and
-B6 forward and backward, B8; B7 forward and backward on the resident body,
-and on the original body with its times from b7res's turns), and last the
-device line. Comparisons run
+taco_af's show the resident B7 body's and none of the original's, and
+taco_train's and taco_af's (the online teacher, the attention export) the
+resident B6 body's and none of the original's. Then the card's name and
+power limit, the kernels JSON line (twenty-three kernels: B1, B3, B4b, B9
+in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9 and B10 on the
+original body, whose times come from the turns; B2, B5 forward and
+backward, B8; B6 and B7 forward and backward on their resident bodies, and
+on their original bodies with the times from b6res's and b7res's turns),
+and last the device line. Comparisons run
 with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
 or outside a checkout of the repository.
 """
@@ -209,6 +230,7 @@ RES_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_resident.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
 B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
+B6RES_SOURCE = "wavernn_tpu_torch/csrc/taco_tf_resident.cu"
 B7_SOURCE = "wavernn_tpu_torch/csrc/taco_train_resident.cu"
 # B5 tolerances. float32: summation order only, over 1375 steps. bfloat16
 # streams: ys/sv within a few bf16 ulps at |v| <= 1 (2**-8 each; a one-ulp
@@ -223,6 +245,8 @@ TRAIN_STEPS = 6
 # conv feeding each group's rounding into the next
 B6_TOL = 1e-4
 B6_FULL = (32, 150, 100, 7)   # B, T_text, groups, r: full width, r = 7
+# the AF-online teacher's eval forward: the AF configs' r 2 at 400 frames
+B6_TEACHER = (32, 150, 200, 2)
 TT_ITEMS = 64
 TT_SCHEDULE = ((7, 1e-3, 3, 32), (5, 1e-4, 6, 32))
 # B7 (float32, TF32 off): as B6, over 200 groups at r 2, the AF configs' r
@@ -589,14 +613,16 @@ def b6_case(B, T, G, r, dev, seed, train=True):
     return (pre, zm1.to(dev), zm2.to(dev), enc, encp), weights
 
 
-def check_b6(ct, ins, weights, seed, backward=True):
+def check_b6(ct, ins, weights, seed, backward=True, legacy=False):
     """B6's forward kernel against ``core_ref`` (outputs and, when
     ``backward``, every stream), then the backward kernel against
     ``core_bwd_ref`` on the kernel's own streams and random cotangents of
     mel and scores: (result, ok). Relative errors are over each output's
-    largest entry."""
+    largest entry. ``legacy``: the original body (csrc/taco_train.cu) in
+    place of the resident one."""
     import torch
-    mel, sc, st = ct.decoder_tf_fwd(*ins, weights, save=backward)
+    mel, sc, st = ct.decoder_tf_fwd(*ins, weights, save=backward,
+                                    _legacy=legacy)
     mel_p, sc_p, st_p = ct.core_ref(*ins, *weights, save=backward)
     torch.cuda.synchronize()
     res = {"mel_rel_err": rel_err(mel, mel_p),
@@ -613,7 +639,8 @@ def check_b6(ct, ins, weights, seed, backward=True):
         gen = torch.Generator().manual_seed(seed)
         dmel = torch.randn(mel.shape, generator=gen).to(mel.device)
         dsc = torch.randn(sc.shape, generator=gen).to(mel.device)
-        got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, weights)
+        got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, weights,
+                                _legacy=legacy)
         want = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *weights)
         torch.cuda.synchronize()
         names = ("dpre", "denc", "dencp") + ct.WEIGHTS
@@ -1047,6 +1074,167 @@ def ptxas_entries(log, key):
     spills = [f"{k}: {v}" for k, vs in out.items() for v in vs
               if re.search(r"\b[1-9]\d* bytes spill", v)]
     return out, spills
+
+
+def tf_counts(ct):
+    """B6's launches: in all, and on each body."""
+    tf = ct.decoder_tf
+    return {"taco_tf_fwd": tf.fwd_launches, "taco_tf_bwd": tf.bwd_launches,
+            "taco_tf_res_fwd": tf.resident_fwd_launches,
+            "taco_tf_res_bwd": tf.resident_bwd_launches,
+            "taco_tf_legacy_fwd": tf.legacy_fwd_launches,
+            "taco_tf_legacy_bwd": tf.legacy_bwd_launches}
+
+
+def zero_tf_counts(ct):
+    for k in ("fwd_launches", "bwd_launches", "resident_fwd_launches",
+              "resident_bwd_launches", "legacy_fwd_launches",
+              "legacy_bwd_launches"):
+        setattr(ct.decoder_tf, k, 0)
+
+
+def on_resident(got, fwd, bwd):
+    """Every B6 launch of a run on the resident body: ``fwd`` and ``bwd``
+    of them, none on the original body."""
+    return (got["taco_tf_fwd"] == got["taco_tf_res_fwd"] == fwd
+            and got["taco_tf_bwd"] == got["taco_tf_res_bwd"] == bwd
+            and got["taco_tf_legacy_fwd"] == got["taco_tf_legacy_bwd"] == 0)
+
+
+def phase_b6res(ct, dev, logs):
+    """B6's resident body (csrc/taco_tf_resident.cu, which every TF launch
+    runs on) against the original body (``_legacy=True``) and the plain
+    versions. At the b6 full shape: every forward output and stream of the
+    two bodies compared (largest difference; the bit-for-bit ones named:
+    the GRU's input product and the context are summed in other orders, so
+    no stream need stay bit for bit), and both backwards on the same
+    streams; the original body against the plain versions (its kernels-line
+    errors); crossed streams, the new forward's into the original backward
+    and the original forward's into the new backward, each against the
+    plain backward on those streams, within B6_TOL. B 8 and 16 at T_text 150
+    and B 32 at T_text 200 (r 2, 200 groups), B 32 over 400 groups at r 2
+    (the schedule's 800 frames), and the AF-online teacher's
+    eval forward (B6_TEACHER, zero zoneout, no streams), each held to the
+    plain versions. Both bodies timed in turns (new, old, old, new):
+    forward and backward at the full shape, the teacher's forward, the SM
+    clock and clock-limit reasons read around each set. The per-stage split
+    of a group from the profiling instantiation (clock64() on block 0,
+    cycles a group). nvcc's registers, stack frames and spills for the new
+    kernels and B7's four (a spill in any non-profiling entry, or a stack
+    frame in taco_tf_res_fwd / _bwd, fails the phase). Returns the
+    results."""
+    import torch
+    t_phase = time.perf_counter()
+    res, oks = {}, {}
+    ptx, spills = ptxas_entries(logs.get("taco_tf_resident", ""),
+                                "taco_tf_res_")
+    ptx7, spills7 = ptxas_entries(logs.get("taco_train_resident", ""),
+                                  "taco_af_res")
+    res["ptxas"], res["spills"] = {**ptx, **ptx7}, spills + spills7
+    frames = [f"{k}: {ln}" for k, v in ptx.items() if "_prof" not in k
+              for ln in v if re.search(r"\b[1-9]\d* bytes stack frame", ln)]
+    res["stack_frames"] = frames
+    oks["ptxas_read"] = len(ptx) == 4 and len(ptx7) == 4
+    oks["no_spill"] = not [ln for ln in spills + spills7 if "_prof" not in ln]
+    oks["no_stack_frame"] = not frames
+    Bf, Tf, Gf, rf = B6_FULL
+    ins, w = b6_case(Bf, Tf, Gf, rf, dev, 61, True)
+    names = ("dpre", "denc", "dencp") + ct.WEIGHTS
+
+    def diff(a, b):
+        return 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+
+    with torch.no_grad():
+        mel, sc, st = ct.decoder_tf_fwd(*ins, w, save=True)
+        mel_o, sc_o, st_o = ct.decoder_tf_fwd(*ins, w, save=True,
+                                              _legacy=True)
+        fwd_diff = {"mel": diff(mel, mel_o), "scores": diff(sc, sc_o),
+                    **{k: diff(st[k], st_o[k]) for k in ct.STREAMS}}
+        res["fwd_max_abs_diff_vs_legacy"] = fwd_diff
+        res["fwd_bit_for_bit"] = [k for k, v in fwd_diff.items() if v == 0.0]
+        g = torch.Generator().manual_seed(62)
+        dmel = torch.randn(mel.shape, generator=g).to(dev)
+        dsc = torch.randn(sc.shape, generator=g).to(dev)
+        new_b = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w)
+        old_b = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w, _legacy=True)
+        bwd_diff = {n: diff(a, b) for n, a, b in zip(names, new_b, old_b)}
+        res["bwd_max_abs_diff_vs_legacy"] = bwd_diff
+        res["bwd_bit_for_bit"] = [k for k, v in bwd_diff.items() if v == 0.0]
+        # crossed streams, each against the plain backward on them
+        ref = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+        cross_o = ct.decoder_tf_bwd(dmel, dsc, st_o, sc_o, *ins, w)
+        ref_o = ct.core_bwd_ref(dmel, dsc, st_o, sc_o, *ins, *w)
+        torch.cuda.synchronize()
+        cross = {"new_fwd_into_legacy_bwd": max(
+                     rel_err(a, b) for a, b in zip(old_b, ref)),
+                 "legacy_fwd_into_new_bwd": max(
+                     rel_err(a, b) for a, b in zip(cross_o, ref_o)),
+                 "new_fwd_into_new_bwd": max(
+                     rel_err(a, b) for a, b in zip(new_b, ref))}
+        res["crossed_rel_err"] = cross
+        oks["crossed"] = (max(cross.values()) <= B6_TOL and all(
+            bool(t.isfinite().all())
+            for t in list(old_b) + list(cross_o) + list(new_b)))
+        # the original body against the plain versions (its errors)
+        chk, oks["legacy_vs_plain"] = check_b6(ct, ins, w, 63, legacy=True)
+        res["legacy_vs_plain"] = {k: v for k, v in chk.items()
+                                  if k != "grad_rel_err"}
+        # other shapes, each held to the plain versions
+        res["shapes"] = {}
+        for tag, shape, train in (("B8_T150", (8, 150, 200, 2), True),
+                                  ("B16_T150", (16, 150, 200, 2), True),
+                                  ("B32_T200", (32, 200, 200, 2), True),
+                                  ("B32_G400", (32, 150, 400, 2), True),
+                                  ("teacher_eval", B6_TEACHER, False)):
+            i2, w2 = b6_case(*shape, dev, 64, train)
+            chk, oks[tag] = check_b6(ct, i2, w2, 65, backward=train)
+            res["shapes"][tag] = {k: v for k, v in chk.items()
+                                  if k != "grad_rel_err"}
+        # both bodies in turns
+        it, wt = b6_case(*B6_TEACHER, dev, 66, False)
+        res["turns"] = {
+            "fwd": turns(lambda: ct.decoder_tf_fwd(*ins, w, save=True),
+                         lambda: ct.decoder_tf_fwd(*ins, w, save=True,
+                                                   _legacy=True), 3),
+            "bwd": turns(lambda: ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins,
+                                                   w),
+                         lambda: ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins,
+                                                   w, _legacy=True), 3),
+            "teacher_fwd": turns(
+                lambda: ct.decoder_tf_fwd(*it, wt, save=False),
+                lambda: ct.decoder_tf_fwd(*it, wt, save=False, _legacy=True),
+                3)}
+        oks["new_faster"] = all(t["new_faster"] for t in
+                                res["turns"].values())
+        # the per-stage split of a group on the new body
+        clk = [gpu_clocks()]
+        split = {}
+        for d_, labels, sub, fn in (
+                ("fwd", ct.RES_PROF_TF_FWD, ct.RES_PROF_TF_FWD_ITEMS,
+                 lambda pr: ct.decoder_tf_fwd(*ins, w, save=True,
+                                              _profile=pr)),
+                ("bwd", ct.RES_PROF_TF_BWD, ct.RES_PROF_TF_BWD_ITEMS,
+                 lambda pr: ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w,
+                                              _profile=pr))):
+            prof = torch.zeros(64, dtype=torch.int64, device=dev)
+            fn(prof)
+            cyc = prof.cpu().tolist()
+            split[d_] = {k: cyc[i] / Gf for i, k in enumerate(labels)}
+            split[d_]["total"] = sum(split[d_].values())
+            # block 0's items, inside the stages above
+            split[d_ + "_items"] = {k: cyc[16 + i] / Gf
+                                    for i, k in enumerate(sub)}
+        clk.append(gpu_clocks())
+        res["split_cycles_per_group"], res["split_clocks"] = split, clk
+    res["oks"] = oks
+    res["seconds"] = time.perf_counter() - t_phase
+    ok = all(oks.values())
+    emit("b6res", ok=ok, tolerance=B6_TOL, B=Bf, T_text=Tf, G=Gf, r=rf,
+         **res)
+    if not ok:
+        raise AssertionError("b6res: the resident B6 body failed a check: "
+                             + ", ".join(k for k, v in oks.items() if not v))
+    return res
 
 
 def phase_b7res(ct, dev, build_log):
@@ -3038,6 +3226,9 @@ def main() -> int:
             raise AssertionError(f"B6 {tag}: a kernel disagrees with its "
                                  "plain version")
 
+    # ---- b6res: the resident B6 body against the original body ----
+    b6res = phase_b6res(ct, dev, logs)
+
     # ---- b7: the AF decoder training recurrence against its plain versions
     b7 = {}
     for tag, (Bq, Tq, Gq, rq), train in (("full", B7_FULL, True),
@@ -3081,13 +3272,13 @@ def main() -> int:
             finally:
                 os.chdir(cwd)
 
-        for c in (ct.decoder_tf, cuda_gru.gru_seq_tm):
-            c.fwd_launches = c.bwd_launches = 0
+        zero_tf_counts(ct)
+        cuda_gru.gru_seq_tm.fwd_launches = 0
+        cuda_gru.gru_seq_tm.bwd_launches = 0
         t0 = time.perf_counter()
         cli()
         cli_s = time.perf_counter() - t0
-        tt_launches = {"taco_tf_fwd": ct.decoder_tf.fwd_launches,
-                       "taco_tf_bwd": ct.decoder_tf.bwd_launches,
+        tt_launches = {**tf_counts(ct),
                        "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
                        "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
         ckpt = work / "checkpoints" / "smoke.tacotron"
@@ -3113,8 +3304,7 @@ def main() -> int:
               and all(math.isfinite(r["loss"]) for r in sessions)
               and res["nonfinite_loss_steps"] == 0
               and res["nonfinite_grad_steps"] == 0
-              and tt_launches["taco_tf_fwd"] == n_steps_tt
-              and tt_launches["taco_tf_bwd"] == n_steps_tt
+              and on_resident(tt_launches, n_steps_tt, n_steps_tt)
               and tt_launches["gru_seq_fwd"] == 4 * n_steps_tt
               and tt_launches["gru_seq_bwd"] == 4 * n_steps_tt
               and all(files.values()) and meta == {"step": n_steps_tt, "r": 5})
@@ -3122,11 +3312,14 @@ def main() -> int:
         if not ok:
             raise AssertionError("taco_train: the CLI run failed a check")
 
-        # GTA mels and attention maps from that checkpoint
+        # GTA mels and attention maps from that checkpoint: the eval TF
+        # forward, a launch a batch of 8, on the resident body
+        zero_tf_counts(ct)
         t0 = time.perf_counter()
         cli("--force_gta")
         cli("--force_attn")
         export_s = time.perf_counter() - t0
+        export_launches = tf_counts(ct)
         shapes_ok, finite, n_files = True, True, {}
         for sub in ("gta_smoke", "attn_smoke"):
             found = sorted((tmp / "data" / sub).iterdir())
@@ -3140,9 +3333,11 @@ def main() -> int:
                 else:   # (groups of its padded batch, its batch's T_text)
                     shapes_ok &= a.ndim == 2 and a.shape[0] * 5 > mel_len
         ok = (shapes_ok and finite
-              and all(v == TT_ITEMS for v in n_files.values()))
+              and all(v == TT_ITEMS for v in n_files.values())
+              and on_resident(export_launches, 2 * TT_ITEMS // 8, 0))
         emit("taco_train", stage="export", ok=ok, files=n_files,
-             shapes_ok=shapes_ok, finite=finite, wall_s=export_s)
+             shapes_ok=shapes_ok, finite=finite, wall_s=export_s,
+             launches=export_launches)
         if not ok:
             raise AssertionError("taco_train: GTA/attention export failed")
 
@@ -3218,6 +3413,22 @@ def main() -> int:
             tstep, ("taco_tf",))["named_ms"]
         dev_tt["b5_ms"] = step_kernels(tstep, ("gru_fwd", "gru_bwd"))[
             "named_ms"]
+        # B5 at the CBHG shapes: the encoder's BiGRU over T_text and the
+        # postnet's over the frames, each direction a launch; the bound of
+        # the four launches a direction
+        g5 = cuda_gru.gru_seq_tm
+        n5 = (g5.fwd_launches, g5.bwd_launches)
+        tstep()
+        cbhg = [(xb.shape[1], cfg.tts.encoder_dims)] * 2 + [
+            (mb.shape[-1], cfg.tts.postnet_dims)] * 2
+        dev_tt["b5_cbhg"] = {
+            "launches": [g5.fwd_launches - n5[0], g5.bwd_launches - n5[1]],
+            "fwd_ms": step_kernels(tstep, ("gru_fwd",))["named_ms"],
+            "bwd_ms": step_kernels(tstep, ("gru_bwd",))["named_ms"],
+            "bound_ms": [sum(bound(*gru_work(Tq, xb.shape[0], H, 4, bw),
+                                   PEAK_F32)[0] for Tq, H in cbhg)
+                         for bw in (False, True)],
+            "shapes_T_H": cbhg}
         dev_tt["idle_share"] = 1 - dev_tt["busy_ms"] / (
             1e3 * tt_resident_s / n_tt)
         torch.cuda.synchronize()
@@ -3246,15 +3457,19 @@ def main() -> int:
         teacher = load_tts_model(tf_ckpt, cfg, dev)[0]
         # the attention references at r 2, the teacher's eval TF forward
         t0 = time.perf_counter()
+        zero_tf_counts(ct)
         ds2, _ = get_tts_datasets(tmp / "data", 8, 2, cfg_tt, seed=3)
         tt.create_attn_ref(teacher, ds2, 2, tmp / "data" / "attn_smoke_r2",
                            log=lambda *a: None)
+        ref_launches = tf_counts(ct)
         found = sorted((tmp / "data" / "attn_smoke_r2").iterdir())
         finite = all(bool(np.isfinite(np.load(f)).all()) for f in found)
-        emit("taco_af", stage="attn_ref", ok=len(found) == TT_ITEMS
-             and finite, files=len(found), finite=finite,
+        ok = (len(found) == TT_ITEMS and finite
+              and on_resident(ref_launches, TT_ITEMS // 8, 0))
+        emit("taco_af", stage="attn_ref", ok=ok, files=len(found),
+             finite=finite, launches=ref_launches,
              wall_s=time.perf_counter() - t0)
-        if len(found) != TT_ITEMS or not finite:
+        if not ok:
             raise AssertionError("taco_af: the attention export failed")
 
         # the CLI in both AF modes, the lj_af_online_kl / lj_af_offline
@@ -3274,11 +3489,12 @@ def main() -> int:
                 f"tts_model_id = 'smoke_af_{tag}'",
                 f"tts_schedule = {AF_SCHEDULE!r}", "tts_checkpoint_every = 3",
                 f"tts_init_weights_path = {str(tf_ckpt)!r}", *extra]) + "\n")
-            for c in (ct.decoder_af, ct.decoder_tf, cuda_gru.gru_seq_tm):
+            for c in (ct.decoder_af, cuda_gru.gru_seq_tm):
                 c.fwd_launches = c.bwd_launches = 0
             for body in ("resident", "legacy"):
                 for d_ in ("fwd", "bwd"):
                     setattr(ct.decoder_af, f"{body}_{d_}_launches", 0)
+            zero_tf_counts(ct)
             t0 = time.perf_counter()
             cli(hp_file=hp_af)
             cli_s = time.perf_counter() - t0
@@ -3289,8 +3505,7 @@ def main() -> int:
                    "taco_af_res_bwd": af.resident_bwd_launches,
                    "taco_af_legacy_fwd": af.legacy_fwd_launches,
                    "taco_af_legacy_bwd": af.legacy_bwd_launches,
-                   "taco_tf_fwd": ct.decoder_tf.fwd_launches,
-                   "taco_tf_bwd": ct.decoder_tf.bwd_launches,
+                   **tf_counts(ct),
                    "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
                    "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
             af_launches[tag] = got
@@ -3298,11 +3513,15 @@ def main() -> int:
             # B7 1 + 1 a step; B5 4 + 4 for the student and, online, 2
             # forward for the teacher's encoder BiGRU; B6 forward once a
             # step for the online teacher (its postnet is skipped)
-            # every B7 launch on the resident body, none on the original
+            # every B7 and B6 launch on its resident body, none on the
+            # original
             want = {"taco_af_fwd": n_af, "taco_af_bwd": n_af,
                     "taco_af_res_fwd": n_af, "taco_af_res_bwd": n_af,
                     "taco_af_legacy_fwd": 0, "taco_af_legacy_bwd": 0,
                     "taco_tf_fwd": n_af if online else 0, "taco_tf_bwd": 0,
+                    "taco_tf_res_fwd": n_af if online else 0,
+                    "taco_tf_res_bwd": 0, "taco_tf_legacy_fwd": 0,
+                    "taco_tf_legacy_bwd": 0,
                     "gru_seq_fwd": (6 if online else 4) * n_af,
                     "gru_seq_bwd": 4 * n_af}
             ckpt_af = work / "checkpoints" / f"smoke_af_{tag}.tacotron"
@@ -3615,6 +3834,10 @@ def main() -> int:
     fl7b, by7b = b7_work(*dims7, True)
     b7f_bound, b7f_by = bound(fl7f, by7f, PEAK_F32)
     b7b_bound, b7b_by = bound(fl7b, by7b, PEAK_F32)
+    # B6's launches on the TF paths (the CLI's steps, the exports, the
+    # attention references and the online teacher): on each body
+    tf_paths = {k: tt_launches[k] + export_launches[k] + ref_launches[k]
+                + af_launches["online"][k] for k in tf_counts(ct)}
     # B7's launches on the AF paths: the resident body's, the original's
     af_total = {k: sum(v[f"taco_af_res_{k[-3:]}"] for v in af_launches.values())
                 for k in ("taco_af_fwd", "taco_af_bwd")}
@@ -3698,8 +3921,8 @@ def main() -> int:
              "fwd_bytes": by6f, "bwd_flops": fl6b, "bwd_bytes": by6b,
              "us_per_group": [1e3 * f6_ms / Gq, 1e3 * b6_ms / Gq],
              "launches_per_train_step": [
-                 tt_launches["taco_tf_fwd"] / TT_SCHEDULE[-1][2],
-                 tt_launches["taco_tf_bwd"] / TT_SCHEDULE[-1][2]],
+                 tt_launches["taco_tf_res_fwd"] / TT_SCHEDULE[-1][2],
+                 tt_launches["taco_tf_res_bwd"] / TT_SCHEDULE[-1][2]],
              "check": {k: v for k, v in b6_main.items()
                        if k != "grad_rel_err"}},
          b7={"B": B7b, "T_text": T7, "G": G7, "r": r7, "fwd_ms": f7_ms,
@@ -3802,21 +4025,37 @@ def main() -> int:
                                if k.endswith("f32")]),
          "ms": bw_ms, "plain_ms": bw_plain, "bound_ms": b5b_bound,
          "bound_by": b5b_by, "library_ms": lib_bwd_ms},
-        {"name": "taco_tf_fwd", "route": "cuda", "source": B6_SOURCE,
+        {"name": "taco_tf_res_fwd", "route": "cuda", "source": B6RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:80",
-         "launches": tt_launches["taco_tf_fwd"],
+         "launches": tf_paths["taco_tf_res_fwd"],
          "max_abs_err": max([b6_main["fwd_max_abs_err"]]
-                            + [r["fwd_max_abs_err"] for r in b6.values()]),
+                            + [r["fwd_max_abs_err"] for r in b6.values()]
+                            + [r["fwd_max_abs_err"]
+                               for r in b6res["shapes"].values()]),
          "ms": f6_ms, "plain_ms": f6_plain, "bound_ms": b6f_bound,
          "bound_by": b6f_by, "library_ms": None},
-        {"name": "taco_tf_bwd", "route": "cuda", "source": B6_SOURCE,
+        {"name": "taco_tf_res_bwd", "route": "cuda", "source": B6RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:350",
-         "launches": tt_launches["taco_tf_bwd"],
+         "launches": tf_paths["taco_tf_res_bwd"],
          "max_abs_err": max([b6_main["bwd_max_abs_err"]]
-                            + [r["bwd_max_abs_err"] for r in b6.values()
+                            + [r["bwd_max_abs_err"] for r in
+                               list(b6.values())
+                               + list(b6res["shapes"].values())
                                if "bwd_max_abs_err" in r]),
          "ms": b6_ms, "plain_ms": b6_plain, "bound_ms": b6b_bound,
          "bound_by": b6b_by, "library_ms": None},
+        {"name": "taco_tf_fwd_legacy", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:80",
+         "launches": tf_paths["taco_tf_legacy_fwd"],
+         "max_abs_err": b6res["legacy_vs_plain"]["fwd_max_abs_err"],
+         "ms": min(b6res["turns"]["fwd"]["old"]), "plain_ms": f6_plain,
+         "bound_ms": b6f_bound, "bound_by": b6f_by, "library_ms": None},
+        {"name": "taco_tf_bwd_legacy", "route": "cuda", "source": B6_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco_train.py:350",
+         "launches": tf_paths["taco_tf_legacy_bwd"],
+         "max_abs_err": b6res["legacy_vs_plain"]["bwd_max_abs_err"],
+         "ms": min(b6res["turns"]["bwd"]["old"]), "plain_ms": b6_plain,
+         "bound_ms": b6b_bound, "bound_by": b6b_by, "library_ms": None},
         {"name": "taco_af_fwd", "route": "cuda", "source": B7_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:802",
          "launches": af_total["taco_af_fwd"],

@@ -12,10 +12,14 @@ recurrence (B5): float32 ys and sv within 1e-5, dgi, dgh and dh0 within
 steps); bfloat16 streams within 3e-2 absolute (ys, sv: a few bf16 ulps at
 |v| <= 1, a one-ulp rounding flip of h carried forward) and 3e-2 of the
 largest entry (gradients). The Tacotron TF decoder recurrence (B6),
-float32: mel, scores, the residual streams and every gradient within 1e-5
-of each tensor's largest entry (summation order only, over at most 7
-groups); a Tacotron train step's loss and gradients on the card within
-1e-4 of the CPU's (the whole model, other library kernels). The
+float32, on the resident body and on the original one (``_legacy=True``):
+mel, scores, the residual streams and every gradient within 1e-5 of each
+tensor's largest entry (summation order only, over at most 7 groups);
+either body's forward streams into the other's backward within 1e-5 of
+the plain backward on them; a Tacotron train step's loss and gradients on
+the card within 1e-4 of the CPU's (the whole model, other library
+kernels), its launches and the AF-online teacher's on the resident body.
+The
 attention-forcing recurrence (B7), float32, on the resident body and on
 the original one (``_legacy=True``): mel, scores, the streams, d(aref) and
 every gradient within 1e-5 of each tensor's largest entry, as B6; either
@@ -208,6 +212,85 @@ def test_taco_train_kernels_match_plain(cuda, B, T, G, r, train):
         assert ct.decoder_tf.bwd_launches == before + 1
     for name, a, b in zip(("dpre", "denc", "dencp") + ct.WEIGHTS, got, want):
         assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
+
+
+@pytest.mark.parametrize("legacy", [False, True],
+                         ids=["resident", "legacy"])
+@pytest.mark.parametrize("B,T,G,r,train", [(5, 33, 7, 2, True),
+                                           (3, 20, 6, 5, False)])
+def test_taco_tf_kernels_match_plain_on_either_body(cuda, B, T, G, r, train,
+                                                    legacy):
+    """Either B6 body (the resident one, and the original through the
+    private ``_legacy``) against the plain versions; each launch counted
+    on its body."""
+    ins, w = _b6_inputs(B, T, G, r, cuda, train)
+    body = "legacy" if legacy else "resident"
+    with torch.no_grad():
+        own = getattr(ct.decoder_tf, f"{body}_fwd_launches")
+        mel, sc, st = ct.decoder_tf_fwd(*ins, w, save=True, _legacy=legacy)
+        mel_p, sc_p, st_p = ct.core_ref(*ins, *w, save=True)
+        assert getattr(ct.decoder_tf, f"{body}_fwd_launches") == own + 1
+        assert _rel(mel, mel_p) <= 1e-5 and _rel(sc, sc_p) <= 1e-5
+        for k in ct.STREAMS:
+            assert _rel(st[k], st_p[k]) <= 1e-5, k
+        gen = torch.Generator().manual_seed(1)
+        dmel = torch.randn(mel.shape, generator=gen).to(cuda)
+        dsc = torch.randn(sc.shape, generator=gen).to(cuda)
+        own = getattr(ct.decoder_tf, f"{body}_bwd_launches")
+        got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w, _legacy=legacy)
+        want = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+        torch.cuda.synchronize()
+        assert getattr(ct.decoder_tf, f"{body}_bwd_launches") == own + 1
+        # eval: no streams
+        m2, s2, none = ct.decoder_tf_fwd(*ins, w, save=False, _legacy=legacy)
+        assert none is None and _rel(m2, mel_p) <= 1e-5
+    for name, a, b in zip(("dpre", "denc", "dencp") + ct.WEIGHTS, got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
+
+
+def test_taco_tf_crossed_streams(cuda):
+    """A forward of either B6 body feeds a backward of the other, each
+    against the plain backward on the same streams."""
+    ins, w = _b6_inputs(5, 33, 7, 2, cuda, True)
+    names = ("dpre", "denc", "dencp") + ct.WEIGHTS
+    with torch.no_grad():
+        fwd = {lg: ct.decoder_tf_fwd(*ins, w, save=True, _legacy=lg)
+               for lg in (False, True)}
+        gen = torch.Generator().manual_seed(3)
+        dmel = torch.randn(fwd[False][0].shape, generator=gen).to(cuda)
+        dsc = torch.randn(fwd[False][1].shape, generator=gen).to(cuda)
+        for lg in (False, True):
+            _, sc, st = fwd[lg]
+            got = ct.decoder_tf_bwd(dmel, dsc, st, sc, *ins, w,
+                                    _legacy=not lg)
+            want = ct.core_bwd_ref(dmel, dsc, st, sc, *ins, *w)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, want):
+                assert _rel(a, b) <= 1e-5, (lg, name)
+
+
+def test_taco_tf_and_teacher_launch_on_the_resident_body(cuda):
+    """The TF step's B6 launches and the AF-online teacher's eval forward
+    land on the resident counters, none on the original body's."""
+    tts = TacotronConfig(embed_dims=32, postnet_dims=32, encoder_K=2,
+                         postnet_K=2, num_highways=1)
+    gen = torch.Generator().manual_seed(0)
+    model = taco.Tacotron(tts, 80)
+    model.reset_parameters(gen)
+    model = model.to(cuda)
+    B, T, G, r = 3, 19, 6, 2
+    x = torch.randint(1, 148, (B, T), generator=gen).to(cuda)
+    m = torch.randn(B, 80, G * r, generator=gen).to(cuda)
+    names = ("resident_fwd_launches", "resident_bwd_launches",
+             "legacy_fwd_launches", "legacy_bwd_launches")
+    before = [getattr(ct.decoder_tf, k) for k in names]
+    tt.loss_and_grads(model, x, m, r)
+    with torch.no_grad():
+        attn = tt.teacher_attn_ref(model, x, m, r)
+    torch.cuda.synchronize()
+    assert attn.shape == (B, G, T) and bool(attn.isfinite().all())
+    after = [getattr(ct.decoder_tf, k) for k in names]
+    assert [a - b for a, b in zip(after, before)] == [2, 1, 0, 0]
 
 
 def test_taco_train_step_on_cuda_matches_cpu(cuda):

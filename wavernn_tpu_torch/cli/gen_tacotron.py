@@ -50,6 +50,13 @@ def main(argv=None):
                       help="crossover samples (overrides hparams)")
     wr_p.add_argument("--voc_weights", default=None)
     wr_p.add_argument("--tts_weights", default=None)
+    wr_p.add_argument("--pallas", dest="pallas", action="store_true",
+                      default=None,
+                      help="accepted for the JAX package's flag surface; "
+                           "means nothing here (the device picks the "
+                           "engine)")
+    wr_p.add_argument("--no_pallas", dest="pallas", action="store_false",
+                      help="accepted and ignored, as --pallas")
     wr_p.add_argument("--sparse", action="store_true",
                       help="serve a block-pruned vocoder checkpoint through "
                            "the sample loops' block-sparse arm (weights "

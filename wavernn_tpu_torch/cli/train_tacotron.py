@@ -32,6 +32,7 @@ from ..data.dataset import get_tts_datasets
 from ..device import resolve_device
 from ..train import tacotron_train as tt
 from ..train.checkpoints import restore_checkpoint
+from ..utils.seeding import set_global_seeds
 from .common import load_config, load_tts_model, make_workspace
 
 
@@ -52,12 +53,19 @@ def main(argv=None):
     parser.add_argument("--force_cpu", "-c", action="store_true",
                         help="train on the CPU with the plain PyTorch "
                              "versions of the kernels")
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the run's seed; the hparams' random_seed, "
+                             "when set, takes its place")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of the first "
                              "training steps into this directory")
     args = parser.parse_args(argv)
     cfg = load_config(args.hp_file)
+    if cfg.random_seed is not None:
+        # the hparams' seed wins over --seed (wavernn_tpu/cli/
+        # train_tacotron.py:40-43): the initialisation and the batch order
+        args.seed = cfg.random_seed
+        set_global_seeds(cfg.random_seed)
     mode, tt_cfg = cfg.tts.mode, cfg.tts_train
     if mode == "attention_forcing_online" and not tt_cfg.model_tf_path:
         raise ValueError("attention_forcing_online needs model_tf_path, the "

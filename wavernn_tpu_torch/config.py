@@ -212,6 +212,8 @@ class Config:
     tts: TacotronConfig = field(default_factory=TacotronConfig)
     tts_train: TacotronTrainConfig = field(
         default_factory=TacotronTrainConfig)
+    # the hparams' random_seed: the Tacotron trainer's seed when set
+    random_seed: Optional[int] = None
     test_sentences_file: Optional[str] = None
     test_sentences_names: Optional[Tuple[str, ...]] = None
 
@@ -316,5 +318,6 @@ class Config:
             ignore_voc=g("ignore_voc", False),
             dsp=dsp, voc=voc, voc_train=voc_train, tts=tts,
             tts_train=tts_train,
+            random_seed=g("random_seed"),
             test_sentences_file=g("test_sentences_file"),
             test_sentences_names=tuple(names) if names else None)

@@ -777,6 +777,7 @@ __device__ __forceinline__ void fwd_body(const TfFwdArgs& a, const AfFwdArgs& x)
   mel_stage(G - 1);
 }
 
+#ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 __global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
   fwd_body<false>(a, AfFwdArgs{});
 }
@@ -784,6 +785,7 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_fwd(TfFwdArgs a) {
 __global__ void __launch_bounds__(THREADS, 1) taco_af_fwd(TfFwdArgs a, AfFwdArgs x) {
   fwd_body<true>(a, x);
 }
+#endif
 
 }  // namespace
 
@@ -1187,6 +1189,7 @@ __device__ __forceinline__ void bwd_body(const TfBwdArgs& a, const AfBwdArgs& x)
   }
 }
 
+#ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
   bwd_body<false>(a, AfBwdArgs{});
 }
@@ -1194,6 +1197,7 @@ __global__ void __launch_bounds__(THREADS, 1) taco_tf_bwd(TfBwdArgs a) {
 __global__ void __launch_bounds__(THREADS, 1) taco_af_bwd(TfBwdArgs a, AfBwdArgs x) {
   bwd_body<true>(a, x);
 }
+#endif
 
 // C (M x N, row stride ldc) = sum_r A[r, m] * Bm[r - shift, n] over r < R
 // (rows r < shift of Bm are zero): 64 x 64 tiles, 16 rows of r per pass,
@@ -1371,6 +1375,7 @@ Plan bwd_plan(const TfBwdArgs& a, const AfBwdArgs* x) {
 
 }  // namespace
 
+#ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 extern "C" {
 
 // Floats of zeroed workspace the forward / backward needs (both arms).
@@ -1431,3 +1436,4 @@ int wr_taco_af_bwd(const TfBwdArgs* args, const AfBwdArgs* xargs, void* stream) 
 }
 
 }  // extern "C"
+#endif  // TACO_TRAIN_HELPERS_ONLY

@@ -1490,6 +1490,7 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
 
 namespace {
 
+#ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_fwd(TfFwdArgs a, AfFwdArgs x, ResPlan p) {
   res::fwd_res<false>(a, x, p, nullptr);
@@ -1506,6 +1507,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_bwd_prof(TfBwdArgs a, AfBwdArgs x, ResPlan p, long long* prof) {
   res::bwd_res<true>(a, x, p, prof);
 }
+
+#endif
 
 cudaError_t launch_res(const void* fn, const ResPlan& p, void** kargs, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1561,6 +1564,7 @@ cudaError_t res_wgrads(const TfBwdArgs& a, const AfBwdArgs& x, int64_t nparts, c
 
 }  // namespace
 
+#ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 extern "C" {
 
 // Floats of zeroed workspace the resident forward / backward needs.
@@ -1610,3 +1614,4 @@ int wr_taco_af_res_bwd(const TfBwdArgs* args, const AfBwdArgs* xargs, const ResP
 }
 
 }  // extern "C"
+#endif  // TACO_TRAIN_HELPERS_ONLY

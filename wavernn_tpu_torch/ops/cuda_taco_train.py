@@ -30,8 +30,10 @@ reordered frame-major (F = r * n_mels). float32 only.
 
 B7 runs on the resident body ``csrc/taco_train_resident.cu``
 (``taco_af_res_fwd`` / ``taco_af_res_bwd``; launch plan
-``af_resident_plan``); the AF arm of ``csrc/taco_train.cu`` is its
-yardstick, reached only through the wrappers' private ``_legacy=True``.
+``af_resident_plan``), B6 on ``csrc/taco_tf_resident.cu`` (``taco_tf_res_fwd``
+/ ``taco_tf_res_bwd``; launch plan ``tf_resident_plan``); the two arms of
+``csrc/taco_train.cu`` are their yardsticks, reached only through the
+wrappers' private ``_legacy=True``.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise. Neither falls back to the other.
@@ -502,6 +504,16 @@ def att_bwd_floats(D: int, nc: int) -> int:
             + TC * D)
 
 
+def att_tf_bwd_floats(D: int, E: int, nc: int) -> int:
+    """The TF backward's attention scratch: B7's, or phase A's (the
+    contraction's partials, then the item's rnn_input part of d(ctx) and
+    d(gi) of the group after), whichever is larger."""
+    return max(att_bwd_floats(D, nc), 32 + _up4(E) + 3 * D)
+
+
+GEMM_TILE_FLOATS = 2 * 16 * 64   # the TF body's products: one k-pass's tiles
+
+
 H100_SMEM = 232448       # shared memory a block can opt into on the H100
 RES_FIELDS = ("nblk", "tp", "kc", "smem_bytes", "off_w01t", "off_att",
               "off_x", "off_l1", "off_l2", "off_gw", "off_pv", "res_l1",
@@ -522,6 +534,25 @@ RES_PROF_BWD = ("prologue", "s1_mel_lstm2", "s1_att", "s1_wait", "s2_lstm1",
                 "s4_rnn_input_query_gru", "s4_att", "s4_wait", "s7_dpre",
                 "s7_att", "s7_wait", "s8_dp1_dctx_dah", "s8_att", "s8_wait",
                 "s9_dprev", "s9_wait", "epilogue")
+
+
+# the TF body's labels (TFProf / TBProf in csrc/taco_tf_resident.cu): in
+# each of a group's three intervals the attention chain's work, the mel
+# chain's, then the wait at the barrier
+RES_PROF_TF_FWD = ("prologue", "gru", "rnn_input", "gru_wait", "query",
+                   "lstm1", "query_wait", "items", "lstm2", "items_wait",
+                   "epilogue")
+RES_PROF_TF_BWD = ("prologue", "gru_bwd", "mel_lstm2_lstm1", "gru_wait",
+                   "phase_a", "mel_dx0", "phase_a_wait", "phase_b_dq",
+                   "mel_rnn_input", "phase_b_wait", "epilogue")
+# and, from counter 16 on, the split of block 0's attention items
+# (TFItemProf / TBItemProf): inside "items", "phase_a" and "phase_b_dq"
+RES_PROF_TF_FWD_ITEMS = ("windows", "energies", "partials_arrival",
+                         "last_item_reduction")
+RES_PROF_TF_BWD_ITEMS = ("a_load", "a_contraction", "a_ds",
+                         "b_sum_windows", "b_energies", "b_dp_dencp",
+                         "b_w01_grad", "b_conv_cotangents",
+                         "b_contrib_arrival", "b_last_item_dq")
 
 
 class _ResPlan(ctypes.Structure):   # ResPlan in csrc/taco_train_resident.cu
@@ -545,6 +576,72 @@ def af_resident_stages(dims) -> Dict[str, Dict[str, int]]:
                     "s8_dp1_dctx_dah": P1 + E + D, "s9_dprev": NM}}
 
 
+def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
+    """The plan both resident bodies share: (fwd fields, the end of the
+    forward's regions in floats, bwd fields)."""
+    G, B, T, E, D = (dims[k] for k in ("G", "B", "T", "E", "D"))
+    L = dims["L"]
+    cap = smem_bytes // 4
+    nc = _cdiv(T, TC)
+    tiles = min(4, _cdiv(B, RES_RB))
+    base = dict(nblk=sms, nc=nc, ipb=_cdiv(B * nc, sms),
+                upb_l=_cdiv(L, sms), res_l1=0, res_l2=0, off_l1=0, off_l2=0,
+                off_gw=0, off_pv=0, gw_global=0, ctx_smem=0, epi_tt=0,
+                epi_gc=0)
+    w01t = _up4(NTAP * D)
+
+    def chunk(plan, room):
+        """tp and kc for a chunk in ``room`` floats at off_x."""
+        for tp in range(tiles, 0, -1):
+            kc = room // (RES_RB * tp)
+            kc = kc // 128 * 128 if kc >= 128 else 0
+            if kc:
+                plan.update(tp=tp, kc=kc)
+                return plan["off_x"] + RES_RB * tp * kc
+        raise ValueError(f"no resident {kid} plan fits {dims} in "
+                         f"{smem_bytes} bytes of shared memory")
+
+    least = RES_RB * 128            # the smallest chunk: one tile, 128 columns
+    # forward: the chunk's least, then the LSTMs' rows, then a wider chunk
+    fwd = dict(base, off_w01t=4, off_att=4 + w01t)
+    fwd["off_x"] = fwd["off_att"] + _up4(att_fwd)
+    end = fwd["off_x"] + RES_RB * tiles * 128
+    lstm = fwd["upb_l"] * 4 * 2 * L
+    for k in ("l1", "l2"):
+        if end + lstm <= cap:
+            fwd[f"res_{k}"], fwd[f"off_{k}"] = 1, end
+            end += lstm
+    # the resident rows sit after the chunk: move them behind its final size
+    room = cap - end + RES_RB * tiles * 128
+    stop = chunk(fwd, room)
+    shift = stop - (fwd["off_x"] + RES_RB * tiles * 128)
+    for k in ("l1", "l2"):
+        if fwd[f"res_{k}"]:
+            fwd[f"off_{k}"] += shift
+    end += shift
+
+    # backward
+    bwd = dict(base, off_w01t=4, off_att=4 + w01t)
+    bwd["off_pv"] = bwd["off_att"] + _up4(att_bwd)
+    fixed = bwd["off_pv"] + _up4(D)
+    if cap - fixed - w01t >= least:
+        bwd["off_gw"] = fixed
+        fixed += w01t
+    else:
+        bwd["gw_global"] = 1
+    bwd["off_x"] = fixed
+    bend = chunk(bwd, cap - fixed)
+    E4 = E // 4
+    bwd["epi_tt"] = tt = max(1, min(TC, 8 * RES_THREADS // E4))
+    gc = min(G, (cap - 4 - tt * E) // (E + tt))
+    if gc < 1:
+        raise ValueError(f"no resident {kid} plan fits {dims} in "
+                         f"{smem_bytes} bytes of shared memory")
+    bwd["epi_gc"] = gc
+    bwd["smem_bytes"] = 4 * max(bend, 4 + tt * E + gc * (E + tt))
+    return fwd, end, bwd
+
+
 def af_resident_plan(dims, sms: int = 132,
                      smem_bytes: int = H100_SMEM) -> Dict[str, Dict[str, int]]:
     """The resident B7 body's launch plan for ``dims`` (G, B, T, E, D, P1,
@@ -566,70 +663,51 @@ def af_resident_plan(dims, sms: int = 132,
     L2); the backward's contraction takes ``epi_tt`` positions a task and
     ``epi_gc`` groups a chunk. Raises only where not even a chunk of one
     tile fits, which the original body does not fit either."""
-    G, B, T, E, D = (dims[k] for k in ("G", "B", "T", "E", "D"))
-    P1, L = dims["P1"], dims["L"]
-    cap = smem_bytes // 4
+    T, E, D = dims["T"], dims["E"], dims["D"]
     nc = _cdiv(T, TC)
-    tiles = min(4, _cdiv(B, RES_RB))
-    base = dict(nblk=sms, nc=nc, ipb=_cdiv(B * nc, sms),
-                upb_l=_cdiv(L, sms), res_l1=0, res_l2=0, off_l1=0, off_l2=0,
-                off_gw=0, off_pv=0, gw_global=0, ctx_smem=0, epi_tt=0,
-                epi_gc=0)
-    w01t = _up4(NTAP * D)
-
-    def chunk(plan, room):
-        """tp and kc for a chunk in ``room`` floats at off_x."""
-        for tp in range(tiles, 0, -1):
-            kc = room // (RES_RB * tp)
-            kc = kc // 128 * 128 if kc >= 128 else 0
-            if kc:
-                plan.update(tp=tp, kc=kc)
-                return plan["off_x"] + RES_RB * tp * kc
-        raise ValueError(f"no resident B7 plan fits {dims} in "
-                         f"{smem_bytes} bytes of shared memory")
-
-    least = RES_RB * 128            # the smallest chunk: one tile, 128 columns
-    # forward: the chunk's least, then the LSTMs' rows, then a wider chunk
-    fwd = dict(base, off_w01t=4, off_att=4 + w01t)
-    fwd["off_x"] = fwd["off_att"] + _up4(ATT_FWD_FLOATS + nc)
-    end = fwd["off_x"] + RES_RB * tiles * 128
-    lstm = fwd["upb_l"] * 4 * 2 * L
-    for k in ("l1", "l2"):
-        if end + lstm <= cap:
-            fwd[f"res_{k}"], fwd[f"off_{k}"] = 1, end
-            end += lstm
-    # the resident rows sit after the chunk: move them behind its final size
-    room = cap - end + RES_RB * tiles * 128
-    stop = chunk(fwd, room)
-    shift = stop - (fwd["off_x"] + RES_RB * tiles * 128)
-    for k in ("l1", "l2"):
-        if fwd[f"res_{k}"]:
-            fwd[f"off_{k}"] += shift
-    end += shift
-    if 4 + T * E <= cap:
+    fwd, end, bwd = _resident_plan(dims, sms, smem_bytes,
+                                   ATT_FWD_FLOATS + nc,
+                                   att_bwd_floats(D, nc), "B7")
+    if 4 + T * E <= smem_bytes // 4:
         fwd["ctx_smem"] = 1
         end = max(end, 4 + T * E)
     fwd["smem_bytes"] = 4 * end
+    return {"fwd": fwd, "bwd": bwd}
 
-    # backward
-    bwd = dict(base, off_w01t=4, off_att=4 + w01t)
-    bwd["off_pv"] = bwd["off_att"] + _up4(att_bwd_floats(D, nc))
-    fixed = bwd["off_pv"] + _up4(D)
-    if cap - fixed - w01t >= least:
-        bwd["off_gw"] = fixed
-        fixed += w01t
-    else:
-        bwd["gw_global"] = 1
-    bwd["off_x"] = fixed
-    end = chunk(bwd, cap - fixed)
-    E4 = E // 4
-    bwd["epi_tt"] = tt = max(1, min(TC, 8 * RES_THREADS // E4))
-    gc = min(G, (cap - 4 - tt * E) // (E + tt))
-    if gc < 1:
-        raise ValueError(f"no resident B7 plan fits {dims} in "
-                         f"{smem_bytes} bytes of shared memory")
-    bwd["epi_gc"] = gc
-    bwd["smem_bytes"] = 4 * max(end, 4 + tt * E + gc * (E + tt))
+
+def tf_resident_stages(dims) -> Dict[str, Dict[str, int]]:
+    """Output units of every matrix stage of the resident B6 body, by
+    direction: unit j of a stage belongs to block j mod grid."""
+    D, E, L = dims["D"], dims["E"], dims["L"]
+    return {"fwd": {"gru": D, "rnn_input": L, "query": D, "lstm1": L,
+                    "lstm2": L},
+            "bwd": {"gru_bwd": D, "mel_lstm2_lstm1": L, "mel_dx0": L,
+                    "mel_rnn_input": E + D}}
+
+
+def tf_resident_plan(dims, sms: int = 132,
+                     smem_bytes: int = H100_SMEM) -> Dict[str, Dict[str, int]]:
+    """The resident B6 body's launch plan for ``dims`` (G, B, T, E, D, P2,
+    L, F): ``{"fwd": fields, "bwd": fields}`` in the B7 body's ``ResPlan``
+    (``RES_FIELDS``; offsets in floats), laid out as ``af_resident_plan``
+    lays it out (``tf_resident_stages``; the items of
+    ``af_resident_items``), with the TF arm's attention scratch, no context
+    product in the forward's prologue, and room at the front for the
+    products' tiles (``GEMM_TILE_FLOATS``) before the first group and after
+    the last. A shape whose LSTM rows or location-weight gradient do not
+    fit reads them from device memory; raises only where not even a chunk
+    of one tile fits."""
+    T, E, D = dims["T"], dims["E"], dims["D"]
+    nc = _cdiv(T, TC)
+    fwd, end, bwd = _resident_plan(dims, sms, smem_bytes,
+                                   ATT_FWD_FLOATS + nc,
+                                   att_tf_bwd_floats(D, E, nc), "B6")
+    fwd["smem_bytes"] = 4 * max(end, 4 + GEMM_TILE_FLOATS)
+    bwd["smem_bytes"] = max(bwd["smem_bytes"], 4 * (4 + GEMM_TILE_FLOATS))
+    for p in (fwd, bwd):
+        if p["smem_bytes"] > smem_bytes:
+            raise ValueError(f"no resident B6 plan fits {dims} in "
+                             f"{smem_bytes} bytes of shared memory")
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -639,15 +717,19 @@ def af_resident_units(plan, units: int, block: int):
     return list(range(block, units, plan["fwd"]["nblk"]))
 
 
-def af_resident_regions(plan, direction: str, dims) -> Dict[str, Tuple[int, int]]:
+def af_resident_regions(plan, direction: str, dims,
+                        tf: bool = False) -> Dict[str, Tuple[int, int]]:
     """The shared-memory regions of one direction's plan that the main loop
     uses: name -> (offset, floats). The prologue's enc staging and the
-    backward's contraction reuse the whole space after the loop."""
+    backward's contraction reuse the whole space after the loop; ``tf``:
+    the B6 body's plan (its backward's attention scratch)."""
     p = plan[direction]
     D, L, nc = dims["D"], dims["L"], p["nc"]
+    att = (ATT_FWD_FLOATS + nc if direction == "fwd"
+           else att_tf_bwd_floats(D, dims["E"], nc) if tf
+           else att_bwd_floats(D, nc))
     regions = {"mbarrier": (0, 4), "w01t": (p["off_w01t"], NTAP * D),
-               "attention": (p["off_att"], ATT_FWD_FLOATS + nc
-                             if direction == "fwd" else att_bwd_floats(D, nc)),
+               "attention": (p["off_att"], att),
                "chunk": (p["off_x"], RES_RB * p["tp"] * p["kc"])}
     if direction == "fwd":
         for k in ("l1", "l2"):
@@ -684,9 +766,23 @@ def _res_lib():
     return lib
 
 
-def _device_plan(dims, dev):
+def _tf_lib():
+    lib = _build.load("taco_tf_resident")
+    if not getattr(lib, "_typed", False):
+        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        for fn, args, res in (
+                (lib.wr_taco_tf_res_fwd, [P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_tf_res_bwd, [P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_tf_res_fwd_work_floats, [P, P], I64),
+                (lib.wr_taco_tf_res_bwd_work_floats, [P, P], I64)):
+            fn.argtypes, fn.restype = args, res
+        lib._typed = True
+    return lib
+
+
+def _device_plan(dims, dev, tf: bool = False):
     props = torch.cuda.get_device_properties(dev)
-    return af_resident_plan(
+    return (tf_resident_plan if tf else af_resident_plan)(
         dims, props.multi_processor_count,
         getattr(props, "shared_memory_per_block_optin", H100_SMEM))
 
@@ -743,11 +839,11 @@ def _rows(bc, kid, what):
 
 
 def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
-              legacy=True, prof=None):
+              legacy=False, prof=None):
     """The forward kernel of either arm (TF: ``pre``; AF: ``af`` as in
-    ``_forward``; AF on the resident body unless ``legacy``, ``prof`` a
-    device int64 tensor of 64 counters for its profiling instantiation):
-    (mel, scores, streams or None)."""
+    ``_forward``), on its resident body unless ``legacy`` (``prof`` a
+    device int64 tensor of 64 counters for the resident body's profiling
+    instantiation): (mel, scores, streams or None)."""
     dev = enc.device
     f32 = torch.float32
     kid = "B6" if af is None else "B7"
@@ -791,6 +887,7 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
             **{f"s_{k}": t.data_ptr() for k, t in extra.items()},
             P1=P1, NM=NM)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    pptr = None if prof is None else prof.data_ptr()
     if af is not None and not legacy:
         lib = _res_lib()
         plan = _ResPlan(**_device_plan(dict(d, P1=P1, NM=NM), dev)["fwd"])
@@ -800,9 +897,19 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
         with torch.cuda.device(dev):
             _run(lib.wr_taco_af_res_fwd(
                 ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(plan),
-                None if prof is None else prof.data_ptr(), stream), kid,
-                "forward")
-        _count_af("fwd", resident=True)
+                pptr, stream), kid, "forward")
+        _count(decoder_af, "fwd", resident=True)
+    elif not legacy:
+        lib = _tf_lib()
+        plan = _ResPlan(**_device_plan(d, dev, tf=True)["fwd"])
+        work = torch.zeros(lib.wr_taco_tf_res_fwd_work_floats(
+            ctypes.byref(args), ctypes.byref(plan)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            _run(lib.wr_taco_tf_res_fwd(ctypes.byref(args),
+                                        ctypes.byref(plan), pptr, stream),
+                 kid, "forward")
+        _count(decoder_tf, "fwd", resident=True)
     else:
         lib = _lib()
         if af is None:
@@ -819,12 +926,12 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
             if af is None:
                 _run(lib.wr_taco_tf_fwd(ctypes.byref(args), stream), kid,
                      "forward")
-                decoder_tf.fwd_launches += 1
+                _count(decoder_tf, "fwd", resident=False)
             else:
                 _run(lib.wr_taco_af_fwd(ctypes.byref(args),
                                         ctypes.byref(xargs), stream), kid,
                      "forward")
-                _count_af("fwd", resident=False)
+                _count(decoder_af, "fwd", resident=False)
     if save:
         streams["div"] = streams["div"][..., 0]
         if af is not None:
@@ -833,9 +940,9 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
 
 
 def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
-              pre=None, af=None, legacy=True, prof=None):
+              pre=None, af=None, legacy=False, prof=None):
     """The backward kernel of either arm and its weight-gradient
-    reductions (AF on the resident body unless ``legacy``; ``prof`` as in
+    reductions (on its resident body unless ``legacy``; ``prof`` as in
     ``_fwd_cuda``): (d(pre) or d(aref), denc, dencp, weight gradients by
     name)."""
     dev = enc.device
@@ -871,8 +978,10 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     cw = dict(dgi=3 * D, dgh=3 * D, dq=D, dx0=L, dg1=4 * L, dg2=4 * L)
     for k in _COT:
         ptrs[f"c_{k}"] = torch.empty(G, B, cw[k], dtype=f32, device=dev)
-    resident = af is not None and not legacy
-    if resident:
+    resident = not legacy
+    if resident and af is None:
+        plan = _device_plan(d, dev, tf=True)["bwd"]
+    elif resident:
         plan = _device_plan(dict(d, P1=af[3].shape[0],
                                  NM=af[3].shape[1]), dev)["bwd"]
     # the location-weight and v partials: one per utterance (the original
@@ -887,10 +996,12 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
         outs["dw01" if k == "W01" else f"d{k}"] = torch.empty_like(wt)
     ptrs.update(outs)
     args = _BwdArgs(**{k: v.data_ptr() for k, v in ptrs.items()}, **d)
-    lib = _res_lib() if resident else _lib()
+    lib = (_lib() if not resident else _res_lib() if af is not None
+           else _tf_lib())
     if af is None:
-        args.bc = _rows(lib.wr_taco_tf_bwd_rows(ctypes.byref(args)), kid,
-                        "backward")
+        if not resident:
+            args.bc = _rows(lib.wr_taco_tf_bwd_rows(ctypes.byref(args)), kid,
+                            "backward")
     else:
         af_outs = dict(daref=torch.empty_like(aref), dw1=torch.empty_like(w1),
                        db1=torch.empty_like(b1), dw2=torch.empty_like(w2),
@@ -907,7 +1018,8 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
                                                     ctypes.byref(xargs)),
                             kid, "backward")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if resident:
+    pptr = None if prof is None else prof.data_ptr()
+    if resident and af is not None:
         cplan = _ResPlan(**plan)
         work = torch.zeros(lib.wr_taco_af_res_bwd_work_floats(
             ctypes.byref(args), ctypes.byref(cplan)), dtype=f32, device=dev)
@@ -915,9 +1027,18 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
         with torch.cuda.device(dev):
             _run(lib.wr_taco_af_res_bwd(
                 ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(cplan),
-                None if prof is None else prof.data_ptr(), stream), kid,
-                "backward")
-        _count_af("bwd", resident=True)
+                pptr, stream), kid, "backward")
+        _count(decoder_af, "bwd", resident=True)
+    elif resident:
+        cplan = _ResPlan(**plan)
+        work = torch.zeros(lib.wr_taco_tf_res_bwd_work_floats(
+            ctypes.byref(args), ctypes.byref(cplan)), dtype=f32, device=dev)
+        args.work = work.data_ptr()
+        with torch.cuda.device(dev):
+            _run(lib.wr_taco_tf_res_bwd(ctypes.byref(args),
+                                        ctypes.byref(cplan), pptr, stream),
+                 kid, "backward")
+        _count(decoder_tf, "bwd", resident=True)
     else:
         work = torch.zeros(lib.wr_taco_tf_bwd_work_floats(
             ctypes.byref(args)), dtype=f32, device=dev)
@@ -926,12 +1047,12 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
             if af is None:
                 _run(lib.wr_taco_tf_bwd(ctypes.byref(args), stream), kid,
                      "backward")
-                decoder_tf.bwd_launches += 1
+                _count(decoder_tf, "bwd", resident=False)
             else:
                 _run(lib.wr_taco_af_bwd(ctypes.byref(args),
                                         ctypes.byref(xargs), stream), kid,
                      "backward")
-                _count_af("bwd", resident=False)
+                _count(decoder_af, "bwd", resident=False)
     grads = {k: outs["dw01" if k == "W01" else f"d{k}"] for k in WEIGHTS}
     if af is None:
         return outs["dpre"], outs["denc"], outs["dencp"], grads
@@ -939,36 +1060,47 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     return af_outs["daref"], outs["denc"], outs["dencp"], grads
 
 
-def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool):
+def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool,
+                   _legacy: bool = False, _profile=None):
     """Forward over all groups: (mel (G, B, F), scores (G, B, T), streams
-    or None). CPU: ``core_ref``; CUDA: the forward kernel."""
+    or None). CPU: ``core_ref``; CUDA: the B6 forward kernel on the
+    resident body, or, with the private ``_legacy``, on the original body
+    (the yardstick). ``_profile``: a device int64 tensor of 64 counters;
+    the resident body's profiling instantiation adds each stage's cycles on
+    block 0 to it."""
     if pre.device.type == "cpu":
         return core_ref(pre, zm1, zm2, enc, encp, *weights, save=save)
     if pre.device.type != "cuda":
         raise ValueError(f"no B6 kernel for {pre.device}")
-    return _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=pre)
+    return _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=pre,
+                     legacy=_legacy, prof=_profile)
 
 
 def decoder_tf_bwd(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
-                   weights):
+                   weights, _legacy: bool = False, _profile=None):
     """Backward over all groups: (dpre, denc, dencp, weight gradients in
-    ``WEIGHTS`` order). CPU: ``core_bwd_ref``; CUDA: the backward kernel
-    and its weight-gradient reductions."""
+    ``WEIGHTS`` order). CPU: ``core_bwd_ref``; CUDA: the B6 backward kernel
+    (the resident body, or the original with ``_legacy``) and its
+    weight-gradient reductions. Either backward takes either forward's
+    streams."""
     if pre.device.type == "cpu":
         return core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc,
                             encp, *weights)
     if pre.device.type != "cuda":
         raise ValueError(f"no B6 kernel for {pre.device}")
     dpre, denc, dencp, grads = _bwd_cuda(dmel, dsc, streams, scores, zm1,
-                                         zm2, enc, encp, weights, pre=pre)
+                                         zm2, enc, encp, weights, pre=pre,
+                                         legacy=_legacy, prof=_profile)
     return (dpre, denc, dencp) + tuple(grads[k] for k in WEIGHTS)
 
 
 class _DecoderTF(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pre, zm1, zm2, enc, encp, *weights):
+    def forward(ctx, legacy, pre, zm1, zm2, enc, encp, *weights):
         mel, scores, streams = decoder_tf_fwd(pre, zm1, zm2, enc, encp,
-                                              weights, save=True)
+                                              weights, save=True,
+                                              _legacy=legacy)
+        ctx.legacy = legacy
         ctx.save_for_backward(pre, zm1, zm2, enc, encp, scores, *weights,
                               *(streams[k] for k in STREAMS))
         return mel, scores
@@ -980,25 +1112,33 @@ class _DecoderTF(torch.autograd.Function):
         weights = saved[6:6 + len(WEIGHTS)]
         streams = dict(zip(STREAMS, saved[6 + len(WEIGHTS):]))
         dpre, denc, dencp, *dw = decoder_tf_bwd(
-            dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp, weights)
-        return (dpre, None, None, denc, dencp, *dw)
+            dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp, weights,
+            _legacy=ctx.legacy)
+        return (None, dpre, None, None, denc, dencp, *dw)
 
 
-def decoder_tf(pre, zm1, zm2, enc, encp, weights):
-    """The recurrence as kernels, differentiable in pre, enc, encp and
+def decoder_tf(pre, zm1, zm2, enc, encp, weights, _legacy: bool = False):
+    """The recurrence as kernels (B6), differentiable in pre, enc, encp and
     every weight: (mel (G, B, F), scores (G, B, T)). Without autograd (no
     input needs a gradient, or grad mode off: the eval-mode GTA and
-    attention export) the forward writes no streams."""
+    attention export, the AF-online teacher) the forward writes no
+    streams. The private ``_legacy`` runs the original body (the
+    yardstick)."""
     tensors = (pre, enc, encp) + tuple(weights)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _DecoderTF.apply(pre, zm1, zm2, enc, encp, *weights)
+        return _DecoderTF.apply(_legacy, pre, zm1, zm2, enc, encp, *weights)
     mel, scores, _ = decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights,
-                                    save=False)
+                                    save=False, _legacy=_legacy)
     return mel, scores
 
 
+# launches of B6 on either body, and on the resident and the original body
 decoder_tf.fwd_launches = 0
 decoder_tf.bwd_launches = 0
+decoder_tf.resident_fwd_launches = 0
+decoder_tf.resident_bwd_launches = 0
+decoder_tf.legacy_fwd_launches = 0
+decoder_tf.legacy_bwd_launches = 0
 
 
 def decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp, weights, save: bool,
@@ -1076,11 +1216,12 @@ def decoder_af(aref, dm1, dm2, zm1, zm2, enc, encp, weights,
     return mel, scores
 
 
-def _count_af(direction: str, resident: bool):
-    """One B7 launch: its total, and its body's own count."""
+def _count(wrapper, direction: str, resident: bool):
+    """One B6 (``decoder_tf``) or B7 (``decoder_af``) launch: its total, and
+    its body's own count."""
     body = "resident" if resident else "legacy"
     for name in (f"{direction}_launches", f"{body}_{direction}_launches"):
-        setattr(decoder_af, name, getattr(decoder_af, name) + 1)
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 # launches of B7 on either body, and on the resident and the original body
