@@ -41,13 +41,28 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            whole utterance (share of samples within 1e-3 >= 99.9 %), block
            ms; MultiStreamVocoder with 8 lanes fed out of step against their
            solo streams, aggregate x_realtime
-  b5       the GRU recurrence kernels (forward and backward) against their
-           plain versions at the training shape T 1375, H 512, at B 32 and
-           B 128, float32 (TF32 off) and bfloat16 streams
+  b5       the GRU recurrence kernels (forward and backward, on the
+           resident body csrc/gru_resident.cu) against their plain versions
+           at the training shape T 1375, H 512, at B 32 and B 128, float32
+           (TF32 off) and bfloat16 streams, each launch on the resident body
+           and none on the first (csrc/gru_seq.cu)
+  b5res    the resident B5 body (thread-block clusters that own batch rows
+           and hold the weights, rows exchanged in distributed shared
+           memory, no grid barrier) against the plain versions and the first
+           body (``_legacy=True``) at the vocoder's shape (B 32 and 128,
+           float32 and bfloat16), the CBHG shapes (T 770 and 126, B 32, H
+           128), the inference shapes (B 1, T 400 and 42) and two odd shapes,
+           within B5_F32_TOL / B5_BF16_TOL; the launch plan on this card and
+           the kernel's plan equal to its Python mirror; both bodies timed in
+           turns (new, old, old, new) at the vocoder and CBHG shapes (forward
+           and backward) and the inference shapes (forward), clocks read,
+           with the plain versions, cuDNN's bidirectional GRU less its input
+           product and the bound at H 128; nvcc's registers and spills
   train    vocoder training at the full default Config(): a synthetic
            dataset in the reference layout, the CLI entry point
            ``cli.train_wavernn`` run in-process for 6 steps (checkpoint at
-           step 5 with a generated test item), B5's launch counts, the
+           step 5 with a generated test item), B5's launch counts (on the
+           resident body, none on the first), the
            saved checkpoint generated from again; then one full-width step
            with the kernels against ``recurrence="scan"`` from the same
            weights and batch (loss and every gradient), steps/s through the
@@ -197,13 +212,14 @@ The launch counts of main, serve, stream, prune, sparse, seam and b10 show
 the resident sample-loop body's launches and none of the original body's;
 taco_af's show the resident B7 body's and none of the original's, and
 taco_train's and taco_af's (the online teacher, the attention export) the
-resident B6 body's and none of the original's. Then the card's name and
-power limit, the kernels JSON line (twenty-three kernels: B1, B3, B4b, B9
-in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9 and B10 on the
-original body, whose times come from the turns; B2, B5 forward and
-backward, B8; B6 and B7 forward and backward on their resident bodies, and
-on their original bodies with the times from b6res's and b7res's turns),
-and last the device line. Comparisons run
+resident B6 body's and none of the original's; main, serve, b5, timings,
+train, prune, taco_train and taco_af the resident B5 body's and none of
+the first body's. Then the card's name and power limit, the kernels JSON
+line (twenty-five kernels: B1, B3, B4b, B9 in B1 and B3, and B10 on the
+resident body; B1, B3, B4b, B9 and B10 on the original body, whose times
+come from the turns; B2, B8; B5, B6 and B7 forward and backward on their
+resident bodies, and on their first bodies with the times from b5res's,
+b6res's and b7res's turns), and last the device line. Comparisons run
 with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
 or outside a checkout of the repository.
 """
@@ -229,6 +245,7 @@ B1_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_fused.cu"
 RES_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_resident.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
+B5RES_SOURCE = "wavernn_tpu_torch/csrc/gru_resident.cu"
 B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
 B6RES_SOURCE = "wavernn_tpu_torch/csrc/taco_tf_resident.cu"
 B7_SOURCE = "wavernn_tpu_torch/csrc/taco_train_resident.cu"
@@ -238,6 +255,23 @@ B7_SOURCE = "wavernn_tpu_torch/csrc/taco_train_resident.cu"
 # entry (the JAX package's own bf16 bound is 5e-2)
 B5_F32_TOL = 1e-4
 B5_BF16_TOL = 3e-2
+# the device kernels of either B5 body, by name (torch.profiler)
+B5_KERNELS = ("gru_fwd", "gru_bwd", "gru_res_fwd", "gru_res_bwd")
+# b5res: (tag, T, B, H, stream dtype name) - the vocoder's training shape,
+# the CBHG BiGRUs in a TF step (postnet 770 frames, encoder 126 symbols),
+# at inference (B 1: the 400-frame postnet, the 42-symbol encoder), odd
+# shapes (H 203 in clusters of 8 with a short last block; one step of H
+# 100 in bfloat16, rows of 200 bytes)
+B5RES_SHAPES = (("voc_B32_f32", 1375, 32, 512, "float32"),
+                ("voc_B32_bf16", 1375, 32, 512, "bfloat16"),
+                ("voc_B128_f32", 1375, 128, 512, "float32"),
+                ("voc_B128_bf16", 1375, 128, 512, "bfloat16"),
+                ("cbhg_T770", 770, 32, 128, "float32"),
+                ("cbhg_T126", 126, 32, 128, "float32"),
+                ("infer_T400", 400, 1, 128, "float32"),
+                ("infer_T42", 42, 1, 128, "float32"),
+                ("odd_H203", 17, 5, 203, "float32"),
+                ("odd_H100_T1_bf16", 1, 3, 100, "bfloat16"))
 TRAIN_STEPS = 6
 # B6 (float32, TF32 off): each output within 1e-4 of its largest entry.
 # Kernel and plain version differ in summation order only, but over up to
@@ -534,6 +568,205 @@ def check_b5(cuda_gru, gi, wh, bh, h0, dys):
                   res["dh0_rel_err"]) <= tol
           and all(bool(t.isfinite().all()) for t in (ys, sv, dgi, dgh, dh0)))
     return res, ok
+
+
+def b5_counts():
+    """B5's launch counts by body: the resident body's (gru_res_*) and the
+    first body's (gru_seq_*_legacy)."""
+    from wavernn_tpu_torch.ops import cuda_gru
+    tm = cuda_gru.gru_seq_tm
+    return {"gru_res_fwd": tm.fwd_launches, "gru_res_bwd": tm.bwd_launches,
+            "gru_seq_fwd_legacy": tm.fwd_legacy_launches,
+            "gru_seq_bwd_legacy": tm.bwd_legacy_launches}
+
+
+def zero_b5():
+    from wavernn_tpu_torch.ops import cuda_gru
+    tm = cuda_gru.gru_seq_tm
+    tm.fwd_launches = tm.bwd_launches = 0
+    tm.fwd_legacy_launches = tm.bwd_legacy_launches = 0
+
+
+def b5_on_resident(counts, n_fwd, n_bwd):
+    """Whether ``counts`` (b5_counts) hold n_fwd + n_bwd launches of the
+    resident body and none of the first body's."""
+    return (counts["gru_res_fwd"] == n_fwd and counts["gru_res_bwd"] == n_bwd
+            and counts["gru_seq_fwd_legacy"] == 0
+            and counts["gru_seq_bwd_legacy"] == 0)
+
+
+def b5_bodies(g, gi, wh, bh, h0, dys, tol):
+    """The resident body, the first body and the plain versions on the same
+    inputs, every backward on the resident forward's streams: the errors
+    of each body against the plain versions and of the resident body
+    against the first (ys and sv absolute, the gradients relative to their
+    largest entry), and ``ok``: the resident body finite and within
+    ``tol`` of both."""
+    import torch
+    ys, sv = g.gru_seq_fwd(gi, wh, bh, h0)
+    bw = g.gru_seq_bwd(sv, ys, wh, h0, dys)
+    ys_l, sv_l = g.gru_seq_fwd(gi, wh, bh, h0, _legacy=True)
+    bw_l = g.gru_seq_bwd(sv, ys, wh, h0, dys, _legacy=True)
+    ys_p, sv_p = g.gru_seq_ref(gi, wh, bh, h0)
+    bw_p = g.gru_seq_bwd_ref(sv, ys, wh, h0, dys)
+    torch.cuda.synchronize()
+
+    def maxabs(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def errs(f, b, f_ref, b_ref):
+        out = {"ys_max_abs_err": maxabs(f[0], f_ref[0]),
+               "sv_max_abs_err": maxabs(f[1], f_ref[1])}
+        for n, a, r in zip(("dgi", "dgh", "dh0"), b, b_ref):
+            out[n + "_rel_err"] = rel_err(a, r)
+        out["bwd_max_abs_err"] = max(maxabs(a, r) for a, r in zip(b, b_ref))
+        return out
+
+    def within(e):
+        return (e["ys_max_abs_err"] <= tol and e["sv_max_abs_err"] <= tol
+                and max(e["dgi_rel_err"], e["dgh_rel_err"],
+                        e["dh0_rel_err"]) <= tol)
+
+    res = {"new_vs_plain": errs((ys, sv), bw, (ys_p, sv_p), bw_p),
+           "legacy_vs_plain": errs((ys_l, sv_l), bw_l, (ys_p, sv_p), bw_p),
+           "new_vs_legacy": errs((ys, sv), bw, (ys_l, sv_l), bw_l)}
+    finite = all(bool(t.isfinite().all()) for t in (ys, sv) + tuple(bw))
+    res["ok"] = (finite and within(res["new_vs_plain"])
+                 and within(res["new_vs_legacy"]))
+    return res
+
+
+def cudnn_bigru_ms(T, B, H, dev, backward):
+    """cuDNN's bidirectional ``torch.nn.GRU(H, H)`` over (T, B, H) less its
+    input product (both directions' input weights in one matrix product,
+    timed alone): the library's ms for the two recurrences of a BiGRU,
+    forward and (``backward``) backward."""
+    import torch
+    gru = torch.nn.GRU(H, H, bidirectional=True).to(dev)
+    xs = torch.randn(T, B, H, device=dev, requires_grad=True)
+    w_ih = torch.cat([gru.weight_ih_l0, gru.weight_ih_l0_reverse]).detach(
+        ).requires_grad_()
+    b_ih = torch.cat([gru.bias_ih_l0, gru.bias_ih_l0_reverse]).detach(
+        ).requires_grad_()
+
+    def fwd_bwd(fn):
+        def run():
+            out = fn()
+            out.backward(torch.ones_like(out))
+        return run
+
+    def proj():
+        return torch.addmm(b_ih, xs.view(-1, H), w_ih.t())
+    with torch.no_grad():
+        lib_f = cuda_ms(lambda: gru(xs)[0], 5)[0]
+        proj_f = cuda_ms(proj, 5)[0]
+    out = {"cudnn_bigru_fwd_ms": lib_f, "input_product_fwd_ms": proj_f,
+           "library_fwd_ms": lib_f - proj_f}
+    if backward:
+        lib_fb = cuda_ms(fwd_bwd(lambda: gru(xs)[0]), 5)[0]
+        proj_fb = cuda_ms(fwd_bwd(proj), 5)[0]
+        out.update(cudnn_bigru_fwd_bwd_ms=lib_fb,
+                   input_product_fwd_bwd_ms=proj_fb,
+                   library_bwd_ms=(lib_fb - proj_fb) - (lib_f - proj_f))
+    return out
+
+
+def phase_b5res(dev, build_log):
+    """B5's resident body (csrc/gru_resident.cu, which every B5 launch runs
+    on) against the plain versions and the first body (csrc/gru_seq.cu,
+    ``_legacy=True``). At every B5RES_SHAPES shape: both bodies' forwards
+    and backwards (each backward on the resident forward's streams)
+    against the plain versions, and the resident body against the first,
+    within B5_F32_TOL / B5_BF16_TOL (the sums run in other orders, so not
+    bit for bit); the launch plan each direction gets on this card; the
+    kernel's plan arithmetic equal to its Python mirror
+    (``cuda_gru.resident_gru_plan``) over a grid of shapes and card
+    figures. Both bodies timed in turns (new, old, old, new), forward and
+    backward, at the vocoder's shape and the CBHG shapes (T 770 and 126, B
+    32), forward at the inference shapes (B 1, T 400 and 42), the SM clock
+    and clock-limit reasons read around each set, with the plain versions'
+    ms, cuDNN's bidirectional GRU less its input product and the bound at
+    the H 128 shapes. nvcc's registers and spills of every entry. Any miss
+    fails the phase; a slower resident body does not. Returns the
+    results."""
+    import torch
+    from wavernn_tpu_torch.ops import cuda_gru as g
+    t_phase = time.perf_counter()
+    res, oks = {"shapes": {}}, {}
+    res["ptxas"], res["spills"] = ptxas_entries(build_log, "gru_res_")
+    # 2 stream types x 8 row batches, forward; x 2 output widths, backward
+    oks["ptxas_read"] = len(res["ptxas"]) == 48
+    zero_b5()
+    for i, (tag, T, B, H, dtn) in enumerate(B5RES_SHAPES):
+        dt = getattr(torch, dtn)
+        tol = B5_BF16_TOL if dt == torch.bfloat16 else B5_F32_TOL
+        with torch.no_grad():
+            chk = b5_bodies(g, *gru_inputs(T, B, H, dt, dev, 80 + i), tol)
+        chk["plan"] = {d: g.resident_launch_plan(B, H, dt, d == "bwd")
+                       for d in ("fwd", "bwd")}
+        chk.update(T=T, B=B, H=H, dtype=dtn, tolerance=tol)
+        res["shapes"][tag] = chk
+        oks[tag] = chk["ok"]
+    n = len(B5RES_SHAPES)
+    res["launches"] = b5_counts()
+    oks["launches"] = res["launches"] == {
+        "gru_res_fwd": n, "gru_res_bwd": n, "gru_seq_fwd_legacy": n,
+        "gru_seq_bwd_legacy": n}
+    # the kernel's plan arithmetic against its Python mirror
+    bad = []
+    for B in (1, 3, 32, 128, 200):
+        for H in (64, 100, 128, 203, 512, 1024):
+            for bw in (False, True):
+                for sms, mc, act in ((132, 16, 0), (132, 16, 7), (132, 8, 0),
+                                     (114, 16, 6), (7, 2, 3)):
+                    want = g.resident_gru_plan(B, H, torch.float32, bw, sms,
+                                               mc, act or None)
+                    got = g.resident_plan_c(B, H, bw, sms, mc, act)
+                    if got != {k: want[k] for k in g.RES_FIELDS}:
+                        bad.append([B, H, bw, sms, mc, act])
+    res["plan_mirror_mismatches"] = bad
+    oks["plan_mirror"] = not bad
+    # both bodies in turns; the plain versions, cuDNN and the bound at H 128
+    res["turns"] = {}
+    for tag, T, B, H, bwd in (("voc", 1375, 32, 512, True),
+                              ("cbhg_T770", 770, 32, 128, True),
+                              ("cbhg_T126", 126, 32, 128, True),
+                              ("infer_T400", 400, 1, 128, False),
+                              ("infer_T42", 42, 1, 128, False)):
+        gi, wh, bh, h0, dys = gru_inputs(T, B, H, torch.float32, dev, 90)
+        with torch.no_grad():
+            ys, sv = g.gru_seq_fwd(gi, wh, bh, h0)
+            tt = {"T": T, "B": B, "H": H, "fwd": turns(
+                lambda: g.gru_seq_fwd(gi, wh, bh, h0),
+                lambda: g.gru_seq_fwd(gi, wh, bh, h0, _legacy=True), 5)}
+            if bwd:
+                tt["bwd"] = turns(
+                    lambda: g.gru_seq_bwd(sv, ys, wh, h0, dys),
+                    lambda: g.gru_seq_bwd(sv, ys, wh, h0, dys, _legacy=True),
+                    5)
+            tt["bound_ms"] = {d: bound(*gru_work(T, B, H, 4, d == "bwd"),
+                                       PEAK_F32)[0]
+                              for d in (("fwd", "bwd") if bwd else ("fwd",))}
+            if H == 128:
+                tt["plain_fwd_ms"] = cuda_ms(
+                    lambda: g.gru_seq_ref(gi, wh, bh, h0), 1)[0]
+                if bwd:
+                    tt["plain_bwd_ms"] = cuda_ms(
+                        lambda: g.gru_seq_bwd_ref(sv, ys, wh, h0, dys), 1)[0]
+        if H == 128:
+            tt.update(cudnn_bigru_ms(T, B, H, dev, bwd))
+        res["turns"][tag] = tt
+    res["new_faster"] = {f"{k}_{d}": v[d]["new_faster"]
+                         for k, v in res["turns"].items()
+                         for d in ("fwd", "bwd") if d in v}
+    res["oks"] = oks
+    res["seconds"] = time.perf_counter() - t_phase
+    ok = all(oks.values())
+    emit("b5res", ok=ok, **res)
+    if not ok:
+        raise AssertionError("b5res: the resident B5 body failed a check: "
+                             + ", ".join(k for k, v in oks.items() if not v))
+    return res
 
 
 def write_dataset(root: Path, n_items: int, frames: int, hop: int, seed: int):
@@ -1040,7 +1273,8 @@ def launch_counts():
             "sample_loop_v2": v2.legacy_launches,
             "taco_decode": cuda_taco.decode.launches,
             "taco_decode_batch": cuda_taco.decode_batch.launches,
-            "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches}
+            "gru_res_fwd": cuda_gru.gru_seq_tm.fwd_launches,
+            "gru_seq_fwd_legacy": cuda_gru.gru_seq_tm.fwd_legacy_launches}
 
 
 def zero_counts():
@@ -1056,6 +1290,7 @@ def zero_counts():
     cuda_taco.decode.launches = 0
     cuda_taco.decode_batch.launches = 0
     cuda_gru.gru_seq_tm.fwd_launches = 0
+    cuda_gru.gru_seq_tm.fwd_legacy_launches = 0
 
 
 def ptxas_entries(log, key):
@@ -1542,21 +1777,24 @@ def phase_serve(cfg, dev, tts, voc):
         tts, voc, five, cfg, 2, steps=400,
         generator=torch.Generator().manual_seed(1), device=dev,
         timings=tm)],
-        {"taco_decode_batch": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
+        {"taco_decode_batch": 1, "sample_loop_fused": 1, "gru_res_fwd": 4,
+         "gru_seq_fwd_legacy": 0,
          "taco_decode": 0, "sample_loop_materialized": 0,
          "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_fast", lambda tm: [tts_to_wav_fast(
         tts, voc, five[0], cfg, 2, steps=400,
         generator=torch.Generator().manual_seed(2), device=dev,
         timings=tm)[0]],
-        {"taco_decode": 1, "sample_loop_fused": 1, "gru_seq_fwd": 4,
+        {"taco_decode": 1, "sample_loop_fused": 1, "gru_res_fwd": 4,
+         "gru_seq_fwd_legacy": 0,
          "taco_decode_batch": 0, "sample_loop_materialized": 0,
          "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_unbatched", lambda tm: [tts_to_wav(
         tts, voc, five[0], cfg, 2, steps=100,
         generator=torch.Generator().manual_seed(3), device=dev, timings=tm,
         batched=False)[0]],
-        {"taco_decode": 1, "sample_loop_materialized": 1, "gru_seq_fwd": 4,
+        {"taco_decode": 1, "sample_loop_materialized": 1, "gru_res_fwd": 4,
+         "gru_seq_fwd_legacy": 0,
          "sample_loop_fused": 0, "taco_decode_batch": 0,
          "sample_loop_resident_mat": 1, "sample_loop_old_dense": 0})
 
@@ -1586,7 +1824,8 @@ def phase_serve(cfg, dev, tts, voc):
                         for i in (1, 2)]
             run("cli_gen_tacotron_batch_sentences", cli,
                 {"taco_decode_batch": 1, "sample_loop_fused": 1,
-                 "gru_seq_fwd": 4, "sample_loop_resident": 1,
+                 "gru_res_fwd": 4, "gru_seq_fwd_legacy": 0,
+                 "sample_loop_resident": 1,
                  "sample_loop_old_dense": 0})
         finally:
             os.chdir(cwd)
@@ -1729,15 +1968,12 @@ def phase_prune(cfg, dev):
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
-            cuda_gru.gru_seq_tm.fwd_launches = 0
-            cuda_gru.gru_seq_tm.bwd_launches = 0
+            zero_b5()
             t0 = time.perf_counter()
             train_wavernn.main(["--hp_file", str(hp), "--prune"])
             torch.cuda.synchronize()
             res["train_wall_s"] = time.perf_counter() - t0
-            res["train_launches"] = {
-                "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
-                "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+            res["train_launches"] = b5_counts()
             ckpt = tmp / "checkpoints" / "pruned.wavernn"
             epochs = [r for r in map(json.loads, (ckpt / "metrics.jsonl")
                                      .read_text().splitlines())
@@ -1787,8 +2023,8 @@ def phase_prune(cfg, dev):
     sl = res["serve_launches"]
     ok = (res["cli_steps"][-1:] == [PRUNE_STEPS]
           and all(math.isfinite(v) for v in res["cli_loss"])
-          and res["train_launches"] == {"gru_seq_fwd": 2 * PRUNE_STEPS,
-                                        "gru_seq_bwd": 2 * PRUNE_STEPS}
+          and b5_on_resident(res["train_launches"], 2 * PRUNE_STEPS,
+                             2 * PRUNE_STEPS)
           and res["step"] == PRUNE_STEPS
           and all(v is not None for v in live.values())
           and 14 <= res["live_total"] <= 16
@@ -2962,7 +3198,7 @@ def main() -> int:
     counts = launch_counts()
     launches = {k: counts[k] for k in ("sample_loop_fused",
                                        "sample_loop_resident", "taco_decode",
-                                       "gru_seq_fwd")}
+                                       "gru_res_fwd")}
     audio_s = len(wav) / cfg.dsp.sample_rate
     stages = elapsed_ms(timings)
     import numpy as np
@@ -2988,7 +3224,8 @@ def main() -> int:
             and all(launches.values())
             and counts["sample_loop_resident"] == counts["sample_loop_fused"]
             and counts["sample_loop_old_dense"] == 0
-            and counts["sample_loop_materialized"] == 0):
+            and counts["sample_loop_materialized"] == 0
+            and counts["gru_seq_fwd_legacy"] == 0):
         raise AssertionError("main path: bad wave or a kernel never ran")
 
     # ---- b3, b8: the serving kernels against their plain versions; serve,
@@ -3001,12 +3238,13 @@ def main() -> int:
     # ---- b5: the GRU recurrence kernels against their plain versions ----
     b5 = {}
     T5, H5 = cfg.voc_train.seq_len, cfg.voc.rnn_dims
+    zero_b5()
     for B5 in (32, 128):
         for dt in (torch.float32, torch.bfloat16):
             with torch.no_grad():
                 res, ok = check_b5(cuda_gru, *gru_inputs(T5, B5, H5, dt, dev,
                                                          B5))
-            res["plan"] = [cuda_gru.launch_plan(B5, H5, dt, bw)
+            res["plan"] = [cuda_gru.resident_launch_plan(B5, H5, dt, bw)
                            for bw in (False, True)]
             tag = f"B{B5}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
             b5[tag] = res
@@ -3016,6 +3254,12 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"B5 {tag}: a kernel disagrees with its "
                                      "plain version")
+    # every launch of the phase on the resident body
+    if not b5_on_resident(b5_counts(), 4, 4):
+        raise AssertionError(f"B5: launches off the resident body: "
+                             f"{b5_counts()}")
+    # ---- b5res: the resident B5 body against the first body ----
+    b5res = phase_b5res(dev, logs.get("gru_resident", ""))
 
     # ---- train: the vocoder trainer's CLI at full width ----
     import copy
@@ -3042,8 +3286,7 @@ def main() -> int:
         work.mkdir()
         cwd = os.getcwd()
         os.chdir(work)
-        cuda_gru.gru_seq_tm.fwd_launches = 0
-        cuda_gru.gru_seq_tm.bwd_launches = 0
+        zero_b5()
         t0 = time.perf_counter()
         try:
             train_wavernn.main(["--hp_file", str(hp)])
@@ -3051,8 +3294,7 @@ def main() -> int:
         finally:
             os.chdir(cwd)
         cli_s = time.perf_counter() - t0
-        b5_launches = {"gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
-                       "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+        b5_launches = b5_counts()
         ckpt = work / "checkpoints" / "smoke.wavernn"
         records = [json.loads(ln) for ln in
                    (ckpt / "metrics.jsonl").read_text().splitlines()]
@@ -3088,8 +3330,8 @@ def main() -> int:
               and all(math.isfinite(v) for v in cli["epoch_loss"])
               and cli["nonfinite_grad_steps"] == 0
               and cli["nonfinite_loss_steps"] == 0
-              and b5_launches["gru_seq_fwd"] == 2 * TRAIN_STEPS
-              and b5_launches["gru_seq_bwd"] == 2 * TRAIN_STEPS
+              and b5_on_resident(b5_launches, 2 * TRAIN_STEPS,
+                                 2 * TRAIN_STEPS)
               and all(files.values()) and len(gen_wavs) == 1
               and pcm_peak[0] > 0 and snap_step == 5
               and cli["regenerated_finite"])
@@ -3164,7 +3406,7 @@ def main() -> int:
         # one step under torch.profiler: its kernels, the time the device
         # was busy with them, and B5's part of it
         device = step_kernels(lambda: wt.train_step(state, x, y, m, cfg.voc),
-                              ("gru_fwd", "gru_bwd"))
+                              B5_KERNELS)
         device["b5_ms"] = device.pop("named_ms")
         device["idle_share"] = 1 - device["busy_ms"] / (
             1e3 * resident_s / n_steps)
@@ -3273,14 +3515,11 @@ def main() -> int:
                 os.chdir(cwd)
 
         zero_tf_counts(ct)
-        cuda_gru.gru_seq_tm.fwd_launches = 0
-        cuda_gru.gru_seq_tm.bwd_launches = 0
+        zero_b5()
         t0 = time.perf_counter()
         cli()
         cli_s = time.perf_counter() - t0
-        tt_launches = {**tf_counts(ct),
-                       "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
-                       "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+        tt_launches = {**tf_counts(ct), **b5_counts()}
         ckpt = work / "checkpoints" / "smoke.tacotron"
         records = [json.loads(ln) for ln in
                    (ckpt / "metrics.jsonl").read_text().splitlines()]
@@ -3305,8 +3544,8 @@ def main() -> int:
               and res["nonfinite_loss_steps"] == 0
               and res["nonfinite_grad_steps"] == 0
               and on_resident(tt_launches, n_steps_tt, n_steps_tt)
-              and tt_launches["gru_seq_fwd"] == 4 * n_steps_tt
-              and tt_launches["gru_seq_bwd"] == 4 * n_steps_tt
+              and b5_on_resident(tt_launches, 4 * n_steps_tt,
+                                 4 * n_steps_tt)
               and all(files.values()) and meta == {"step": n_steps_tt, "r": 5})
         emit("taco_train", stage="cli", ok=ok, **res)
         if not ok:
@@ -3411,8 +3650,7 @@ def main() -> int:
         dev_tt["b6_ms"] = dev_tt.pop("named_ms")
         dev_tt["b6_recurrence_ms"] = step_kernels(
             tstep, ("taco_tf",))["named_ms"]
-        dev_tt["b5_ms"] = step_kernels(tstep, ("gru_fwd", "gru_bwd"))[
-            "named_ms"]
+        dev_tt["b5_ms"] = step_kernels(tstep, B5_KERNELS)["named_ms"]
         # B5 at the CBHG shapes: the encoder's BiGRU over T_text and the
         # postnet's over the frames, each direction a launch; the bound of
         # the four launches a direction
@@ -3423,8 +3661,8 @@ def main() -> int:
             (mb.shape[-1], cfg.tts.postnet_dims)] * 2
         dev_tt["b5_cbhg"] = {
             "launches": [g5.fwd_launches - n5[0], g5.bwd_launches - n5[1]],
-            "fwd_ms": step_kernels(tstep, ("gru_fwd",))["named_ms"],
-            "bwd_ms": step_kernels(tstep, ("gru_bwd",))["named_ms"],
+            "fwd_ms": step_kernels(tstep, B5_KERNELS[::2])["named_ms"],
+            "bwd_ms": step_kernels(tstep, B5_KERNELS[1::2])["named_ms"],
             "bound_ms": [sum(bound(*gru_work(Tq, xb.shape[0], H, 4, bw),
                                    PEAK_F32)[0] for Tq, H in cbhg)
                          for bw in (False, True)],
@@ -3489,8 +3727,8 @@ def main() -> int:
                 f"tts_model_id = 'smoke_af_{tag}'",
                 f"tts_schedule = {AF_SCHEDULE!r}", "tts_checkpoint_every = 3",
                 f"tts_init_weights_path = {str(tf_ckpt)!r}", *extra]) + "\n")
-            for c in (ct.decoder_af, cuda_gru.gru_seq_tm):
-                c.fwd_launches = c.bwd_launches = 0
+            ct.decoder_af.fwd_launches = ct.decoder_af.bwd_launches = 0
+            zero_b5()
             for body in ("resident", "legacy"):
                 for d_ in ("fwd", "bwd"):
                     setattr(ct.decoder_af, f"{body}_{d_}_launches", 0)
@@ -3505,9 +3743,7 @@ def main() -> int:
                    "taco_af_res_bwd": af.resident_bwd_launches,
                    "taco_af_legacy_fwd": af.legacy_fwd_launches,
                    "taco_af_legacy_bwd": af.legacy_bwd_launches,
-                   **tf_counts(ct),
-                   "gru_seq_fwd": cuda_gru.gru_seq_tm.fwd_launches,
-                   "gru_seq_bwd": cuda_gru.gru_seq_tm.bwd_launches}
+                   **tf_counts(ct), **b5_counts()}
             af_launches[tag] = got
             online = tag == "online"
             # B7 1 + 1 a step; B5 4 + 4 for the student and, online, 2
@@ -3522,8 +3758,9 @@ def main() -> int:
                     "taco_tf_res_fwd": n_af if online else 0,
                     "taco_tf_res_bwd": 0, "taco_tf_legacy_fwd": 0,
                     "taco_tf_legacy_bwd": 0,
-                    "gru_seq_fwd": (6 if online else 4) * n_af,
-                    "gru_seq_bwd": 4 * n_af}
+                    "gru_res_fwd": (6 if online else 4) * n_af,
+                    "gru_res_bwd": 4 * n_af, "gru_seq_fwd_legacy": 0,
+                    "gru_seq_bwd_legacy": 0}
             ckpt_af = work / "checkpoints" / f"smoke_af_{tag}.tacotron"
             records = [json.loads(ln) for ln in
                        (ckpt_af / "metrics.jsonl").read_text().splitlines()]
@@ -3650,8 +3887,7 @@ def main() -> int:
             dv["b7_recurrence_ms"] = step_kernels(fn, ("taco_af",))[
                 "named_ms"]
             dv["b6_ms"] = step_kernels(fn, ("taco_tf",))["named_ms"]
-            dv["b5_ms"] = step_kernels(fn, ("gru_fwd", "gru_bwd"))[
-                "named_ms"]
+            dv["b5_ms"] = step_kernels(fn, B5_KERNELS)["named_ms"]
             dv["b7_share"] = dv["b7_ms"] / dv["busy_ms"]
             dv["idle_share"] = 1 - dv["busy_ms"] / (1e3 * res_s / n_tt)
             af_speed["online" if online else "offline"] = {
@@ -3754,6 +3990,7 @@ def main() -> int:
         # precision runs them), on the same inputs for kernel and plain
         gi, wh, bh, h0, dys = gru_inputs(T5, cfg.voc_train.batch_size, H5,
                                          torch.float32, dev, 5)
+        zero_b5()
         clocks["b5"] = [gpu_clocks()]
         f_ms, (ys, sv) = cuda_ms(lambda: cuda_gru.gru_seq_fwd(gi, wh, bh, h0),
                                  5)
@@ -3763,6 +4000,10 @@ def main() -> int:
         bw_plain, _ = cuda_ms(lambda: cuda_gru.gru_seq_bwd_ref(
             sv, ys, wh, h0, dys), 1)
         b5_main, ok5 = check_b5(cuda_gru, gi, wh, bh, h0, dys)
+        # every launch of these timings on the resident body (6 + 6 timed,
+        # 1 + 1 checked)
+        b5_main["launches"] = b5_counts()
+        ok5 = ok5 and b5_on_resident(b5_main["launches"], 7, 7)
     # cuDNN's GRU at the same shape, input size H: its call also does the
     # input product x @ w_ih^T + b_ih, timed alone and subtracted
     lib_gru = torch.nn.GRU(H5, H5).to(dev)
@@ -4009,22 +4250,46 @@ def main() -> int:
          "ms": b8_t[5]["ms"], "plain_ms": b8_t[5]["plain_ms"],
          "bound_ms": b8_t[5]["bound_ms"], "bound_by": b8_t[5]["bound_by"],
          "library_ms": None},
-        {"name": "gru_seq_fwd", "route": "cuda", "source": B5_SOURCE,
+        {"name": "gru_res_fwd", "route": "cuda", "source": B5RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gru.py:57",
-         "launches": b5_launches["gru_seq_fwd"],
+         "launches": b5_launches["gru_res_fwd"],
          "max_abs_err": max([b5_main["ys_max_abs_err"]]
                             + [r["ys_max_abs_err"] for k, r in b5.items()
-                               if k.endswith("f32")]),
+                               if k.endswith("f32")]
+                            + [r["new_vs_plain"]["ys_max_abs_err"]
+                               for r in b5res["shapes"].values()
+                               if r["dtype"] == "float32"]),
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": b5f_bound,
          "bound_by": b5f_by, "library_ms": lib_fwd_ms},
-        {"name": "gru_seq_bwd", "route": "cuda", "source": B5_SOURCE,
+        {"name": "gru_res_bwd", "route": "cuda", "source": B5RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gru.py:122",
-         "launches": b5_launches["gru_seq_bwd"],
+         "launches": b5_launches["gru_res_bwd"],
          "max_abs_err": max([b5_main["bwd_max_abs_err"]]
                             + [r["bwd_max_abs_err"] for k, r in b5.items()
-                               if k.endswith("f32")]),
+                               if k.endswith("f32")]
+                            + [r["new_vs_plain"]["bwd_max_abs_err"]
+                               for r in b5res["shapes"].values()
+                               if r["dtype"] == "float32"]),
          "ms": bw_ms, "plain_ms": bw_plain, "bound_ms": b5b_bound,
          "bound_by": b5b_by, "library_ms": lib_bwd_ms},
+        {"name": "gru_seq_fwd", "route": "cuda", "source": B5_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gru.py:57",
+         "launches": b5_launches["gru_seq_fwd_legacy"],
+         "max_abs_err": max(r["legacy_vs_plain"]["ys_max_abs_err"]
+                            for r in b5res["shapes"].values()
+                            if r["dtype"] == "float32"),
+         "ms": min(b5res["turns"]["voc"]["fwd"]["old"]), "plain_ms": f_plain,
+         "bound_ms": b5f_bound, "bound_by": b5f_by,
+         "library_ms": lib_fwd_ms},
+        {"name": "gru_seq_bwd", "route": "cuda", "source": B5_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_gru.py:122",
+         "launches": b5_launches["gru_seq_bwd_legacy"],
+         "max_abs_err": max(r["legacy_vs_plain"]["bwd_max_abs_err"]
+                            for r in b5res["shapes"].values()
+                            if r["dtype"] == "float32"),
+         "ms": min(b5res["turns"]["voc"]["bwd"]["old"]), "plain_ms": bw_plain,
+         "bound_ms": b5b_bound, "bound_by": b5b_by,
+         "library_ms": lib_bwd_ms},
         {"name": "taco_tf_res_fwd", "route": "cuda", "source": B6RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco_train.py:80",
          "launches": tf_paths["taco_tf_res_fwd"],

@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("sample_loop_fused", "sample_loop_resident", "taco_decode",
-           "gru_seq", "taco_train", "taco_train_resident", "taco_tf_resident")
+           "gru_seq", "gru_resident", "taco_train", "taco_train_resident",
+           "taco_tf_resident")
 # sources a source includes: its library rebuilds when they change
 INCLUDES = {"taco_train_resident": ("taco_train",),
             "taco_tf_resident": ("taco_train_resident", "taco_train")}
