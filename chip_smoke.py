@@ -12,7 +12,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            weights under injected noise (MOL and RAW; every fold within
            2e-3), bfloat16 weights (at least 99 % of samples within 1e-3,
            statistics), and the production counter-hash noise
-  b2       the decode kernel against its plain version at full width
+  b2       the decode kernel (B2, on the resident decode body csrc/
+           taco_decode_resident.cu) against its plain version at full width
            (decoder 256, lstm 512), ~60 text positions, r=2, 200 groups:
            no stop, and a forced stop (same n_valid, frozen replay)
   main     text -> wav through ``synthesis.tts_to_wav`` at the full default
@@ -25,12 +26,24 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            bfloat16 at 10 rows x 2,000 steps (as b1), one launch of 2,000
            steps against two chained launches of 1,000 (identical) and a
            snapshot at step 700 against a 700-step launch's state
-  b8       the batched decode against its plain version at full width, r 2,
+  b8       the batched decode (B8, on the resident decode body, one launch
+           a batch) against its plain version at full width, r 2,
            200 groups, B 5, 16 and 32 (the five test sentences repeated,
            the length-aware encoder's outputs), no stop; and a forced stop
            at B 32 (random texts, mel_proj as drawn or negated) whose
            threshold, from the plain run's group maxima, stops the rows at
            three or more different groups (n_valid equal, frozen replay)
+  b8res    the resident decode body against the plain versions and the
+           original body (csrc/taco_decode.cu, ``_legacy=True``): B 1
+           through B2's entry point (a 42-symbol test sentence and 60
+           random symbols), B 5 and 32 at T_text 43 and B 32 at T_text
+           150, each with no stop and a forced stop (mel within 2e-3,
+           attention within 2e-4, n_valid equal, the frozen replay bit for
+           bit, each body's launch on its own counters); the plan on this
+           card; both bodies timed in turns (new, old, old, new), clocks
+           read; the per-stage split of a group at B 1 and 32 (clock64() on
+           block 0); nvcc's registers and spills of the body's entries (a
+           spill fails the phase); the phase's own seconds
   serve    the serving paths at full width, steps 400: tts_to_wav_batch on
            the five sentences, tts_to_wav_fast and tts_to_wav(batched=False)
            on the first, and ``cli.gen_tacotron wavernn --batch_sentences``
@@ -214,12 +227,15 @@ taco_af's show the resident B7 body's and none of the original's, and
 taco_train's and taco_af's (the online teacher, the attention export) the
 resident B6 body's and none of the original's; main, serve, b5, timings,
 train, prune, taco_train and taco_af the resident B5 body's and none of
-the first body's. Then the card's name and power limit, the kernels JSON
-line (twenty-five kernels: B1, B3, B4b, B9 in B1 and B3, and B10 on the
-resident body; B1, B3, B4b, B9 and B10 on the original body, whose times
-come from the turns; B2, B8; B5, B6 and B7 forward and backward on their
-resident bodies, and on their first bodies with the times from b5res's,
-b6res's and b7res's turns), and last the device line. Comparisons run
+the first body's; main, b8 and serve the resident decode body's B2 and B8
+launches and none of the original decode body's. Then the card's name and
+power limit, the kernels JSON line (twenty-seven kernels: B1, B3, B4b, B9
+in B1 and B3, and B10 on the resident body; B1, B3, B4b, B9 and B10 on the
+original body, whose times come from the turns; B2 and B8 on the resident
+decode body, and on the original with the times from b8res's turns; B5, B6
+and B7 forward and backward on their resident bodies, and on their first
+bodies with the times from b5res's, b6res's and b7res's turns), and last
+the device line. Comparisons run
 with TF32 off (cuDNN convolutions default to TF32). Exits 2 without CUDA
 or outside a checkout of the repository.
 """
@@ -244,6 +260,7 @@ PEAK_BYTES = 3.35e12
 B1_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_fused.cu"
 RES_SOURCE = "wavernn_tpu_torch/csrc/sample_loop_resident.cu"
 B2_SOURCE = "wavernn_tpu_torch/csrc/taco_decode.cu"
+B2RES_SOURCE = "wavernn_tpu_torch/csrc/taco_decode_resident.cu"
 B5_SOURCE = "wavernn_tpu_torch/csrc/gru_seq.cu"
 B5RES_SOURCE = "wavernn_tpu_torch/csrc/gru_resident.cu"
 B6_SOURCE = "wavernn_tpu_torch/csrc/taco_train.cu"
@@ -1196,21 +1213,30 @@ def stop_threshold(mel, r):
     """From a decode that never stopped (B, n_mels, steps): the threshold at
     which the most rows stop at distinct groups (row b stops at the first
     group g with g*r > 10 whose largest value is below it), the widest
-    margin among equals. Returns (threshold, predicted n_valid)."""
+    margin among equals, the first of equal candidates. Returns (threshold,
+    predicted n_valid)."""
+    import numpy as np
     B, n_mels, steps = mel.shape
     G = steps // r
-    peaks = mel.reshape(B, n_mels, G, r).amax(dim=(1, 3)).cpu()
-    vals = sorted(set(peaks[:, [g for g in range(G) if g * r > 10]]
-                      .flatten().tolist()))
+    peaks = mel.reshape(B, n_mels, G, r).amax(dim=(1, 3)).double().cpu()
+    elig = [g for g in range(G) if g * r > 10]
+    vals = np.array(sorted(set(peaks[:, elig].flatten().tolist())))
+    thrs = (vals[:-1] + vals[1:]) / 2
+    # row b stops at the first eligible group whose peak is below thr: the
+    # first index where the peaks' running minimum drops below it
+    stops = np.empty((len(thrs), B), np.int64)
+    thr32 = thrs.astype(np.float32).astype(np.float64)   # as the kernel compares
+    for b in range(B):
+        run_min = np.minimum.accumulate(peaks[b, elig].numpy())
+        k = np.searchsorted(-run_min, -thr32, side="right")
+        stops[:, b] = np.where(k < len(elig),
+                               np.asarray(elig + [0])[np.minimum(
+                                   k, len(elig))] + 1, G)
     best = None
-    for lo, hi in zip(vals[:-1], vals[1:]):
-        thr = (lo + hi) / 2
-        stops = [next((g + 1 for g in range(G)
-                       if g * r > 10 and peaks[b, g] < thr), G)
-                 for b in range(B)]
-        score = (len(set(stops)), hi - lo)
+    for i, thr in enumerate(thrs):
+        score = (len(set(stops[i].tolist())), vals[i + 1] - vals[i])
         if best is None or score > best[0]:
-            best = (score, thr, stops)
+            best = (score, float(thr), stops[i].tolist())
     return best[1], best[2]
 
 
@@ -1252,7 +1278,9 @@ def launch_counts():
     _resident_mat_sparse its sparse arms (B9), _resident_v2 its B10;
     sample_loop_old_dense the original body's dense arms, sample_loop_sparse
     its sparse arm and sample_loop_v2 its B10: the yardsticks no serving
-    path reaches)."""
+    path reaches; taco_decode and taco_decode_batch count B2's and B8's
+    launches on the resident decode body, taco_decode_legacy and
+    taco_decode_batch_legacy the original decode body's)."""
     from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2, cuda_gru, cuda_taco
     fused, state = cuda_gen.generate_fused, cuda_gen.generate_fused_with_state
     mat, v2 = cuda_gen.generate_materialized, cuda_gen2.generate_v2
@@ -1273,6 +1301,8 @@ def launch_counts():
             "sample_loop_v2": v2.legacy_launches,
             "taco_decode": cuda_taco.decode.launches,
             "taco_decode_batch": cuda_taco.decode_batch.launches,
+            "taco_decode_legacy": cuda_taco.decode.legacy_launches,
+            "taco_decode_batch_legacy": cuda_taco.decode_batch.legacy_launches,
             "gru_res_fwd": cuda_gru.gru_seq_tm.fwd_launches,
             "gru_seq_fwd_legacy": cuda_gru.gru_seq_tm.fwd_legacy_launches}
 
@@ -1287,8 +1317,9 @@ def zero_counts():
     for fn in (cuda_gen.generate_fused, cuda_gen.generate_materialized):
         fn.sparse_launches = 0
         fn.legacy_sparse_launches = 0
-    cuda_taco.decode.launches = 0
-    cuda_taco.decode_batch.launches = 0
+    for fn in (cuda_taco.decode, cuda_taco.decode_batch):
+        fn.launches = 0
+        fn.legacy_launches = 0
     cuda_gru.gru_seq_tm.fwd_launches = 0
     cuda_gru.gru_seq_tm.fwd_legacy_launches = 0
 
@@ -1670,12 +1701,17 @@ def phase_b8(cfg, dev, tts, mel_tol, att_tol):
             SENTENCES[i % len(SENTENCES)], cfg.tts.cleaner_names)
             for i in range(B)], dev)
         args = (dec, enc, encp, mask, 2, 400, 80, cfg.tts.max_r)
+        zero_counts()
         with torch.no_grad():
             got = ctd.decode_batch(*args, -1e30)
             want = ctd.decode_batch_ref(*args, -1e30)
         chk, ok = check_b8(got, want, mel_tol, att_tol)
-        ok = ok and chk["n_valid"][0] == [200] * B
-        chk["launches_for_B"] = -(-B // ctd.batch_rows(B, enc.shape[1], 256))
+        c = launch_counts()
+        chk["launches"] = {k: c[k] for k in ("taco_decode_batch",
+                                              "taco_decode_batch_legacy")}
+        ok = (ok and chk["n_valid"][0] == [200] * B
+              and chk["launches"] == {"taco_decode_batch": 1,
+                                      "taco_decode_batch_legacy": 0})
         res[f"B{B}"] = chk
         cases[B] = (args, lens, want)
         emit("b8", case=f"B{B}_no_stop", B=B, T_text=enc.shape[1], ok=ok,
@@ -1728,6 +1764,154 @@ def phase_b8(cfg, dev, tts, mel_tol, att_tol):
     return res, cases
 
 
+B8RES_REPS = 3
+
+
+def phase_b8res(cfg, dev, tts, build_log, mel_tol, att_tol):
+    """The resident decode body (csrc/taco_decode_resident.cu, which every
+    B2 and B8 launch runs on) against the plain versions and the original
+    body (csrc/taco_decode.cu, ``_legacy=True``) at full width, r 2, 200
+    groups: B 1 through B2's own entry point (the first test sentence, 42
+    symbols, and 60 random symbols), B 5 (the five sentences, T_text 43), B
+    32 (them repeated) and B 32 at T_text 150 (random texts of 100-150
+    symbols), each with no stop and with a forced stop (the threshold from
+    the plain run's group maxima: n_valid equal, every stopped row's later
+    groups its frozen-state group bit for bit), each body's launch on its
+    own counters; the plan on this card; both bodies in turns (new, old,
+    old, new) with the clocks; the per-stage split of a group at B 1 and B
+    32 (the profiling instantiation, clock64() on block 0); B 64 at T_text
+    400, past a block's shared memory, in one launch against the plain
+    version; nvcc's
+    registers and spills of the four entries (a spill outside the
+    profiling instantiations fails the phase)."""
+    import torch
+    from wavernn_tpu_torch.ops import cuda_taco as ctd
+    from wavernn_tpu_torch.text import text_to_sequence
+    t_start = time.perf_counter()
+    dec = tts.decoder_weights()
+    sents = [text_to_sequence(x, cfg.tts.cleaner_names) for x in SENTENCES[:5]]
+    g = torch.Generator().manual_seed(60)
+    rand = lambda n: torch.randint(1, 148, (n,), generator=g).tolist()
+    long = [rand(int(n)) for n in torch.randint(100, 150, (31,), generator=g)]
+    cases = {"B1_T42": [sents[0]], "B1_T60": [rand(60)], "B5_T43": sents,
+             "B32_T43": [sents[i % 5] for i in range(32)],
+             "B32_T150": [rand(150)] + long}
+    entries, spills = ptxas_entries(build_log, "taco_dec_res")
+    # the profiling instantiations' spills are reported, not failed on
+    prod_spills = [x for x in spills if "_prof" not in x.split(":")[0]]
+    res = {"shapes": {}, "turns": {}, "split": {}, "ptxas": entries,
+           "spills": spills}
+    ok_all = not prod_spills
+    for name, seqs in cases.items():
+        enc, encp, mask, _ = b8_inputs(tts, seqs, dev)
+        B, T = enc.shape[:2]
+        tail = (2, 400, 80, cfg.tts.max_r)
+        if B == 1:
+            run = lambda thr, **kw: ctd.decode(dec, enc, encp, mask[0], *tail,
+                                               thr, **kw)
+            plain = lambda thr: ctd.decode_ref(dec, enc, encp, mask[0], *tail,
+                                               thr)
+            keys = ("taco_decode", "taco_decode_legacy")
+        else:
+            run = lambda thr, **kw: ctd.decode_batch(dec, enc, encp, mask,
+                                                     *tail, thr, **kw)
+            plain = lambda thr: ctd.decode_batch_ref(dec, enc, encp, mask,
+                                                     *tail, thr)
+            keys = ("taco_decode_batch", "taco_decode_batch_legacy")
+        dims = dict(B=B, T=T, E=enc.shape[2], D=encp.shape[2],
+                    P1=dec["prenet.fc1.weight"].shape[0],
+                    P2=dec["prenet.fc2.weight"].shape[0],
+                    L=dec["res_rnn1.weight_hh"].shape[1], n_mels=80, r=2)
+        plan = ctd.device_plan(dims, dev)
+        shape = {"B": B, "T_text": T,
+                 "plan": {"rt": plan["rt"], "rows": plan["rows"],
+                          "kc": plan["kc"], "smem_bytes": plan["smem_bytes"],
+                          "in_device_memory": [
+                              k[4:] for k in plan if k.startswith("res_")
+                              and not plan[k]]
+                          + ([] if plan["e_smem"] else ["e"])}}
+        with torch.no_grad():
+            free = plain(-1e30)
+            thr, predicted = stop_threshold(free[0], 2)
+            for case, t in (("no_stop", -1e30), ("forced_stop", thr)):
+                want = free if case == "no_stop" else plain(t)
+                zero_counts()
+                got = run(t)
+                c1 = launch_counts()
+                old = run(t, _legacy=True)
+                c2 = launch_counts()
+                new_chk, ok_new = check_b8(got, want, mel_tol, att_tol)
+                old_chk, ok_old = check_b8(old, want, mel_tol, att_tol)
+                nv = got[2].tolist()
+                frozen = all(torch.equal(got[0][b, :, 2 * n:2 * n + 2],
+                                         got[0][b, :, -2:])
+                             for b, n in enumerate(nv) if n < 200)
+                counted = ((c1[keys[0]], c1[keys[1]], c2[keys[0]], c2[keys[1]])
+                           == (1, 0, 1, 1))
+                ok = ok_new and ok_old and frozen and counted
+                if case == "no_stop":
+                    ok = ok and nv == [200] * B
+                else:
+                    ok = ok and nv == predicted
+                shape[case] = {
+                    "ok": ok, "threshold": t, "stop_groups": sorted(set(nv)),
+                    "new_vs_plain": {k: v for k, v in new_chk.items()
+                                     if k != "n_valid"},
+                    "old_vs_plain": {k: v for k, v in old_chk.items()
+                                     if k != "n_valid"},
+                    "n_valid_equal": new_chk["n_valid"][0]
+                    == new_chk["n_valid"][1],
+                    "replay_frozen": frozen, "launches_counted": counted}
+                ok_all = ok_all and ok
+            res["turns"][name] = turns(lambda: run(-1e30),
+                                       lambda: run(-1e30, _legacy=True),
+                                       B8RES_REPS)
+            if name in ("B1_T42", "B32_T43"):
+                labels = ctd.RES_PROF + ctd.RES_SUBPROF
+                prof = torch.zeros(len(labels), dtype=torch.int64, device=dev)
+                run(-1e30, _profile=prof)
+                torch.cuda.synchronize()
+                res["split"][name] = {k: v / 200 for k, v in
+                                      zip(labels, prof.tolist())}
+        res["shapes"][name] = shape
+        emit("b8res", case=name, ok=shape["no_stop"]["ok"]
+             and shape["forced_stop"]["ok"], mel_tolerance=mel_tol,
+             attn_tolerance=att_tol, **shape, turns=res["turns"][name])
+    # past a block's shared memory (the plan puts the items' location
+    # features in device memory): one launch against the plain version
+    seqs = [rand(400)] + [rand(int(n)) for n in
+                          torch.randint(300, 400, (63,), generator=g)]
+    enc, encp, mask, _ = b8_inputs(tts, seqs, dev)
+    args = (dec, enc, encp, mask, 2, 400, 80, cfg.tts.max_r, -1e30)
+    with torch.no_grad():
+        zero_counts()
+        got = ctd.decode_batch(*args)
+        c = launch_counts()
+        want = ctd.decode_batch_ref(*args)
+    chk, ok = check_b8(got, want, mel_tol, att_tol)
+    ok = (ok and chk["n_valid"][0] == [200] * 64
+          and (c["taco_decode_batch"], c["taco_decode_batch_legacy"]) == (1, 0))
+    plan = ctd.device_plan(dict(B=64, T=400, E=enc.shape[2], D=encp.shape[2],
+                                P1=dec["prenet.fc1.weight"].shape[0],
+                                P2=dec["prenet.fc2.weight"].shape[0],
+                                L=dec["res_rnn1.weight_hh"].shape[1],
+                                n_mels=80, r=2), dev)
+    res["shapes"]["B64_T400"] = {
+        "B": 64, "T_text": 400, "e_in_device_memory": not plan["e_smem"],
+        "new_vs_plain": {k: v for k, v in chk.items() if k != "n_valid"}}
+    emit("b8res", case="B64_T400", ok=ok, mel_tolerance=mel_tol,
+         attn_tolerance=att_tol, **res["shapes"]["B64_T400"])
+    ok_all = ok_all and ok
+    res["seconds"] = time.perf_counter() - t_start
+    res["ok"] = ok_all
+    emit("b8res", case="summary", ok=ok_all, ptxas=entries, spills=spills,
+         split=res["split"], seconds=res["seconds"])
+    if not ok_all:
+        raise AssertionError("b8res: the resident decode body disagrees, "
+                             "counts off its counters or spills")
+    return res
+
+
 def phase_serve(cfg, dev, tts, voc):
     """The serving paths at full width, steps 400 (random weights never
     stop): tts_to_wav_batch on the five sentences, tts_to_wav_fast and
@@ -1778,7 +1962,8 @@ def phase_serve(cfg, dev, tts, voc):
         generator=torch.Generator().manual_seed(1), device=dev,
         timings=tm)],
         {"taco_decode_batch": 1, "sample_loop_fused": 1, "gru_res_fwd": 4,
-         "gru_seq_fwd_legacy": 0,
+         "gru_seq_fwd_legacy": 0, "taco_decode_legacy": 0,
+         "taco_decode_batch_legacy": 0,
          "taco_decode": 0, "sample_loop_materialized": 0,
          "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_fast", lambda tm: [tts_to_wav_fast(
@@ -1786,7 +1971,8 @@ def phase_serve(cfg, dev, tts, voc):
         generator=torch.Generator().manual_seed(2), device=dev,
         timings=tm)[0]],
         {"taco_decode": 1, "sample_loop_fused": 1, "gru_res_fwd": 4,
-         "gru_seq_fwd_legacy": 0,
+         "gru_seq_fwd_legacy": 0, "taco_decode_legacy": 0,
+         "taco_decode_batch_legacy": 0,
          "taco_decode_batch": 0, "sample_loop_materialized": 0,
          "sample_loop_resident": 1, "sample_loop_old_dense": 0})
     run("tts_to_wav_unbatched", lambda tm: [tts_to_wav(
@@ -1794,7 +1980,8 @@ def phase_serve(cfg, dev, tts, voc):
         generator=torch.Generator().manual_seed(3), device=dev, timings=tm,
         batched=False)[0]],
         {"taco_decode": 1, "sample_loop_materialized": 1, "gru_res_fwd": 4,
-         "gru_seq_fwd_legacy": 0,
+         "gru_seq_fwd_legacy": 0, "taco_decode_legacy": 0,
+         "taco_decode_batch_legacy": 0,
          "sample_loop_fused": 0, "taco_decode_batch": 0,
          "sample_loop_resident_mat": 1, "sample_loop_old_dense": 0})
 
@@ -1825,6 +2012,7 @@ def phase_serve(cfg, dev, tts, voc):
             run("cli_gen_tacotron_batch_sentences", cli,
                 {"taco_decode_batch": 1, "sample_loop_fused": 1,
                  "gru_res_fwd": 4, "gru_seq_fwd_legacy": 0,
+                 "taco_decode_legacy": 0, "taco_decode_batch_legacy": 0,
                  "sample_loop_resident": 1,
                  "sample_loop_old_dense": 0})
         finally:
@@ -3225,13 +3413,17 @@ def main() -> int:
             and counts["sample_loop_resident"] == counts["sample_loop_fused"]
             and counts["sample_loop_old_dense"] == 0
             and counts["sample_loop_materialized"] == 0
-            and counts["gru_seq_fwd_legacy"] == 0):
+            and counts["gru_seq_fwd_legacy"] == 0
+            and counts["taco_decode_legacy"] == 0
+            and counts["taco_decode_batch_legacy"] == 0):
         raise AssertionError("main path: bad wave or a kernel never ran")
 
     # ---- b3, b8: the serving kernels against their plain versions; serve,
     # stream: the serving paths ----
     b3 = phase_b3(cfg, dev, torch.Generator().manual_seed(77), TOL)
     b8, b8_cases = phase_b8(cfg, dev, tts, MEL_TOL, ATT_TOL)
+    b8res = phase_b8res(cfg, dev, tts, logs.get("taco_decode_resident", ""),
+                        MEL_TOL, ATT_TOL)
     serve_counts = phase_serve(cfg, dev, tts, voc)
     stream_b3, stream = phase_stream(cfg, dev, voc, mel)
 
@@ -4199,6 +4391,16 @@ def main() -> int:
     b1_by = "operations" if fl / PEAK_BF16 >= by / PEAK_BYTES else "bytes"
     b3_err = max(b3["f32_odd_max_abs_err"], b3["f32_odd_state_max_abs_err"])
     unb = serve_counts["tts_to_wav_unbatched"]
+    b2_by = "operations" if fl2 / PEAK_F32 >= by2 / PEAK_BYTES else "bytes"
+
+    def b8res_errs(prefix, side, rows=False):
+        """b8res's mel errors of one side over its shapes: those of one row
+        (prefix B1), or with rows=True those of a batch."""
+        return [v[side]["mel_max_abs_err"]
+                for name, sh in b8res["shapes"].items()
+                if (sh["B"] > 1) == rows and name.startswith(prefix)
+                for v in [sh[c] for c in ("no_stop", "forced_stop")
+                          if c in sh] + [sh] if side in v]
     seam_l = seam["path"]["seam"]["launches"]
     kernels = [
         {"name": "sample_loop_resident", "route": "cuda",
@@ -4226,15 +4428,22 @@ def main() -> int:
          "max_abs_err": old_err["b1"], "ms": min(rt["b1_main_ms"]["old"]),
          "plain_ms": b1_plain, "bound_ms": b1_bound, "bound_by": b1_by,
          "library_ms": None},
-        {"name": "taco_decode", "route": "cuda", "source": B2_SOURCE,
+        {"name": "taco_decode", "route": "cuda", "source": B2RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco.py:74",
          "launches": launches["taco_decode"],
-         "max_abs_err": max(b2["no_stop"]["mel_max_abs_err"],
-                            b2["forced_stop"]["mel_max_abs_err"],
-                            b2_main["mel_max_abs_err"]),
+         "max_abs_err": max([b2["no_stop"]["mel_max_abs_err"],
+                             b2["forced_stop"]["mel_max_abs_err"],
+                             b2_main["mel_max_abs_err"]]
+                            + b8res_errs("B1", "new_vs_plain")),
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
-         "bound_by": "operations" if fl2 / PEAK_F32 >= by2 / PEAK_BYTES
-         else "bytes", "library_ms": None},
+         "bound_by": b2_by, "library_ms": None},
+        {"name": "taco_decode_legacy", "route": "cuda", "source": B2_SOURCE,
+         "replaces": "wavernn_tpu/ops/pallas_taco.py:74",
+         "launches": counts["taco_decode_legacy"]
+         + sum(c["taco_decode_legacy"] for c in serve_counts.values()),
+         "max_abs_err": max(b8res_errs("B1", "old_vs_plain")),
+         "ms": min(b8res["turns"]["B1_T42"]["old"]), "plain_ms": b2_plain,
+         "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
         {"name": "sample_loop_materialized", "route": "cuda",
          "source": B1_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:220",
          "launches": unb["sample_loop_old_dense"],
@@ -4242,14 +4451,23 @@ def main() -> int:
          "plain_ms": b3_t["folds"]["plain_ms"],
          "bound_ms": b3_t["folds"]["bound_ms"],
          "bound_by": b3_t["folds"]["bound_by"], "library_ms": None},
-        {"name": "taco_decode_batch", "route": "cuda", "source": B2_SOURCE,
+        {"name": "taco_decode_batch", "route": "cuda", "source": B2RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_taco.py:207",
          "launches": sum(c["taco_decode_batch"]
                          for c in serve_counts.values()),
-         "max_abs_err": max(v["mel_max_abs_err"] for v in b8.values()),
+         "max_abs_err": max([v["mel_max_abs_err"] for v in b8.values()]
+                            + b8res_errs("B", "new_vs_plain", rows=True)),
          "ms": b8_t[5]["ms"], "plain_ms": b8_t[5]["plain_ms"],
          "bound_ms": b8_t[5]["bound_ms"], "bound_by": b8_t[5]["bound_by"],
          "library_ms": None},
+        {"name": "taco_decode_batch_legacy", "route": "cuda",
+         "source": B2_SOURCE, "replaces": "wavernn_tpu/ops/pallas_taco.py:207",
+         "launches": sum(c["taco_decode_batch_legacy"]
+                         for c in serve_counts.values()),
+         "max_abs_err": max(b8res_errs("B", "old_vs_plain", rows=True)),
+         "ms": min(b8res["turns"]["B5_T43"]["old"]),
+         "plain_ms": b8_t[5]["plain_ms"], "bound_ms": b8_t[5]["bound_ms"],
+         "bound_by": b8_t[5]["bound_by"], "library_ms": None},
         {"name": "gru_res_fwd", "route": "cuda", "source": B5RES_SOURCE,
          "replaces": "wavernn_tpu/ops/pallas_gru.py:57",
          "launches": b5_launches["gru_res_fwd"],
