@@ -220,8 +220,28 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            1 x 12,100), beside the resident B3, the entry point and the
            stream projections, clocks read around each set; the per-stage
            split of a B10 step at 1 and 10 rows
+  mesh     the multi-device paths (parallel/mesh.py) at the full default
+           Config, in ranks spawned after the build (torch.multiprocessing):
+           (a) one NCCL rank per card (at most 4; one on a one-card
+           machine), generate_sharded's DeviceMesh path on the main mel bit
+           for bit the one-device call's; (b) two ranks sharing card 0 over
+           gloo: generate_sharded on the main mel (10 folds, 5 a rank) in
+           crossfade and with seam_passes=2, generate_multi_sharded on the
+           five sentences' mels, MultiStreamVocoder with 8 lanes over one
+           24-frame block, each bit for bit the one-device call with the same
+           seed (the counter hash's global rows, row0 / B_global), every
+           rank's launches on the resident bodies; tts_to_wav_batch on the
+           five sentences (mels within 2e-3 and n_valid equal: B8 decodes
+           each rank's group at its own batch size; waves finite and within
+           sqrt(2)); 3 data-parallel vocoder steps at 32 x 1375 and 2
+           Tacotron TF steps at batch 32, 16 rows a rank, against one
+           process at batch 32 (the losses and the first step's grad norm
+           within 1e-4, the later grad norms within 2e-3: DP_TOL), B5's and
+           B6's launches a rank and the steps/s of two processes that share
+           one card (not a scaling figure); the card's name and power limit
 
-The launch counts of main, serve, stream, prune, sparse, seam and b10 show
+The launch counts of main, serve, stream, prune, sparse, seam, b10 and
+mesh (each rank's) show
 the resident sample-loop body's launches and none of the original body's;
 taco_af's show the resident B7 body's and none of the original's, and
 taco_train's and taco_af's (the online teacher, the attention export) the
@@ -3226,6 +3246,468 @@ def phase_b10(cfg, dev, voc, mel, tol):
     return res
 
 
+# ---- mesh: the multi-device paths (parallel/mesh.py) ----
+
+# the two-rank runs' batches: 16 rows a rank; the TF step's text, frames
+# and r
+MESH_VOC_B = 32
+MESH_TF = (32, 60, 140, 7)    # B, T_text, frames, r
+MESH_LANES = 8
+MESH_STEPS = 400              # the decode bound of tts_to_wav_batch
+# data-parallel steps against one process: every loss and the first
+# step's grad norm within 1e-4 relative (the gradients are averaged in
+# another order, B5 and B6 run at 16 rows instead of 32, and BatchNorm sums
+# its statistics over the ranks); the later steps' grad norms within 2e-3:
+# Adam's first update moves a weight by about lr whatever its gradient's
+# size, so a gradient whose sign flips on rounding (a Tacotron step's ReLU,
+# max-pool and L1 branches, branch_grads) moves that weight by 2 lr
+# between the two runs, and the next gradient carries it. The phase
+# reports the one process against itself on the batch's rows in reverse
+# order beside it
+DP_TOL = 1e-4
+DP_TOL_LATER = 2e-3
+# tts_to_wav_batch(mesh): B8 decodes each rank's group at its own batch
+# size, whose items differ from the whole batch's, so the sums reorder:
+# the mels within 2e-3 (b8's tolerance), n_valid equal
+MESH_MEL_TOL = 2e-3
+MESH_TIMEOUT_S = 420
+
+
+def mesh_counts():
+    """Launch counts of every kernel a mesh path runs (launch_counts, B5's
+    and B6's)."""
+    from wavernn_tpu_torch.ops import cuda_taco_train as ct
+    return {**launch_counts(), **b5_counts(), **tf_counts(ct)}
+
+
+def zero_mesh_counts():
+    from wavernn_tpu_torch.ops import cuda_taco_train as ct
+    zero_counts()
+    zero_b5()
+    zero_tf_counts(ct)
+
+
+def mesh_inputs(cfg, voc, tts, mel, work):
+    """What every rank and the one-device references share, written to
+    ``work/inputs.pt``: the weights, the main mel, the five sentences'
+    decoded mels, the lanes' mels and the training batches (numpy from
+    seeds)."""
+    import numpy as np
+    import torch
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.text import text_to_sequence
+    five = SENTENCES[:5]
+    seqs = [text_to_sequence(t, cfg.tts.cleaner_names) for t in five]
+    decoded = taco.generate_batch(tts, seqs, 2, steps=MESH_STEPS,
+                                  device=next(tts.parameters()).device)
+    rng = np.random.RandomState(31)
+    B, T_text, frames, r = MESH_TF
+    seq = cfg.voc_train.seq_len
+    win = seq // cfg.dsp.hop_length + 2 * cfg.voc.pad
+    inp = {"voc": {k: v.cpu() for k, v in voc.state_dict().items()},
+           "tts": {k: v.cpu() for k, v in tts.state_dict().items()},
+           "mel": np.asarray(mel, np.float32),
+           "five": five,
+           "five_mels": [np.clip((lin + 4.0) / 8.0, 0.0, 1.0)
+                         .astype(np.float32) for _, lin, _ in decoded],
+           "lanes": [np.asarray(mel, np.float32)[:, 9 * b:9 * b + 26]
+                     for b in range(MESH_LANES)],
+           "voc_batch": (rng.uniform(-1, 1, (MESH_VOC_B, seq))
+                         .astype(np.float32),
+                         rng.uniform(-1, 1, (MESH_VOC_B, seq))
+                         .astype(np.float32),
+                         rng.uniform(0, 1, (MESH_VOC_B, 80, win))
+                         .astype(np.float32)),
+           "tf_batch": (rng.randint(1, 148, (B, T_text)),
+                        rng.uniform(-4, 4, (B, 80, frames))
+                        .astype(np.float32))}
+    torch.save(inp, work / "inputs.pt")
+    return inp
+
+
+def _mesh_models(cfg, inp, dev):
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.models import wavernn as wr
+    voc = wr.WaveRNN(cfg.voc, cfg.dsp)
+    voc.load_state_dict(inp["voc"], strict=True)
+    tts = taco.Tacotron(cfg.tts, 80)
+    tts.load_state_dict(inp["tts"], strict=True)
+    return voc.to(dev).eval(), tts.to(dev).eval()
+
+
+def mesh_serve(cfg, inp, dev, mesh, cases):
+    """The serving paths, on ``mesh`` or (None) on one device, each with
+    its own seed, the launch counts zeroed before it and read after it:
+    {case: (output, counts, seconds)}. Outputs on the host: the waves as
+    the paths return them on the device, bit for bit."""
+    import torch
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.parallel import gen_sharded as gs
+    from wavernn_tpu_torch.streaming import MultiStreamVocoder
+    from wavernn_tpu_torch.synthesis import tts_to_wav_batch
+    voc, tts = _mesh_models(cfg, inp, dev)
+    mel = torch.as_tensor(inp["mel"])[None].to(dev)
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def streams():
+        msv = MultiStreamVocoder(voc, MESH_LANES, chunk_frames=24,
+                                 generator=gen(24), device=dev,
+                                 device_out=True, mesh=mesh)
+        for b, m in enumerate(inp["lanes"]):
+            msv.feed(b, m, drain=False)
+        out = msv.poll()               # one 24-frame block of 8 lanes
+        return [torch.cat(out[b]) for b in range(MESH_LANES)]
+
+    def multi():
+        if mesh is None:
+            return wr.generate_multi(voc, inp["five_mels"], generator=gen(23),
+                                     device=dev, device_out=True)
+        return gs.generate_multi_sharded(voc, inp["five_mels"], mesh,
+                                         generator=gen(23), device=dev,
+                                         device_out=True)
+
+    runs = {
+        "crossfade": lambda: gs.generate_sharded(
+            voc, mel, mesh=mesh, generator=gen(21), device=dev,
+            device_out=True),
+        "seam": lambda: gs.generate_sharded(
+            voc, mel, mesh=mesh, seam_passes=2, generator=gen(22),
+            device=dev, device_out=True),
+        "multi": multi, "streams": streams,
+        "tts": lambda: tts_to_wav_batch(
+            tts, voc, inp["five"], cfg, 2, steps=MESH_STEPS,
+            generator=gen(25), device=dev, mesh=mesh)}
+    out = {}
+    for name in cases:
+        torch.cuda.synchronize()
+        zero_mesh_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = runs[name]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = mesh_counts()
+        if name == "tts":
+            got = [(w, m) for w, m in got]
+        elif isinstance(got, list):
+            got = [g.cpu() for g in got]
+        else:
+            got = got.cpu()
+        out[name] = (got, counts, wall)
+        if name == "crossfade":
+            out["crossfade_stats"] = dict(gs.last_stats)
+    return out
+
+
+def mesh_train(cfg, inp, dev, mesh, reverse=False):
+    """3 vocoder steps and 2 Tacotron teacher-forcing steps, data parallel
+    on ``mesh`` (this rank's rows of the batches) or on one device (all of
+    them): {model: (losses, grad norms, step seconds, counts)}.
+    ``reverse`` (one device): the same steps on the batches' rows in
+    reverse order, with the same dropout and zoneout draws reversed too,
+    reported beside the comparison (DP_TOL)."""
+    import torch
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.models import wavernn as wr
+    from wavernn_tpu_torch.parallel.mesh import rank, size
+    from wavernn_tpu_torch.train import tacotron_train as tt
+    from wavernn_tpu_torch.train import wavernn_train as wt
+    k, n = (0, 1) if mesh is None else (rank(mesh), size(mesh))
+
+    def rows(a):
+        per = a.shape[0] // n
+        t = torch.as_tensor(a[k * per:(k + 1) * per]).to(dev)
+        return t.flip(0) if reverse else t
+
+    out = {}
+    voc = wr.WaveRNN(cfg.voc, cfg.dsp)
+    voc.load_state_dict(inp["voc"], strict=True)
+    voc = voc.to(dev)
+    st = wt.TrainState(voc, wt.make_optimizer(voc, cfg.voc_train.lr,
+                                              cfg.voc_train.clip_grad_norm),
+                       0)
+    x, y, m = (rows(a) for a in inp["voc_batch"])
+    out["vocoder"] = _mesh_steps(lambda: wt.train_step(
+        st, x, y, m, cfg.voc, mesh=mesh), 3)
+    tts = taco.Tacotron(cfg.tts, 80)
+    tts.load_state_dict(inp["tts"], strict=True)
+    tts = tts.to(dev)
+    r = MESH_TF[3]
+    tts.decoder.r.fill_(r)
+    ts = tt.TTSTrainState(tts, wt.make_optimizer(tts, 1e-3, 1.0), 0)
+    ids, mm = (rows(a) for a in inp["tf_batch"])
+    g = torch.Generator(device=dev).manual_seed(32)
+
+    def masks():
+        """None: drawn by the step; reversed: the draws the step would
+        make, in reverse row order."""
+        if not reverse:
+            return None
+        d = taco.draw_masks(tts, ids.shape[0], ids.shape[1],
+                            mm.shape[2] // r, g, dev)
+        return {k: v.flip(0) if k.startswith("enc") else v.flip(1)
+                for k, v in d.items()}
+    out["tacotron_tf"] = _mesh_steps(lambda: tt.train_step_tf(
+        ts, ids, mm, r, masks=masks(), generator=g, mesh=mesh), 2)
+    return out
+
+
+def _mesh_steps(step, n):
+    import torch
+    zero_mesh_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step()
+        losses.append(float(res["loss"]))
+        norms.append(float(res["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    return losses, norms, secs, mesh_counts()
+
+
+def mesh_child(rank, world, port, work, backend, serve_cases, train):
+    """One rank of a mesh run (torch.multiprocessing): joins the group
+    (NCCL, one card a rank; or gloo, every rank on card 0), runs the cases
+    on the mesh and saves its results to work/<backend>_rank<r>.pt."""
+    import datetime
+    import os
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.parallel.mesh import make_mesh
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank if backend == "nccl" else 0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300), **kw)
+    try:
+        mesh = make_mesh()
+        inp = torch.load(work / "inputs.pt", weights_only=False)
+        cfg = Config()
+        res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "device": str(dev),
+               "serve": mesh_serve(cfg, inp, dev, mesh, serve_cases)}
+        if train:
+            res["train"] = mesh_train(cfg, inp, dev, mesh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, work / f"{backend}_rank{rank}.pt")
+
+
+def run_ranks(world, work, backend, serve_cases, train):
+    """Spawn ``world`` ranks of mesh_child and wait for them (at most
+    MESH_TIMEOUT_S, then they are killed); returns their results in rank
+    order. Any rank's failure raises."""
+    import socket
+    import torch
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(mesh_child, args=(world, port, work, backend,
+                                               serve_cases, train),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"mesh ranks ({backend}) still running "
+                                   f"after {MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(work / f"{backend}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _same_out(a, b):
+    """Bit for bit, through lists and (wave, mel) pairs."""
+    import numpy as np
+    import torch
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_out(x, y)
+                                        for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.shape == b.shape and bool(torch.equal(a, b))
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def _max_diff(a, b):
+    import numpy as np
+    if isinstance(a, (list, tuple)):
+        return max(_max_diff(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+# the kernels each serving path launches on every rank (resident bodies;
+# none on the original ones)
+MESH_KERNELS = {"crossfade": ("sample_loop_resident",),
+                "seam": ("sample_loop_resident_state",),
+                "multi": ("sample_loop_resident",),
+                "streams": ("sample_loop_resident_mat",),
+                "tts": ("sample_loop_resident", "gru_res_fwd",
+                        "taco_decode_batch")}
+MESH_LEGACY = ("sample_loop_old_dense", "sample_loop_sparse",
+               "taco_decode_legacy", "taco_decode_batch_legacy",
+               "gru_seq_fwd_legacy", "gru_seq_bwd_legacy",
+               "taco_tf_legacy_fwd", "taco_tf_legacy_bwd")
+
+
+def phase_mesh(cfg, dev, voc, tts, mel, smi):
+    """(a) one NCCL rank per card (at most 4): generate_sharded's mesh
+    path on the main mel, bit for bit the one-device call's; (b) two ranks
+    sharing card 0 over gloo, at the full default Config: the crossfade
+    and the exact seams of generate_sharded, generate_multi_sharded on
+    the five sentences' mels, MultiStreamVocoder with 8 lanes over one
+    24-frame block, each bit for bit the one-device call with the same
+    seed, every rank's launches on the resident bodies; tts_to_wav_batch
+    on the five sentences (mels within MESH_MEL_TOL, n_valid equal, waves
+    finite and within sqrt(2)); 3 data-parallel vocoder steps at batch 32
+    x 1375 and 2 Tacotron TF steps at batch 32 (16 rows a rank) against
+    one process at batch 32 (DP_TOL, DP_TOL_LATER),
+    with B5's and B6's launches a rank and the steps/s of two processes
+    that share one card (not a scaling figure). Returns the phase's
+    results."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mesh_"))
+    try:
+        inp = mesh_inputs(cfg, voc, tts, mel, work)
+        serve_cases = ("crossfade", "seam", "multi", "streams", "tts")
+        want = mesh_serve(cfg, inp, dev, None, serve_cases)
+        want_train = mesh_train(cfg, inp, dev, None)
+        floor_train = mesh_train(cfg, inp, dev, None, reverse=True)
+        world_a = min(torch.cuda.device_count(), 4)
+        ranks_a = run_ranks(world_a, work, "nccl", ("crossfade",), False)
+        ranks_b = run_ranks(2, work, "gloo", serve_cases, True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    res = {"nvidia_smi": smi}
+    a = {"world": world_a,
+         "backends": [r["backend"] for r in ranks_a],
+         "devices": [r["device"] for r in ranks_a],
+         "equal_one_device": [_same_out(r["serve"]["crossfade"][0],
+                                        want["crossfade"][0])
+                              for r in ranks_a],
+         "launches_per_rank": [r["serve"]["crossfade"][1]
+                               ["sample_loop_resident"] for r in ranks_a],
+         "last_stats": ranks_a[0]["serve"]["crossfade_stats"]}
+    ok_a = (all(b == "nccl" for b in a["backends"])
+            and all(a["equal_one_device"])
+            and all(n >= 1 for n in a["launches_per_rank"]))
+    emit("mesh", case="nccl_generate_sharded", ok=ok_a, **a)
+
+    oks = {"nccl": ok_a}
+    serve = {}
+    for name in serve_cases:
+        got = [r["serve"][name] for r in ranks_b]
+        counts = [c for _, c, _ in got]
+        ran = all(c[k] >= 1 for c in counts for k in MESH_KERNELS[name])
+        legacy = sum(c[k] for c in counts for k in MESH_LEGACY)
+        row = {"launches_per_rank": [{k: c[k] for k in MESH_KERNELS[name]}
+                                     for c in counts],
+               "legacy_launches": legacy,
+               "ranks_equal": _same_out(got[0][0], got[1][0]),
+               "wall_s_per_rank": [w for _, _, w in got],
+               "one_device_wall_s": want[name][2]}
+        if name == "tts":
+            w_one = want[name][0]
+            mels = [m for _, m in got[0][0]]
+            row["n_valid"] = [m.shape[1] for m in mels]
+            row["n_valid_one_device"] = [m.shape[1] for _, m in w_one]
+            row["mel_max_abs_diff"] = _max_diff(mels, [m for _, m in w_one])
+            row["wav_abs_max"] = max(float(np.abs(w).max())
+                                     for w, _ in got[0][0])
+            ok = (row["ranks_equal"] and ran and not legacy
+                  and row["n_valid"] == row["n_valid_one_device"]
+                  and row["mel_max_abs_diff"] <= MESH_MEL_TOL
+                  and all(bool(np.isfinite(w).all()) for w, _ in got[0][0])
+                  and row["wav_abs_max"] <= math.sqrt(2) + 1e-6)
+        else:
+            row["equal_one_device"] = _same_out(got[0][0], want[name][0])
+            row["max_abs_diff_one_device"] = _max_diff(got[0][0],
+                                                       want[name][0])
+            ok = row["ranks_equal"] and row["equal_one_device"] and ran \
+                and not legacy
+        serve[name] = row
+        oks[name] = ok
+        emit("mesh", case=f"gloo_{name}", ok=ok, tolerance=(
+            MESH_MEL_TOL if name == "tts" else "bit for bit"), **row)
+    res["nccl"], res["serve"] = a, serve
+    res["crossfade_stats"] = ranks_b[0]["serve"]["crossfade_stats"]
+
+    train = {}
+    want_b5 = {"vocoder": ("gru_res_fwd", "gru_res_bwd"),
+               "tacotron_tf": ("gru_res_fwd", "gru_res_bwd",
+                               "taco_tf_res_fwd", "taco_tf_res_bwd")}
+    for model, kernels in want_b5.items():
+        got = [r["train"][model] for r in ranks_b]
+        losses, norms, secs, _ = got[0]
+        w_losses, w_norms, w_secs, _ = want_train[model]
+        f_losses, f_norms = floor_train[model][:2]
+        rels = [abs(g - w) / abs(w) for g, w in zip(losses + norms,
+                                                    w_losses + w_norms)]
+        tols = ([DP_TOL] * len(losses) + [DP_TOL]
+                + [DP_TOL_LATER] * (len(norms) - 1))
+        rel = max(rels)
+        counts = [c for _, _, _, c in got]
+        row = {"losses": losses, "grad_norms": norms,
+               "one_process_losses": w_losses,
+               "one_process_grad_norms": w_norms, "max_rel_diff": rel,
+               "reversed_rows_losses": f_losses,
+               "reversed_rows_grad_norms": f_norms,
+               "reversed_rows_max_rel_diff": max(
+                   abs(f - w) / abs(w) for f, w in zip(f_losses + f_norms,
+                                                       w_losses + w_norms)),
+               "rel_diffs": rels, "tolerances": tols,
+               "within": [r <= t for r, t in zip(rels, tols)],
+               "ranks_equal": all(g[:2] == got[0][:2] for g in got),
+               "launches_per_rank": [{k: c[k] for k in kernels}
+                                     for c in counts],
+               "legacy_launches": sum(c[k] for c in counts
+                                      for k in MESH_LEGACY),
+               "steps_per_s_two_processes_one_card": (
+                   (len(secs) - 1) / sum(secs[1:])),
+               "steps_per_s_one_process": (len(w_secs) - 1) / sum(w_secs[1:]),
+               "note": "two processes sharing one card: not a scaling "
+                       "figure"}
+        ok = (all(row["within"]) and row["ranks_equal"]
+              and not row["legacy_launches"]
+              and all(c[k] >= 1 for c in counts for k in kernels)
+              and all(math.isfinite(v) for v in losses + norms))
+        train[model] = row
+        oks[f"train_{model}"] = ok
+        emit("mesh", case=f"gloo_train_{model}", ok=ok, **row)
+    res["train"] = train
+    res["seconds"] = time.perf_counter() - t_phase
+    res["ok"] = all(oks.values())
+    emit("mesh", case="summary", ok=res["ok"], oks=oks,
+         seconds=res["seconds"], nvidia_smi=smi)
+    if not res["ok"]:
+        raise AssertionError(f"mesh: a case failed: "
+                             f"{[k for k, v in oks.items() if not v]}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4381,6 +4863,10 @@ def main() -> int:
     # loop, each with its timings ----
     seam = phase_seam(cfg, dev, voc, mel, TOL)
     b10 = phase_b10(cfg, dev, voc, mel, TOL)
+
+    # ---- mesh: the multi-device paths, one NCCL rank a card and two
+    # ranks sharing card 0 over gloo ----
+    phase_mesh(cfg, dev, voc, tts, mel, smi)
 
     # B1, B3 and B4b run on the resident body; their original body's entries
     # keep its times from the resident phase's turns, its errors against

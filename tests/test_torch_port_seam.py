@@ -339,8 +339,11 @@ def test_sequential_oracle_on_the_port():
 
 
 def test_mesh_raises_naming_a11b():
+    """``mesh=`` is ported (tests/test_torch_port_mesh.py runs it); what
+    is not a DeviceMesh with a "data" dimension still raises, naming
+    what it must be."""
     _, _, model = _models("MOL")
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gs.generate_sharded(model, np.zeros((1, 80, 4), np.float32),
                             mesh=object(), device="cpu")
 

@@ -17,8 +17,10 @@ from ..compat.from_jax import state_dict_from_jax
 from ..config import Config
 from ..models.tacotron import Tacotron
 from ..models.wavernn import WaveRNN
+from ..device import resolve_device
+from ..parallel import mesh as pm
 from ..paths import Workspace
-from ..train.checkpoints import TORCH_SUFFIXES
+from ..train.checkpoints import TORCH_SUFFIXES, restore_checkpoint
 
 
 def load_config(hp_file: Optional[str]) -> Config:
@@ -79,3 +81,41 @@ def sparse_pack_or_dense(voc: WaveRNN, cfg: Config):
         print("| --sparse: no (128,128)-block-sparse matrices found in the "
               "checkpoint; serving dense")
     return packed
+
+
+def join_ranks(force_cpu: bool, global_batch: int):
+    """(this rank's device, the data-parallel mesh) of a training CLI: one
+    process per GPU under ``torchrun`` (``scripts/torchrun_train.sh``),
+    NCCL between the cards, gloo with --force_cpu; a single process gets
+    its one device and no mesh. The global batch must divide by the world
+    size (``parallel/mesh.training_mesh``)."""
+    device = resolve_device("cpu" if force_cpu else "cuda")
+    device = pm.initialize_distributed(device)
+    return device, pm.training_mesh(global_batch)
+
+
+def shards(mesh) -> Tuple[int, int]:
+    """(num_shards, shard_index) the batchers take for ``mesh``."""
+    return (1, 0) if mesh is None else (pm.size(mesh), pm.rank(mesh))
+
+
+def devices_line(mesh, device) -> str:
+    """The CLIs' device line: ranks, each a process with one device."""
+    n = shards(mesh)[0]
+    return f"{n} data-parallel x {n} rank(s), one {device.type} device each"
+
+
+def restore_on_ranks(model_name: str, ws, model, optimizer, mesh,
+                     init_weights_path=None) -> int:
+    """``restore_checkpoint`` on every rank: rank 0 first creates the pair
+    of a fresh run; then every rank reads the same files, so the ranks
+    start from one state, optimizer moments included."""
+    if mesh is None or pm.rank(mesh) == 0:
+        step = restore_checkpoint(model_name, ws, model, optimizer,
+                                  create_if_missing=True,
+                                  init_weights_path=init_weights_path)
+    if mesh is None:
+        return step
+    pm.barrier(mesh)
+    return restore_checkpoint(model_name, ws, model, optimizer,
+                              log=lambda *a: None)

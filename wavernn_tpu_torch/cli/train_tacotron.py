@@ -4,9 +4,11 @@ train_tacotron.py), in the mode the hparams file's ``mode`` names.
     python -m wavernn_tpu_torch.cli.train_tacotron --hp_file hparams.py \\
         [--force_gta] [--force_attn]
 
-Trains on one CUDA device through the progressive schedule
-(``tts_schedule``), or on the CPU with --force_cpu (the kernels' plain
-PyTorch versions):
+Trains on CUDA through the progressive schedule (``tts_schedule``), or on
+the CPU with --force_cpu (the kernels' plain PyTorch versions); under
+``torchrun`` (``scripts/torchrun_train.sh``) data parallel, one process per
+GPU, each rank on its slice of every session's global batch (the batch
+sizes must divide by the world size):
 
 - ``teacher_forcing``: the decoder recurrence on the hand-written kernel B6;
 - ``attention_forcing_online``: the student's recurrence on kernel B7,
@@ -25,23 +27,22 @@ the JAX package's .npz pair, so either package resumes the other's run.
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
 from ..data.dataset import get_tts_datasets
-from ..device import resolve_device
 from ..train import tacotron_train as tt
-from ..train.checkpoints import restore_checkpoint
 from ..utils.seeding import set_global_seeds
-from .common import load_config, load_tts_model, make_workspace
+from .common import (devices_line, join_ranks, load_config, load_tts_model,
+                     make_workspace, restore_on_ranks, shards)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Train Tacotron (teacher forcing, or attention forcing "
-                    "online / offline, as the hparams' mode says) on one "
-                    "device (the JAX package's multi-device mesh is not "
-                    "ported: ROADMAP A11)")
+                    "online / offline, as the hparams' mode says), data "
+                    "parallel over the ranks under torchrun")
     parser.add_argument("--force_train", "-f", action="store_true",
                         help="accepted for the reference's flag surface; "
                              "the schedule decides the steps")
@@ -73,17 +74,24 @@ def main(argv=None):
     if mode == "attention_forcing_offline" and not tt_cfg.attn_ref_path:
         raise ValueError("attention_forcing_offline needs attn_ref_path, "
                          "the attention maps under data_path")
-    device = resolve_device("cpu" if args.force_cpu else "cuda")
     ws = make_workspace(cfg)
     schedule = cfg.tts_train.schedule
+    # one mesh serves every session of the schedule: its world size must
+    # divide each session's batch (wavernn_tpu/cli/train_tacotron.py:76-82)
+    device, mesh = join_ranks(args.force_cpu,
+                              math.gcd(*(bs for _, _, _, bs in schedule)))
+    lead = mesh is None or shards(mesh)[1] == 0
+    say = print if lead else (lambda *a: None)
 
     state = tt.create_train_state(cfg.tts, cfg.dsp.num_mels, schedule[0][1],
                                   cfg.tts_train.clip_grad_norm,
                                   seed=args.seed, device=device)
-    state.step = restore_checkpoint(
-        "tts", ws, state.model, state.opt, create_if_missing=True,
+    state.step = restore_on_ranks(
+        "tts", ws, state.model, state.opt, mesh,
         init_weights_path=cfg.tts_train.init_weights_path)
 
+    if (args.force_gta or args.force_attn) and not lead:
+        return          # the exports are rank 0's: one writer of the files
     if args.force_gta or args.force_attn:
         r = tt.session_for_step(schedule, state.step)[0]
         ds, _ = get_tts_datasets(ws.data, 8, r, cfg, seed=args.seed)
@@ -101,17 +109,22 @@ def main(argv=None):
             ("Mode", cfg.tts.mode), ("Step", state.step),
             ("Schedule", len(schedule)),
             ("Max mel len", cfg.tts_train.max_mel_len), ("Device", device),
+            ("Devices", devices_line(mesh, device)),
             ("Recurrence", cfg.tts_train.recurrence)):
-        print(f"| {name}: {value}")
+        say(f"| {name}: {value}")
+
+    num_shards, shard_index = shards(mesh)
 
     def make_dataset(r, bs):
-        return get_tts_datasets(ws.data, bs, r, cfg, seed=args.seed)[0]
+        return get_tts_datasets(ws.data, bs, r, cfg, seed=args.seed,
+                                num_shards=num_shards,
+                                shard_index=shard_index)[0]
 
     def on_checkpoint(st, metrics, ids):
         # the reference plots one item's attention and mel here
         # (train_tacotron.py:216-219)
-        print(f"step {st.step}: attention/mel plots skipped (not ported: "
-              "ROADMAP A12)")
+        say(f"step {st.step}: attention/mel plots skipped (not ported: "
+            "ROADMAP A12)")
 
     teacher = None
     if mode == "attention_forcing_online":
@@ -121,8 +134,8 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     tt.train_loop(cfg, ws, state, make_dataset, generator=generator,
                   on_checkpoint=on_checkpoint, profile_dir=args.profile_dir,
-                  teacher=teacher)
-    print("Training Complete.")
+                  teacher=teacher, mesh=mesh)
+    say("Training Complete.")
 
 
 if __name__ == "__main__":

@@ -232,6 +232,10 @@ struct ResArgs {
   int64_t T, snapshot_at, mol, seed, bf16;
   int64_t G, UR, UF, TR, w3_resident, exclusive, smem_bytes, row_bytes;
   int64_t PBV, SW;      // B10's slice floats a step; B9's table words a block
+  // the counter hash's rows: this launch's row b is row row0 + b of a
+  // B_global-row draw (a shard of a multi-device fold batch); 0 and B
+  // for a launch that is the whole batch
+  int64_t row0, B_global;
   int64_t off[N_REGIONS];
 };
 
@@ -1567,7 +1571,11 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     if (!sampler) mark(4);
     for (int r = 0; sampler && g + r * G < B; ++r) {
       const int b = g + r * G;
-      const size_t ctr0 = ((size_t)t * B + b) * NU;
+      const size_t ctr0 = ((size_t)t * B + b) * NU;  // injected: local rows
+      // the hash's counter (t*B_global + row0 + b)*NU, modulo 2^32 as the
+      // hash takes it
+      const uint32_t hc0 = ((uint32_t)t * (uint32_t)a.B_global + (uint32_t)a.row0
+                            + (uint32_t)b) * (uint32_t)NU;
       if (!V2 && r > 0 && t + 1 < T) {  // further rows of this block (B > G)
         __syncthreads();
         preload_v(t + 1, b);
@@ -1580,13 +1588,13 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
       if (warp == 0) {
         if (lane < NU)
           u_lane = a.noise ? __ldg(a.noise + ctr0 + lane)
-                           : counter_uniform(key, (uint32_t)(ctr0 + lane), mol);
+                           : counter_uniform(key, hc0 + (uint32_t)lane, mol);
         if (mol) {
           gum = logf(-logf(u_lane));
           const float u_nr = __shfl_sync(0xffffffffu, u_lane, nr & 31);
           const float us = nr < 32 ? u_nr
               : (a.noise ? __ldg(a.noise + ctr0 + nr)
-                         : counter_uniform(key, (uint32_t)(ctr0 + nr), mol));
+                         : counter_uniform(key, hc0 + (uint32_t)nr, mol));
           logistic = logf(us) - logf(1.f - us);
         }
       }
@@ -1647,7 +1655,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
           for (int c = lane; c < NC; c += 32) {
             const float u = c < 32 ? u_lane
                 : (a.noise ? __ldg(a.noise + ctr0 + c)
-                           : counter_uniform(key, (uint32_t)(ctr0 + c), mol));
+                           : counter_uniform(key, hc0 + (uint32_t)c, mol));
             const float v = sL[c] + -logf(-logf(u));
             if (v > best) {
               best = v;

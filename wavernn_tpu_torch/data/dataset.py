@@ -91,17 +91,35 @@ def collate_vocoder(batch, cfg: Config, rng: np.random.RandomState):
     return x, y, mels
 
 
+def _shard_slice(batch_size: int, num_shards: int, shard_index: int):
+    """The contiguous rows of a global batch that shard ``shard_index`` of
+    ``num_shards`` keeps; the batch must divide evenly."""
+    if batch_size % num_shards or not 0 <= shard_index < num_shards:
+        raise ValueError(f"batch size {batch_size} over {num_shards} shards "
+                         f"(shard {shard_index}): the batch must divide "
+                         "evenly")
+    per = batch_size // num_shards
+    return slice(shard_index * per, (shard_index + 1) * per)
+
+
 class VocoderBatcher:
     """Shuffled epoch iterator yielding (x, y, mels) numpy batches; the
-    last partial batch is dropped."""
+    last partial batch is dropped.
+
+    With (num_shards, shard_index) each rank keeps its contiguous slice of
+    every batch (wavernn_tpu/data/dataset.py:100-133): the global batch is
+    collated with the epoch's one rng (the random crops included), then
+    sliced, so every shard is the JAX package's bit for bit and every
+    rank's shapes are equal."""
 
     def __init__(self, dataset: VocoderDataset, cfg: Config, batch_size: int,
-                 seed: int = 0):
+                 seed: int = 0, num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
         self.seed = seed
         self.epoch = 0
+        self.shard = _shard_slice(batch_size, num_shards, shard_index)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -113,17 +131,21 @@ class VocoderBatcher:
         bs = self.batch_size
         for i in range(0, len(order) - bs + 1, bs):
             items = [self.dataset[j] for j in order[i:i + bs]]
-            yield collate_vocoder(items, self.cfg, rng)
+            x, y, m = collate_vocoder(items, self.cfg, rng)
+            yield x[self.shard], y[self.shard], m[self.shard]
 
 
 def get_vocoder_datasets(path: Path, batch_size: int, cfg: Config,
                          train_gta: bool = False, tts_model_id: str = "",
-                         seed: int = 0):
-    """(train_batcher, test_dataset) (dataset.py:40-69)."""
+                         seed: int = 0, num_shards: int = 1,
+                         shard_index: int = 0):
+    """(train_batcher, test_dataset) (dataset.py:40-69); ``num_shards`` /
+    ``shard_index`` as in ``VocoderBatcher``."""
     train_ids, test_ids = vocoder_split(path, cfg.voc_train.test_samples)
     train = VocoderDataset(path, train_ids, train_gta, tts_model_id)
     test = VocoderDataset(path, test_ids, train_gta, tts_model_id)
-    return VocoderBatcher(train, cfg, batch_size, seed), test
+    return (VocoderBatcher(train, cfg, batch_size, seed, num_shards,
+                           shard_index), test)
 
 
 # --------------------------------------------------------------------------
@@ -236,11 +258,15 @@ def binned_length_order(lengths: Sequence[int], batch_size: int,
 
 class TTSBatcher:
     """Epoch iterator over collated TTS batches with length binning; the
-    last partial batch is dropped."""
+    last partial batch is dropped. (num_shards, shard_index) as in
+    ``VocoderBatcher``: the global batch is padded to its longest item,
+    then sliced, so the loss means over each rank's equal shapes average
+    to the global batch's."""
 
     def __init__(self, dataset: TTSDataset, lengths: Sequence[int],
                  batch_size: int, r: int, bin_lengths: bool = True,
-                 seed: int = 0, offline_attn: bool = False):
+                 seed: int = 0, offline_attn: bool = False,
+                 num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.lengths = list(lengths)
         self.batch_size = batch_size
@@ -249,6 +275,7 @@ class TTSBatcher:
         self.seed = seed
         self.epoch = 0
         self.offline_attn = offline_attn
+        self.shard = _shard_slice(batch_size, num_shards, shard_index)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -265,14 +292,17 @@ class TTSBatcher:
         bs = self.batch_size
         for i in range(0, len(order) - bs + 1, bs):
             items = [self.dataset[j] for j in order[i:i + bs]]
-            yield collate_tts(items, self.r, self.offline_attn)
+            yield tuple(f[self.shard] for f in collate_tts(
+                items, self.r, self.offline_attn))
 
 
 def get_tts_datasets(path: Path, batch_size: int, r: int, cfg: Config,
-                     seed: int = 0):
+                     seed: int = 0, num_shards: int = 1,
+                     shard_index: int = 0):
     """(train_batcher, attn_example): items longer than ``max_mel_len``
     are left out; attn_example is the longest item's id
-    (dataset.py:106-143)."""
+    (dataset.py:106-143); ``num_shards`` / ``shard_index`` as in
+    ``TTSBatcher``."""
     dataset = load_dataset_ids(path)
     dataset_ids, mel_lengths = [], []
     for item_id, n in dataset:
@@ -284,6 +314,7 @@ def get_tts_datasets(path: Path, batch_size: int, r: int, cfg: Config,
     ds = TTSDataset(path, dataset_ids, text_dict, cfg)
     offline = cfg.tts.mode == "attention_forcing_offline"
     batcher = TTSBatcher(ds, mel_lengths, batch_size, r,
-                         cfg.tts_train.bin_lengths, seed, offline)
+                         cfg.tts_train.bin_lengths, seed, offline,
+                         num_shards, shard_index)
     attn_example = dataset_ids[int(np.argmax(mel_lengths))]
     return batcher, attn_example

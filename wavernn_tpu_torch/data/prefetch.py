@@ -6,7 +6,8 @@ utils/dataset.py:54-60). Here a daemon thread runs the numpy collate ahead
 of the training step and turns each batch into CPU tensors, pinned when
 the consumer trains on CUDA; the consumer copies them to the device with
 ``non_blocking=True``, so collate and the host-to-device copy overlap the
-device's work.
+device's work. On a data-parallel mesh each rank prefetches its own shard
+(the batchers' ``shard_index``) onto its own device.
 """
 from __future__ import annotations
 

@@ -82,8 +82,12 @@ class BatchNormConv(nn.Module):
         if relu:
             x = torch.relu(x)
         b = self.bnorm
-        bn = L.batchnorm_train if training else L.batchnorm
-        return bn(x, b.weight, b.bias, b.running_mean, b.running_var)
+        if training:
+            return L.batchnorm_train(x, b.weight, b.bias, b.running_mean,
+                                     b.running_var,
+                                     mesh=getattr(b, "mesh", None))
+        return L.batchnorm(x, b.weight, b.bias, b.running_mean,
+                           b.running_var)
 
 
 def _maxpool_k2_s1(x):

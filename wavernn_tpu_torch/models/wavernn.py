@@ -62,7 +62,8 @@ class ResBlock(nn.Module):
 def _bn(bn: nn.BatchNorm1d, x, training: bool = False):
     if training:
         return L.batchnorm_train(x, bn.weight, bn.bias, bn.running_mean,
-                                 bn.running_var)
+                                 bn.running_var,
+                                 mesh=getattr(bn, "mesh", None))
     return L.batchnorm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var)
 
 
@@ -419,7 +420,7 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
                    noise=None, generator: Optional[torch.Generator] = None,
                    device="cuda", device_out: bool = False,
                    tail_fade: bool = True, timings: Optional[dict] = None,
-                   sparse_packed=None):
+                   sparse_packed=None, mesh=None):
     """Vocode a batch of utterances in one sample-loop launch
     (wavernn_tpu/models/wavernn.py:394-541): one zero-padded MelResNet pass
     over the batch, every utterance folded, all folds concatenated on the
@@ -431,7 +432,15 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
     float32 tensors on the device with ``device_out`` (mu-law, crossfade
     and fade in float32 there), else float64 numpy arrays crossfaded on the
     device in float64 (``generate``'s precision). ``tail_fade=False`` skips
-    the 20-frame end fade. ``sparse_packed`` as in ``generate``."""
+    the 20-frame end fade. ``sparse_packed`` as in ``generate``.
+
+    ``mesh`` (``parallel/gen_sharded.generate_multi_sharded``, every rank
+    calling with the same arguments): every rank builds the whole
+    conditioning, launches the sample loop on its slice of the combined
+    fold batch, the counter hash's rows set to the slice's so that the
+    ranks draw the one-device launch's numbers, and gathers every rank's
+    samples before the post-pass; each rank returns every wave."""
+    from ..parallel.mesh import FoldShard, same_seed
     dev = resolve_device(device, model)
     voc, dsp = model.voc, model.dsp
     target = voc.target if target is None else target
@@ -473,18 +482,22 @@ def generate_multi(model: WaveRNN, mels_list, *, target: Optional[int] = None,
                 folds_a.append(fold_with_overlap(au_b[i:i + 1, :n * hop],
                                                  target, overlap))
                 counts.append(folds_m[-1].shape[0])
-    seed = _seed(noise, generator)
+    seed = same_seed(_seed(noise, generator), mesh)
+    sh = FoldShard(sum(counts), mesh)
     with stage(timings, "sample_kernel", dev):
         if fused:
-            samples = generate_fused(model.core_weights(), frames, phi,
-                                     geo.hop, -geo.d_lo, fold_chunks,
-                                     voc.mode, noise=noise, seed=seed,
-                                     sparse_packed=sparse_packed)
+            samples = generate_fused(model.core_weights(), sh.take(frames, 1),
+                                     phi, geo.hop, -geo.d_lo, fold_chunks,
+                                     voc.mode, noise=sh.noise(noise),
+                                     seed=seed, sparse_packed=sparse_packed,
+                                     **sh.rows())
         else:
             samples = generate_materialized(
-                model.core_weights(), torch.cat(folds_m), torch.cat(folds_a),
-                voc.mode, noise=noise, seed=seed,
-                sparse_packed=sparse_packed)[0]
+                model.core_weights(), sh.take(torch.cat(folds_m), 0),
+                sh.take(torch.cat(folds_a), 0), voc.mode,
+                noise=sh.noise(noise), seed=seed,
+                sparse_packed=sparse_packed, **sh.rows())[0]
+        samples = sh.gather(samples)
     outs = []
     with stage(timings, "crossfade", dev):
         for y, n in zip(torch.split(samples, counts), n_frames):

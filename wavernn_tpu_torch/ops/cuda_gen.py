@@ -49,6 +49,7 @@ seed, so both versions draw the same numbers.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -85,12 +86,24 @@ def _lowbias32_int(x: int) -> int:
 
 
 def counter_uniforms(seed: int, T: int, B: int, nu: int, mol: bool,
-                     device) -> torch.Tensor:
+                     device, row0: int = 0,
+                     B_global: Optional[int] = None) -> torch.Tensor:
     """(T, B, nu) float32 uniforms of the kernel's counter hash: element
-    (t, b, k) hashes the counter (t*B + b)*nu + k with the seed's key and
-    keeps 24 bits. MOL maps them into [1e-5, 1-1e-5], RAW adds 1e-9."""
+    (t, b, k) hashes the counter (t*B_global + row0 + b)*nu + k, modulo
+    2**32, with the seed's key and keeps 24 bits. MOL maps them into
+    [1e-5, 1-1e-5], RAW adds 1e-9.
+
+    ``row0`` / ``B_global`` (0 and B by default) make the B rows rows
+    row0.. of a B_global-row draw: a shard of a fold batch split over
+    ranks draws exactly the numbers the whole batch draws on one device.
+    Rows at or past B_global (a shard's padding) repeat other rows'
+    numbers; their samples are discarded."""
+    B_global = _check_rows(row0, B_global, B)
     key = _lowbias32_int(seed)
-    ctr = torch.arange(T * B * nu, dtype=torch.int64, device=device) & _M32
+    ctr = ((torch.arange(T, dtype=torch.int64, device=device)[:, None, None]
+            * B_global + row0
+            + torch.arange(B, dtype=torch.int64, device=device)[:, None])
+           * nu + torch.arange(nu, dtype=torch.int64, device=device)) & _M32
     bits = _lowbias32(ctr ^ key) >> 8
     u = bits.to(torch.float32) * (2.0 ** -24)
     if mol:
@@ -98,7 +111,16 @@ def counter_uniforms(seed: int, T: int, B: int, nu: int, mol: bool,
         u = u + torch.tensor(1e-5, dtype=torch.float32, device=device)
     else:
         u = u + torch.tensor(1e-9, dtype=torch.float32, device=device)
-    return u.reshape(T, B, nu)
+    return u
+
+
+def _check_rows(row0: int, B_global: Optional[int], B: int) -> int:
+    """B_global, B when None; raises on a negative row0 or B_global < 1."""
+    B_global = B if B_global is None else int(B_global)
+    if row0 < 0 or B_global < 1:
+        raise ValueError(f"row0 {row0} and B_global {B_global}: need row0 "
+                         ">= 0 and B_global >= 1")
+    return B_global
 
 
 def noise_stream(noise, T: int, mode: str) -> torch.Tensor:
@@ -130,19 +152,23 @@ def _dims(core):
 
 def generate_fused_ref(core, frames, phi, hop: int, aux_tap: int,
                        fold_chunks: int, mode: str, noise=None,
-                       seed: int = 0, sparse_packed=None) -> torch.Tensor:
+                       seed: int = 0, sparse_packed=None, row0: int = 0,
+                       B_global: Optional[int] = None) -> torch.Tensor:
     """Plain version of the fused kernel: (num_folds, fold_chunks*hop).
     ``sparse_packed``: the per-step products of the packed matrices over
-    their live blocks (``sparse_mm_ref``)."""
+    their live blocks (``sparse_mm_ref``); ``row0`` / ``B_global``: the
+    counter hash's rows (``counter_uniforms``)."""
     return generate_fused_with_state_ref(
         core, frames, phi, hop, aux_tap, fold_chunks, mode, noise, seed,
-        sparse_packed=sparse_packed)[0]
+        sparse_packed=sparse_packed, row0=row0, B_global=B_global)[0]
 
 
 def generate_fused_with_state_ref(core, frames, phi, hop: int, aux_tap: int,
                                   fold_chunks: int, mode: str, noise=None,
                                   seed: int = 0, init_state=None,
-                                  state_snapshot_at=None, sparse_packed=None):
+                                  state_snapshot_at=None, sparse_packed=None,
+                                  row0: int = 0,
+                                  B_global: Optional[int] = None):
     """Plain version of the fused kernel with state I/O: the polyphase
     reconstruction, then ``generate_scan_with_state`` from ``init_state``
     with the snapshot at ``state_snapshot_at``. Returns (samples
@@ -154,17 +180,20 @@ def generate_fused_with_state_ref(core, frames, phi, hop: int, aux_tap: int,
                                               fold_chunks, n_mels)
     return generate_scan_with_state(
         core, mels_up, aux_up, mode,
-        _uniforms(noise, seed, T, B, mode, NC, frames.device),
+        _uniforms(noise, seed, T, B, mode, NC, frames.device, row0,
+                  B_global),
         init_state, state_snapshot_at, _active_pack(core, sparse_packed))
 
 
-def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
-    """The plain versions' noise: the injected stream or the counter hash,
-    split as ``generate_scan`` takes it."""
+def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device,
+              row0: int = 0, B_global: Optional[int] = None):
+    """The plain versions' noise: the injected stream or the counter hash
+    (its rows ``row0`` / ``B_global``), split as ``generate_scan`` takes
+    it."""
     nr_mix = NC // 3
     if noise is None:
         u = counter_uniforms(seed, T, B, nr_mix + 1 if mode == "MOL" else NC,
-                             mode == "MOL", device)
+                             mode == "MOL", device, row0, B_global)
     else:
         u = noise_stream(noise, T, mode)
     return _split_noise(u, mode, nr_mix)
@@ -172,17 +201,21 @@ def _uniforms(noise, seed: int, T: int, B: int, mode: str, NC: int, device):
 
 def generate_materialized_ref(core, mels_up, aux, mode: str, noise=None,
                               seed: int = 0, init_state=None,
-                              state_snapshot_at=None, sparse_packed=None):
+                              state_snapshot_at=None, sparse_packed=None,
+                              row0: int = 0,
+                              B_global: Optional[int] = None):
     """Plain version of the materialized kernel: the sample loop over
     sample-rate conditioning with the RNN state in and out
     (``sample_loop.generate_scan_with_state``), the packed matrices'
-    per-step products over their live blocks.
+    per-step products over their live blocks, the counter hash's rows
+    ``row0`` / ``B_global``.
     Returns (samples (B, T), (h1 (B, R), h2 (B, R), x (B,)))."""
     B, T, _ = mels_up.shape
     NC = _dims(core)[3]
     return generate_scan_with_state(
         core, mels_up, aux, mode,
-        _uniforms(noise, seed, T, B, mode, NC, mels_up.device),
+        _uniforms(noise, seed, T, B, mode, NC, mels_up.device, row0,
+                  B_global),
         init_state, state_snapshot_at, _active_pack(core, sparse_packed))
 
 
@@ -816,7 +849,8 @@ class _ResArgs(ctypes.Structure):
                    ("B", "R", "FC", "A", "n_mels", "NC", "K", "hop",
                     "fold_chunks", "aux_tap", "T", "snapshot_at", "mol",
                     "seed", "bf16", "G", "UR", "UF", "TR", "w3_resident",
-                    "exclusive", "smem_bytes", "row_bytes", "PBV", "SW")]
+                    "exclusive", "smem_bytes", "row_bytes", "PBV", "SW",
+                    "row0", "B_global")]
                 + [("off", ctypes.c_int64 * len(RESIDENT_REGIONS))])
 
 
@@ -878,6 +912,8 @@ def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
                          f"{fields['T']} is too long for one launch")
     if streams is not None:
         gathered = gather_streams(streams, plan)
+    fields.setdefault("row0", 0)
+    fields.setdefault("B_global", B)
     lib = _resident_lib()
     work = torch.zeros(lib.wr_resident_work_floats(B, R, FC, K, plan.G),
                        dtype=torch.float32, device=dev)
@@ -935,6 +971,7 @@ def _launch(entry: str, args: _LoopArgs, dev, what: str):
 def generate_fused(core, frames, phi, hop: int, aux_tap: int,
                    fold_chunks: int, mode: str, noise=None, seed: int = 0,
                    compute_dtype=torch.bfloat16, sparse_packed=None,
+                   row0: int = 0, B_global: Optional[int] = None,
                    _legacy: bool = False):
     """Sample loop with in-kernel conditioning upsample.
 
@@ -951,17 +988,33 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     (``pack_sparse`` of these weights): the kernel's sparse arm (B9), which
     multiplies only the packed matrices' live blocks; an empty pack serves
     dense. Both run on the resident body (``loop_body``); ``_legacy`` runs
-    them on the original body instead, as the yardstick."""
+    them on the original body instead, as the yardstick. ``row0`` /
+    ``B_global``: the counter hash's rows (``counter_uniforms``), for a
+    shard of a fold batch split over ranks; injected noise is indexed by
+    the launch's own rows. The original body takes no offset."""
     if frames.device.type == "cpu":
         return generate_fused_ref(core, frames, phi, hop, aux_tap,
                                   fold_chunks, mode, noise, seed,
-                                  sparse_packed)
+                                  sparse_packed, row0, B_global)
     pack = _active_pack(core, sparse_packed)
     resident = loop_body(core, sparse_packed, _legacy) == "resident"
+    rows = _launch_rows(row0, B_global, frames.shape[1], resident)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
-                        noise, seed, compute_dtype, pack, None, resident)
+                        noise, seed, compute_dtype, pack, None, resident,
+                        rows=rows)
     _count(generate_fused, resident, pack is not None)
     return out
+
+
+def _launch_rows(row0: int, B_global: Optional[int], B: int,
+                 resident: bool):
+    """(row0, B_global) of a CUDA launch of B rows; the original body
+    hashes the launch's own rows only."""
+    B_global = _check_rows(row0, B_global, B)
+    if not resident and (row0, B_global) != (0, B):
+        raise ValueError("the original sample-loop body takes no row0 / "
+                         "B_global: it draws for its own rows only")
+    return row0, B_global
 
 
 def _count(fn, resident: bool, sparse: bool):
@@ -986,7 +1039,8 @@ def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
                               fold_chunks: int, mode: str, noise=None,
                               seed: int = 0, init_state=None,
                               state_snapshot_at=None,
-                              compute_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16, row0: int = 0,
+                              B_global: Optional[int] = None,
                               _legacy: bool = False):
     """B4b: ``generate_fused`` resuming from and snapshotting the RNN state
     (``generate_pallas_fused_with_state``'s contract, with
@@ -1003,14 +1057,17 @@ def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
     launch B1's state arm with matrices in ``compute_dtype``. Dense only:
     the exact-seam passes run a pruned model's masked weights dense, as
     the JAX package does. The resident body runs it; ``_legacy`` the PR
-    1-7 body's state arm."""
+    1-7 body's state arm. ``row0`` / ``B_global`` as in
+    ``generate_fused``."""
     if frames.device.type == "cpu":
         return generate_fused_with_state_ref(
             core, frames, phi, hop, aux_tap, fold_chunks, mode, noise, seed,
-            init_state, state_snapshot_at)
+            init_state, state_snapshot_at, row0=row0, B_global=B_global)
     state = (init_state, state_snapshot_at)
+    rows = _launch_rows(row0, B_global, frames.shape[1], not _legacy)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
-                        noise, seed, compute_dtype, None, state, not _legacy)
+                        noise, seed, compute_dtype, None, state, not _legacy,
+                        rows=rows)
     _count(generate_fused_with_state, not _legacy, False)
     return out
 
@@ -1045,12 +1102,14 @@ def _ptr(t):
 
 
 def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
-                  seed, compute_dtype, pack, state, resident, prof=None):
+                  seed, compute_dtype, pack, state, resident, prof=None,
+                  rows=None):
     """One launch of the fused loop on CUDA tensors: B1 (``state`` None),
     or its state arm B4b (``state`` = (init_state, state_snapshot_at)),
     which also returns the snapshot; on the resident body or (``resident``
     False) the original body. ``prof``: the resident body's profiling
-    instantiation, its cycles written there."""
+    instantiation, its cycles written there. ``rows``: the resident body's
+    (row0, B_global), (0, B) when None."""
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
     dev = frames.device
@@ -1091,7 +1150,8 @@ def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
             snap_x=_ptr(snap[2]), out=out.data_ptr(), R=R, FC=FC, A=A,
             n_mels=n_mels, NC=NC, hop=hop, fold_chunks=fold_chunks,
             aux_tap=aux_tap, T=T, snapshot_at=s, mol=int(mol),
-            seed=seed & _M32)
+            seed=seed & _M32, row0=rows[0] if rows else 0,
+            B_global=rows[1] if rows else B)
         return out if state is None else (out, snap)
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, K, 1),
                        dtype=torch.float32, device=dev)
@@ -1123,6 +1183,7 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
                           seed: int = 0, init_state=None,
                           state_snapshot_at=None,
                           compute_dtype=torch.bfloat16, sparse_packed=None,
+                          row0: int = 0, B_global: Optional[int] = None,
                           _legacy: bool = False):
     """The materialized sample loop with state I/O,
     ``generate_materialized_ref``'s contract.
@@ -1136,27 +1197,29 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
 
     CPU tensors run the plain version (float32 throughout); CUDA tensors
     launch the kernel with matrices in ``compute_dtype``;
-    ``sparse_packed`` and ``_legacy`` as in ``generate_fused``."""
+    ``sparse_packed``, ``row0`` / ``B_global`` and ``_legacy`` as in
+    ``generate_fused``."""
     if mels_up.device.type == "cpu":
         return generate_materialized_ref(core, mels_up, aux, mode, noise,
                                          seed, init_state, state_snapshot_at,
-                                         sparse_packed)
+                                         sparse_packed, row0, B_global)
     pack = _active_pack(core, sparse_packed)
     resident = loop_body(core, sparse_packed, _legacy) == "resident"
+    rows = _launch_rows(row0, B_global, mels_up.shape[0], resident)
     out = _materialized_launch(core, mels_up, aux, mode, noise, seed,
                                init_state, state_snapshot_at, compute_dtype,
-                               pack, resident)
+                               pack, resident, rows=rows)
     _count(generate_materialized, resident, pack is not None)
     return out
 
 
 def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
                          state_snapshot_at, compute_dtype, pack, resident,
-                         prof=None):
+                         prof=None, rows=None):
     """One launch of the materialized loop on CUDA tensors, on the resident
     body or (``resident`` False) the original body; returns (samples,
     snapshot). ``prof``: the resident body's profiling instantiation, its
-    cycles written there."""
+    cycles written there; ``rows`` as in ``_fused_launch``."""
     if mels_up.device.type != "cuda":
         raise ValueError(f"no materialized sample loop for {mels_up.device}")
     dev = mels_up.device
@@ -1193,7 +1256,8 @@ def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
             snap_h1=snap[0].data_ptr(), snap_h2=snap[1].data_ptr(),
             snap_x=snap[2].data_ptr(), out=out.data_ptr(), R=R, FC=FC, A=A,
             n_mels=n_mels, NC=NC, hop=1, T=T, snapshot_at=s, mol=int(mol),
-            seed=seed & _M32)
+            seed=seed & _M32, row0=rows[0] if rows else 0,
+            B_global=rows[1] if rows else B)
         return out, snap
     span = max(1, min(T, SPAN_ROWS // B))
     work = torch.zeros(_lib().wr_sample_loop_work_floats(B, R, FC, 0, span),

@@ -948,9 +948,18 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     dev = enc.device
     f32 = torch.float32
     kid = "B6" if af is None else "B7"
+    # the autograd Functions save their inputs as given: a shard's masks
+    # sliced on the batch axis are strided, and the kernel reads rows
+    zm1, zm2, enc, encp = (t.contiguous() for t in (zm1, zm2, enc, encp))
     weights = tuple(w.detach().contiguous() for w in weights)
     d = _dims(zm1.shape[0], zm1.shape[1], enc, weights)
     G, B, T, E, D, P2, L, Fm = (d[k] for k in _DIMS)
+    for t, name, shape in ((zm1, "zm1", (G, B, L)), (zm2, "zm2", (G, B, L)),
+                           (enc, "enc", (B, T, E)), (encp, "encp", (B, T, D))):
+        _build.check_operand(t, name, f32, shape, dev)
+    if af is None:
+        pre = pre.contiguous()
+        _build.check_operand(pre, "pre", f32, (G, B, P2), dev)
     # AF: the kernel adds each group's previous-frame cotangent into its
     # own copy of dmel, which the mel_proj gradient then reads
     dmel = dmel.contiguous() if af is None else dmel.clone(

@@ -35,21 +35,42 @@ def batchnorm(x, weight, bias, mean, var, eps: float = BN_EPS):
 
 
 def batchnorm_train(x, weight, bias, running_mean, running_var,
-                    momentum: float = 0.1, eps: float = BN_EPS):
+                    momentum: float = 0.1, eps: float = BN_EPS, mesh=None):
     """Training-mode BatchNorm1d over (N, C, W): batch statistics over
     (N, W) in float32 (float64 for float64 input), the output in x's dtype.
 
     The running statistics (momentum 0.1, unbiased variance) are updated
     IN PLACE in ``running_mean``/``running_var``, where the JAX package
     returns new parameters; the optimizer never reads them, so when in the
-    step they change makes no difference."""
+    step they change makes no difference.
+
+    ``mesh`` (a data-parallel DeviceMesh, x this rank's shard of the
+    batch): the statistics are the whole batch's, as the JAX step's over a
+    batch-sharded array are. Two sums over the ranks, each differentiable
+    (SyncBatchNorm's reduction, so the backward is global too): the
+    per-channel sum with the count, which gives the mean, then the sum of
+    squared deviations from it, which gives the variance as one process
+    computes it on the whole batch. The running statistics take the
+    global values."""
     in_dtype = x.dtype
     x = x.to(torch.promote_types(in_dtype, torch.float32))
-    mean = x.mean(dim=(0, 2))
-    var = x.var(dim=(0, 2), unbiased=False)
-    n = x.shape[0] * x.shape[2]
+    if mesh is None:
+        mean = x.mean(dim=(0, 2))
+        var = x.var(dim=(0, 2), unbiased=False)
+        n = x.shape[0] * x.shape[2]
+        denom = max(n - 1, 1)
+    else:
+        from ..parallel.mesh import all_reduce_sum
+        C = x.shape[1]
+        s = all_reduce_sum(torch.cat([x.sum(dim=(0, 2)), x.new_tensor(
+            [x.shape[0] * x.shape[2]])]), mesh)
+        n = s[C].detach()          # the count, kept on the device
+        mean = s[:C] / n
+        var = all_reduce_sum(
+            ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2)), mesh) / n
+        denom = (n - 1).clamp_min(1)
     with torch.no_grad():
-        unbiased = var * n / max(n - 1, 1)
+        unbiased = var * n / denom
         running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
         running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
     y = (x - mean[None, :, None]) * torch.rsqrt(var + eps)[None, :, None]

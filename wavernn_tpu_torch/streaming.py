@@ -86,14 +86,27 @@ class _Blocks:
                    .item())
 
     @torch.no_grad()
-    def _block(self, windows, state, noise):
+    def _block(self, windows, state, noise, lanes=None):
         """windows (B, n_mels, chunk_frames + 2*pad) -> samples (B, T) and
-        the state after the block's last step."""
+        the state after the block's last step. ``lanes`` (a
+        ``parallel/mesh.FoldShard`` of the B lanes): this rank runs its
+        lanes (``state`` holds theirs) and gathers every lane's samples;
+        the windows are upsampled whole, as on one device, so each lane's
+        conditioning is the one-device block's."""
         mels_up, aux = self.model.upsample(windows)
-        return generate_materialized(
-            self.model.core_weights(), mels_up, aux, self.voc.mode,
-            noise=noise, seed=0 if noise is not None else self._seed(),
-            init_state=state, sparse_packed=self._sparse)
+        seed = 0 if noise is not None else self._seed()
+        if lanes is None:
+            return generate_materialized(
+                self.model.core_weights(), mels_up, aux, self.voc.mode,
+                noise=noise, seed=seed, init_state=state,
+                sparse_packed=self._sparse)
+        from .parallel.mesh import same_seed
+        samples, new = generate_materialized(
+            self.model.core_weights(), lanes.take(mels_up, 0),
+            lanes.take(aux, 0), self.voc.mode, noise=lanes.noise(noise),
+            seed=same_seed(seed, lanes.mesh), init_state=state,
+            sparse_packed=self._sparse, **lanes.rows())
+        return lanes.gather(samples), new
 
     def _emit(self, y):
         """One block's samples of one stream as the caller gets them."""
@@ -230,7 +243,16 @@ class MultiStreamVocoder(_Blocks):
 
     device_out=True: results are lists of device tensors (one per block)
     instead of host arrays (see StreamingVocoder). ``sparse_packed``: as in
-    StreamingVocoder. ``mesh`` (multi-device) is not ported.
+    StreamingVocoder.
+
+    ``mesh`` (a ``DeviceMesh``; every rank makes the same calls): the lanes
+    are sharded over the ranks, ``n_streams`` a multiple of the world size
+    as the JAX package requires (wavernn_tpu/streaming.py:337-344). Each
+    rank holds every lane's mel buffer but only its own lanes' RNN state,
+    runs B3 with its state arm on its lanes (the counter hash's rows set
+    to theirs, so every lane draws its one-device numbers), and gathers
+    every lane's samples: each rank returns every stream's audio. The JAX
+    package runs the scan on a mesh; the port runs the kernel.
     """
 
     def __init__(self, model: WaveRNN, n_streams: int, chunk_frames: int = 24,
@@ -238,16 +260,24 @@ class MultiStreamVocoder(_Blocks):
                  generator: Optional[torch.Generator] = None,
                  device="cuda", device_out: bool = False,
                  sparse_packed=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device streaming is not ported yet (ROADMAP "
-                "A11)")
         super().__init__(model, chunk_frames, mu_law, noise, generator,
                          device, device_out, sparse_packed)
         self.n_streams = n_streams
+        self._lanes = None
+        lo, n_local = 0, n_streams
+        if mesh is not None:
+            from .parallel.mesh import FoldShard, size
+            if n_streams % size(mesh):
+                raise ValueError(
+                    f"n_streams={n_streams} must be a multiple of the mesh's "
+                    f"{size(mesh)} ranks; round up and leave the extra "
+                    "lanes unused (they ride state-frozen)")
+            self._lanes = FoldShard(n_streams, mesh)
+            lo, n_local = self._lanes.row0, self._lanes.per
+        self._local = range(lo, lo + n_local)   # the lanes whose state is here
         R = self.voc.rnn_dims
-        self._state = (self._zeros(n_streams, R), self._zeros(n_streams, R),
-                       self._zeros(n_streams))
+        self._state = (self._zeros(n_local, R), self._zeros(n_local, R),
+                       self._zeros(n_local))
         # per-stream mel buffer: starts with the offline left padding
         self._bufs = [self._zeros(self.dsp.num_mels, self.voc.pad)
                       for _ in range(n_streams)]
@@ -278,8 +308,8 @@ class MultiStreamVocoder(_Blocks):
         """windows (B, n_mels, W), active: list of bool. One batched block;
         the state of inactive lanes is restored."""
         noise = self._block_noise(active)
-        samples, new = self._block(windows, self._state, noise)
-        keep = torch.tensor(active, device=self.dev)
+        samples, new = self._block(windows, self._state, noise, self._lanes)
+        keep = torch.tensor([active[b] for b in self._local], device=self.dev)
         self._state = tuple(torch.where(keep.reshape((-1,) + (1,) * (n.dim()
                                                                      - 1)),
                                         n, o)
@@ -356,8 +386,9 @@ class MultiStreamVocoder(_Blocks):
         """Recycle a lane for a new session: zero its state rows, restart its
         mel buffer at the offline left padding, clear its bookkeeping. The
         other lanes are untouched."""
-        for s in self._state:
-            s[stream] = 0.0
+        if stream in self._local:
+            for s in self._state:
+                s[stream - self._local.start] = 0.0
         self._bufs[stream] = self._zeros(self.dsp.num_mels, self.voc.pad)
         self._noise_at[stream] = 0
         self._done[stream] = False

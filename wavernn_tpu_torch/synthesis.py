@@ -121,17 +121,19 @@ def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
     Returns a list of (wav float32 numpy, mel numpy (n_mels, T_valid)), or
     with ``device_out`` a list of (wav tensor on the device, trimmed but
     not faded, T_valid). ``noise`` covers the combined fold batch.
-    ``mesh`` (multi-device serving) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device serving is not ported yet (ROADMAP A11)")
+
+    ``mesh`` (a ``DeviceMesh``, every rank calling with the same
+    arguments): the sentences split into contiguous groups, one a rank,
+    each decoded by B8 (B2 for a group of one; B8 takes any batch, so no
+    rank decodes pad rows, where the JAX package's mesh scan needed them);
+    the mels and stop groups all-gathered, then
+    ``parallel/gen_sharded.generate_multi_sharded`` over the combined fold
+    batch. Every rank returns every utterance."""
     dev = resolve_device(device, tts_model, voc_model)
     steps = -(-steps // r) * r
     seqs = [text_to_sequence(t.strip(), cfg.tts.cleaner_names)
             for t in texts]
-    ids, lens = taco.pad_ids(seqs, dev)
-    _, linear, _, n_valid = taco.generate_core(
-        tts_model, ids, lens if len(seqs) > 1 else None, r, steps, timings)
+    linear, n_valid = _decode(tts_model, seqs, r, steps, timings, dev, mesh)
     n_valid = n_valid.cpu().tolist()          # one host sync of N scalars
     mels, t_valids = [], []
     for b, n in enumerate(n_valid):
@@ -140,16 +142,49 @@ def tts_to_wav_batch(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, texts,
         mels.append(torch.clamp((linear[b, :, :bucket] + 4.0) / 8.0, 0.0,
                                 1.0))
         t_valids.append(T_valid)
-    wavs = wr.generate_multi(voc_model, mels, target=target, overlap=overlap,
-                             mu_law=cfg.dsp.mu_law, noise=noise,
-                             generator=generator, device=dev,
-                             device_out=True, tail_fade=False,
-                             timings=timings, sparse_packed=sparse_packed)
+    if mesh is None:
+        wavs = wr.generate_multi(
+            voc_model, mels, target=target, overlap=overlap,
+            mu_law=cfg.dsp.mu_law, noise=noise, generator=generator,
+            device=dev, device_out=True, tail_fade=False, timings=timings,
+            sparse_packed=sparse_packed)
+    else:
+        from .parallel.gen_sharded import generate_multi_sharded
+        wavs = generate_multi_sharded(
+            voc_model, mels, mesh, target=target, overlap=overlap,
+            mu_law=cfg.dsp.mu_law, noise=noise, generator=generator,
+            device=dev, device_out=True, tail_fade=False, timings=timings,
+            sparse_packed=sparse_packed)
     hop = cfg.dsp.hop_length
     if device_out:
         return [(w[:max(t - 1, 1) * hop], t) for w, t in zip(wavs, t_valids)]
     return [(_host_wav(w, t, hop), m[:, :t].cpu().numpy())
             for w, m, t in zip(wavs, mels, t_valids)]
+
+
+def _decode(tts_model, seqs, r: int, steps: int, timings, dev, mesh):
+    """(linear (N, n_mels, steps), n_valid (N,)) of the sentences: one
+    batched decode, or on a mesh one a rank over its contiguous group of
+    sentences, gathered on every rank."""
+    if mesh is None:
+        mine = seqs
+    else:
+        from .parallel import mesh as pm
+        n, world, k = len(seqs), pm.size(mesh), pm.rank(mesh)
+        lo = k * (n // world) + min(k, n % world)
+        mine = seqs[lo:lo + n // world + (k < n % world)]
+    if mine:
+        ids, lens = taco.pad_ids(mine, dev)
+        _, linear, _, n_valid = taco.generate_core(
+            tts_model, ids, lens if len(mine) > 1 else None, r, steps,
+            timings)
+    else:   # more ranks than sentences
+        linear = torch.zeros(0, tts_model.n_mels, steps, device=dev)
+        n_valid = torch.zeros(0, dtype=torch.long, device=dev)
+    if mesh is None:
+        return linear, n_valid
+    return (torch.cat(pm.all_gather_rows(linear, mesh)),
+            torch.cat(pm.all_gather_rows(n_valid.to(torch.long), mesh)))
 
 
 def _batch_str(batched: bool, target: int, overlap: int) -> str:

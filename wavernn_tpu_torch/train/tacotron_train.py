@@ -13,8 +13,19 @@ reference train_tacotron.py:98-485) in the fork's three loss modes:
 
 The optimizer is the vocoder trainer's: Adam with optax's global-norm clip
 rule (here at ``tts_clip_grad_norm`` = 1.0), the learning rate set per
-session of the progressive (r, lr, step, batch size) schedule. One device
-only (the data-parallel mesh is ROADMAP A11).
+session of the progressive (r, lr, step, batch size) schedule.
+
+Data parallel (``mesh=``): as the vocoder trainer (train/wavernn_train.py),
+each rank on its shard of the global batch (B6, B7 and B5 on it; the
+AF-online teacher's B6 forward on it too; AF-offline's attention maps
+sliced with the batch), one flat all-reduce of the gradients and the loss
+parts before the clip. The random draws of a step (the prenets' dropout,
+zoneout) are drawn for the whole batch on every rank from the same
+generator and sliced, so the ranks together draw what one process draws.
+Every loss normaliser is a mean over each rank's equal, globally padded
+shapes (``mean |mel - m|`` counts padded frames as the JAX loss does; the
+KL term averages over batch and group), so the average of the ranks'
+losses is the global batch's.
 """
 from __future__ import annotations
 
@@ -27,7 +38,9 @@ import torch
 from ..config import Config, TacotronConfig
 from ..models import tacotron as taco
 from ..timing import stage
-from .wavernn_train import Optimizer, make_optimizer
+from ..parallel.mesh import barrier, set_batchnorm_mesh
+from .wavernn_train import (Optimizer, average_over_mesh, join_mesh,
+                            make_optimizer)
 
 
 @dataclass
@@ -137,36 +150,70 @@ def loss_and_grads_af(model, x_ids, m, attn_ref, r: int,
     return loss, attn, l_out, l_attn, grads
 
 
-def _apply(state: TTSTrainState, grads, timings, dev):
+def _apply(state: TTSTrainState, grads, timings, dev, mesh=None,
+           losses=()):
+    """The update from this rank's gradients; on a mesh, the gradients and
+    ``losses`` averaged over the ranks first. Returns (the gradients'
+    global norm, the losses as the update saw them)."""
+    if mesh is not None:
+        with stage(timings, "all_reduce", dev):
+            losses = average_over_mesh(losses, grads, mesh)
     with stage(timings, "optimizer", dev):
         gnorm = state.opt.step(grads)
     state.step += 1
-    return gnorm
+    return gnorm, tuple(losses)
+
+
+def rank_masks(model, x_ids, m, r: int, generator, mesh):
+    """A mesh step's random draws: ``taco.draw_masks`` for the whole batch
+    (this rank's rows times the world size), sliced to this rank's rows,
+    so the ranks together draw what one process draws on the batch."""
+    from ..parallel.mesh import rank, size
+    B, G = m.shape[0], m.shape[2] // r
+    full = taco.draw_masks(model, B * size(mesh), x_ids.shape[1], G,
+                           generator, m.device)
+    rows = slice(rank(mesh) * B, (rank(mesh) + 1) * B)
+    return {k: (v[rows] if k.startswith("enc") else v[:, rows]).contiguous()
+            for k, v in full.items()}
+
+
+def _step_masks(state, x_ids, m, r, masks, generator, mesh):
+    set_batchnorm_mesh(state.model, mesh)
+    if masks is None and mesh is not None:
+        masks = rank_masks(state.model, x_ids, m, r, generator, mesh)
+    return masks
 
 
 def train_step_tf(state: TTSTrainState, x_ids, m, r: int,
                   recurrence: str = "auto", masks=None, generator=None,
-                  timings: Optional[dict] = None) -> dict:
+                  timings: Optional[dict] = None, mesh=None) -> dict:
     """One optimizer step on ``state`` in place. Returns {"loss",
-    "grad_norm", "attn"} on the device (no host synchronisation)."""
+    "grad_norm", "attn"} on the device (no host synchronisation).
+    ``mesh``: x_ids, m (and injected ``masks``) are this rank's shard; the
+    loss and the gradients are averaged over the ranks (module
+    docstring); ``attn`` stays this rank's."""
+    masks = _step_masks(state, x_ids, m, r, masks, generator, mesh)
     loss, attn, grads = loss_and_grads(state.model, x_ids, m, r, recurrence,
                                        masks, generator, timings)
-    gnorm = _apply(state, grads, timings, m.device)
+    gnorm, (loss,) = _apply(state, grads, timings, m.device, mesh, (loss,))
     return {"loss": loss, "grad_norm": gnorm, "attn": attn}
 
 
 def train_step_af(state: TTSTrainState, x_ids, m, attn_ref, r: int,
                   attn_loss_coeff: float = 1.0, offline: bool = False,
                   recurrence: str = "auto", masks=None, generator=None,
-                  timings: Optional[dict] = None) -> dict:
+                  timings: Optional[dict] = None, mesh=None) -> dict:
     """One attention-forcing optimizer step on ``state`` in place
     (train_step_af, ``wavernn_tpu/train/tacotron_train.py:106-122``).
     Returns {"loss", "loss_out", "loss_attn", "grad_norm", "attn"} on the
-    device."""
+    device; ``mesh`` as in ``train_step_tf`` (attn_ref this rank's
+    shard)."""
+    masks = _step_masks(state, x_ids, m, r, masks, generator, mesh)
     loss, attn, l_out, l_attn, grads = loss_and_grads_af(
         state.model, x_ids, m, attn_ref, r, attn_loss_coeff, offline,
         recurrence, masks, generator, timings)
-    gnorm = _apply(state, grads, timings, m.device)
+    gnorm, (loss, l_out, l_attn) = _apply(state, grads, timings, m.device,
+                                          mesh, (loss, l_out, l_attn))
     return {"loss": loss, "loss_out": l_out, "loss_attn": l_attn,
             "grad_norm": gnorm, "attn": attn}
 
@@ -187,7 +234,8 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
                log=print, max_steps: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
                on_checkpoint=None, profile_dir=None,
-               profile_steps: int = 20, teacher=None) -> TTSTrainState:
+               profile_steps: int = 20, teacher=None,
+               mesh=None) -> TTSTrainState:
     """Progressive-schedule training loop (train_tacotron.py:98-430).
 
     ``make_dataset(r, batch_size)`` gives an iterable of collated batches
@@ -203,7 +251,10 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
     losses and gradient norms accumulate on the device: one
     synchronisation per session and per checkpoint record.
     ``profile_dir``: a torch.profiler trace of the first ``profile_steps``
-    steps."""
+    steps. ``mesh``: data parallel (module docstring), ``make_dataset``
+    giving this rank's shards; rank 0 alone writes the checkpoints, logs
+    and metrics and calls ``on_checkpoint``, the others wait for it at a
+    barrier."""
     from ..data.prefetch import prefetch
     from ..utils.metrics import MetricsLogger, StepTimer, profile_trace
     from .checkpoints import save_checkpoint
@@ -215,6 +266,8 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
         raise ValueError("attention_forcing_online needs the frozen "
                          "teacher-forcing model (model_tf_path)")
     dev = next(state.model.parameters()).device
+    lead = join_mesh(state.model, state.opt.adam, mesh)
+    log = log if lead else (lambda *a, **k: None)
     metrics_log = MetricsLogger(workspace.tts_metrics)
     timer = StepTimer()
     profiler = None
@@ -246,11 +299,12 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
                 if online or offline:
                     metrics = train_step_af(
                         state, chars, mel, rest[0], r, tt.attn_loss_coeff,
-                        offline, tt.recurrence, generator=generator)
+                        offline, tt.recurrence, generator=generator,
+                        mesh=mesh)
                 else:
                     metrics = train_step_tf(state, chars, mel, r,
                                             tt.recurrence,
-                                            generator=generator)
+                                            generator=generator, mesh=mesh)
                 n += 1
                 running += metrics["loss"]
                 bad_loss += (~torch.isfinite(metrics["loss"])).int()
@@ -260,33 +314,40 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
                     profiler.__exit__(None, None, None)
                     profiler = None
                 if state.step % tt.checkpoint_every == 0:
-                    save_checkpoint("tts", workspace, state.model, state.opt,
-                                    state.step,
-                                    name=f"taco_step{state.step // 1000}K",
-                                    log=log, r=r)
-                    metrics_log.log(event="checkpoint", step=state.step, r=r,
-                                    loss=round(float(metrics["loss"]), 6),
-                                    steps_per_s=round(timer.steps_per_sec, 3))
-                    if on_checkpoint is not None:
-                        on_checkpoint(state, metrics, ids)
+                    if lead:
+                        save_checkpoint(
+                            "tts", workspace, state.model, state.opt,
+                            state.step,
+                            name=f"taco_step{state.step // 1000}K", log=log,
+                            r=r)
+                        metrics_log.log(
+                            event="checkpoint", step=state.step, r=r,
+                            loss=round(float(metrics["loss"]), 6),
+                            steps_per_s=round(timer.steps_per_sec, 3))
+                        if on_checkpoint is not None:
+                            on_checkpoint(state, metrics, ids)
+                    barrier(mesh)
                 if state.step >= max_step:
                     break
-        save_checkpoint("tts", workspace, state.model, state.opt, state.step,
-                        log=log, r=r)
+        if lead:
+            save_checkpoint("tts", workspace, state.model, state.opt,
+                            state.step, log=log, r=r)
         avg = float(running) / max(n, 1)              # one sync per session
         n_bad_loss, n_bad = int(bad_loss), int(bad_grad)
         if n_bad:
             log(f"grad_norm was non-finite on {n_bad} step(s)!")
         msg = (f"| Session {session_idx} done | loss {avg:.4f} | step "
                f"{state.step} |")
-        log(msg)
-        with open(workspace.tts_log, "a") as f:
-            print(msg, file=f)
-        metrics_log.log(event="session", session=session_idx,
-                        step=state.step, r=r, loss=round(avg, 6),
-                        steps=n, nonfinite_loss_steps=n_bad_loss,
-                        nonfinite_grad_steps=n_bad,
-                        steps_per_s=round(timer.steps_per_sec, 3))
+        if lead:
+            log(msg)
+            with open(workspace.tts_log, "a") as f:
+                print(msg, file=f)
+            metrics_log.log(event="session", session=session_idx,
+                            step=state.step, r=r, loss=round(avg, 6),
+                            steps=n, nonfinite_loss_steps=n_bad_loss,
+                            nonfinite_grad_steps=n_bad,
+                            steps_per_s=round(timer.steps_per_sec, 3))
+        barrier(mesh)
         if max_steps is not None and state.step >= max_steps:
             break
     if profiler is not None:

@@ -4,10 +4,21 @@ reference train_wavernn.py:18-162).
 Loss: RAW -> cross-entropy over 2**bits classes; MOL -> the discretized
 mixture-of-logistics NLL, in float32 either way. The optimizer is optax's
 ``chain(clip_by_global_norm(4), adam(lr))``: the clip is written out with
-optax's rule, Adam is ``torch.optim.Adam`` with optax's constants. One
-device only: the JAX package's data-parallel mesh is not ported. With
+optax's rule, Adam is ``torch.optim.Adam`` with optax's constants. With
 ``voc_prune`` the loop prunes as the JAX loop does (train/pruning.py): the
 masks of step t are applied to the weights after its optimizer update.
+
+Data parallel (``mesh=``, parallel/mesh.py): one process per GPU, the
+parameters and the optimizer state replicated (rank 0's, broadcast at the
+start), each rank's batch its contiguous shard of the global batch, on
+which it runs the kernels (B5 included: the JAX package falls back to the
+scan on a mesh only because GSPMD cannot partition a ``pallas_call``).
+After the backward one flat all-reduce averages the gradients and the
+loss, before the clip: the JAX step's psum-then-clip. Every loss is a mean
+over equal per-rank shapes, so the average of the ranks' means is the
+global batch's; BatchNorm normalises on the whole batch's statistics. The
+steps are functions, not one module's ``forward``, so an explicit
+all-reduce fits them better than a DDP wrapper.
 """
 from __future__ import annotations
 
@@ -20,6 +31,8 @@ import torch
 from ..config import Config, DSPConfig, WaveRNNConfig
 from ..models import wavernn as wr
 from ..models.distribution import discretized_mix_logistic_loss
+from ..parallel.mesh import (all_reduce_mean_, barrier, rank, replicate_,
+                             set_batchnorm_mesh)
 from ..timing import stage
 from .pruning import Pruner, apply_masks, wavernn_prune_spec
 
@@ -35,10 +48,18 @@ def clip_by_global_norm_(grads, norm, max_norm: float) -> None:
     max_norm / norm when norm >= max_norm and left as it is otherwise (a
     factor of exactly 1). ``torch.nn.utils.clip_grad_norm_`` differs: it
     scales by max_norm / (norm + 1e-6) whenever that is below 1. One
-    multi-tensor multiply, no host synchronisation."""
+    multi-tensor multiply, no host synchronisation. Autograd hands two
+    parameters summed in the forward one gradient tensor (Tacotron's
+    ``b_ih + b_hh``, B6's and B7's operands): each tensor is scaled
+    once."""
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(_distinct(grads), factor)
+
+
+def _distinct(tensors):
+    """Each tensor once, in order (a gradient two parameters share)."""
+    return list({id(t): t for t in tensors}.values())
 
 
 class Optimizer:
@@ -125,9 +146,19 @@ def loss_and_grads(model, x, y, mels, voc: WaveRNNConfig, compute_dtype=None,
     return loss.detach(), list(grads)
 
 
+def average_over_mesh(losses, grads, mesh):
+    """The data-parallel all-reduce: the gradients (in place) and the
+    scalar ``losses`` averaged over the ranks, in one flat buffer. Returns
+    the global losses."""
+    flat = torch.stack(list(losses))
+    all_reduce_mean_(_distinct(grads) + [flat], mesh)
+    return tuple(flat)
+
+
 def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
                precision: str = "float32", recurrence: str = "auto",
-               timings: Optional[dict] = None, masks=None) -> dict:
+               timings: Optional[dict] = None, masks=None,
+               mesh=None) -> dict:
     """One optimizer step on ``state`` in place. Returns {"loss",
     "grad_norm"} as device scalars (no host synchronisation).
 
@@ -142,10 +173,16 @@ def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
     name (train/pruning.py), multiplied into the weights in place after the
     update, so the next forward sees pruned weights (reference
     Pruner.apply_or_not); Adam's moments are left as they are, as in the
-    JAX step."""
+    JAX step. ``mesh``: x, y, mels are this rank's shard; the loss and the
+    gradients are averaged over the ranks before the clip (every rank then
+    applies the same update, and the same masks)."""
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else None
+    set_batchnorm_mesh(state.model, mesh)
     loss, grads = loss_and_grads(state.model, x, y, mels, voc, compute_dtype,
                                  recurrence, timings)
+    if mesh is not None:
+        with stage(timings, "all_reduce", x.device):
+            loss, = average_over_mesh((loss,), grads, mesh)
     with stage(timings, "optimizer", x.device):
         gnorm = state.opt.step(grads)
         if masks is not None:
@@ -154,11 +191,21 @@ def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
     return {"loss": loss, "grad_norm": gnorm}
 
 
+def join_mesh(model, optimizer, mesh) -> bool:
+    """Before a data-parallel loop: every rank takes rank 0's parameters,
+    buffers and optimizer state. Returns whether this process leads
+    (writes the files): rank 0, or the only process."""
+    if mesh is None:
+        return True
+    replicate_(model, mesh, optimizer)
+    return rank(mesh) == 0
+
+
 def train_loop(cfg: Config, workspace, dataset, state: TrainState,
                lr: Optional[float] = None, total_steps: Optional[int] = None,
                log=print, checkpoint_every: Optional[int] = None,
                on_checkpoint=None, profile_dir=None,
-               profile_steps: int = 20) -> TrainState:
+               profile_steps: int = 20, mesh=None) -> TrainState:
     """Epoch loop (train_wavernn.py:98-162): periodic named checkpoints,
     the latest checkpoint, a log line and a ``metrics.jsonl`` record per
     epoch.
@@ -169,7 +216,10 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
     collates the next batches into pinned memory while the device works.
     One synchronisation per epoch (and one per checkpoint record).
     ``profile_dir``: a torch.profiler trace of the first ``profile_steps``
-    steps (the --profile_dir flag)."""
+    steps (the --profile_dir flag). ``mesh``: data parallel (module
+    docstring); ``dataset`` yields this rank's shards. Rank 0 alone writes
+    the checkpoints, the logs and the metrics and calls ``on_checkpoint``;
+    the others wait for it at a barrier."""
     from ..data.prefetch import prefetch
     from ..utils.metrics import MetricsLogger, StepTimer, profile_trace
     from .checkpoints import save_checkpoint
@@ -181,6 +231,8 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
                         else checkpoint_every)
     state.opt.set_lr(lr)
     dev = next(state.model.parameters()).device
+    lead = join_mesh(state.model, state.opt.adam, mesh)
+    log = log if lead else (lambda *a, **k: None)
     params = dict(state.model.named_parameters())
     pruner = None
     if vt.prune:
@@ -209,7 +261,7 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
             masks = (pruner.masks_for_step(params, state.step)
                      if pruner is not None else None)
             metrics = train_step(state, x, y, m, cfg.voc, vt.precision,
-                                 vt.recurrence, masks=masks)
+                                 vt.recurrence, masks=masks, mesh=mesh)
             running += metrics["loss"]
             bad_loss += (~torch.isfinite(metrics["loss"])).int()
             bad_grad += (~torch.isfinite(metrics["grad_norm"])).int()
@@ -218,15 +270,18 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
                 profiler.__exit__(None, None, None)
                 profiler = None
             if state.step % checkpoint_every == 0:
-                save_checkpoint("voc", workspace, state.model, state.opt,
-                                state.step,
-                                name=f"wave_step{state.step // 1000}K",
-                                log=log)
-                metrics_log.log(event="checkpoint", step=state.step,
-                                loss=round(float(metrics["loss"]), 6),
-                                steps_per_s=round(timer.steps_per_sec, 3))
-                if on_checkpoint is not None:
-                    on_checkpoint(state)
+                if lead:
+                    save_checkpoint("voc", workspace, state.model, state.opt,
+                                    state.step,
+                                    name=f"wave_step{state.step // 1000}K",
+                                    log=log)
+                    metrics_log.log(event="checkpoint", step=state.step,
+                                    loss=round(float(metrics["loss"]), 6),
+                                    steps_per_s=round(timer.steps_per_sec,
+                                                      3))
+                    if on_checkpoint is not None:
+                        on_checkpoint(state)
+                barrier(mesh)
             if state.step >= total_steps:
                 break
         n_bad_loss, n_bad = int(bad_loss), int(bad_grad)  # one sync per epoch
@@ -236,15 +291,17 @@ def train_loop(cfg: Config, workspace, dataset, state: TrainState,
         avg = float(running) / max(i, 1)
         msg = (f"| Epoch done | Loss: {avg:.4f} | {speed:.1f} steps/s "
                f"| Step: {state.step // 1000}k |")
-        log(msg)
-        with open(workspace.voc_log, "a") as f:
-            print(msg, file=f)
-        metrics_log.log(event="epoch", step=state.step, loss=round(avg, 6),
-                        steps_per_s=round(speed, 3),
-                        nonfinite_grad_steps=n_bad,
-                        nonfinite_loss_steps=n_bad_loss)
-        save_checkpoint("voc", workspace, state.model, state.opt, state.step,
-                        log=log)
+        if lead:
+            log(msg)
+            with open(workspace.voc_log, "a") as f:
+                print(msg, file=f)
+            metrics_log.log(event="epoch", step=state.step,
+                            loss=round(avg, 6), steps_per_s=round(speed, 3),
+                            nonfinite_grad_steps=n_bad,
+                            nonfinite_loss_steps=n_bad_loss)
+            save_checkpoint("voc", workspace, state.model, state.opt,
+                            state.step, log=log)
+        barrier(mesh)
     if profiler is not None:
         profiler.__exit__(None, None, None)
     return state
