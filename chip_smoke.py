@@ -239,6 +239,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
            within 1e-4, the later grad norms within 2e-3: DP_TOL), B5's and
            B6's launches a rank and the steps/s of two processes that share
            one card (not a scaling figure); the card's name and power limit
+  a12      the analysis side at the full default Config: A12_WAVS seeded
+           wavs of 1.5-3 s and a metadata.csv through ``cli.preprocess``,
+           ``cli.train_wavernn`` for A12_STEPS steps on that dataset (B5's
+           launches on the resident body, none on the first),
+           ``cli.gen_wavernn --file`` on one of the wavs (B1 once, the
+           target copy written), ``cli.gen_tacotron -a griffinlim --iters
+           32 -i`` from a seeded checkpoint (B2 once, B5 forward 4, no
+           sample loop, the wav and the attention png written);
+           reconstruct_waveform on the card against the port's CPU run with
+           the same phase draw on a 400-frame mel (the NNLS within
+           A12_NNLS_TOL of its largest magnitude, 4 Griffin-Lim iterations
+           from the same magnitude within A12_GL4_TOL of the peak, the
+           32-iteration wave within A12_GL_RMS_TOL of its RMS), melspectrogram
+           of 10 s on the card against melspectrogram_np (5e-4); the times
+           of both inversions (the card's also split into the NNLS and the
+           32 iterations) and of the mel, the phase's own seconds
 
 The launch counts of main, serve, stream, prune, sparse, seam, b10 and
 mesh (each rank's) show
@@ -330,6 +346,17 @@ AF_FRAMES = 400               # the kernels-vs-scan and timed AF batch
 B9_SPARSITY = 0.9375
 B9_BLOCK = (128, 128)
 PRUNE_STEPS = 3
+# a12: the corpus, the vocoder steps on it, the Griffin-Lim mel's frames.
+# Griffin-Lim's momentum amplifies float32 rounding: on the CPU the JAX
+# package and the port, fed magnitudes 1.3e-5 apart, gave 32-iteration
+# waves 0.09-0.75 % of their RMS apart on such a mel; 4 iterations stay
+# close, so they hold the card's arithmetic and 32 its drift
+A12_WAVS = 40
+A12_STEPS = 3
+A12_FRAMES = 400
+A12_NNLS_TOL = 5e-5
+A12_GL4_TOL = 1e-4
+A12_GL_RMS_TOL = 3e-2
 
 
 def emit(phase: str, **fields):
@@ -3708,6 +3735,217 @@ def phase_mesh(cfg, dev, voc, tts, mel, smi):
     return res
 
 
+def a12_signal(n: int, sr: int, seed: int):
+    """A seeded voiced-like float32 signal of ``n`` samples: four harmonics
+    of a vibrato'd fundamental (90-300 Hz), a slow amplitude swell and a
+    little noise, peak below 1."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(90, 300)
+    phase = 2 * np.pi * (f0 + 60 * np.sin(2 * np.pi * 0.7 * t)) * t
+    y = sum(0.25 / k * np.sin(k * phase) for k in range(1, 5))
+    y = y * (0.6 + 0.4 * np.sin(2 * np.pi * 2.3 * t) ** 2)
+    return (y + 0.005 * rng.randn(n)).astype(np.float32)
+
+
+def phase_a12(cfg, dev, tts):
+    """The analysis side on the card at the full default Config (module
+    docstring, ``a12``). Returns the results."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from wavernn_tpu_torch.cli import gen_tacotron, gen_wavernn, \
+        preprocess, train_wavernn
+    from wavernn_tpu_torch.cli.common import make_workspace
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.dsp import (griffinlim, mel_to_stft,
+                                       melspectrogram, melspectrogram_np,
+                                       reconstruct_waveform, save_wav)
+    from wavernn_tpu_torch.dsp.audio import load_wav
+    from wavernn_tpu_torch.dsp.mel import db_to_amp, denormalize
+    from wavernn_tpu_torch.train.checkpoints import save_checkpoint
+    from wavernn_tpu_torch.train.wavernn_train import make_optimizer
+    t_phase = time.perf_counter()
+    sr, hop = cfg.dsp.sample_rate, cfg.dsp.hop_length
+    res, oks = {"card": smi_line()}, {}
+    text = SENTENCES[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_a12_") as tmp:
+        tmp = Path(tmp)
+        wavs = tmp / "corpus" / "wavs"
+        wavs.mkdir(parents=True)
+        rng = np.random.RandomState(15)
+        rows = []
+        for i in range(A12_WAVS):
+            n = int(sr * rng.uniform(1.5, 3.0))
+            save_wav(a12_signal(n, sr, 100 + i), wavs / f"a12_{i:03d}.wav",
+                     sr)
+            rows.append(f"a12_{i:03d}|{SENTENCES[i % len(SENTENCES)]}")
+        (tmp / "corpus" / "metadata.csv").write_text("\n".join(rows) + "\n")
+        hp = tmp / "hparams_a12.py"
+        hp.write_text(f"wav_path = {str(wavs)!r}\n"
+                      f"data_path = {str(tmp / 'data')!r}\n"
+                      "voc_model_id = 'a12'\ntts_model_id = 'a12'\n"
+                      f"voc_total_steps = {A12_STEPS}\n"
+                      "voc_checkpoint_every = 1000\nvoc_test_samples = 2\n")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                preprocess.main(["--hp_file", str(hp), "--num_workers", "4"])
+            res["preprocess_s"] = time.perf_counter() - t0
+            data = tmp / "data"
+            n_mel = len(list((data / "mel").glob("*.npy")))
+            n_quant = len(list((data / "quant").glob("*.npy")))
+            oks["preprocess"] = (n_mel == n_quant == A12_WAVS
+                                 and (data / "dataset.pkl").is_file()
+                                 and (data / "text_dict.pkl").is_file()
+                                 and "Completed." in out.getvalue())
+            res["dataset_items"] = n_mel
+            # the vocoder trained on the port's own dataset
+            zero_b5()
+            t0 = time.perf_counter()
+            train_wavernn.main(["--hp_file", str(hp)])
+            torch.cuda.synchronize()
+            res["train_wall_s"] = time.perf_counter() - t0
+            res["train_launches"] = b5_counts()
+            ckpt = tmp / "checkpoints" / "a12.wavernn"
+            epochs = [r for r in map(json.loads, (ckpt / "metrics.jsonl")
+                                     .read_text().splitlines())
+                      if r["event"] == "epoch"]
+            res["train_steps"] = [r["step"] for r in epochs]
+            res["train_loss"] = [r["loss"] for r in epochs]
+            oks["train"] = (res["train_steps"][-1:] == [A12_STEPS]
+                            and all(math.isfinite(v)
+                                    for v in res["train_loss"])
+                            and b5_on_resident(res["train_launches"],
+                                               2 * A12_STEPS, 2 * A12_STEPS))
+            # a .wav through the vocoder: B1 once, fold-batched
+            wav0 = wavs / "a12_000.wav"
+            out_dir = tmp / "model_outputs" / "a12.wavernn"
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                gen_wavernn.main(["--hp_file", str(hp), "--file", str(wav0)])
+            torch.cuda.synchronize()
+            res["gen_wavernn_wall_s"] = time.perf_counter() - t0
+            c = launch_counts()
+            res["gen_wavernn_launches"] = c
+            got = sorted(out_dir.glob("__a12_000__*gen_batched*.wav"))
+            frames = melspectrogram_np(load_wav(wav0, sr), cfg.dsp).shape[1]
+            pcm = wavfile.read(got[0])[1] if got else np.zeros(0)
+            oks["gen_wavernn_file"] = (
+                c["sample_loop_resident"] == 1 and c["sample_loop_fused"] == 1
+                and c["sample_loop_old_dense"] == 0
+                and (out_dir / "__a12_000__0k_steps_target.wav").is_file()
+                and pcm.shape == ((frames - 1) * hop,)
+                and int(np.abs(pcm.astype(int)).max()) > 0)
+            # text -> Griffin-Lim wav with the attention png, no vocoder
+            cli_cfg = Config.from_hparams_file(hp)
+            ws = make_workspace(cli_cfg)
+            save_checkpoint("tts", ws, tts, make_optimizer(tts, 1e-3), 1000,
+                            r=2, log=lambda *_: None)
+            zero_counts()
+            zero_b5()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                gen_tacotron.main(["--hp_file", str(hp), "-a", "-i", text,
+                                   "griffinlim", "--iters", "32"])
+            torch.cuda.synchronize()
+            res["gen_tacotron_gl_wall_s"] = time.perf_counter() - t0
+            c = launch_counts()
+            res["gen_tacotron_gl_launches"] = c
+            stem = f"__input_{text[:10]}_griffinlim_1k.wav"
+            gl_wav = ws.tts_output / stem
+            png = ws.tts_output / f"{stem}.png"
+            pcm = wavfile.read(gl_wav)[1] if gl_wav.is_file() else np.zeros(0)
+            res["gen_tacotron_gl_samples"] = int(pcm.size)
+            oks["gen_tacotron_griffinlim"] = (
+                c["taco_decode"] == 1 and c["gru_res_fwd"] == 4
+                and c["gru_seq_fwd_legacy"] == 0
+                and c["taco_decode_legacy"] == 0
+                and c["taco_decode_batch"] == 0
+                and c["sample_loop_fused"] == 0
+                and c["sample_loop_materialized"] == 0
+                and pcm.size > 0 and int(np.abs(pcm.astype(int)).max()) > 0
+                and png.is_file()
+                and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n")
+        finally:
+            os.chdir(cwd)
+
+    # reconstruct_waveform on the card against the port's CPU run
+    y = a12_signal((A12_FRAMES - 1) * hop, sr, 7)
+    mel = melspectrogram_np(y, cfg.dsp)
+    u = torch.rand((cfg.dsp.n_fft // 2 + 1, mel.shape[1]),
+                   generator=torch.Generator().manual_seed(0))
+    amp = torch.as_tensor(db_to_amp(denormalize(mel.astype(np.float64))),
+                          dtype=torch.float32)
+    S_cpu = mel_to_stft(amp, cfg.dsp)
+    S_dev = mel_to_stft(amp.to(dev), cfg.dsp)
+    nnls_err = float((S_dev.cpu() - S_cpu).abs().max() / S_cpu.abs().max())
+    g4_cpu = griffinlim(S_cpu, cfg.dsp, n_iter=4, phase_u=u)
+    u_dev = u.to(dev)
+    g4_dev = griffinlim(S_cpu.to(dev), cfg.dsp, n_iter=4, phase_u=u_dev)
+    gl4_err = float((g4_dev.cpu() - g4_cpu).abs().max() / g4_cpu.abs().max())
+    t0 = time.perf_counter()
+    w_cpu = reconstruct_waveform(mel, cfg.dsp, n_iter=32, device="cpu",
+                                 phase_u=u)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    clk = [gpu_clocks()]
+    gl_ms, w_dev = cuda_ms(lambda: reconstruct_waveform(
+        mel, cfg.dsp, n_iter=32, device=dev, phase_u=u), 5)
+    # its two stages alone, on the device's amplitude and magnitude
+    amp_dev = amp.to(dev)
+    nnls_ms, _ = cuda_ms(lambda: mel_to_stft(amp_dev, cfg.dsp), 5)
+    gl32_ms, _ = cuda_ms(lambda: griffinlim(S_dev, cfg.dsp, n_iter=32,
+                                            phase_u=u_dev), 5)
+    clk.append(gpu_clocks())
+    d = (w_dev - w_cpu).astype(np.float64)
+    rms = float(np.sqrt(np.mean(w_cpu.astype(np.float64) ** 2)))
+    gl_rms_err = float(np.sqrt(np.mean(d ** 2))) / rms
+    oks["reconstruct_waveform"] = (
+        w_dev.shape == w_cpu.shape == ((A12_FRAMES - 1) * hop,)
+        and bool(np.isfinite(w_dev).all()) and nnls_err <= A12_NNLS_TOL
+        and gl4_err <= A12_GL4_TOL and gl_rms_err <= A12_GL_RMS_TOL)
+    res["griffinlim"] = {
+        "frames": int(mel.shape[1]), "n_iter": 32, "nnls_iters": 200,
+        "ms": gl_ms, "nnls_ms": nnls_ms, "griffinlim_ms": gl32_ms,
+        "cpu_plain_ms": cpu_ms, "clocks": clk,
+        "nnls_rel_err": nnls_err, "nnls_tol": A12_NNLS_TOL,
+        "gl4_rel_err": gl4_err, "gl4_tol": A12_GL4_TOL,
+        "gl32_max_abs_err": float(np.abs(d).max()),
+        "gl32_rms_rel_err": gl_rms_err, "gl32_rms_tol": A12_GL_RMS_TOL,
+        "wav_abs_max": float(np.abs(w_dev).max())}
+    # melspectrogram of 10 s on the card against the host's numpy mel
+    y10 = torch.from_numpy(a12_signal(10 * sr, sr, 8))
+    y10_dev = y10.to(dev)
+    mel_ms, m_dev = cuda_ms(lambda: melspectrogram(y10_dev, cfg.dsp,
+                                                   device=dev), 20)
+    t0 = time.perf_counter()
+    m_np = melspectrogram_np(y10.numpy(), cfg.dsp)
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    mel_err = float(np.abs(m_dev.cpu().numpy() - m_np).max())
+    oks["melspectrogram"] = (tuple(m_dev.shape) == m_np.shape
+                             and mel_err <= 5e-4)
+    res["melspectrogram"] = {"seconds_of_audio": 10, "frames": m_np.shape[1],
+                             "ms": mel_ms, "numpy_ms": np_ms,
+                             "max_abs_err": mel_err, "tol": 5e-4}
+    res["oks"] = oks
+    res["seconds"] = time.perf_counter() - t_phase
+    ok = all(oks.values())
+    emit("a12", ok=ok, **res)
+    if not ok:
+        raise AssertionError("a12: " + ", ".join(k for k, v in oks.items()
+                                                 if not v))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4867,6 +5105,10 @@ def main() -> int:
     # ---- mesh: the multi-device paths, one NCCL rank a card and two
     # ranks sharing card 0 over gloo ----
     phase_mesh(cfg, dev, voc, tts, mel, smi)
+
+    # ---- a12: wav -> dataset -> trained vocoder, .wav -> vocoded .wav,
+    # text -> Griffin-Lim wav with its attention png, on the card ----
+    phase_a12(cfg, dev, tts)
 
     # B1, B3 and B4b run on the resident body; their original body's entries
     # keep its times from the resident phase's turns, its errors against

@@ -298,9 +298,16 @@ def test_cli_gen_wavernn_sparse_equals_dense(journey, capsys):
                       "--force_cpu", "--sparse", "-b", "--pallas"])
     got = out_dir / "__m__0k_steps_gen_batched_target2200_overlap550.wav"
     assert wavfile.read(got)[1].shape == ((mel.shape[1] - 1) * HOP,)
-    with pytest.raises(NotImplementedError, match="A12"):
-        gen_wavernn.main(["--hp_file", str(hp), "--file", "x.wav",
-                          "--force_cpu"])
+    # a .wav through --file: its mel computed again, its copy saved as the
+    # target, the vocoder's output as long as the mel
+    from wavernn_tpu_torch.dsp.audio import save_wav
+    wav = 0.5 * np.sin(2 * np.pi * 220 * np.arange(8 * HOP) / 22050)
+    save_wav(wav, root / "x.wav")
+    gen_wavernn.main(["--hp_file", str(hp), "--file", str(root / "x.wav"),
+                      "--force_cpu"])
+    assert (out_dir / "__x__0k_steps_target.wav").is_file()
+    got = out_dir / "__x__0k_steps_gen_batched_target2200_overlap550.wav"
+    assert wavfile.read(got)[1].shape == (8 * HOP,)
 
 
 def test_cli_gen_tacotron_sparse_writes_wavs(journey, monkeypatch, capsys):

@@ -301,12 +301,25 @@ def test_cli_synthesizes_from_port_checkpoints(nets, tmp_path, monkeypatch):
             sr, pcm = wavfile.read(ws.tts_output / name)
             assert sr == 22050 and pcm.dtype == np.int16 and pcm.size > 0
             assert np.abs(pcm.astype(np.float64)).max() < 2 ** 15
-    with pytest.raises(NotImplementedError, match="A12"):
-        gen_tacotron.main(["--hp_file", str(hp), "--force_cpu",
-                           "griffinlim"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        gen_tacotron.main(["--hp_file", str(hp), "--force_cpu",
-                           "--save_attention", "wavernn"])
+    # griffinlim reads no vocoder checkpoint; -a writes each sentence's
+    # attention beside its wav, on the per-sentence wavernn path too
+    voc_loader = gen_tacotron.load_voc_model
+
+    def no_vocoder(*a, **k):
+        raise AssertionError("griffinlim loaded a vocoder checkpoint")
+    monkeypatch.setattr(gen_tacotron, "load_voc_model", no_vocoder)
+    gen_tacotron.main(["--hp_file", str(hp), "--force_cpu", "-a",
+                       "griffinlim", "--iters", "2"])
+    monkeypatch.setattr(gen_tacotron, "load_voc_model", voc_loader)
+    for i in (1, 2):
+        sr, pcm = wavfile.read(ws.tts_output / f"{i}_griffinlim_3k.wav")
+        assert sr == 22050 and pcm.dtype == np.int16 and pcm.size > 0
+        assert (ws.tts_output / f"{i}_griffinlim_3k.wav.png").is_file()
+    gen_tacotron.main(["--hp_file", str(hp), "--force_cpu",
+                       "--save_attention", "wavernn", "--unbatched"])
+    for i in (1, 2):
+        png = ws.tts_output / f"{i}_wavernn_unbatched_3k.wav.png"
+        assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert Path(ws.tts_output).is_dir()
     assert text_to_sequence(TEXTS[0], cfg.tts.cleaner_names) \
         == list(_ids(TEXTS[0]))

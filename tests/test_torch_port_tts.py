@@ -149,8 +149,9 @@ def test_cli_loads_both_formats_and_synthesizes(tmp_path):
 
 def test_quick_start_batched_flags_match_jax(tmp_path, capsys):
     """quick_start's -b / -u / -a, as the JAX package's CLI has them: -u
-    generates unbatched and names the file batchedFalse; -a raises naming
-    A12; --out_dir and --steps say that they are the port's own."""
+    generates unbatched and names the file batchedFalse; -a writes the
+    attention png beside the wav; --out_dir and --steps say that they are
+    the port's own."""
     from wavernn_tpu.cli import quick_start as j_quick_start
     with pytest.raises(SystemExit):
         j_quick_start.main(["--help"])
@@ -179,8 +180,9 @@ def test_quick_start_batched_flags_match_jax(tmp_path, capsys):
     out = tmp_path / "out"
     quick_start.main(args + ["-u", "--out_dir", str(out)])
     assert [p.name for p in out.iterdir()] == ["1_batchedFalse_5k.wav"]
-    with pytest.raises(NotImplementedError, match="A12"):
-        quick_start.main(args + ["-a"])
+    quick_start.main(args + ["-u", "-a", "--out_dir", str(out)])
+    assert sorted(p.name for p in out.iterdir()) == [
+        "1_batchedFalse_5k.wav", "1_batchedFalse_5k.wav.png"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -4,11 +4,15 @@ gen_tacotron.py; the flag surface of ``wavernn_tpu.cli.gen_tacotron``).
     python -m wavernn_tpu_torch.cli.gen_tacotron wavernn --input_text "Hello."
     python -m wavernn_tpu_torch.cli.gen_tacotron wavernn --batch_sentences
     python -m wavernn_tpu_torch.cli.gen_tacotron --force_cpu wavernn --fast
+    python -m wavernn_tpu_torch.cli.gen_tacotron -a griffinlim --iters 32
 
 The device picks the engine: on CUDA the decode, sample-loop and GRU
 kernels run; ``--force_cpu`` runs their plain PyTorch versions on the CPU.
 ``wavernn --sparse`` serves a block-pruned vocoder (``train_wavernn
---prune``) through the sample loops' block-sparse arm.
+--prune``) through the sample loops' block-sparse arm. ``griffinlim`` loads
+no vocoder: NNLS and Griffin-Lim invert the postnet mel on the device.
+``--save_attention`` writes each sentence's attention beside its wav
+(``<wav name>.png``) on the per-sentence paths.
 Checkpoints are the JAX trainer's ``.npz`` (either package writes them) or
 reference ``.pyt`` state dicts. Wavs go to ``model_outputs/<tts_id>.tacotron/``
 under the names the JAX package gives them.
@@ -21,6 +25,7 @@ import torch
 
 from ..dsp.audio import save_wav
 from ..synthesis import tts_to_wav, tts_to_wav_batch, tts_to_wav_fast
+from ..utils.display import save_attention, simple_table
 from .common import load_config, load_tts_model, load_voc_model, \
     make_workspace, sparse_pack_or_dense
 
@@ -31,8 +36,7 @@ def main(argv=None):
                     "the kernels on CUDA, their plain versions with "
                     "--force_cpu.")
     parser.add_argument("--input_text", "-i", default=None)
-    parser.add_argument("--save_attention", "-a", action="store_true",
-                        help="not ported yet (ROADMAP A12)")
+    parser.add_argument("--save_attention", "-a", action="store_true")
     parser.add_argument("--hp_file", default=None)
     parser.add_argument("--force_cpu", "-c", action="store_true",
                         help="run the plain PyTorch versions on the CPU")
@@ -72,19 +76,11 @@ def main(argv=None):
                            "batched vocoder launch (tts_to_wav_batch) "
                            "instead of the reference's per-sentence loop")
 
-    gl_p = subs.add_parser("griffinlim", help="not ported yet (ROADMAP A12)")
+    gl_p = subs.add_parser("griffinlim")
     gl_p.add_argument("--iters", type=int, default=32)
     gl_p.add_argument("--tts_weights", default=None)
 
     args = parser.parse_args(argv)
-    if args.vocoder == "griffinlim":
-        raise NotImplementedError(
-            "the Griffin-Lim vocoder is not ported yet (ROADMAP A12: "
-            "dsp/griffinlim.py)")
-    if args.save_attention:
-        raise NotImplementedError(
-            "--save_attention is not ported yet (ROADMAP A12: the "
-            "attention plots)")
     device = "cpu" if args.force_cpu else "cuda"
     cfg = load_config(args.hp_file)
     ws = make_workspace(cfg)
@@ -92,17 +88,33 @@ def main(argv=None):
 
     tts, tts_step, r = load_tts_model(args.tts_weights
                                       or ws.tts_latest_weights, cfg, device)
-    voc, voc_step = load_voc_model(args.voc_weights or ws.voc_latest_weights,
-                                   cfg, device)
-    sparse_packed = sparse_pack_or_dense(voc, cfg) if args.sparse else None
     tts_k = tts_step // 1000
-    batched = cfg.voc.gen_batched if args.batched is None else args.batched
-    target = cfg.voc.target if args.target is None else args.target
-    overlap = cfg.voc.overlap if args.overlap is None else args.overlap
-    print(f"| Tacotron {tts_k}k, r={r}, WaveRNN {voc_step // 1000}k, "
-          + (f"batched (target {target}, overlap {overlap})" if batched
-             else "unbatched") + f", on {device}")
-    if args.fast and args.batched is False:
+    gl = args.vocoder == "griffinlim"
+    voc = sparse_packed = target = overlap = None
+    batched = True
+    if gl:
+        simple_table([("Tacotron", f"{tts_k}k"), ("r", r),
+                      ("Vocoder Type", "Griffin-Lim"),
+                      ("GL Iters", args.iters)])
+    else:
+        voc, voc_step = load_voc_model(
+            args.voc_weights or ws.voc_latest_weights, cfg, device)
+        sparse_packed = (sparse_pack_or_dense(voc, cfg) if args.sparse
+                         else None)
+        batched = cfg.voc.gen_batched if args.batched is None \
+            else args.batched
+        target = cfg.voc.target if args.target is None else args.target
+        overlap = cfg.voc.overlap if args.overlap is None else args.overlap
+        print(f"| Tacotron {tts_k}k, r={r}, WaveRNN {voc_step // 1000}k, "
+              + (f"batched (target {target}, overlap {overlap})" if batched
+                 else "unbatched") + f", on {device}")
+    fast = getattr(args, "fast", False)
+    batch_sentences = getattr(args, "batch_sentences", False)
+    if fast and args.save_attention:
+        print("| WARNING: --save_attention is not available with --fast "
+              "(the device-resident path never materializes attention maps); "
+              "rerun without --fast to dump attention plots")
+    if fast and args.batched is False:
         print("| WARNING: --fast is always fold-batched; ignoring --unbatched")
 
     if args.input_text:
@@ -120,8 +132,12 @@ def main(argv=None):
                     / f"__input_{args.input_text[:10]}_{v_type}_{tts_k}k.wav")
         return ws.tts_output / f"{i}_{v_type}_{tts_k}k.wav"
 
-    if args.batch_sentences:
-        if args.fast:
+    if batch_sentences:
+        if args.save_attention:
+            print("| WARNING: --save_attention is not available with "
+                  "--batch_sentences (the batched path never materializes "
+                  "attention maps); rerun without it for attention plots")
+        if fast:
             print("| WARNING: --batch_sentences supersedes --fast (the "
                   "batched path is already device-resident)")
         print(f"| Generating {len(inputs)} sentences in one batch")
@@ -137,19 +153,25 @@ def main(argv=None):
     for i, text in enumerate(inputs, 1):
         print(f"| Generating {i}/{len(inputs)}")
         gen = torch.Generator().manual_seed(i)
-        if args.fast:
+        attention = None
+        if fast:
             wav, _ = tts_to_wav_fast(tts, voc, text, cfg, r, generator=gen,
                                      target=target, overlap=overlap,
                                      device=device,
                                      sparse_packed=sparse_packed)
             v_type = "wavernn_fast"
         else:
-            wav, _, _ = tts_to_wav(tts, voc, text, cfg, r, generator=gen,
-                                   target=target, overlap=overlap,
-                                   device=device, batched=batched,
-                                   sparse_packed=sparse_packed)
-            v_type = "wavernn_batched" if batched else "wavernn_unbatched"
-        save_wav(wav, save_path(i, v_type), cfg.dsp.sample_rate)
+            wav, _, attention = tts_to_wav(
+                tts, voc, text, cfg, r, generator=gen, target=target,
+                overlap=overlap, device=device, batched=batched,
+                sparse_packed=sparse_packed, vocoder=args.vocoder,
+                gl_iters=getattr(args, "iters", 32))
+            v_type = ("griffinlim" if gl else "wavernn_batched" if batched
+                      else "wavernn_unbatched")
+        path = save_path(i, v_type)
+        if args.save_attention and attention is not None:
+            save_attention(attention, path)
+        save_wav(wav, path, cfg.dsp.sample_rate)
     print("Done.")
 
 

@@ -1,11 +1,12 @@
 """CLI: vocoder copy-synthesis with the PyTorch/CUDA port (reference
 gen_wavernn.py; the flag surface of ``wavernn_tpu.cli.gen_wavernn``).
 
-    python -m wavernn_tpu_torch.cli.gen_wavernn [--file mel.npy] [-w w.npz]
+    python -m wavernn_tpu_torch.cli.gen_wavernn [--file x.wav] [-w w.npz]
     python -m wavernn_tpu_torch.cli.gen_wavernn --sparse -u   # pruned model
 
-Generates the held-out items of the dataset (or one saved [0, 1] mel
-``.npy``) from the latest vocoder checkpoint, fold-batched or unbatched.
+Generates the held-out items of the dataset (or one ``.wav``, analysed
+again, or one saved [0, 1] mel ``.npy``) from the latest vocoder
+checkpoint, fold-batched or unbatched.
 The device picks the engine: on CUDA the sample-loop kernels run (with
 ``--sparse``, their block-sparse arm), with ``--force_cpu`` their plain
 PyTorch versions. Wavs go to ``model_outputs/<voc_id>.wavernn/`` under the
@@ -37,8 +38,8 @@ def main(argv=None):
     parser.add_argument("--target", "-t", type=int)
     parser.add_argument("--overlap", "-o", type=int)
     parser.add_argument("--file", "-f",
-                        help="a saved [0, 1] mel .npy to vocode (a .wav "
-                             "needs dsp/mel.py: ROADMAP A12)")
+                        help="a .wav (its mel is computed again) or a saved "
+                             "[0, 1] mel .npy to vocode")
     parser.add_argument("--weights", "--voc_weights", "-w", dest="weights",
                         help="weights file (.npz or .pyt)")
     parser.add_argument("--gta", "-g", action="store_true")

@@ -4,7 +4,8 @@
 Loads Tacotron and WaveRNN weights (reference ``.pyt`` checkpoints,
 optionally inside the released zips, or the JAX trainer's ``.npz``) and
 synthesizes the standard test sentences with fold-batched generation
-(target 11000, overlap 550), or unbatched with ``-u``.
+(target 11000, overlap 550), or unbatched with ``-u``; ``-a`` writes each
+sentence's attention beside its wav (``<wav name>.png``).
 
     python -m wavernn_tpu_torch.cli.quick_start \\
         --voc_weights pretrained/ljspeech.wavernn.mol.800k/latest_weights.pyt \\
@@ -20,6 +21,7 @@ import torch
 
 from ..dsp.audio import save_wav
 from ..synthesis import tts_to_wav
+from ..utils.display import save_attention
 from .common import load_config, load_tts_model, load_voc_model
 
 
@@ -43,8 +45,7 @@ def main(argv=None):
     # fold-batched unless -u: the two flags share a dest, and argparse would
     # otherwise take --batched's store_false default (True) for it
     parser.set_defaults(unbatched=False)
-    parser.add_argument("--save_attention", "-a", action="store_true",
-                        help="not ported yet (ROADMAP A12); raises")
+    parser.add_argument("--save_attention", "-a", action="store_true")
     parser.add_argument("--voc_weights", default=None)
     parser.add_argument("--tts_weights", default=None)
     parser.add_argument("--pretrained_dir", default="pretrained")
@@ -58,10 +59,6 @@ def main(argv=None):
     parser.add_argument("--force_cpu", "-c", action="store_true",
                         help="run the plain PyTorch versions on the CPU")
     args = parser.parse_args(argv)
-    if args.save_attention:
-        raise NotImplementedError(
-            "--save_attention is not ported yet (ROADMAP A12: the attention "
-            "plots)")
     device = "cpu" if args.force_cpu else "cuda"
     batched = not args.unbatched
 
@@ -92,10 +89,13 @@ def main(argv=None):
     for i, text in enumerate(inputs, 1):
         print(f"| Generating {i}/{len(inputs)}: {text[:40]}")
         gen = torch.Generator().manual_seed(i)
-        wav, _, _ = tts_to_wav(tts, voc, text, cfg, r, steps=args.steps,
-                               generator=gen, device=device, batched=batched)
-        save_wav(wav, out_dir / f"{i}_batched{batched}_{tts_step // 1000}k"
-                 ".wav", cfg.dsp.sample_rate)
+        wav, _, attention = tts_to_wav(tts, voc, text, cfg, r,
+                                       steps=args.steps, generator=gen,
+                                       device=device, batched=batched)
+        save_path = out_dir / f"{i}_batched{batched}_{tts_step // 1000}k.wav"
+        if args.save_attention:
+            save_attention(attention, save_path)
+        save_wav(wav, save_path, cfg.dsp.sample_rate)
     print("Done.")
 
 

@@ -19,7 +19,9 @@ sizes must divide by the world size):
   attn_loss_coeff x L1.
 
 The four CBHG BiGRU directions run on kernel B5 in every mode. A fresh
-run warm-starts from ``tts_init_weights_path`` when it is set.
+run warm-starts from ``tts_init_weights_path`` when it is set. At each
+checkpoint the attention of the dataset's longest item, when it is in the
+batch, goes to ``checkpoints/<tts_id>.tacotron/attention/<step>.png``.
 --force_gta / --force_attn write the teacher-forced GTA mels / attention
 maps of the dataset from the latest checkpoint and exit. Checkpoints are
 the JAX package's .npz pair, so either package resumes the other's run.
@@ -33,6 +35,7 @@ import torch
 
 from ..data.dataset import get_tts_datasets
 from ..train import tacotron_train as tt
+from ..utils.display import save_attention, save_spectrogram
 from ..utils.seeding import set_global_seeds
 from .common import (devices_line, join_ranks, load_config, load_tts_model,
                      make_workspace, restore_on_ranks, shards)
@@ -116,15 +119,23 @@ def main(argv=None):
     num_shards, shard_index = shards(mesh)
 
     def make_dataset(r, bs):
-        return get_tts_datasets(ws.data, bs, r, cfg, seed=args.seed,
-                                num_shards=num_shards,
-                                shard_index=shard_index)[0]
+        ds, make_dataset.attn_example = get_tts_datasets(
+            ws.data, bs, r, cfg, seed=args.seed, num_shards=num_shards,
+            shard_index=shard_index)
+        return ds
 
     def on_checkpoint(st, metrics, ids):
-        # the reference plots one item's attention and mel here
-        # (train_tacotron.py:216-219)
-        say(f"step {st.step}: attention/mel plots skipped (not ported: "
-            "ROADMAP A12)")
+        # the attention plot of the dataset's attn_example when it is in
+        # this batch, and its mel plot when the step returns one
+        # (train_tacotron.py:216-219); rank 0 alone is called
+        ex = getattr(make_dataset, "attn_example", None)
+        if ex is None or ex not in ids:
+            return
+        idx = list(ids).index(ex)
+        save_attention(metrics["attn"][idx], ws.tts_attention / f"{st.step}")
+        if "mel" in metrics:
+            save_spectrogram(metrics["mel"][idx],
+                             ws.tts_mel_plot / f"{st.step}")
 
     teacher = None
     if mode == "attention_forcing_online":

@@ -2,8 +2,8 @@
 
 A copy of the dataclasses of ``wavernn_tpu.config`` (DSPConfig,
 WaveRNNConfig, WaveRNNTrainConfig, TacotronConfig, Config) and of the
-reference ``hparams_*.py`` loader, cut to the fields that text -> wav
-synthesis, vocoder training and Tacotron teacher-forcing training read.
+reference ``hparams_*.py`` loader, cut to the fields that preprocessing,
+text -> wav synthesis, vocoder training and Tacotron training read.
 """
 from __future__ import annotations
 
@@ -198,9 +198,10 @@ class TacotronTrainConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The settings text -> wav synthesis, vocoder training and Tacotron
-    training read."""
+    """The settings preprocessing, text -> wav synthesis, vocoder training
+    and Tacotron training read."""
 
+    wav_path: str = "data/wavs"
     data_path: str = "data/"
     voc_model_id: str = "ljspeech_mol"
     tts_model_id: str = "ljspeech_lsa_smooth_attention"
@@ -311,6 +312,7 @@ class Config:
         )
         names = g("test_sentences_names")
         return cls(
+            wav_path=g("wav_path", "data/wavs"),
             data_path=g("data_path", "data/"),
             voc_model_id=g("voc_model_id", "ljspeech_mol"),
             tts_model_id=g("tts_model_id", "ljspeech_lsa_smooth_attention"),

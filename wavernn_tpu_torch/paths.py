@@ -1,8 +1,7 @@
 """Workspace path registry (port of ``wavernn_tpu.paths``, the reference's
-``utils/paths.py`` layout), cut to the data, vocoder and Tacotron-training
-paths: datasets and checkpoints are interchangeable with the JAX package's
-runs. The Tacotron attention and mel plot folders are not made: the plots
-are not ported (ROADMAP A12)."""
+``utils/paths.py`` layout): the data, vocoder and Tacotron paths, with the
+Tacotron trainer's attention and mel plot folders. Datasets and checkpoints
+are interchangeable with the JAX package's runs."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -36,6 +35,8 @@ class Workspace:
         self.tts_output = self.base / "model_outputs" / f"{tts_id}.tacotron"
         self.tts_log = self.tts_checkpoints / "log.txt"
         self.tts_metrics = self.tts_checkpoints / "metrics.jsonl"
+        self.tts_attention = self.tts_checkpoints / "attention"
+        self.tts_mel_plot = self.tts_checkpoints / "mel_plots"
 
         self.create(ignore_voc=ignore_voc, ignore_tts=ignore_tts)
 
@@ -46,7 +47,8 @@ class Workspace:
             for p in (self.voc_checkpoints, self.voc_output):
                 p.mkdir(parents=True, exist_ok=True)
         if not ignore_tts:
-            for p in (self.tts_checkpoints, self.tts_output):
+            for p in (self.tts_checkpoints, self.tts_output,
+                      self.tts_attention, self.tts_mel_plot):
                 p.mkdir(parents=True, exist_ok=True)
 
     def get_voc_named_weights(self, name: str) -> Path:

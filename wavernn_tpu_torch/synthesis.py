@@ -1,6 +1,7 @@
 """Synthesis flows (port of ``wavernn_tpu.synthesis``): copy-synthesis of
-held-out items and text -> wav with the WaveRNN vocoder (reference
-gen_wavernn.py:11-35, gen_tacotron.py:142-173), and the serving paths:
+held-out items, of a saved mel or of a ``.wav``, and text -> wav with the
+WaveRNN or the Griffin-Lim vocoder (reference gen_wavernn.py:11-65,
+gen_tacotron.py:142-173), and the serving paths:
 ``tts_to_wav_fast`` (one sentence, device-resident, length-bucketed) and
 ``tts_to_wav_batch`` (many sentences: one batched decode, one vocoder
 launch). Every flow takes ``sparse_packed``: the ``ops/cuda_gen.pack_sparse``
@@ -16,31 +17,45 @@ import torch
 
 from .config import Config
 from .device import resolve_device
-from .dsp.audio import decode_mu_law, label_2_float, save_wav
+from .dsp.audio import decode_mu_law, label_2_float, load_wav, save_wav
+from .dsp.griffinlim import reconstruct_waveform
+from .dsp.mel import melspectrogram_np
 from .models import tacotron as taco
 from .models import wavernn as wr
 from .text import text_to_sequence
 
 
-def tts_to_wav(tts_model: taco.Tacotron, voc_model: wr.WaveRNN, text: str,
-               cfg: Config, r: int, steps: int = 2000,
+def tts_to_wav(tts_model: taco.Tacotron, voc_model: Optional[wr.WaveRNN],
+               text: str, cfg: Config, r: int, steps: int = 2000,
                generator: Optional[torch.Generator] = None, noise=None,
                target: Optional[int] = None, overlap: Optional[int] = None,
                device="cuda", timings: Optional[dict] = None,
-               batched: bool = True, sparse_packed=None):
+               batched: bool = True, sparse_packed=None,
+               vocoder: str = "wavernn", gl_iters: int = 32, gl_phase_u=None):
     """Full text -> waveform with the WaveRNN vocoder, fold-batched or, with
-    ``batched=False``, one unbatched row over the whole utterance.
+    ``batched=False``, one unbatched row over the whole utterance; or with
+    ``vocoder="griffinlim"`` through NNLS and ``gl_iters`` Griffin-Lim
+    iterations on the device (``voc_model`` may then be None).
 
-    The postnet output conditions the vocoder, rescaled [-4, 4] -> [0, 1]
-    (gen_tacotron.py:145). ``generator`` seeds the vocoder's sampling
-    noise; ``noise`` injects it instead (replay). ``timings``, when given,
-    receives CUDA-event records of each stage (see timing.elapsed_ms).
-    Returns (wav float64, mel, attention) as numpy arrays."""
-    dev = resolve_device(device, tts_model, voc_model)
+    The postnet output, rescaled [-4, 4] -> [0, 1] and clipped, conditions
+    the vocoder (gen_tacotron.py:145). ``generator`` seeds the WaveRNN's
+    sampling noise; ``noise`` injects it instead (replay). Griffin-Lim's
+    initial phase is a fixed seed-0 draw, or ``gl_phase_u`` injected (see
+    dsp/griffinlim.griffinlim). ``timings``, when given, receives
+    CUDA-event records of each stage (see timing.elapsed_ms).
+    Returns (wav, mel, attention) as numpy arrays."""
+    if vocoder not in ("wavernn", "griffinlim"):
+        raise ValueError(vocoder)
+    dev = resolve_device(device, tts_model,
+                         *([voc_model] if vocoder == "wavernn" else []))
     x = text_to_sequence(text.strip(), cfg.tts.cleaner_names)
     _, m, attention = taco.generate(tts_model, np.asarray(x), r, steps=steps,
                                     device=dev, timings=timings)
     m = np.clip((m + 4.0) / 8.0, 0.0, 1.0)
+    if vocoder == "griffinlim":
+        wav = reconstruct_waveform(m, cfg.dsp, n_iter=gl_iters, device=dev,
+                                   phase_u=gl_phase_u)
+        return wav, m, attention
     wav = wr.generate(voc_model, m[None], batched=batched,
                       target=cfg.voc.target if target is None else target,
                       overlap=cfg.voc.overlap if overlap is None else overlap,
@@ -231,24 +246,27 @@ def gen_from_file(voc_model: wr.WaveRNN, load_path, save_path, batched: bool,
                   target: int, overlap: int, cfg: Config, step: int = 0,
                   generator: Optional[torch.Generator] = None,
                   device="cuda", sparse_packed=None):
-    """Vocode a saved [0, 1] mel ``.npy`` of shape (n_mels, frames)
-    (gen_wavernn.py:38-65). A ``.wav`` input needs the mel analysis, which
-    is not ported (ROADMAP A12: ``dsp/mel.py``). Saves and returns the
-    wave (float64 numpy)."""
+    """Vocode a ``.wav`` (analysed again: saved as
+    ``__{name}__{k}k_steps_target.wav``, then its mel by
+    ``melspectrogram_np``) or a saved [0, 1] mel ``.npy`` of shape
+    (n_mels, frames) (gen_wavernn.py:38-65). Saves and returns the wave
+    (float64 numpy)."""
     load_path, save_path = Path(load_path), Path(save_path)
     if load_path.suffix == ".wav":
-        raise NotImplementedError(
-            "gen_from_file: a .wav input needs dsp/mel.py, which is not "
-            "ported yet (ROADMAP A12); pass a [0, 1] mel .npy")
-    if load_path.suffix != ".npy":
+        wav = load_wav(load_path, cfg.dsp.sample_rate)
+        save_wav(wav, save_path / (f"__{load_path.stem}__{step // 1000}k_"
+                                   "steps_target.wav"), cfg.dsp.sample_rate)
+        mel = melspectrogram_np(wav, cfg.dsp)
+    elif load_path.suffix == ".npy":
+        mel = np.load(load_path)
+        if mel.ndim != 2 or mel.shape[0] != cfg.dsp.num_mels:
+            raise ValueError(f"Expected a numpy array shaped (n_mels, "
+                             f"n_hops), got {mel.shape}")
+        if mel.max() >= 1.01 or mel.min() <= -0.01:
+            raise ValueError(f"Expected spectrogram range in [0,1], got "
+                             f"[{mel.min()}, {mel.max()}]")
+    else:
         raise ValueError(f"Expected .wav or .npy, got {load_path.suffix}")
-    mel = np.load(load_path)
-    if mel.ndim != 2 or mel.shape[0] != cfg.dsp.num_mels:
-        raise ValueError(
-            f"Expected a numpy array shaped (n_mels, n_hops), got {mel.shape}")
-    if mel.max() >= 1.01 or mel.min() <= -0.01:
-        raise ValueError(f"Expected spectrogram range in [0,1], got "
-                         f"[{mel.min()}, {mel.max()}]")
     generator = (generator if generator is not None
                  else torch.Generator().manual_seed(0))
     wav = wr.generate(voc_model, mel[None].astype(np.float32),
