@@ -1433,9 +1433,10 @@ def phase_b6res(ct, dev, logs):
     clock and clock-limit reasons read around each set. The per-stage split
     of a group from the profiling instantiation (clock64() on block 0,
     cycles a group). nvcc's registers, stack frames and spills for the new
-    kernels and B7's four (a spill in any non-profiling entry, or a stack
-    frame in taco_tf_res_fwd / _bwd, fails the phase). Returns the
-    results."""
+    kernels and B7's four (a spill in any float32 non-profiling entry, or
+    a stack frame in taco_tf_res_fwd / _bwd, fails the phase; the bf16
+    instantiations' lines are listed here and held in the bf16 phase).
+    Returns the results."""
     import torch
     t_phase = time.perf_counter()
     res, oks = {}, {}
@@ -1444,11 +1445,14 @@ def phase_b6res(ct, dev, logs):
     ptx7, spills7 = ptxas_entries(logs.get("taco_train_resident", ""),
                                   "taco_af_res")
     res["ptxas"], res["spills"] = {**ptx, **ptx7}, spills + spills7
-    frames = [f"{k}: {ln}" for k, v in ptx.items() if "_prof" not in k
+    frames = [f"{k}: {ln}" for k, v in ptx.items()
+              if "_prof" not in k and "_bf16" not in k
               for ln in v if re.search(r"\b[1-9]\d* bytes stack frame", ln)]
     res["stack_frames"] = frames
-    oks["ptxas_read"] = len(ptx) == 4 and len(ptx7) == 4
-    oks["no_spill"] = not [ln for ln in spills + spills7 if "_prof" not in ln]
+    # each body: fwd, bwd, their profiling twins, their bf16 instantiations
+    oks["ptxas_read"] = len(ptx) == 6 and len(ptx7) == 6
+    oks["no_spill"] = not [ln for ln in spills + spills7
+                           if "_prof" not in ln and "_bf16" not in ln]
     oks["no_stack_frame"] = not frames
     Bf, Tf, Gf, rf = B6_FULL
     ins, w = b6_case(Bf, Tf, Gf, rf, dev, 61, True)
@@ -1566,13 +1570,15 @@ def phase_b7res(ct, dev, build_log):
     clock-limit reasons read around each set. The per-stage split of a
     group from the profiling instantiation (clock64() on block 0, cycles a
     group). nvcc's registers and spills for the new kernels (a spill in
-    taco_af_res_fwd or taco_af_res_bwd fails the phase). Returns the
+    taco_af_res_fwd or taco_af_res_bwd fails the phase; their bf16
+    instantiations' are listed and held in the bf16 phase). Returns the
     results."""
     import torch
     res, oks = {}, {}
     ptx, spills = ptxas_entries(build_log, "taco_af_res")
     res["ptxas"], res["spills"] = ptx, spills
-    oks["no_spill"] = not [ln for ln in spills if "_prof" not in ln]
+    oks["no_spill"] = not [ln for ln in spills
+                           if "_prof" not in ln and "_bf16" not in ln]
     Bf, Tf, Gf, rf = B7_FULL
     ins, w = b7_case(Bf, Tf, Gf, rf, dev, 51, True)
     names = ("daref", "denc", "dencp") + ct.AF_WEIGHTS
@@ -3735,6 +3741,506 @@ def phase_mesh(cfg, dev, voc, tts, mel, smi):
     return res
 
 
+# bf16: Tacotron training in bfloat16 (B6, B7 and B5 on bf16 operands)
+BF16_FRAC = 0.99      # mel and scores: this share of entries within
+BF16_OUT_TOL = 2e-2   # this much of the tensor's largest magnitude
+BF16_GRAD_TOL = 5e-2  # every gradient, of its largest magnitude
+BF16_LOSS_TOL = 2e-2  # kernels against scan, relative
+BF16_COS = 0.97       # the bf16 gradient against the float32 one
+BF16_TT = ((2, 1e-3, 3, 8),)  # the bf16 CLI runs: r 2, batch 8
+BF16_AF = ((2, 1e-3, 2, 8),)
+DM_HIDDEN, DM_GEN = 896, 200  # the DeepMind example's width, generated steps
+BF16_SPEED_STEPS = 5          # timed steps a turn (after one untimed)
+
+
+def bf16_case(ct, kind, B, T, G, r, dev, seed, train=True):
+    """``b6_case`` / ``b7_case`` in bfloat16: every operand of the kernels'
+    bf16 class cast, the biases float32."""
+    import torch
+    ins, weights = (b6_case if kind == "b6" else b7_case)(B, T, G, r, dev,
+                                                          seed, train)
+    names = ct.WEIGHTS if kind == "b6" else ct.AF_WEIGHTS
+    w16 = tuple(w if n in ct.BIASES else w.to(torch.bfloat16)
+                for n, w in zip(names, weights))
+    return tuple(t.to(torch.bfloat16) for t in ins), w16
+
+
+def share_within(got, want, tol):
+    """(share of entries within tol x max |want|, max |got - want| over
+    max |want|)."""
+    g, w = got.float(), want.float()
+    m = w.abs().max().clamp_min(1e-30)
+    return (float(((g - w).abs() <= tol * m).float().mean()),
+            float((g - w).abs().max() / m))
+
+
+def check_bf16(ct, kind, ins, weights, seed, backward=True):
+    """B6 (``kind`` "b6") or B7's bf16 kernels against their bf16 plain
+    versions: mel and scores BF16_OUT_TOL of their largest entry in at
+    least BF16_FRAC of their entries and finite, every gradient (the
+    backward on the kernel's own streams and random cotangents) within
+    BF16_GRAD_TOL of its largest entry. ``backward`` False: the forward
+    without streams (eval). Returns (result, ok)."""
+    import torch
+    tf = kind == "b6"
+    fwd = ct.decoder_tf_fwd if tf else ct.decoder_af_fwd
+    mel, sc, st = fwd(*ins, weights, save=backward)
+    mel_p, sc_p, _ = (ct.core_ref if tf else ct.core_af_ref)(
+        *ins, *weights, save=backward)
+    torch.cuda.synchronize()
+    (mf, me), (sf, se) = share_within(mel, mel_p, BF16_OUT_TOL), \
+        share_within(sc, sc_p, BF16_OUT_TOL)
+    res = {"mel_share_within": mf, "mel_rel_err": me,
+           "scores_share_within": sf, "scores_rel_err": se,
+           "fwd_max_abs_err": max(float((mel.float() - mel_p.float())
+                                        .abs().max()),
+                                  float((sc - sc_p).abs().max())),
+           "dtypes": [str(mel.dtype), str(sc.dtype)]}
+    fin = [mel, sc]
+    ok = (mf >= BF16_FRAC and sf >= BF16_FRAC
+          and mel.dtype == torch.bfloat16 and sc.dtype == torch.float32)
+    if backward:
+        gen = torch.Generator().manual_seed(seed)
+        dmel = torch.randn(mel.shape, generator=gen).to(mel.device)
+        dsc = torch.randn(sc.shape, generator=gen).to(mel.device)
+        bwd = ct.decoder_tf_bwd if tf else ct.decoder_af_bwd
+        got = bwd(dmel, dsc, st, sc, *ins, weights)
+        want = (ct.core_bwd_ref if tf else ct.core_af_bwd_ref)(
+            dmel, dsc, st, sc, *ins, *weights)
+        torch.cuda.synchronize()
+        names = (("dpre" if tf else "daref", "denc", "dencp")
+                 + (ct.WEIGHTS if tf else ct.AF_WEIGHTS))
+        gerr = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        res["grad_worst"] = max(gerr, key=gerr.get)
+        res["grad_rel_err"] = gerr
+        res["bwd_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, want))
+        ok &= max(gerr.values()) <= BF16_GRAD_TOL
+        ok &= all(a.dtype == b.dtype for a, b in zip(got, want))
+        fin += list(got)
+    ok &= all(bool(t.float().isfinite().all()) for t in fin)
+    return res, bool(ok)
+
+
+def bf16_counts(ct):
+    """B6 and B7's launches: in all, on the resident body, on its bf16
+    instantiation and on the original body."""
+    out = {}
+    for kid, w in (("tf", ct.decoder_tf), ("af", ct.decoder_af)):
+        for d in ("fwd", "bwd"):
+            out[f"{kid}_{d}"] = getattr(w, f"{d}_launches")
+            out[f"{kid}_res_{d}"] = getattr(w, f"resident_{d}_launches")
+            out[f"{kid}_bf16_{d}"] = getattr(w, f"bf16_{d}_launches")
+            out[f"{kid}_legacy_{d}"] = getattr(w, f"legacy_{d}_launches")
+    return out
+
+
+def zero_bf16_counts(ct):
+    for w in (ct.decoder_tf, ct.decoder_af):
+        for d in ("fwd", "bwd"):
+            for k in ("", "resident_", "bf16_", "legacy_"):
+                setattr(w, f"{k}{d}_launches", 0)
+    zero_b5()
+
+
+def bf16_launches_ok(got, tf=(0, 0, 0, 0), af=(0, 0, 0, 0)):
+    """``got`` (bf16_counts) holds, for B6 and B7, (fwd, bwd) launches on
+    the resident body of which (fwd, bwd) on its bf16 instantiation, and
+    none on the original body."""
+    for kid, (f, b, f16, b16) in (("tf", tf), ("af", af)):
+        if (got[f"{kid}_fwd"], got[f"{kid}_bwd"]) != (f, b):
+            return False
+        if (got[f"{kid}_res_fwd"], got[f"{kid}_res_bwd"]) != (f, b):
+            return False
+        if (got[f"{kid}_bf16_fwd"], got[f"{kid}_bf16_bwd"]) != (f16, b16):
+            return False
+        if got[f"{kid}_legacy_fwd"] or got[f"{kid}_legacy_bwd"]:
+            return False
+    return True
+
+
+def bf16_bytes(by32, f32_elems):
+    """The bytes of a launch whose f32 count was ``by32`` when all but
+    ``f32_elems`` of its elements are bf16."""
+    return by32 // 2 + 2 * f32_elems
+
+
+def cosine(a, b):
+    import torch
+    a = torch.cat([g.reshape(-1).double() for g in a])
+    b = torch.cat([g.reshape(-1).double() for g in b])
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def phase_bf16(cfg, dev, ct, smi, logs):
+    """bfloat16 Tacotron training at the full default Config: B6 and B7's
+    bf16 instantiations against their bf16 plain versions (full, odd and
+    eval shapes, forward and backward), B5 on bf16 streams at the CBHG
+    shapes, ``cli.train_tacotron`` with ``tts_precision = 'bfloat16'`` (TF,
+    then AF-offline and AF-online warm-started from it) with every launch
+    counted, one bf16 TF and one AF-offline step against the scan step
+    (loss) and the float32 step (gradient cosine) with both steps' speed,
+    B6 and B7 bf16 against float32 in turns, and the DeepMind model on
+    the card against the CPU. Returns the kernels line's figures."""
+    import copy
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from wavernn_tpu_torch.cli import train_tacotron
+    from wavernn_tpu_torch.config import Config, TacotronTrainConfig
+    from wavernn_tpu_torch.data.dataset import get_tts_datasets
+    from wavernn_tpu_torch.models import deepmind as dm
+    from wavernn_tpu_torch.models import tacotron as taco
+    from wavernn_tpu_torch.ops import cuda_gru
+    from wavernn_tpu_torch.train import tacotron_train as tt
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def fail(msg, **res):
+        emit("bf16", ok=False, **res)
+        raise AssertionError(f"bf16: {msg}")
+
+    # the four bf16 instantiations' registers, stack frames and spills
+    # (reported: the bf16 B7 forward sits at the 255-register cap)
+    ptx = {}
+    for src, key in (("taco_tf_resident", "taco_tf_res_"),
+                     ("taco_train_resident", "taco_af_res_")):
+        ent, _ = ptxas_entries(logs.get(src, ""), key)
+        ptx.update({k: v for k, v in ent.items() if "_bf16" in k})
+    out["ptxas"] = ptx
+    emit("bf16", stage="ptxas", ok=len(ptx) == 4, ptxas=ptx,
+         spills=[f"{k}: {ln}" for k, v in ptx.items() for ln in v
+                 if re.search(r"\b[1-9]\d* bytes spill", ln)])
+    if len(ptx) != 4:
+        fail("the four bf16 entries are not in nvcc's output")
+
+    # ---- B6 and B7 in bf16 against their plain versions ----
+    cases = (("b6", B6_FULL, True, True), ("b6", (5, 33, 7, 2), True, True),
+             ("b6", B6_FULL, False, False), ("b7", B7_FULL, True, True),
+             ("b7", (5, 33, 7, 2), True, True), ("b7", B7_FULL, False, False))
+    checks = {}
+    for i, (kind, shape, train, backward) in enumerate(cases):
+        zero_bf16_counts(ct)
+        ins, w = bf16_case(ct, kind, *shape, dev, 70 + i, train)
+        res, ok = check_bf16(ct, kind, ins, w, 80 + i, backward)
+        got = bf16_launches_ok(
+            bf16_counts(ct), **{("tf" if kind == "b6" else "af"):
+                                (1, int(backward), 1, int(backward))})
+        tag = f"{kind}_B{shape[0]}_T{shape[1]}_G{shape[2]}_" + (
+            "train" if train else "eval")
+        checks[tag] = res
+        emit("bf16", stage=tag, ok=ok and got, launches_on_bf16_body=got,
+             tolerance={"share": BF16_FRAC, "out": BF16_OUT_TOL,
+                        "grad": BF16_GRAD_TOL}, **res)
+        if not (ok and got):
+            fail(f"{tag}: the bf16 kernel disagrees with its plain version "
+                 "or launched elsewhere")
+    out["checks"] = checks
+
+    # ---- B5 on bf16 streams at the CBHG shapes ----
+    b5 = {}
+    for T5 in (770, 126):
+        zero_b5()
+        gi, wh, bh, h0, dys = gru_inputs(T5, 32, 128, torch.bfloat16, dev,
+                                         90 + T5)
+        res, ok = check_b5(cuda_gru, gi, wh, bh, h0, dys)
+        got = b5_on_resident(b5_counts(), 1, 1)
+        # bf16 and f32 in turns (bf16, f32, f32, bf16), each direction
+        f32_in = [t.float() if t.dtype == torch.bfloat16 else t
+                  for t in (gi, wh, bh, h0, dys)]
+        res["ms"] = {"bfloat16": {"fwd": [], "bwd": []},
+                     "float32": {"fwd": [], "bwd": []}}
+        with torch.no_grad():
+            for prec in ("bfloat16", "float32", "float32", "bfloat16"):
+                g_, w_, b_, h_, d_ = ((gi, wh, bh, h0, dys)
+                                      if prec == "bfloat16" else f32_in)
+                ms_f, (ys_, sv_) = cuda_ms(
+                    lambda: cuda_gru.gru_seq_fwd(g_, w_, b_, h_), 3)
+                ms_b, _ = cuda_ms(lambda: cuda_gru.gru_seq_bwd(
+                    sv_, ys_, w_, h_, d_), 3)
+                res["ms"][prec]["fwd"].append(ms_f)
+                res["ms"][prec]["bwd"].append(ms_b)
+        res["clocks"] = gpu_clocks()
+        b5[f"T{T5}"] = res
+        emit("bf16", stage=f"b5_cbhg_T{T5}_B32_H128", ok=ok and got,
+             tolerance=B5_BF16_TOL, launches_on_resident=got, **res)
+        if not (ok and got):
+            fail(f"B5 bf16 at T {T5}: disagrees or launched elsewhere")
+    out["b5"] = b5
+
+    # ---- the CLI: TF, then AF-offline and AF-online from it ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        tmp = Path(tmp)
+        write_tts_dataset(tmp / "data", 32, 21)
+        work = tmp / "run"
+        work.mkdir()
+
+        def hp(name, *extra, schedule=BF16_TT):
+            p = tmp / f"hp_{name}.py"
+            p.write_text("\n".join([
+                f"data_path = {str(tmp / 'data')!r}",
+                f"tts_model_id = {name!r}", "tts_precision = 'bfloat16'",
+                f"tts_schedule = {schedule!r}", "tts_checkpoint_every = 100",
+                *extra]) + "\n")
+            return p
+
+        def cli(hp_file, *flags):
+            cwd = os.getcwd()
+            os.chdir(work)
+            try:
+                train_tacotron.main(["--hp_file", str(hp_file), *flags])
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+
+        def finished(name, n):
+            ck_dir = work / "checkpoints" / f"{name}.tacotron"
+            recs = [json.loads(ln) for ln in
+                    (ck_dir / "metrics.jsonl").read_text().splitlines()]
+            sess = [r for r in recs if r["event"] == "session"]
+            with np.load(ck_dir / "latest_weights.npz") as z:
+                params = {k: z[k] for k in z.files if k.startswith("params/")}
+                step = int(z["meta/step"])
+            res = {"sessions": [[r["r"], r["step"], r["loss"]] for r in sess],
+                   "nonfinite": sum(r["nonfinite_loss_steps"]
+                                    + r["nonfinite_grad_steps"] for r in sess),
+                   "step": step,
+                   "params_f32": all(v.dtype == np.float32
+                                     for v in params.values()),
+                   "params_finite": all(np.isfinite(v).all()
+                                        for v in params.values())}
+            ok = (step == n and res["nonfinite"] == 0 and res["params_f32"]
+                  and res["params_finite"]
+                  and all(math.isfinite(r["loss"]) for r in sess))
+            return res, ok, ck_dir / "latest_weights.npz"
+
+        paths = {}
+        n_tf, n_af = BF16_TT[-1][2], BF16_AF[-1][2]
+        zero_bf16_counts(ct)
+        t0 = time.perf_counter()
+        cli(hp("bf16_tf"))
+        got = {**bf16_counts(ct), **b5_counts()}
+        res, ok, tf_ckpt = finished("bf16_tf", n_tf)
+        ok &= bf16_launches_ok(got, tf=(n_tf, n_tf, n_tf, n_tf))
+        ok &= b5_on_resident(got, 4 * n_tf, 4 * n_tf)
+        paths["tf"] = got
+        emit("bf16", stage="cli_tf", ok=ok, launches=got,
+             wall_s=time.perf_counter() - t0, **res)
+        if not ok:
+            fail("the bf16 TF CLI run failed a check")
+        # the attention references at r 2 (float32: the exports take no
+        # precision), then both AF modes in bf16 warm-started from the TF run
+        cli(hp("bf16_tf", "tts_precision = 'float32'"), "--force_attn")
+        for tag, extra in (
+                ("offline", ("mode = 'attention_forcing_offline'",
+                             "attn_loss_coeff = 200.0",
+                             "attn_ref_path = 'attn_bf16_tf'")),
+                ("online", ("mode = 'attention_forcing_online'",
+                            f"model_tf_path = {str(tf_ckpt)!r}"))):
+            zero_bf16_counts(ct)
+            t0 = time.perf_counter()
+            cli(hp(f"bf16_af_{tag}", f"tts_init_weights_path = "
+                   f"{str(tf_ckpt)!r}", *extra, schedule=BF16_AF))
+            got = {**bf16_counts(ct), **b5_counts()}
+            res, ok, _ = finished(f"bf16_af_{tag}", n_af)
+            online = tag == "online"
+            # B7 bf16 1 + 1 a step; the online teacher's B6 forward in
+            # float32 once a step; B5 4 + 4 (and 2 teacher forwards)
+            ok &= bf16_launches_ok(
+                got, af=(n_af, n_af, n_af, n_af),
+                tf=(n_af if online else 0, 0, 0, 0))
+            ok &= b5_on_resident(got, (6 if online else 4) * n_af, 4 * n_af)
+            paths[f"af_{tag}"] = got
+            emit("bf16", stage=f"cli_af_{tag}", ok=ok, launches=got,
+                 wall_s=time.perf_counter() - t0, **res)
+            if not ok:
+                fail(f"the bf16 AF-{tag} CLI run failed a check")
+        out["paths"] = paths
+
+        # ---- one full-width bf16 TF step and one AF-offline step ----
+        cfg_tt = Config(tts_train=TacotronTrainConfig(schedule=BF16_TT))
+        batcher, _ = get_tts_datasets(tmp / "data", 32, 7, cfg_tt, seed=3)
+        chars, mel_b, _, _ = next(iter(batcher))
+        xb = torch.from_numpy(chars).to(dev)
+        mb = torch.from_numpy(mel_b).to(dev)
+        model = tt.create_train_state(cfg.tts, 80, 1e-3, 1.0, seed=17,
+                                      device=dev).model
+        gen_m = torch.Generator(device=dev).manual_seed(7)
+        masks = taco.draw_masks(model, xb.shape[0], xb.shape[1],
+                                mb.shape[-1] // 7, gen_m, dev)
+        g_af = torch.Generator(device=dev).manual_seed(8)
+        steps_af = min(mel_b.shape[-1] // 2 * 2, AF_FRAMES)
+        ma = mb[:, :, :steps_af]
+        Ga = steps_af // 2
+        aref = torch.rand(xb.shape[0], Ga, xb.shape[1], device=dev,
+                          generator=g_af) ** 4
+        aref = aref / aref.sum(-1, keepdim=True)
+        masks_af = taco.draw_masks(model, xb.shape[0], xb.shape[1], Ga,
+                                   g_af, dev)
+        steps = {}
+        names = [n_ for n_, _ in model.named_parameters()]
+        for tag, r_, m_, mk, loss_fn in (
+                ("tf", 7, mb, masks, None),
+                ("af_offline", 2, ma, masks_af, aref)):
+            def grads(rec, prec):
+                m = copy.deepcopy(model)
+                if loss_fn is None:
+                    loss, _, g = tt.loss_and_grads(
+                        m, xb, m_, r_, rec, mk, precision=prec)
+                else:
+                    loss, _, _, _, g = tt.loss_and_grads_af(
+                        m, xb, m_, aref, r_, 200.0, True, rec, mk,
+                        precision=prec)
+                torch.cuda.synchronize()
+                return float(loss), g
+            zero_bf16_counts(ct)
+            lk, gk = grads("auto", "bfloat16")
+            got = bf16_counts(ct)
+            ls, gs = grads("scan", "bfloat16")
+            l32, g32 = grads("auto", "float32")
+            res = {"loss_bf16_kernels": lk, "loss_bf16_scan": ls,
+                   "loss_f32_kernels": l32,
+                   "loss_rel_err": abs(lk - ls) / abs(ls),
+                   "cos_bf16_vs_f32": cosine(gk, g32),
+                   "cos_bf16_kernels_vs_scan": cosine(gk, gs),
+                   "cos_bf16_vs_f32_by_module": {
+                       mod: cosine(*zip(*[(a, b) for n_, a, b in zip(
+                           names, gk, g32) if n_.split(".")[0] == mod]))
+                       for mod in dict.fromkeys(
+                           n_.split(".")[0] for n_ in names)},
+                   "grads_f32": all(g.dtype == torch.float32 for g in gk),
+                   "B": xb.shape[0], "T_text": xb.shape[1],
+                   "steps": m_.shape[-1], "r": r_}
+            kid = "tf" if tag == "tf" else "af"
+            ok = (res["loss_rel_err"] <= BF16_LOSS_TOL
+                  and res["cos_bf16_vs_f32"] > BF16_COS
+                  and res["grads_f32"] and math.isfinite(lk)
+                  and bf16_launches_ok(got, **{kid: (1, 1, 1, 1)}))
+            # speed on a resident batch: bf16, f32, f32, bf16 steps
+            speed = {"bfloat16": [], "float32": []}
+            for prec in ("bfloat16", "float32", "float32", "bfloat16"):
+                m2 = copy.deepcopy(model)
+                st_ = tt.TTSTrainState(m2, tt.make_optimizer(m2, 1e-3, 1.0),
+                                       0)
+                gen_s = torch.Generator(device=dev).manual_seed(9)
+
+                def one():
+                    if loss_fn is None:
+                        tt.train_step_tf(st_, xb, m_, r_, generator=gen_s,
+                                         precision=prec)
+                    else:
+                        tt.train_step_af(st_, xb, m_, aref, r_, 200.0, True,
+                                         generator=gen_s, precision=prec)
+                one()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(BF16_SPEED_STEPS):
+                    one()
+                torch.cuda.synchronize()
+                speed[prec].append(BF16_SPEED_STEPS
+                                   / (time.perf_counter() - t0))
+            res["steps_per_s"] = speed
+            res["clocks"] = gpu_clocks()
+            steps[tag] = res
+            emit("bf16", stage=f"step_{tag}", ok=ok, launches=got,
+                 loss_tolerance=BF16_LOSS_TOL, cos_limit=BF16_COS, **res)
+            if not ok:
+                fail(f"the bf16 {tag} step disagrees with the scan or the "
+                     "float32 step")
+        out["steps"] = steps
+
+    # ---- B6 and B7 bf16 against float32 in turns, and their bounds ----
+    turns_ = {}
+    for kind, shape in (("b6", B6_FULL), ("b7", B7_FULL)):
+        i32, w32 = (b6_case if kind == "b6" else b7_case)(*shape, dev, 60)
+        i16, w16 = bf16_case(ct, kind, *shape, dev, 60)
+        fwd = ct.decoder_tf_fwd if kind == "b6" else ct.decoder_af_fwd
+        bwd = ct.decoder_tf_bwd if kind == "b6" else ct.decoder_af_bwd
+        t = {"bfloat16": {"fwd": [], "bwd": []},
+             "float32": {"fwd": [], "bwd": []}, "clocks": [gpu_clocks()]}
+        with torch.no_grad():
+            for prec in ("bfloat16", "float32", "float32", "bfloat16"):
+                ins, w = (i16, w16) if prec == "bfloat16" else (i32, w32)
+                ms_f, (mel, sc, st) = cuda_ms(
+                    lambda: fwd(*ins, w, save=True), 3)
+                g = torch.Generator().manual_seed(61)
+                dmel = torch.randn(mel.shape, generator=g).to(dev)
+                dsc = torch.randn(sc.shape, generator=g).to(dev)
+                ms_b, _ = cuda_ms(lambda: bwd(dmel, dsc, st, sc, *ins, w), 3)
+                t[prec]["fwd"].append(ms_f)
+                t[prec]["bwd"].append(ms_b)
+            t["clocks"].append(gpu_clocks())
+            ref = ct.core_ref if kind == "b6" else ct.core_af_ref
+            refb = ct.core_bwd_ref if kind == "b6" else ct.core_af_bwd_ref
+            t["plain_fwd_ms"], (mel, sc, st) = once_ms(
+                lambda: ref(*i16, *w16, save=True))
+            t["plain_bwd_ms"], _ = once_ms(
+                lambda: refb(dmel.to(mel.dtype), dsc, st, sc, *i16, *w16))
+        B_, T_, G_, r_ = shape
+        if kind == "b6":
+            dims = (G_, B_, T_, 256, 256, 128, 512, r_ * 80)
+            fl_f, by_f = b6_work(*dims, False)
+            fl_b, by_b = b6_work(*dims, True)
+            n_w32 = 12 * 256 + 9 * 512    # the biases
+            f32_f = G_ * B_ * (2 * T_ + 256 + 1) + n_w32
+            f32_b = (f32_f + G_ * B_ * (r_ * 80 + 2 * T_ + 128)
+                     + B_ * T_ * 512)
+        else:
+            dims = (G_, B_, T_, 256, 256, 256, 128, 512, r_ * 80, 80)
+            fl_f, by_f = b7_work(*dims, False)
+            fl_b, by_b = b7_work(*dims, True)
+            n_w32 = 12 * 256 + 9 * 512 + 256 + 128
+            f32_f = G_ * B_ * (2 * T_ + 256 + 1) + n_w32
+            f32_b = (f32_f + G_ * B_ * (r_ * 80 + 3 * T_)
+                     + B_ * T_ * 512)
+        t["fwd_bound_ms"], t["fwd_bound_by"] = bound(
+            fl_f, bf16_bytes(by_f, f32_f), PEAK_F32)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = bound(
+            fl_b, bf16_bytes(by_b, f32_b), PEAK_F32)
+        turns_[kind] = t
+        emit("bf16", stage=f"turns_{kind}", shape=list(shape), nvidia_smi=smi,
+             **t)
+    out["turns"] = turns_
+
+    # ---- the DeepMind coarse/fine WaveRNN on the card against the CPU ----
+    g = torch.Generator().manual_seed(95)
+    cpu = dm.DeepMindWaveRNN(DM_HIDDEN)
+    cpu.reset_parameters(g)
+    for b in (cpu.bias_u, cpu.bias_r, cpu.bias_e):
+        with torch.no_grad():
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+    card = copy.deepcopy(cpu).to(dev)
+    noise = (torch.rand(DM_GEN, 256, generator=g) * (1 - 1e-9) + 1e-9,
+             torch.rand(DM_GEN, 256, generator=g) * (1 - 1e-9) + 1e-9)
+    t0 = time.perf_counter()
+    sig_c, c_c, f_c = card.generate(DM_GEN, noise=noise)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    sig_p, c_p, f_p = cpu.generate(DM_GEN, noise=noise)
+    coarse = torch.randint(0, 256, (4, 65), generator=g)
+    fine = torch.randint(0, 256, (4, 65), generator=g)
+    with torch.no_grad():
+        oc_c, of_c = card.forward_seq(coarse.to(dev), fine.to(dev))
+        oc_p, of_p = cpu.forward_seq(coarse, fine)
+    res = {"generate_labels_equal": bool(torch.equal(c_c.cpu(), c_p)
+                                         and torch.equal(f_c.cpu(), f_p)),
+           "generate_signal_equal": bool(torch.equal(sig_c.cpu(), sig_p)),
+           "generate_s_card": gen_s, "steps": DM_GEN,
+           "forward_seq_rel_err": max(rel_err(oc_c.cpu(), oc_p),
+                                      rel_err(of_c.cpu(), of_p)),
+           "on_card": sig_c.device.type == "cuda", "hidden": DM_HIDDEN}
+    ok = (res["generate_labels_equal"] and res["generate_signal_equal"]
+          and res["forward_seq_rel_err"] <= 1e-4 and res["on_card"])
+    emit("bf16", stage="deepmind", ok=ok, forward_seq_tolerance=1e-4, **res)
+    if not ok:
+        fail("the DeepMind model on the card disagrees with the CPU")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("bf16", stage="summary", ok=True, seconds=out["seconds"])
+    return out
+
+
 def a12_signal(n: int, sr: int, seed: int):
     """A seeded voiced-like float32 signal of ``n`` samples: four harmonics
     of a vibrato'd fundamental (90-300 Hz), a slow amplitude swell and a
@@ -5110,6 +5616,9 @@ def main() -> int:
     # text -> Griffin-Lim wav with its attention png, on the card ----
     phase_a12(cfg, dev, tts)
 
+    # ---- bf16: Tacotron training in bfloat16 on B6, B7 and B5 ----
+    bf16 = phase_bf16(cfg, dev, ct, smi, logs)
+
     # B1, B3 and B4b run on the resident body; their original body's entries
     # keep its times from the resident phase's turns, its errors against
     # the plain versions there, and its launches on the paths: none
@@ -5294,6 +5803,24 @@ def main() -> int:
          "max_abs_err": b7res["legacy_vs_plain"]["bwd_max_abs_err"],
          "ms": min(b7res["turns"]["bwd"]["old"]), "plain_ms": b7_plain,
          "bound_ms": b7b_bound, "bound_by": b7b_by, "library_ms": None},
+        *[{"name": f"taco_{kid}_res_{d}_bf16", "route": "cuda",
+           "source": B6RES_SOURCE if kid == "tf" else B7_SOURCE,
+           "replaces": "wavernn_tpu/ops/pallas_taco_train.py:"
+           + {("tf", "fwd"): "80", ("tf", "bwd"): "350",
+              ("af", "fwd"): "802", ("af", "bwd"): "925"}[kid, d],
+           "launches": sum(p_[f"{kid}_bf16_{d}"]
+                           for p_ in bf16["paths"].values()),
+           "max_abs_err": max(r_[f"{d}_max_abs_err"]
+                              for k_, r_ in bf16["checks"].items()
+                              if k_.startswith(kind)
+                              and f"{d}_max_abs_err" in r_),
+           "ms": min(bf16["turns"][kind]["bfloat16"][d]),
+           "plain_ms": bf16["turns"][kind][f"plain_{d}_ms"],
+           "bound_ms": bf16["turns"][kind][f"{d}_bound_ms"],
+           "bound_by": bf16["turns"][kind][f"{d}_bound_by"],
+           "library_ms": None}
+          for kid, kind in (("tf", "b6"), ("af", "b7"))
+          for d in ("fwd", "bwd")],
         {"name": "sample_loop_resident_sparse", "route": "cuda",
          "source": RES_SOURCE, "replaces": "wavernn_tpu/ops/pallas_gen.py:119",
          "launches": prune["serve_launches"]["sample_loop_resident_sparse"],

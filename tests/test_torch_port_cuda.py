@@ -371,6 +371,47 @@ def test_taco_af_kernels_match_plain(cuda, B, T, G, r, train, legacy):
         assert a.shape == b.shape and _rel(a, b) <= 1e-5, name
 
 
+@pytest.mark.parametrize("kind", ["tf", "af"])
+def test_taco_kernels_bf16_match_plain(cuda, kind):
+    """B6 / B7's bf16 instantiations against their bf16 plain versions at a
+    small shape (chip_smoke's bf16 rule: mel and scores within 2e-2 of
+    their largest entry in 99 % of the entries, every gradient within
+    5e-2); each launch on the bf16 counters; the original body refuses
+    bf16 operands."""
+    bf = torch.bfloat16
+    ins, w = (_b6_inputs if kind == "tf" else _b7_inputs)(5, 33, 7, 2, cuda,
+                                                          True)
+    names = ct.WEIGHTS if kind == "tf" else ct.AF_WEIGHTS
+    ins = tuple(t.to(bf) for t in ins)
+    w = tuple(t if n in ct.BIASES else t.to(bf) for n, t in zip(names, w))
+    wrap = ct.decoder_tf if kind == "tf" else ct.decoder_af
+    fwd = ct.decoder_tf_fwd if kind == "tf" else ct.decoder_af_fwd
+    bwd = ct.decoder_tf_bwd if kind == "tf" else ct.decoder_af_bwd
+    ref = ct.core_ref if kind == "tf" else ct.core_af_ref
+    refb = ct.core_bwd_ref if kind == "tf" else ct.core_af_bwd_ref
+    n16 = (wrap.bf16_fwd_launches, wrap.bf16_bwd_launches)
+    with torch.no_grad():
+        mel, sc, st = fwd(*ins, w, save=True)
+        mel_p, sc_p, _ = ref(*ins, *w, save=True)
+        for a, b in ((mel, mel_p), (sc, sc_p)):
+            err = (a.float() - b.float()).abs()
+            assert float((err <= 2e-2 * b.float().abs().max()).float()
+                         .mean()) >= 0.99
+        gen = torch.Generator().manual_seed(1)
+        dmel = torch.randn(mel.shape, generator=gen).to(cuda)
+        dsc = torch.randn(sc.shape, generator=gen).to(cuda)
+        got = bwd(dmel, dsc, st, sc, *ins, w)
+        want = refb(dmel, dsc, st, sc, *ins, *w)
+        torch.cuda.synchronize()
+    assert mel.dtype == bf and sc.dtype == torch.float32
+    assert (wrap.bf16_fwd_launches, wrap.bf16_bwd_launches) == (n16[0] + 1,
+                                                                n16[1] + 1)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and _rel(a.float(), b.float()) <= 5e-2
+    with pytest.raises(ValueError, match="float32"):
+        fwd(*ins, w, save=True, _legacy=True)
+
+
 def test_taco_af_crossed_streams(cuda):
     """A forward of either B7 body feeds a backward of the other: the
     resident forward's streams into the original backward and the

@@ -196,6 +196,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or n.startswith(('jax.', 'wavernn_tpu.'))\n"
         "             or n == 'wavernn_tpu')\n"
         "assert 'wavernn_tpu_torch.cli.quick_start' in sys.modules\n"
+        "assert 'wavernn_tpu_torch.models.deepmind' in sys.modules\n"
+        "assert 'wavernn_tpu_torch.utils.backend' in sys.modules\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-I", "-c", code], env=env,

@@ -150,6 +150,23 @@ def tacotron_state_dict(flat, stop_threshold: float, step: int = 0,
     return sd
 
 
+def deepmind_state_dict(flat) -> Dict[str, torch.Tensor]:
+    """The DeepMind coarse/fine WaveRNN's state dict
+    (``models/deepmind.DeepMindWaveRNN``) from the JAX package's
+    ``init_deepmind`` parameters: R, O1-O4, I_coarse, I_fine and the three
+    gate biases. Raises on a missing or an unused key."""
+    f = _Flat(flat)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("R", "I_coarse", "I_fine"):
+        _lin(sd, name, f, name, bias=False)
+    for name in ("O1", "O2", "O3", "O4"):
+        _lin(sd, name, f, name)
+    for name in ("bias_u", "bias_r", "bias_e"):
+        sd[name] = _t(f[name])
+    f.check_all_used()
+    return sd
+
+
 def state_dict_from_jax(flat, cfg: Config, step: int = 0,
                         r: int = 1) -> Dict[str, torch.Tensor]:
     """The port's state dict for a flat JAX parameter dict of either model

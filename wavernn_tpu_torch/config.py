@@ -169,7 +169,9 @@ class TacotronTrainConfig:
     bin_lengths: bool = True
     clip_grad_norm: Optional[float] = 1.0
     checkpoint_every: int = 2_000
-    # bfloat16 Tacotron training is not ported yet (ROADMAP A8)
+    # "bfloat16": mixed precision (float32 master weights, optimizer state,
+    # BatchNorm statistics, losses and attention normalisation; bfloat16
+    # activations, streams and matmul operands on B5, B6 and B7)
     precision: str = "float32"
     # the decoder recurrence (kernel B6) and the CBHG BiGRUs (kernel B5):
     # "auto" and "pallas" run the kernels on CUDA tensors (their plain
@@ -186,11 +188,6 @@ class TacotronTrainConfig:
             raise ValueError(
                 f"precision must be one of {_PRECISIONS}, got "
                 f"{self.precision!r}")
-        if self.precision != "float32":
-            raise NotImplementedError(
-                "tts_precision='bfloat16' is not ported to the PyTorch "
-                "package yet (ROADMAP A8: bf16 Tacotron training); use "
-                "'float32'")
         if self.recurrence not in ("auto", "scan", "pallas"):
             raise ValueError(
                 f"recurrence must be auto/scan/pallas, got {self.recurrence!r}")

@@ -87,23 +87,29 @@ using res::u64;
 // C[m, n] = (acc ? C[m, n] : 0) + bias[n] + sum_k A[m sam + k sak] W[n swn
 // + k swk] (bias may be null): 64 x 64 tiles, 16 values of k a pass through
 // shared memory, each thread a 4 x 4 block, a fixed order.
-struct Gemm {
-  const float* A;
+// (SA, SW, SC: the operands' and the product's storage types; float, or
+// bf16 for the bf16 instantiations' weights and streams.)
+template <typename SA, typename SW, typename SC>
+struct GemmT {
+  const SA* A;
   int64_t sam, sak;
-  const float* W;
+  const SW* W;
   int64_t swn, swk;
   const float* bias;
-  float* C;
+  SC* C;
   int64_t ldc, M, N, K, acc;
 };
+using Gemm = GemmT<float, float, float>;
 
-__device__ __forceinline__ int64_t gemm_tiles(const Gemm& g) {
+template <typename G_>
+__device__ __forceinline__ int64_t gemm_tiles(const G_& g) {
   return g.M > 0 && g.N > 0 ? ((g.M + 63) / 64) * ((g.N + 63) / 64) : 0;
 }
 
 // One tile (sm: 2 x 16 x 64 floats). Operands read through L2: other blocks
 // may have written them in this launch.
-__device__ __forceinline__ void gemm_tile(const Gemm& g, int64_t tile, float* sm) {
+template <typename G_>
+__device__ __forceinline__ void gemm_tile(const G_& g, int64_t tile, float* sm) {
   float* As = sm;             // [16][64]
   float* Ws = sm + 16 * 64;   // [16][64]
   const int64_t tn = (g.N + 63) / 64;
@@ -120,10 +126,10 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int64_t tile, float* sm
       // the faster index on the operand's unit stride
       const int ka = g.sak == 1 ? (e & 15) : (e >> 6), ma = g.sak == 1 ? (e >> 4) : (e & 63);
       const int64_t m = m0 + ma, k = k0 + ka;
-      As[ka * 64 + ma] = (m < g.M && k < g.K) ? __ldcg(g.A + m * g.sam + k * g.sak) : 0.f;
+      As[ka * 64 + ma] = (m < g.M && k < g.K) ? ldcgv(g.A + m * g.sam + k * g.sak) : 0.f;
       const int kw = g.swk == 1 ? (e & 15) : (e >> 6), nw = g.swk == 1 ? (e >> 4) : (e & 63);
       const int64_t n = n0 + nw, k2 = k0 + kw;
-      Ws[kw * 64 + nw] = (n < g.N && k2 < g.K) ? __ldcg(g.W + n * g.swn + k2 * g.swk) : 0.f;
+      Ws[kw * 64 + nw] = (n < g.N && k2 < g.K) ? ldcgv(g.W + n * g.swn + k2 * g.swk) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -148,15 +154,16 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int64_t tile, float* sm
       if (m < g.M && n < g.N) {
         float v = acc[i][j];
         if (g.bias) v += g.bias[n];
-        float* c = g.C + m * g.ldc + n;
-        *c = g.acc ? __ldcg(c) + v : v;
+        auto* c = g.C + m * g.ldc + n;
+        stv(c, g.acc ? ldcgv(c) + v : v);
       }
     }
   }
 }
 
 // Two products' tiles over the grid, block k taking tiles k, k + grid, ...
-__device__ __forceinline__ void gemm2(const Gemm& g1, const Gemm& g2, int nblk, float* sm) {
+template <typename G1, typename G2>
+__device__ __forceinline__ void gemm2(const G1& g1, const G2& g2, int nblk, float* sm) {
   const int64_t t1 = gemm_tiles(g1), t2 = gemm_tiles(g2);
   for (int64_t t = blockIdx.x; t < t1 + t2; t += nblk) {
     if (t < t1)
@@ -201,6 +208,9 @@ __device__ __forceinline__ bool last_of_utterance(unsigned* cnt, int nc, int rou
 // forward
 // ---------------------------------------------------------------------------
 
+// (S as in fwd: the bf16 instantiation keeps x2 of every group in floats
+// for the mel product, beside the bf16 s_x2 stream.)
+template <typename S>
 struct TWork {
   float *ah[2], *h1[2], *c1[2], *h2[2], *c2[2], *x0, *x1, *q, *ctx, *cum, *sig;
   float *pdiv, *pctx, *gpre, *x2all;
@@ -219,7 +229,7 @@ struct TWork {
     q = take(B * a.D); ctx = take(B * a.E); cum = take(B * a.T); sig = take(B * a.T);
     pdiv = take(B * p.nc); pctx = take(B * p.nc * a.E);
     gpre = take(a.G * B * 3 * a.D);
-    x2all = a.save ? nullptr : take(a.G * B * a.L);
+    x2all = a.save && std::is_same<S, float>::value ? nullptr : take(a.G * B * a.L);
     cnt = reinterpret_cast<unsigned*>(take(B));
     bar = reinterpret_cast<u64*>(take(4));
     size = take.size;
@@ -228,9 +238,10 @@ struct TWork {
 
 // lsa_args (taco_train.cu) with the item's encp values of unit d already
 // in registers (ep[tt], positions t0 + tt): the same sums.
+template <typename W>
 __device__ __forceinline__ void lsa_args_pre(float (&arg)[TC], const float (&ep)[TC], int tc,
                                              int d, int D, float qd, const float* cumw,
-                                             const float* attw, const float* w01t) {
+                                             const float* attw, const W* w01t) {
 #pragma unroll
   for (int h = 0; h < TC / TH; ++h) {
     const int tb = h * TH;
@@ -244,7 +255,7 @@ __device__ __forceinline__ void lsa_args_pre(float (&arg)[TC], const float (&ep)
     for (int j = 0; j < TH; ++j) loc[j] = 0.f;
 #pragma unroll
     for (int k = 0; k < CONV_K; ++k) {
-      const float w0 = w01t[k * D + d], w1 = w01t[(CONV_K + k) * D + d];
+      const float w0 = ldv(w01t + (k * D + d)), w1 = ldv(w01t + ((CONV_K + k) * D + d));
 #pragma unroll
       for (int j = 0; j < TH; ++j) {
         loc[j] = fmaf(w0, cw[j + k], loc[j]);
@@ -269,8 +280,13 @@ enum TFItemProf { TF_I_WINDOWS = 16, TF_I_ENERGIES, TF_I_PARTIALS, TF_I_REDUCTIO
 // context sum_t sig_t enc_t. The utterance's last item to arrive sums the
 // partials in item order: the normaliser, ctx_g = sum / div, the scores of
 // g and the cumulative entering g + 1.
-__device__ __forceinline__ void att_item(const TfFwdArgs& a, const TWork& w, const float* s_w01t,
+// (bf16: the scores are rounded to bf16 before the cumulative and the
+// context take them, so the last item forms ctx_g = sum_t s_t enc_t itself
+// from the rounded scores, and the items form no partial contexts.)
+template <typename S>
+__device__ __forceinline__ void att_item(const TfFwdArgs& a, const TWork<S>& w, const S* s_w01t,
                                          float* sc, int nc, int b, int c, int g, long long* sub) {
+  constexpr bool BF = !std::is_same<S, float>::value;
   const int B = (int)a.B, T = (int)a.T, D = (int)a.D, E = (int)a.E;
   const int t0 = c * TC, tc = min(TC, T - t0);
   const bool save = a.save != 0;
@@ -285,11 +301,11 @@ __device__ __forceinline__ void att_item(const TfFwdArgs& a, const TWork& w, con
   const int d = threadIdx.x;
   const bool unit = d < D;
   const float qd = unit ? __ldcg(w.q + (size_t)b * D + d) : 0.f;
-  const float vd = unit ? a.v[d] : 0.f;
+  const float vd = unit ? ldv(cs<S>(a.v) + d) : 0.f;
   float ep[TC];
 #pragma unroll
   for (int tt = 0; tt < TC; ++tt)
-    ep[tt] = unit && tt < tc ? a.encp[((size_t)b * T + t0 + tt) * D + d] : 0.f;
+    ep[tt] = unit && tt < tc ? ldv(cs<S>(a.encp) + (((size_t)b * T + t0 + tt) * D + d)) : 0.f;
   __syncthreads();
   if (threadIdx.x < res::WINP) {
     const int j = threadIdx.x, t = t0 - CONV_HALF + j;
@@ -321,11 +337,13 @@ __device__ __forceinline__ void att_item(const TfFwdArgs& a, const TWork& w, con
     for (int tt = 0; tt < tc; ++tt) s += su[tt];
     w.pdiv[(size_t)b * nc + c] = s;
   }
-  const float* en = a.enc + ((size_t)b * T + t0) * E;
-  for (int e = threadIdx.x; e < E; e += THREADS) {
-    float s = 0.f;
-    for (int tt = 0; tt < tc; ++tt) s = fmaf(su[tt], __ldg(en + (size_t)tt * E + e), s);
-    w.pctx[((size_t)b * nc + c) * E + e] = s;
+  if constexpr (!BF) {
+    const float* en = a.enc + ((size_t)b * T + t0) * E;
+    for (int e = threadIdx.x; e < E; e += THREADS) {
+      float s = 0.f;
+      for (int tt = 0; tt < tc; ++tt) s = fmaf(su[tt], __ldg(en + (size_t)tt * E + e), s);
+      w.pctx[((size_t)b * nc + c) * E + e] = s;
+    }
   }
   const bool last = last_of_utterance(w.cnt + b, nc, g, misc + 1);
   ps.stamp(TF_I_PARTIALS);
@@ -339,53 +357,76 @@ __device__ __forceinline__ void att_item(const TfFwdArgs& a, const TWork& w, con
   }
   __syncthreads();
   const float div = misc[0], dv = div > 0.f ? div : 1.f;
-  for (int e = threadIdx.x; e < E; e += THREADS) {
-    const float cx = strided_sum(w.pctx + (size_t)b * nc * E + e, nc, (size_t)E) / dv;
-    w.ctx[(size_t)b * E + e] = cx;
-    if (save) a.s_ctx[((size_t)g * B + b) * E + e] = cx;
-  }
-  for (int t = threadIdx.x; t < T; t += THREADS) {
-    const float s = __ldcg(w.sig + (size_t)b * T + t) / dv;
-    a.scores[((size_t)g * B + b) * T + t] = s;
-    w.cum[(size_t)b * T + t] = __ldcg(w.cum + (size_t)b * T + t) + s;
+  if constexpr (BF) {
+    float* srow = a.scores + ((size_t)g * B + b) * T;
+    for (int t = threadIdx.x; t < T; t += THREADS) {
+      const float s = rnd<S>(__ldcg(w.sig + (size_t)b * T + t) / dv);
+      srow[t] = s;
+      w.cum[(size_t)b * T + t] = __ldcg(w.cum + (size_t)b * T + t) + s;
+    }
+    __syncthreads();
+    const S* en = cs<S>(a.enc) + (size_t)b * T * E;
+    for (int e = threadIdx.x; e < E; e += THREADS) {
+      float cx = 0.f;
+      for (int t = 0; t < T; ++t) cx = fmaf(__ldcg(srow + t), ldgv(en + (size_t)t * E + e), cx);
+      cx = rnd<S>(cx);
+      w.ctx[(size_t)b * E + e] = cx;
+      if (save) stv(ms<S>(a.s_ctx) + ((size_t)g * B + b) * E + e, cx);
+    }
+  } else {
+    for (int e = threadIdx.x; e < E; e += THREADS) {
+      const float cx = strided_sum(w.pctx + (size_t)b * nc * E + e, nc, (size_t)E) / dv;
+      w.ctx[(size_t)b * E + e] = cx;
+      if (save) a.s_ctx[((size_t)g * B + b) * E + e] = cx;
+    }
+    for (int t = threadIdx.x; t < T; t += THREADS) {
+      const float s = __ldcg(w.sig + (size_t)b * T + t) / dv;
+      a.scores[((size_t)g * B + b) * T + t] = s;
+      w.cum[(size_t)b * T + t] = __ldcg(w.cum + (size_t)b * T + t) + s;
+    }
   }
   if (threadIdx.x == 0 && save) a.s_div[(size_t)g * B + b] = div;
   ps.stamp(TF_I_REDUCTION);
 }
 
 
-template <bool PROF>
+// S: the storage type of the weights, the streams, the saved states and the
+// mel (float, or bf16 in taco_tf_res_*_bf16); rnd<S> rounds where the JAX
+// kernel rounds to its compute dtype (ah, the scores, ctx, x0, c, h, x1,
+// x2, the mel).
+template <bool PROF, typename S>
 __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long long* prof_out) {
+  constexpr bool BF = !std::is_same<S, float>::value;
   const int G = (int)a.G, B = (int)a.B, E = (int)a.E, D = (int)a.D;
   const int P2 = (int)a.P2, L = (int)a.L, F = (int)a.F;
   const int nblk = (int)p.nblk, nc = (int)p.nc, ipb = (int)p.ipb;
   const bool save = a.save != 0;
   const int lane = threadIdx.x & 31;
-  TWork wk(a.work, a, p);
+  TWork<S> wk(a.work, a, p);
   Bar bar{wk.bar, (u64)nblk, 0};
   Prof pf;
   pf.start(PROF ? prof_out : nullptr);
 
   extern __shared__ float smem[];
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
-  float* s_w01t = smem + p.off_w01t;
+  S* s_w01t = ms<S>(smem + p.off_w01t);
   float* s_att = smem + p.off_att;
   float* X = smem + p.off_x;
-  float* s_l1 = smem + p.off_l1;
-  float* s_l2 = smem + p.off_l2;
-  float* x2all = save ? a.s_x2 : wk.x2all;
+  S* s_l1 = ms<S>(smem + p.off_l1);
+  S* s_l2 = ms<S>(smem + p.off_l2);
+  float* x2all = save && !BF ? a.s_x2 : wk.x2all;
 
   // ---- prologue: the GRU's input product on pre for every group (shared
   // memory as the tiles' scratch), then the resident LSTM rows, the
   // location weight
   {
-    const Gemm pre{a.pre, P2, 1, a.awi + E, E + P2, 1, a.abi, wk.gpre, 3 * D,
-                   (int64_t)G * B, 3 * D, P2, 0};
-    const Gemm none{nullptr, 0, 0, nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0};
+    const GemmT<S, S, float> pre{cs<S>(a.pre), P2, 1, cs<S>(a.awi) + E, E + P2, 1, a.abi,
+                                 wk.gpre, 3 * D, (int64_t)G * B, 3 * D, P2, 0};
+    const GemmT<S, S, float> none{nullptr, 0, 0, nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0};
     gemm2(pre, none, nblk, smem + 4);
   }
   const int mine_l = (int)blockIdx.x < L ? (L - 1 - (int)blockIdx.x) / nblk + 1 : 0;
-  const uint32_t row_bytes = (uint32_t)L * 4;
+  const uint32_t row_bytes = (uint32_t)L * (uint32_t)sizeof(S);
   const uint32_t res_bytes = (uint32_t)((p.res_l1 + p.res_l2) * mine_l * 8) * row_bytes;
   if (threadIdx.x == 0) {
     res::mbar_init(mbar, 1);
@@ -396,20 +437,20 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
     res::mbar_expect_tx(mbar, res_bytes);
     for (int layer = 0; layer < 2; ++layer) {
       if (!(layer == 0 ? p.res_l1 : p.res_l2)) continue;
-      const float* wi = layer == 0 ? a.l1wi : a.l2wi;
-      const float* wh = layer == 0 ? a.l1wh : a.l2wh;
-      float* dst = layer == 0 ? s_l1 : s_l2;
+      const S* wi = cs<S>(layer == 0 ? a.l1wi : a.l2wi);
+      const S* wh = cs<S>(layer == 0 ? a.l1wh : a.l2wh);
+      S* dst = layer == 0 ? s_l1 : s_l2;
       for (int m = 0; m < mine_l; ++m) {
         const int j = (int)blockIdx.x + m * nblk;
         for (int g4 = 0; g4 < 4; ++g4) {
-          float* row = dst + ((size_t)m * 4 + g4) * 2 * L;
+          S* row = dst + ((size_t)m * 4 + g4) * 2 * L;
           res::bulk_g2s(row, wi + ((size_t)g4 * L + j) * L, row_bytes, mbar);
           res::bulk_g2s(row + L, wh + ((size_t)g4 * L + j) * L, row_bytes, mbar);
         }
       }
     }
   }
-  for (int e = threadIdx.x; e < NTAP * D; e += THREADS) s_w01t[e] = a.w01t[e];
+  for (int e = threadIdx.x; e < NTAP * D; e += THREADS) s_w01t[e] = cs<S>(a.w01t)[e];
   if (res_bytes) res::mbar_wait(mbar, 0);
   __syncthreads();
   bar.sync();
@@ -419,28 +460,28 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
   auto lstm = [&](int layer, int gl) {
     const size_t gb = (size_t)gl * B;
     const int in = (gl + 1) & 1, out = gl & 1;
-    const float* wi = layer == 0 ? a.l1wi : a.l2wi;
-    const float* wh = layer == 0 ? a.l1wh : a.l2wh;
-    const float* sw = layer == 0 ? s_l1 : s_l2;
+    const S* wi = cs<S>(layer == 0 ? a.l1wi : a.l2wi);
+    const S* wh = cs<S>(layer == 0 ? a.l1wh : a.l2wh);
+    const S* sw = layer == 0 ? s_l1 : s_l2;
     const bool resident = (layer == 0 ? p.res_l1 : p.res_l2) != 0;
     const float* bias = layer == 0 ? a.l1b : a.l2b;
-    const float* zm = (layer == 0 ? a.zm1 : a.zm2) + gb * L;
+    const S* zm = cs<S>(layer == 0 ? a.zm1 : a.zm2) + gb * L;
     const float* xin = layer == 0 ? wk.x0 : wk.x1;
     float* xout = layer == 0 ? wk.x1 : x2all + gb * L;
     const float* h_cur = layer == 0 ? pair_at(wk.h1, in) : pair_at(wk.h2, in);
     const float* c_cur = layer == 0 ? pair_at(wk.c1, in) : pair_at(wk.c2, in);
     float* h_nxt = layer == 0 ? pair_at(wk.h1, out) : pair_at(wk.h2, out);
     float* c_nxt = layer == 0 ? pair_at(wk.c1, out) : pair_at(wk.c2, out);
-    float* s_gates = layer == 0 ? a.s_g1 : a.s_g2;
-    float* s_c = layer == 0 ? a.s_c1 : a.s_c2;
-    float* s_h = layer == 0 ? a.s_h1 : a.s_h2;
+    S* s_gates = ms<S>(layer == 0 ? a.s_g1 : a.s_g2);
+    S* s_c = ms<S>(layer == 0 ? a.s_c1 : a.s_c2);
+    S* s_h = ms<S>(layer == 0 ? a.s_h1 : a.s_h2);
     const Seg segs[2] = {{xin, L, L}, {h_cur, L, L}};
     res::kstage<4, 1, 2>(
         p, X, B, L, segs, 2,
         [&](float(&acc)[1][4][RB], int j, int m, const float* Xt, int kcs, int c0, int c1,
             int nr) {
           if (resident) {
-            const float* rows = sw + (size_t)m * 4 * 2 * L;
+            const S* rows = sw + (size_t)m * 4 * 2 * L;
             res::kdots<4, true>(acc[0], rows, 2 * (size_t)L, L, 0, Xt, kcs, c0, c1, nr);
             res::kdots<4, true>(acc[0], rows + L, 2 * (size_t)L, L, L, Xt, kcs, c0, c1, nr);
           } else {
@@ -458,24 +499,26 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
             const float fg = sigm(pick(acc[0][1], lane) + bias[L + j]);
             const float gg = tanhf(pick(acc[0][2], lane) + bias[2 * L + j]);
             const float og = sigm(pick(acc[0][3], lane) + bias[3 * L + j]);
-            const float c = fg * __ldcg(c_cur + o) + ig * gg;
+            const float c = rnd<S>(fg * __ldcg(c_cur + o) + ig * gg);
             const float hp = __ldcg(h_cur + o);
-            const float zz = zm[o];
-            const float h = zz * hp + (1.f - zz) * (og * tanhf(c));
-            const float xv = __ldcg(xin + o) + h;
+            const float zz = ldv(zm + o);
+            const float h = rnd<S>(zz * hp + (1.f - zz) * (og * tanhf(c)));
+            const float xv = rnd<S>(__ldcg(xin + o) + h);
             c_nxt[o] = c;
             h_nxt[o] = h;
             xout[o] = xv;
             if (save) {
               const size_t so = (gb + b) * L + j;
-              float* sg = s_gates + (gb + b) * 4 * L;
-              sg[j] = ig;
-              sg[L + j] = fg;
-              sg[2 * L + j] = gg;
-              sg[3 * L + j] = og;
-              s_c[so] = c;
-              s_h[so] = h;
-              if (layer == 0) a.s_x1[so] = xv;
+              S* sg = s_gates + (gb + b) * 4 * L;
+              stv(sg + j, ig);
+              stv(sg + (L + j), fg);
+              stv(sg + (2 * L + j), gg);
+              stv(sg + (3 * L + j), og);
+              stv(s_c + so, c);
+              stv(s_h + so, h);
+              if (layer == 0) stv(ms<S>(a.s_x1) + so, xv);
+              if constexpr (BF)
+                if (layer == 1) stv(ms<S>(a.s_x2) + so, xv);
             }
           }
         });
@@ -492,10 +535,10 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
           p, X, B, D, segs1, 2,
           [&](float(&acc)[2][3][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<3, false>(acc[0], a.awi + (size_t)j * (E + P2), (size_t)D * (E + P2), E, 0,
-                                 Xt, kcs, c0, c1, nr);
-            res::kdots<3, false>(acc[1], a.awh + (size_t)j * D, (size_t)D * D, D, E, Xt, kcs, c0,
-                                 c1, nr);
+            res::kdots<3, false>(acc[0], cs<S>(a.awi) + (size_t)j * (E + P2),
+                                 (size_t)D * (E + P2), E, 0, Xt, kcs, c0, c1, nr);
+            res::kdots<3, false>(acc[1], cs<S>(a.awh) + (size_t)j * D, (size_t)D * D, D, E, Xt,
+                                 kcs, c0, c1, nr);
           },
           [&](float(&acc)[2][3][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
@@ -510,15 +553,15 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
               const float hn = pick(gh[2], lane) + a.abh[2 * D + j];
               const float n = tanhf((pick(gi[2], lane) + __ldcg(gp + 2 * D + j)) + r * hn);
               const float hp = __ldcg(pair_at(wk.ah, in) + (size_t)b * D + j);
-              const float h = (1.f - z) * n + z * hp;
+              const float h = rnd<S>((1.f - z) * n + z * hp);
               pair_at(wk.ah, out)[(size_t)b * D + j] = h;
               if (save) {
-                a.s_ah[(gb + b) * D + j] = h;
-                float* s = a.s_gru + (gb + b) * 4 * D;
-                s[j] = r;
-                s[D + j] = z;
-                s[2 * D + j] = n;
-                s[3 * D + j] = hn;
+                stv(ms<S>(a.s_ah) + ((gb + b) * D + j), h);
+                S* s = ms<S>(a.s_gru) + (gb + b) * 4 * D;
+                stv(s + j, r);
+                stv(s + (D + j), z);
+                stv(s + (2 * D + j), n);
+                stv(s + (3 * D + j), hn);
               }
             }
           });
@@ -530,15 +573,15 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
           p, X, B, L, segs1, 2,
           [&](float(&acc)[1][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.wr + (size_t)u * (E + D), 0, E + D, 0, Xt, kcs, c0, c1,
-                                 nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.wr) + (size_t)u * (E + D), 0, E + D, 0, Xt, kcs,
+                                 c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int u, int, int b0, int nr) {
             if (lane < nr) {
               const int b = b0 + lane;
-              const float x0 = pick(acc[0][0], lane) + a.br[u];
+              const float x0 = rnd<S>(pick(acc[0][0], lane) + a.br[u]);
               wk.x0[(size_t)b * L + u] = x0;
-              if (save) a.s_x0[(gp + b) * L + u] = x0;
+              if (save) stv(ms<S>(a.s_x0) + ((gp + b) * L + u), x0);
             }
           });
     }
@@ -552,7 +595,8 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
           p, X, B, D, segs, 1,
           [&](float(&acc)[1][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.wq + (size_t)u * D, 0, D, 0, Xt, kcs, c0, c1, nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.wq) + (size_t)u * D, 0, D, 0, Xt, kcs, c0, c1,
+                                 nr);
           },
           [&](float(&acc)[1][1][RB], int u, int, int b0, int nr) {
             if (lane < nr) {
@@ -584,8 +628,9 @@ __device__ __forceinline__ void fwd(const TfFwdArgs& a, const ResPlan& p, long l
   }
   // ---- epilogue: mel = x2 wm^T for every group ----
   {
-    const Gemm mel{x2all, L, 1, a.wm, L, 1, nullptr, a.mel, F, (int64_t)G * B, F, L, 0};
-    const Gemm none{nullptr, 0, 0, nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0};
+    const GemmT<float, S, S> mel{x2all, L, 1, cs<S>(a.wm), L, 1, nullptr, ms<S>(a.mel), F,
+                                 (int64_t)G * B, F, L, 0};
+    const GemmT<float, S, S> none{nullptr, 0, 0, nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0};
     gemm2(mel, none, nblk, smem + 4);
   }
   pf.stamp(TF_MEL);
@@ -628,6 +673,7 @@ struct TBWork {
 // enc_t, d(gi) of group g + 1 against enc_t awi[:, :E]^T), then B7's phase
 // A: d(scores) from the scores' cotangent, the carries and the location
 // conv's input cotangents of group g + 1, and the partial of S.
+template <typename S>
 __device__ __forceinline__ void att_a(const TfBwdArgs& a, const TBWork& wk, float* sc, int G,
                                       int nc, int b, int c, int g, long long* sub) {
   const res::BWork& w = wk.w;
@@ -676,9 +722,8 @@ __device__ __forceinline__ void att_a(const TfBwdArgs& a, const TBWork& wk, floa
 #pragma unroll
     for (int i = 0; i < RE; ++i) {
       const int e = lane + 32 * i;
-      xe[h][i] = fits && tt < tc && e < E / 4
-                     ? __ldg(reinterpret_cast<const float4*>(a.enc + bt * E) + e)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      xe[h][i] = fits && tt < tc && e < E / 4 ? ldg4i(cs<S>(a.enc) + bt * E, e)
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int i = 0; i < RK; ++i) {
@@ -727,10 +772,10 @@ __device__ __forceinline__ void att_a(const TfBwdArgs& a, const TBWork& wk, floa
     for (int tt = warp; tt < tc; tt += WARPS) {
       const size_t bt = (size_t)b * T + t0 + tt;
       float acc = 0.f;
-      const float4* er = reinterpret_cast<const float4*>(a.enc + bt * E);
+      const S* er = cs<S>(a.enc) + bt * E;
 #pragma unroll 4
       for (int e = lane; e < E / 4; e += 32) {
-        const float4 x = __ldg(er + e), y = rc[e];
+        const float4 x = ldg4i(er, e), y = rc[e];
         acc = fmaf(y.x, x.x, fmaf(y.y, x.y, fmaf(y.z, x.z, fmaf(y.w, x.w, acc))));
       }
       if (nxt) {
@@ -771,8 +816,9 @@ __device__ __forceinline__ void att_a(const TfBwdArgs& a, const TBWork& wk, floa
 // units at a time, eight taps at a time reduced by reduce_scatter8), then
 // dcl[j] / dal[j] = sum over tt + k = j of P[tt][k] for the cumulative's /
 // the attention's taps (positions t0 - 15 + j, j < 46). All threads.
+template <typename W>
 __device__ __forceinline__ void loc_grads4(const float (&dp)[TC], int d, bool unit, int D,
-                                           const float* w01t, float* s_dp, float* P, float* dcl,
+                                           const W* w01t, float* s_dp, float* P, float* dcl,
                                            float* dal) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, D4 = D / 4;
   if (unit) {
@@ -791,9 +837,8 @@ __device__ __forceinline__ void loc_grads4(const float (&dp)[TC], int d, bool un
         const float4 x0 = p0[dd], x1 = p1[dd];
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
-          const float4 wv = k0 + u < NTAP
-                                ? reinterpret_cast<const float4*>(w01t + (k0 + u) * D)[dd]
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 wv =
+              k0 + u < NTAP ? ld4i(w01t + (k0 + u) * D, dd) : make_float4(0.f, 0.f, 0.f, 0.f);
           v0[u] = fmaf(x0.x, wv.x, fmaf(x0.y, wv.y, fmaf(x0.z, wv.z, fmaf(x0.w, wv.w, v0[u]))));
           v1[u] = fmaf(x1.x, wv.x, fmaf(x1.y, wv.y, fmaf(x1.z, wv.z, fmaf(x1.w, wv.w, v1[u]))));
         }
@@ -832,7 +877,8 @@ __device__ __forceinline__ void loc_grads4(const float (&dp)[TC], int d, bool un
 // in the original's order; 80 16-byte shared loads in place of about a
 // thousand 4-byte ones) and the conv's input cotangents by loc_grads4. The
 // utterance's last item to arrive sums d(q) in item order into c_dq.
-__device__ __forceinline__ void att_b(const TfBwdArgs& a, const TBWork& wk, const float* s_w01t,
+template <typename ST>
+__device__ __forceinline__ void att_b(const TfBwdArgs& a, const TBWork& wk, const ST* s_w01t,
                                       float* s_gw, float* s_pv, float* sc, int G, int nc, int b,
                                       int c, int g, long long* sub) {
   const res::BWork& w = wk.w;
@@ -856,13 +902,13 @@ __device__ __forceinline__ void att_b(const TfBwdArgs& a, const TBWork& wk, cons
   const int d = threadIdx.x;
   const bool unit = d < D;
   const float div = a.s_div[gbb];
-  const float qd = unit ? a.s_q[gbb * D + d] : 0.f, vd = unit ? a.v[d] : 0.f;
+  const float qd = unit ? a.s_q[gbb * D + d] : 0.f, vd = unit ? ldv(cs<ST>(a.v) + d) : 0.f;
   const float ds = threadIdx.x < tc ? __ldcg(w.dsb + (size_t)b * T + t0 + threadIdx.x) : 0.f;
   float ep[TC], old[TC];
   float* dencp_b = a.dencp + ((size_t)b * T + t0) * D + d;
 #pragma unroll
   for (int tt = 0; tt < TC; ++tt) {
-    ep[tt] = unit && tt < tc ? a.encp[((size_t)b * T + t0 + tt) * D + d] : 0.f;
+    ep[tt] = unit && tt < tc ? ldv(cs<ST>(a.encp) + (((size_t)b * T + t0 + tt) * D + d)) : 0.f;
     old[tt] = unit && tt < tc ? __ldcg(dencp_b + (size_t)tt * D) : 0.f;
   }
   // the windows and S's partials (phase A's, one an item) likewise
@@ -1025,7 +1071,9 @@ __device__ __forceinline__ void denc_product(const TfBwdArgs& a, const res::BWor
 }
 
 
-template <bool PROF>
+// S as in fwd: the weights, the streams and the masks are read as S; every
+// cotangent and gradient stays float.
+template <bool PROF, typename S>
 __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long long* prof_out) {
   const int G = (int)a.G, B = (int)a.B, E = (int)a.E, D = (int)a.D;
   const int P2 = (int)a.P2, L = (int)a.L, F = (int)a.F;
@@ -1038,7 +1086,7 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
   pf.start(PROF ? prof_out : nullptr);
 
   extern __shared__ float smem[];
-  float* s_w01t = smem + p.off_w01t;
+  S* s_w01t = ms<S>(smem + p.off_w01t);
   float* s_att = smem + p.off_att;
   float* X = smem + p.off_x;
   float* s_gw = p.gw_global ? a.pw01 + (size_t)blockIdx.x * NTAP * D : smem + p.off_gw;
@@ -1048,13 +1096,14 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
   // awi[:, :E]^T; then the location weight, the block's accumulators, and
   // LSTM2's cell backward at the last group (dh2 = dx2, dc2 = 0)
   {
-    const Gemm dx2{a.dmel, F, 1, a.wmT, F, 1, nullptr, wk.dx2all, L, (int64_t)G * B, L, F, 0};
-    const Gemm encw{a.enc, E, 1, a.awiT, 1, 3 * D, nullptr, wk.encw, 3 * D, (int64_t)B * a.T,
-                    3 * D, E, 0};
+    const GemmT<float, S, float> dx2{a.dmel, F, 1, cs<S>(a.wmT), F, 1, nullptr, wk.dx2all, L,
+                                     (int64_t)G * B, L, F, 0};
+    const GemmT<S, S, float> encw{cs<S>(a.enc), E, 1, cs<S>(a.awiT), 1, 3 * D, nullptr,
+                                  wk.encw, 3 * D, (int64_t)B * a.T, 3 * D, E, 0};
     gemm2(dx2, encw, nblk, smem + 4);
   }
   for (int e = threadIdx.x; e < NTAP * D; e += THREADS) {
-    s_w01t[e] = a.w01t[e];
+    s_w01t[e] = cs<S>(a.w01t)[e];
     s_gw[e] = 0.f;
   }
   for (int e = threadIdx.x; e < D; e += THREADS) s_pv[e] = 0.f;
@@ -1063,9 +1112,9 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
   for (int o = blockIdx.x * THREADS + threadIdx.x; o < B * L; o += nblk * THREADS) {
     const int b = o / L, j = o - b * L;
     const size_t gbb = (size_t)(G - 1) * B + b, so = gbb * L + j;
-    const float cp = G > 1 ? a.s_c2[so - (size_t)B * L] : 0.f;
-    const LstmBwd r = lstm_bwd(__ldcg(wk.dx2all + so), 0.f, a.s_g2 + gbb * 4 * L, j, L,
-                               a.s_c2[so], cp, a.zm2[so]);
+    const float cp = G > 1 ? ldv(cs<S>(a.s_c2) + (so - (size_t)B * L)) : 0.f;
+    const LstmBwd r = lstm_bwd(__ldcg(wk.dx2all + so), 0.f, cs<S>(a.s_g2) + gbb * 4 * L, j, L,
+                               ldv(cs<S>(a.s_c2) + so), cp, ldv(cs<S>(a.zm2) + so));
     float* dg = a.c_dg2 + gbb * 4 * L;
     for (int q = 0; q < 4; ++q) dg[q * L + j] = r.dg[q];
     w.dc2[o] = r.dc_prev;
@@ -1083,7 +1132,7 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
         att_b(a, wk, s_w01t, s_gw, s_pv, s_att, G, nc, it / nc, it % nc, g,
               PROF ? prof_out : nullptr);
       else
-        att_a(a, wk, s_att, G, nc, it / nc, it % nc, g, PROF ? prof_out : nullptr);
+        att_a<S>(a, wk, s_att, G, nc, it / nc, it % nc, g, PROF ? prof_out : nullptr);
     }
   };
 
@@ -1102,10 +1151,11 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
           p, X, B, D, segs, 2,
           [&](float(&acc)[2][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.wqT + (size_t)j * D, 0, D, 0, Xt, kcs, c0, c1, nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.wqT) + (size_t)j * D, 0, D, 0, Xt, kcs, c0, c1,
+                                 nr);
             if (nx)
-              res::kdots<1, false>(acc[1], a.awhT + (size_t)j * 3 * D, 0, 3 * D, D, Xt, kcs, c0,
-                                   c1, nr);
+              res::kdots<1, false>(acc[1], cs<S>(a.awhT) + (size_t)j * 3 * D, 0, 3 * D, D, Xt, kcs,
+                                   c0, c1, nr);
           },
           [&](float(&acc)[2][1][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
@@ -1115,9 +1165,10 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
               // + dq wq
               const float dah = __ldcg(w.dtz + o) + pick(acc[1][0], lane);
               const float dh = (dah + __ldcg(wk.rah + gbb * D + j)) + pick(acc[0][0], lane);
-              const float* sg = a.s_gru + gbb * 4 * D;
-              const float r = sg[j], z = sg[D + j], n = sg[2 * D + j], hn = sg[3 * D + j];
-              const float hp = i > 0 ? a.s_ah[(gbb - B) * D + j] : 0.f;
+              const S* sg = cs<S>(a.s_gru) + gbb * 4 * D;
+              const float r = ldv(sg + j), z = ldv(sg + (D + j)), n = ldv(sg + (2 * D + j)),
+                          hn = ldv(sg + (3 * D + j));
+              const float hp = i > 0 ? ldv(cs<S>(a.s_ah) + ((gbb - B) * D + j)) : 0.f;
               const float dz = dh * (hp - n);
               const float dn = dh * (1.f - z);
               const float dpre_n = dn * (1.f - n * n);
@@ -1145,20 +1196,20 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
           p, X, B, L, segs, 1,
           [&](float(&acc)[2][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.l2wiT + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs, c0, c1,
-                                 nr);
-            res::kdots<1, false>(acc[1], a.l2whT + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs, c0, c1,
-                                 nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.l2wiT) + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs,
+                                 c0, c1, nr);
+            res::kdots<1, false>(acc[1], cs<S>(a.l2whT) + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs,
+                                 c0, c1, nr);
           },
           [&](float(&acc)[2][1][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
               const int b = b0 + lane;
               const size_t o = (size_t)b * L + j, so = (gb + b) * L + j;
               const float dx1 = __ldcg(wk.dx2all + so) + pick(acc[0][0], lane);
-              const float cp = gm > 0 ? a.s_c1[so - (size_t)B * L] : 0.f;
+              const float cp = gm > 0 ? ldv(cs<S>(a.s_c1) + (so - (size_t)B * L)) : 0.f;
               const LstmBwd r = lstm_bwd(__ldcg(w.dh1 + o) + dx1, __ldcg(w.dc1 + o),
-                                         a.s_g1 + (gb + b) * 4 * L, j, L, a.s_c1[so], cp,
-                                         a.zm1[so]);
+                                         cs<S>(a.s_g1) + (gb + b) * 4 * L, j, L,
+                                         ldv(cs<S>(a.s_c1) + so), cp, ldv(cs<S>(a.zm1) + so));
               float* dg = a.c_dg1 + (gb + b) * 4 * L;
               for (int q = 0; q < 4; ++q) dg[q * L + j] = r.dg[q];
               w.dc1[o] = r.dc_prev;
@@ -1167,10 +1218,10 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
               if (gm > 0) {
                 const size_t sp = so - (size_t)B * L;
                 const float dh2 = __ldcg(w.wz2 + o) + pick(acc[1][0], lane);
-                const float cp2 = gm > 1 ? a.s_c2[sp - (size_t)B * L] : 0.f;
+                const float cp2 = gm > 1 ? ldv(cs<S>(a.s_c2) + (sp - (size_t)B * L)) : 0.f;
                 const LstmBwd r2 = lstm_bwd(dh2 + __ldcg(wk.dx2all + sp), __ldcg(w.dc2 + o),
-                                            a.s_g2 + (gb - B + b) * 4 * L, j, L, a.s_c2[sp], cp2,
-                                            a.zm2[sp]);
+                                            cs<S>(a.s_g2) + (gb - B + b) * 4 * L, j, L,
+                                            ldv(cs<S>(a.s_c2) + sp), cp2, ldv(cs<S>(a.zm2) + sp));
                 float* dg2 = a.c_dg2 + (gb - B + b) * 4 * L;
                 for (int q = 0; q < 4; ++q) dg2[q * L + j] = r2.dg[q];
                 w.dc2[o] = r2.dc_prev;
@@ -1194,10 +1245,10 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
           p, X, B, L, segs, 1,
           [&](float(&acc)[2][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.l1wiT + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs, c0, c1,
-                                 nr);
-            res::kdots<1, false>(acc[1], a.l1whT + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs, c0, c1,
-                                 nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.l1wiT) + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs,
+                                 c0, c1, nr);
+            res::kdots<1, false>(acc[1], cs<S>(a.l1whT) + (size_t)j * 4 * L, 0, 4 * L, 0, Xt, kcs,
+                                 c0, c1, nr);
           },
           [&](float(&acc)[2][1][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
@@ -1222,7 +1273,8 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
           p, X, B, E + D, segs, 1,
           [&](float(&acc)[1][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            res::kdots<1, false>(acc[0], a.wrT + (size_t)u * L, 0, L, 0, Xt, kcs, c0, c1, nr);
+            res::kdots<1, false>(acc[0], cs<S>(a.wrT) + (size_t)u * L, 0, L, 0, Xt, kcs, c0, c1,
+                                 nr);
           },
           [&](float(&acc)[1][1][RB], int u, int, int b0, int nr) {
             if (lane < nr) {
@@ -1247,10 +1299,10 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
     for (int e = threadIdx.x; e < NTAP * D; e += THREADS) pw[e] = s_gw[e];
   for (int e = threadIdx.x; e < D; e += THREADS) a.pv[(size_t)blockIdx.x * D + e] = s_pv[e];
   {
-    const Gemm dctx{a.c_dgi + (size_t)B * 3 * D, 3 * D, 1, a.awiT, 3 * D, 1, nullptr, w.dctxt, E,
-                    (int64_t)(G - 1) * B, E, 3 * D, 1};
-    const Gemm dpre{a.c_dgi, 3 * D, 1, a.awiT + (size_t)E * 3 * D, 3 * D, 1, nullptr, a.dpre, P2,
-                    (int64_t)G * B, P2, 3 * D, 0};
+    const GemmT<float, S, float> dctx{a.c_dgi + (size_t)B * 3 * D, 3 * D, 1, cs<S>(a.awiT), 3 * D,
+                                      1, nullptr, w.dctxt, E, (int64_t)(G - 1) * B, E, 3 * D, 1};
+    const GemmT<float, S, float> dpre{a.c_dgi, 3 * D, 1, cs<S>(a.awiT) + (size_t)E * 3 * D, 3 * D,
+                                      1, nullptr, a.dpre, P2, (int64_t)G * B, P2, 3 * D, 0};
     gemm2(dctx, dpre, nblk, smem + 4);
   }
   bar.sync();
@@ -1263,43 +1315,53 @@ __device__ __forceinline__ void bwd(const TfBwdArgs& a, const ResPlan& p, long l
 namespace {
 
 __global__ void __launch_bounds__(THREADS, 1) taco_tf_res_fwd(TfFwdArgs a, ResPlan p) {
-  tfres::fwd<false>(a, p, nullptr);
+  tfres::fwd<false, float>(a, p, nullptr);
 }
 __global__ void __launch_bounds__(THREADS, 1)
     taco_tf_res_fwd_prof(TfFwdArgs a, ResPlan p, long long* prof) {
-  tfres::fwd<true>(a, p, prof);
+  tfres::fwd<true, float>(a, p, prof);
 }
 __global__ void __launch_bounds__(THREADS, 1) taco_tf_res_bwd(TfBwdArgs a, ResPlan p) {
-  tfres::bwd<false>(a, p, nullptr);
+  tfres::bwd<false, float>(a, p, nullptr);
 }
 __global__ void __launch_bounds__(THREADS, 1)
     taco_tf_res_bwd_prof(TfBwdArgs a, ResPlan p, long long* prof) {
-  tfres::bwd<true>(a, p, prof);
+  tfres::bwd<true, float>(a, p, prof);
+}
+// the bf16 instantiations (weights, streams, saved states and mel in bf16)
+__global__ void __launch_bounds__(THREADS, 1) taco_tf_res_fwd_bf16(TfFwdArgs a, ResPlan p) {
+  tfres::fwd<false, bf16_t>(a, p, nullptr);
+}
+__global__ void __launch_bounds__(THREADS, 1) taco_tf_res_bwd_bf16(TfBwdArgs a, ResPlan p) {
+  tfres::bwd<false, bf16_t>(a, p, nullptr);
 }
 
 // The TF arm's weight gradients from the cotangent streams (taco_train.cu's
 // wgrads() with the location-weight and v partials one per block of the
 // grid).
+template <typename S>
 cudaError_t tf_res_wgrads(const TfBwdArgs& a, int64_t nparts, cudaStream_t st) {
   cudaError_t e;
   const int64_t R = a.G * a.B, B = a.B, D = a.D, E = a.E, P2 = a.P2, L = a.L, F = a.F;
-  if ((e = gemm(st, a.c_dgi, 3 * D, a.s_ctx, E, B, a.dawi, E + P2, 3 * D, E, R))) return e;
-  if ((e = gemm(st, a.c_dgi, 3 * D, a.pre, P2, 0, a.dawi + E, E + P2, 3 * D, P2, R))) return e;
+  const S *s_ctx = cs<S>(a.s_ctx), *s_ah = cs<S>(a.s_ah);
+  if ((e = gemm(st, a.c_dgi, 3 * D, s_ctx, E, B, a.dawi, E + P2, 3 * D, E, R))) return e;
+  if ((e = gemm(st, a.c_dgi, 3 * D, cs<S>(a.pre), P2, 0, a.dawi + E, E + P2, 3 * D, P2, R)))
+    return e;
   if ((e = csum(st, a.c_dgi, 3 * D, a.dabi, 3 * D, R))) return e;
-  if ((e = gemm(st, a.c_dgh, 3 * D, a.s_ah, D, B, a.dawh, D, 3 * D, D, R))) return e;
+  if ((e = gemm(st, a.c_dgh, 3 * D, s_ah, D, B, a.dawh, D, 3 * D, D, R))) return e;
   if ((e = csum(st, a.c_dgh, 3 * D, a.dabh, 3 * D, R))) return e;
-  if ((e = gemm(st, a.c_dq, D, a.s_ah, D, 0, a.dwq, D, D, D, R))) return e;
+  if ((e = gemm(st, a.c_dq, D, s_ah, D, 0, a.dwq, D, D, D, R))) return e;
   if ((e = csum(st, a.c_dq, D, a.dqb, D, R))) return e;
-  if ((e = gemm(st, a.c_dx0, L, a.s_ctx, E, 0, a.dwr, E + D, L, E, R))) return e;
-  if ((e = gemm(st, a.c_dx0, L, a.s_ah, D, 0, a.dwr + E, E + D, L, D, R))) return e;
+  if ((e = gemm(st, a.c_dx0, L, s_ctx, E, 0, a.dwr, E + D, L, E, R))) return e;
+  if ((e = gemm(st, a.c_dx0, L, s_ah, D, 0, a.dwr + E, E + D, L, D, R))) return e;
   if ((e = csum(st, a.c_dx0, L, a.dbr, L, R))) return e;
-  if ((e = gemm(st, a.c_dg1, 4 * L, a.s_x0, L, 0, a.dl1wi, L, 4 * L, L, R))) return e;
-  if ((e = gemm(st, a.c_dg1, 4 * L, a.s_h1, L, B, a.dl1wh, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg1, 4 * L, cs<S>(a.s_x0), L, 0, a.dl1wi, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg1, 4 * L, cs<S>(a.s_h1), L, B, a.dl1wh, L, 4 * L, L, R))) return e;
   if ((e = csum(st, a.c_dg1, 4 * L, a.dl1b, 4 * L, R))) return e;
-  if ((e = gemm(st, a.c_dg2, 4 * L, a.s_x1, L, 0, a.dl2wi, L, 4 * L, L, R))) return e;
-  if ((e = gemm(st, a.c_dg2, 4 * L, a.s_h2, L, B, a.dl2wh, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg2, 4 * L, cs<S>(a.s_x1), L, 0, a.dl2wi, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg2, 4 * L, cs<S>(a.s_h2), L, B, a.dl2wh, L, 4 * L, L, R))) return e;
   if ((e = csum(st, a.c_dg2, 4 * L, a.dl2b, 4 * L, R))) return e;
-  if ((e = gemm(st, a.dmel, F, a.s_x2, L, 0, a.dwm, L, F, L, R))) return e;
+  if ((e = gemm(st, a.dmel, F, cs<S>(a.s_x2), L, 0, a.dwm, L, F, L, R))) return e;
   reduce_parts<<<(unsigned)((NTAP * D + 255) / 256), 256, 0, st>>>(a.pw01, (int)nparts, NTAP,
                                                                     (int)D, 1, a.dw01);
   if ((e = cudaGetLastError())) return e;
@@ -1314,7 +1376,10 @@ extern "C" {
 
 // Floats of zeroed workspace the resident TF forward / backward needs.
 int64_t wr_taco_tf_res_fwd_work_floats(const TfFwdArgs* a, const ResPlan* p) {
-  return tfres::TWork(nullptr, *a, *p).size;
+  return tfres::TWork<float>(nullptr, *a, *p).size;
+}
+int64_t wr_taco_tf_res_fwd_bf16_work_floats(const TfFwdArgs* a, const ResPlan* p) {
+  return tfres::TWork<bf16_t>(nullptr, *a, *p).size;
 }
 int64_t wr_taco_tf_res_bwd_work_floats(const TfBwdArgs* a, const ResPlan* p) {
   return tfres::TBWork(nullptr, *a, *p).size;
@@ -1353,7 +1418,26 @@ int wr_taco_tf_res_bwd(const TfBwdArgs* args, const ResPlan* plan, long long* pr
     e = launch_res((const void*)taco_tf_res_bwd, p, kargs, st);
   }
   if (e != cudaSuccess) return e;
-  return tf_res_wgrads(a, p.nblk, st);
+  return tf_res_wgrads<float>(a, p.nblk, st);
+}
+
+// The bf16 forward and backward (as taco_train_resident.cu's _bf16 entries).
+int wr_taco_tf_res_fwd_bf16(const TfFwdArgs* args, const ResPlan* plan, void* stream) {
+  TfFwdArgs a = *args;
+  ResPlan p = *plan;
+  if (a.D > THREADS) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &p};
+  return launch_res((const void*)taco_tf_res_fwd_bf16, p, kargs, (cudaStream_t)stream);
+}
+int wr_taco_tf_res_bwd_bf16(const TfBwdArgs* args, const ResPlan* plan, void* stream) {
+  TfBwdArgs a = *args;
+  ResPlan p = *plan;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a.D > THREADS) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &p};
+  const cudaError_t e = launch_res((const void*)taco_tf_res_bwd_bf16, p, kargs, st);
+  if (e != cudaSuccess) return e;
+  return tf_res_wgrads<bf16_t>(a, p.nblk, st);
 }
 
 }  // extern "C"

@@ -84,9 +84,12 @@
 //   * state ping-pongs between two buffers, read through L2 (__ldcg).
 // Not yet used: tensor cores, TMA, clusters, several blocks per utterance.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -242,6 +245,103 @@ inline int64_t bwd_row_floats(const TfBwdArgs& a) {
   if (a.L > w) w = a.L;
   if (6 * a.D > w) w = 6 * a.D;
   return w;
+}
+
+// ---- typed access for the resident bodies' storage type S (float, or
+// bfloat16 in their bf16 instantiations): every load widens to float, every
+// store rounds to nearest even; rnd<S> is the rounding a value takes when it
+// is stored in S. For float each is the plain access it replaces.
+typedef __nv_bfloat16 bf16_t;
+template <typename S>
+__host__ __device__ __forceinline__ const S* cs(const float* p) {
+  return reinterpret_cast<const S*>(p);
+}
+template <typename S>
+__host__ __device__ __forceinline__ S* ms(float* p) {
+  return reinterpret_cast<S*>(p);
+}
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const bf16_t* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldcgv(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcgv(const bf16_t* p) { return __bfloat162float(__ldcg(p)); }
+__device__ __forceinline__ float ldgv(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldgv(const bf16_t* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void stv(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stv(bf16_t* p, float v) { *p = __float2bfloat16_rn(v); }
+template <typename S>
+__device__ __forceinline__ float rnd(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float rnd<bf16_t>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// four consecutive values from an aligned address (16 bytes of float, 8 of
+// bf16)
+__device__ __forceinline__ float4 bf4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ldg4(const bf16_t* p) {
+  return bf4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+// element i of the four-value groups from p (the float4 index form)
+__device__ __forceinline__ float4 ld4i(const float* p, size_t i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 ld4i(const bf16_t* p, size_t i) {
+  return bf4(reinterpret_cast<const uint2*>(p)[i]);
+}
+__device__ __forceinline__ float4 ldg4i(const float* p, size_t i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+__device__ __forceinline__ float4 ldg4i(const bf16_t* p, size_t i) {
+  return bf4(__ldg(reinterpret_cast<const uint2*>(p) + i));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16_t* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+// a weight group as loaded (float4, or the bf16 bits in a uint2, so the
+// bf16 instantiations keep their loads in flight at half the registers)
+// and its widening to float4
+template <typename W>
+struct Raw4 {
+  typedef float4 type;
+};
+template <>
+struct Raw4<bf16_t> {
+  typedef uint2 type;
+};
+__device__ __forceinline__ float4 wide4(float4 v) { return v; }
+__device__ __forceinline__ float4 wide4(uint2 u) { return bf4(u); }
+__device__ __forceinline__ float4 raw4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ uint2 raw4(const bf16_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float4 rawg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 rawg4(const bf16_t* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+template <typename W>
+__device__ __forceinline__ typename Raw4<W>::type zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ uint2 zero4<bf16_t>() {
+  return make_uint2(0u, 0u);
+}
+template <typename S>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<S>(v.x), rnd<S>(v.y), rnd<S>(v.z), rnd<S>(v.w));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -437,9 +537,10 @@ __device__ void weighted_rows(const float* __restrict__ rows, int T, int E, cons
 // t0 + tt >= t0 + tc): the location conv composed with L from register
 // windows of the cumulative and attention. The forward and the backward's
 // recomputation run this same code.
+template <typename W, typename SE>
 __device__ __forceinline__ void lsa_args(float (&arg)[TC], int t0, int tc, int d, int D,
                                          float qd, const float* cumw, const float* attw,
-                                         const float* w01t, const float* encp_b) {
+                                         const W* w01t, const SE* encp_b) {
 #pragma unroll
   for (int h = 0; h < TC / TH; ++h) {
     const int tb = t0 + h * TH;
@@ -453,7 +554,7 @@ __device__ __forceinline__ void lsa_args(float (&arg)[TC], int t0, int tc, int d
     for (int j = 0; j < TH; ++j) loc[j] = 0.f;
 #pragma unroll
     for (int k = 0; k < CONV_K; ++k) {
-      const float w0 = w01t[k * D + d], w1 = w01t[(CONV_K + k) * D + d];
+      const float w0 = ldv(w01t + (k * D + d)), w1 = ldv(w01t + ((CONV_K + k) * D + d));
 #pragma unroll
       for (int j = 0; j < TH; ++j) {
         loc[j] = fmaf(w0, cw[j + k], loc[j]);
@@ -463,7 +564,7 @@ __device__ __forceinline__ void lsa_args(float (&arg)[TC], int t0, int tc, int d
 #pragma unroll
     for (int j = 0; j < TH; ++j)
       arg[h * TH + j] = tb + j < t0 + tc
-                            ? tanhf((loc[j] + encp_b[(size_t)(tb + j) * D + d]) + qd) : 0.f;
+                            ? tanhf((loc[j] + ldv(encp_b + ((size_t)(tb + j) * D + d))) + qd) : 0.f;
   }
 }
 
@@ -797,9 +898,11 @@ namespace {
 struct LstmBwd {
   float dg[4], dc_prev, wz;
 };
-__device__ __forceinline__ LstmBwd lstm_bwd(float dh, float dc_in, const float* gates, int j,
+template <typename S>
+__device__ __forceinline__ LstmBwd lstm_bwd(float dh, float dc_in, const S* gates, int j,
                                             int L, float c, float c_prev, float z) {
-  const float ig = gates[j], fg = gates[L + j], gg = gates[2 * L + j], og = gates[3 * L + j];
+  const float ig = ldv(gates + j), fg = ldv(gates + (L + j)), gg = ldv(gates + (2 * L + j)),
+              og = ldv(gates + (3 * L + j));
   const float tc = tanhf(c);
   const float dht = (1.f - z) * dh;
   const float dcn = dc_in + dht * og * (1.f - tc * tc);
@@ -1202,8 +1305,9 @@ __global__ void __launch_bounds__(THREADS, 1) taco_af_bwd(TfBwdArgs a, AfBwdArgs
 // C (M x N, row stride ldc) = sum_r A[r, m] * Bm[r - shift, n] over r < R
 // (rows r < shift of Bm are zero): 64 x 64 tiles, 16 rows of r per pass,
 // each thread a 4 x 4 block; one thread per output, a fixed order.
+template <typename SB>
 __global__ void __launch_bounds__(256) wgrad_gemm(const float* __restrict__ A, int lda,
-                                                  const float* __restrict__ Bm, int ldb,
+                                                  const SB* __restrict__ Bm, int ldb,
                                                   int shift, float* C, int ldc, int M, int N,
                                                   int R) {
   __shared__ float As[16][64];
@@ -1216,7 +1320,7 @@ __global__ void __launch_bounds__(256) wgrad_gemm(const float* __restrict__ A, i
       const int rr = e >> 6, cc = e & 63, r = r0 + rr;
       const int m = m0 + cc, n = n0 + cc, rb = r - shift;
       As[rr][cc] = (r < R && m < M) ? A[(size_t)r * lda + m] : 0.f;
-      Bs[rr][cc] = (r < R && rb >= 0 && n < N) ? Bm[(size_t)rb * ldb + n] : 0.f;
+      Bs[rr][cc] = (r < R && rb >= 0 && n < N) ? ldv(Bm + ((size_t)rb * ldb + n)) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -1306,7 +1410,8 @@ cudaError_t launch_coop(const void* fn, size_t smem, void** kargs, cudaStream_t 
   return cudaGetLastError();
 }
 
-cudaError_t gemm(cudaStream_t st, const float* A, int64_t lda, const float* Bm, int64_t ldb,
+template <typename SB>
+cudaError_t gemm(cudaStream_t st, const float* A, int64_t lda, const SB* Bm, int64_t ldb,
                  int64_t shift, float* C, int64_t ldc, int64_t M, int64_t N, int64_t R) {
   const dim3 grid((unsigned)((N + 63) / 64), (unsigned)((M + 63) / 64));
   wgrad_gemm<<<grid, 256, 0, st>>>(A, (int)lda, Bm, (int)ldb, (int)shift, C, (int)ldc,

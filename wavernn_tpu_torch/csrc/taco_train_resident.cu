@@ -222,8 +222,8 @@ __device__ __forceinline__ void stage_chunk(float* X, int kcs, int r0, int nr, c
 // [c0, c1) (X holds columns c0.. with row stride kcs). Over the chunks in
 // order every sum meets its terms in dots()'s order. SM: the rows are in
 // shared memory.
-template <int NG, bool SM>
-__device__ __forceinline__ void kdots(float (&acc)[NG][RB], const float* __restrict__ w, size_t gs,
+template <int NG, bool SM, typename W>
+__device__ __forceinline__ void kdots(float (&acc)[NG][RB], const W* __restrict__ w, size_t gs,
                                       int n, int xoff, const float* X, int kcs, int c0, int c1,
                                       int nr) {
   // rows in device memory: KS k-steps' weights loaded before their FMAs,
@@ -233,15 +233,15 @@ __device__ __forceinline__ void kdots(float (&acc)[NG][RB], const float* __restr
   if (xoff + k < c0) k += (c0 - xoff - k + 127) / 128 * 128;
   const int kend = min(n, c1 - xoff);
   for (; k < kend; k += 128 * KS) {
-    float4 wv[KS][NG];
+    typename Raw4<W>::type wv[KS][NG];
 #pragma unroll
     for (int s = 0; s < KS; ++s)
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
         const int ks = k + 128 * s;
-        wv[s][g] = ks >= kend ? make_float4(0.f, 0.f, 0.f, 0.f)
-                   : SM       ? *reinterpret_cast<const float4*>(w + g * gs + ks)
-                              : __ldg(reinterpret_cast<const float4*>(w + g * gs + ks));
+        wv[s][g] = ks >= kend ? zero4<W>()
+                   : SM       ? raw4(w + g * gs + ks)
+                              : rawg4(w + g * gs + ks);
       }
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
@@ -255,12 +255,13 @@ __device__ __forceinline__ void kdots(float (&acc)[NG][RB], const float* __restr
                        : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
+        const float4 wf = wide4(wv[s][g]);
 #pragma unroll
         for (int i = 0; i < RB; ++i) {
-          acc[g][i] = fmaf(wv[s][g].x, xv[i].x, acc[g][i]);
-          acc[g][i] = fmaf(wv[s][g].y, xv[i].y, acc[g][i]);
-          acc[g][i] = fmaf(wv[s][g].z, xv[i].z, acc[g][i]);
-          acc[g][i] = fmaf(wv[s][g].w, xv[i].w, acc[g][i]);
+          acc[g][i] = fmaf(wf.x, xv[i].x, acc[g][i]);
+          acc[g][i] = fmaf(wf.y, xv[i].y, acc[g][i]);
+          acc[g][i] = fmaf(wf.z, xv[i].z, acc[g][i]);
+          acc[g][i] = fmaf(wf.w, xv[i].w, acc[g][i]);
         }
       }
     }
@@ -409,12 +410,17 @@ struct Prof {
 // value (that would put the whole work struct in local memory).
 __device__ __forceinline__ float* pair_at(float* const (&p)[2], int i) { return i ? p[1] : p[0]; }
 
+template <typename S>
 struct FWork {
   float *ah[2], *h1[2], *c1[2], *h2[2], *c2[2], *x0, *x1, *x2, *q[2];
   float *cumb[2], *sigb[2], *divp[2], *ctx;
   u64* bar;
+  // bf16: float copies of the streams the stages stage (every group's
+  // context, the prenet's previous frame, its first layer and its output)
+  float *ctxf = nullptr, *prevf = nullptr, *p1f = nullptr, *pref = nullptr;
   int64_t size;
-  __host__ __device__ FWork(float* w, const TfFwdArgs& a, const ResPlan& p) {
+  __host__ __device__ FWork(float* w, const TfFwdArgs& a, const ResPlan& p,
+                            const AfFwdArgs* x = nullptr) {
     Take take{w};
     const int64_t B = a.B;
     for (int i = 0; i < 2; ++i) {
@@ -428,6 +434,12 @@ struct FWork {
     x0 = take(B * a.L); x1 = take(B * a.L); x2 = take(B * a.L);
     ctx = a.save ? nullptr : take(a.G * B * a.E);
     bar = reinterpret_cast<u64*>(take(4));
+    if (!std::is_same<S, float>::value && x) {
+      ctxf = take(a.G * B * a.E);
+      prevf = take(a.G * B * x->NM);
+      p1f = take(a.G * B * x->P1);
+      pref = take(a.G * B * a.P2);
+    }
     size = take.size;
   }
 };
@@ -489,6 +501,65 @@ __device__ __forceinline__ void ctx_product(const TfFwdArgs& a, const AfFwdArgs&
   __syncthreads();
 }
 
+// ctx_product with bf16 enc and aref: the same sums (enc staged in shared
+// memory as floats when the plan has room), each rounded to bf16 into the
+// ctx stream and, as floats, into ctxf (the stages' copy).
+__device__ __forceinline__ void ctx_product_bf16(const TfFwdArgs& a, const AfFwdArgs& x,
+                                                 const ResPlan& p, bf16_t* ctx, float* ctxf,
+                                                 float* sm) {
+  const int G = (int)a.G, B = (int)a.B, T = (int)a.T, E = (int)a.E, E4 = E / 4;
+  const int pairs = G * B, nblk = (int)p.nblk;
+  const int per = (pairs + nblk - 1) / nblk;
+  const int lo = min(pairs, (int)blockIdx.x * per), hi = min(pairs, lo + per);
+  const bf16_t* aref = cs<bf16_t>(x.aref);
+  int bcur = -1;
+  for (int q0 = lo; q0 < hi;) {
+    const int b = q0 / G;
+    const int qe = min(hi, (b + 1) * G);
+    const bf16_t* src = cs<bf16_t>(a.enc) + (size_t)b * T * E;
+    if (p.ctx_smem && b != bcur) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < T * E4; e += THREADS)
+        reinterpret_cast<float4*>(sm)[e] = ldg4(src + 4 * (size_t)e);
+      __syncthreads();
+      bcur = b;
+    }
+    const int outs = (qe - q0) * E4;
+    for (int o = threadIdx.x; o < outs; o += THREADS) {
+      const int g = q0 - b * G + o / E4, c = o % E4;
+      const int c0 = c / THREADS * THREADS, cols = min(E4 - c0, THREADS), ns = THREADS / cols;
+      const bf16_t* ar = aref + ((size_t)g * B + b) * T;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int sl = 0; sl < ns; ++sl) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int t = sl; t < T; t += ns) {
+          const float st = ldgv(ar + t);
+          const size_t i4 = (size_t)t * E4 + c;
+          const float4 v = p.ctx_smem ? reinterpret_cast<const float4*>(sm)[i4] : ldg4(src + 4 * i4);
+          acc.x = fmaf(st, v.x, acc.x);
+          acc.y = fmaf(st, v.y, acc.y);
+          acc.z = fmaf(st, v.z, acc.z);
+          acc.w = fmaf(st, v.w, acc.w);
+        }
+        if (sl == 0) {
+          sum = acc;
+        } else {
+          sum.x += acc.x;
+          sum.y += acc.y;
+          sum.z += acc.z;
+          sum.w += acc.w;
+        }
+      }
+      sum = rnd4<bf16_t>(sum);
+      const size_t off = ((size_t)g * B + b) * E + 4 * (size_t)c;
+      st4(ctx + off, sum);
+      st4(ctxf + off, sum);
+    }
+    q0 = qe;
+  }
+  __syncthreads();
+}
+
 // sum_k src[k] for k < n in order, every load in flight at once (all
 // threads; part: n floats of scratch). Thread 0 holds the sum.
 __device__ __forceinline__ float ordered_sum(const float* src, int n, float* part) {
@@ -506,7 +577,8 @@ __device__ __forceinline__ float ordered_sum(const float* src, int n, float* par
 // group g - 1 and the cumulative entering g at its own positions, then the
 // original's chunk code for the energies; the unnormalised sigmoids and
 // their partial sum go to the next group's items.
-__device__ __forceinline__ void att_fwd_item(const TfFwdArgs& a, const FWork& w, const float* s_w01t, float* sc,
+template <typename S>
+__device__ __forceinline__ void att_fwd_item(const TfFwdArgs& a, const FWork<S>& w, const S* s_w01t, float* sc,
                              int nc, int b, int c, int g) {
   const int B = (int)a.B, T = (int)a.T, D = (int)a.D;
   const int t0 = c * TC, tc = min(TC, T - t0);
@@ -528,7 +600,7 @@ __device__ __forceinline__ void att_fwd_item(const TfFwdArgs& a, const FWork& w,
     const bool in = j < res::WIN && t >= 0 && t < T;
     float at = 0.f, cu = 0.f;
     if (g > 0 && in) {
-      at = __ldcg(pair_at(w.sigb, pg) + (size_t)b * T + t) / dv;
+      at = rnd<S>(__ldcg(pair_at(w.sigb, pg) + (size_t)b * T + t) / dv);
       cu = __ldcg(pair_at(w.cumb, pg) + (size_t)b * T + t) + at;
     }
     cw[j] = cu;
@@ -544,10 +616,10 @@ __device__ __forceinline__ void att_fwd_item(const TfFwdArgs& a, const FWork& w,
   const int d = threadIdx.x;
   const bool unit = d < D;
   const float qd = unit ? __ldcg(pair_at(w.q, cg_) + (size_t)b * D + d) : 0.f;
-  const float vd = unit ? a.v[d] : 0.f;
+  const float vd = unit ? ldv(cs<S>(a.v) + d) : 0.f;
   float arg[TC];
   if (unit) {
-    lsa_args(arg, 0, tc, d, D, qd, cw, aw, s_w01t, a.encp + ((size_t)b * T + t0) * D);
+    lsa_args(arg, 0, tc, d, D, qd, cw, aw, s_w01t, cs<S>(a.encp) + ((size_t)b * T + t0) * D);
   } else {
 #pragma unroll
     for (int tt = 0; tt < TC; ++tt) arg[tt] = 0.f;
@@ -567,7 +639,8 @@ __device__ __forceinline__ void att_fwd_item(const TfFwdArgs& a, const FWork& w,
 }
 
 // The last group's scores and normaliser (nothing reads them in the loop).
-__device__ __forceinline__ void att_fwd_last(const TfFwdArgs& a, const FWork& w, float* sc, int nc, int b, int c) {
+template <typename S>
+__device__ __forceinline__ void att_fwd_last(const TfFwdArgs& a, const FWork<S>& w, float* sc, int nc, int b, int c) {
   const int G = (int)a.G, B = (int)a.B, T = (int)a.T;
   const int t0 = c * TC, tc = min(TC, T - t0), lg = (G - 1) & 1;
   __syncthreads();
@@ -577,7 +650,8 @@ __device__ __forceinline__ void att_fwd_last(const TfFwdArgs& a, const FWork& w,
   const float div = sc[0], dv = div > 0.f ? div : 1.f;
   if (threadIdx.x < tc) {
     const int t = t0 + threadIdx.x;
-    a.scores[((size_t)(G - 1) * B + b) * T + t] = __ldcg(pair_at(w.sigb, lg) + (size_t)b * T + t) / dv;
+    a.scores[((size_t)(G - 1) * B + b) * T + t] =
+        rnd<S>(__ldcg(pair_at(w.sigb, lg) + (size_t)b * T + t) / dv);
   }
   if (c == 0 && threadIdx.x == 0 && a.save) a.s_div[(size_t)(G - 1) * B + b] = div;
 }
@@ -588,33 +662,45 @@ enum FProf {
   FP_MEL, FP_MEL_ATT, FP_MEL_W, FP_P1, FP_P1_ATT, FP_P1_W, FP_P2, FP_P2_ATT, FP_P2_W, FP_EPI
 };
 
-template <bool PROF>
+// S: the storage type of the weights, the streams, the saved states and the
+// mel (float, or bf16 in taco_af_res_*_bf16); the stages stage floats (bf16
+// streams they read have float copies in FWork), and the values the JAX
+// kernel rounds to its compute dtype are rounded by rnd<S> where they are
+// formed (ah, ctx, x0, c, h, x1, x2, the mel, p1, the prenet's output, the
+// scores).
+template <bool PROF, typename S>
 __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, const ResPlan& p,
                                         long long* prof_out) {
+  constexpr bool BF = !std::is_same<S, float>::value;
   const int G = (int)a.G, B = (int)a.B, T = (int)a.T, E = (int)a.E, D = (int)a.D;
   const int P2 = (int)a.P2, L = (int)a.L, F = (int)a.F, P1 = (int)x.P1, NM = (int)x.NM;
   const int nblk = (int)p.nblk, nc = (int)p.nc, ipb = (int)p.ipb;
   const bool save = a.save != 0;
   const int lane = threadIdx.x & 31;
-  FWork wk(a.work, a, p);
+  FWork<S> wk(a.work, a, p, BF ? &x : nullptr);
   Bar bar{wk.bar, (u64)nblk, 0};
   Prof pf;
   pf.start(PROF ? prof_out : nullptr);
 
   extern __shared__ float smem[];
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
-  float* s_w01t = smem + p.off_w01t;
+  S* s_w01t = ms<S>(smem + p.off_w01t);
   float* s_att = smem + p.off_att;
   float* X = smem + p.off_x;
-  float* s_l1 = smem + p.off_l1;
-  float* s_l2 = smem + p.off_l2;
-  float* ctx_all = save ? a.s_ctx : wk.ctx;
+  S* s_l1 = ms<S>(smem + p.off_l1);
+  S* s_l2 = ms<S>(smem + p.off_l2);
+  S* ctx_all = ms<S>(save ? a.s_ctx : wk.ctx);
+  // (the rows the stages stage: the streams, or their float copies in
+  // bf16: BF ? wk.ctxf : ctx_all and likewise)
 
   // ---- prologue: every group's context (smem holds enc[b] meanwhile),
   // then the resident rows, the location weight and the prenet of group 0
-  ctx_product(a, x, p, ctx_all, smem + 4);
+  if constexpr (BF)
+    ctx_product_bf16(a, x, p, ctx_all, wk.ctxf, smem + 4);
+  else
+    ctx_product(a, x, p, ctx_all, smem + 4);
   const int mine_l = (int)blockIdx.x < L ? (L - 1 - (int)blockIdx.x) / nblk + 1 : 0;
-  const uint32_t row_bytes = (uint32_t)L * 4;
+  const uint32_t row_bytes = (uint32_t)L * (uint32_t)sizeof(S);
   const uint32_t res_bytes =
       (uint32_t)((p.res_l1 + p.res_l2) * mine_l * 8) * row_bytes;  // 4 gates x (wi | wh)
   if (threadIdx.x == 0) {
@@ -626,22 +712,24 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
     mbar_expect_tx(mbar, res_bytes);
     for (int layer = 0; layer < 2; ++layer) {
       if (!(layer == 0 ? p.res_l1 : p.res_l2)) continue;
-      const float* wi = layer == 0 ? a.l1wi : a.l2wi;
-      const float* wh = layer == 0 ? a.l1wh : a.l2wh;
-      float* dst = layer == 0 ? s_l1 : s_l2;
+      const S* wi = cs<S>(layer == 0 ? a.l1wi : a.l2wi);
+      const S* wh = cs<S>(layer == 0 ? a.l1wh : a.l2wh);
+      S* dst = layer == 0 ? s_l1 : s_l2;
       for (int m = 0; m < mine_l; ++m) {
         const int j = (int)blockIdx.x + m * nblk;
         for (int g4 = 0; g4 < 4; ++g4) {
-          float* row = dst + ((size_t)m * 4 + g4) * 2 * L;
+          S* row = dst + ((size_t)m * 4 + g4) * 2 * L;
           bulk_g2s(row, wi + ((size_t)g4 * L + j) * L, row_bytes, mbar);
           bulk_g2s(row + L, wh + ((size_t)g4 * L + j) * L, row_bytes, mbar);
         }
       }
     }
   }
-  for (int e = threadIdx.x; e < NTAP * D; e += THREADS) s_w01t[e] = a.w01t[e];
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * NM; i += nblk * THREADS)
-    x.s_prev[i] = 0.f;   // group 0's prenet reads zeros
+  for (int e = threadIdx.x; e < NTAP * D; e += THREADS) s_w01t[e] = cs<S>(a.w01t)[e];
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < B * NM; i += nblk * THREADS) {
+    stv(ms<S>(x.s_prev) + i, 0.f);   // group 0's prenet reads zeros
+    if constexpr (BF) wk.prevf[i] = 0.f;
+  }
   if (res_bytes) mbar_wait(mbar, 0);
   __syncthreads();
   bar.sync();
@@ -649,31 +737,37 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
   // the prenet of group gp on the previous frame s_prev[gp]: two stages
   auto prenet1 = [&](int gp) {
     const size_t gb = (size_t)gp * B;
-    const Seg segs[1] = {{x.s_prev + gb * NM, NM, NM}};
+    const Seg segs[1] = {{(BF ? wk.prevf : x.s_prev) + gb * NM, NM, NM}};
     kstage<1, 1, 1>(
         p, X, B, P1, segs, 1,
         [&](float(&acc)[1][1][RB], int k, int, const float* Xt, int kcs, int c0, int c1, int nr) {
-          kdots<1, false>(acc[0], x.w1 + (size_t)k * NM, 0, NM, 0, Xt, kcs, c0, c1, nr);
+          kdots<1, false>(acc[0], cs<S>(x.w1) + (size_t)k * NM, 0, NM, 0, Xt, kcs, c0, c1, nr);
         },
         [&](float(&acc)[1][1][RB], int k, int, int b0, int nr) {
           if (lane < nr) {
             const size_t o = (gb + b0 + lane) * P1 + k;
-            x.s_p1[o] = fmaxf(x.b1[k] + pick(acc[0][0], lane), 0.f) * x.dm1[o];
+            const float v =
+                rnd<S>(fmaxf(x.b1[k] + pick(acc[0][0], lane), 0.f) * ldv(cs<S>(x.dm1) + o));
+            stv(ms<S>(x.s_p1) + o, v);
+            if constexpr (BF) wk.p1f[o] = v;
           }
         });
   };
   auto prenet2 = [&](int gp) {
     const size_t gb = (size_t)gp * B;
-    const Seg segs[1] = {{x.s_p1 + gb * P1, P1, P1}};
+    const Seg segs[1] = {{(BF ? wk.p1f : x.s_p1) + gb * P1, P1, P1}};
     kstage<1, 1, 1>(
         p, X, B, P2, segs, 1,
         [&](float(&acc)[1][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1, int nr) {
-          kdots<1, false>(acc[0], x.w2 + (size_t)j * P1, 0, P1, 0, Xt, kcs, c0, c1, nr);
+          kdots<1, false>(acc[0], cs<S>(x.w2) + (size_t)j * P1, 0, P1, 0, Xt, kcs, c0, c1, nr);
         },
         [&](float(&acc)[1][1][RB], int j, int, int b0, int nr) {
           if (lane < nr) {
             const size_t o = (gb + b0 + lane) * P2 + j;
-            x.s_pre[o] = fmaxf(x.b2[j] + pick(acc[0][0], lane), 0.f) * x.dm2[o];
+            const float v =
+                rnd<S>(fmaxf(x.b2[j] + pick(acc[0][0], lane), 0.f) * ldv(cs<S>(x.dm2) + o));
+            stv(ms<S>(x.s_pre) + o, v);
+            if constexpr (BF) wk.pref[o] = v;
           }
         });
   };
@@ -698,17 +792,19 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
     const int in = (g + 1) & 1, out = g & 1;
     // ---- GRUCell on [ctx_{g-1} | pre_g], h = ah ----
     {
-      const Seg segs[3] = {{g > 0 ? ctx_all + (gb - B) * E : nullptr, E, E},
-                           {x.s_pre + gb * P2, P2, P2},
-                           {pair_at(wk.ah, in), D, D}};
+      const Seg segs[3] = {
+          {g > 0 ? (BF ? wk.ctxf : reinterpret_cast<float*>(ctx_all)) + (gb - B) * E : nullptr, E,
+           E},
+          {(BF ? wk.pref : x.s_pre) + gb * P2, P2, P2},
+          {pair_at(wk.ah, in), D, D}};
       kstage<3, 2, 1>(
           p, X, B, D, segs, 3,
           [&](float(&acc)[2][3][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<3, false>(acc[0], a.awi + (size_t)j * (E + P2), (size_t)D * (E + P2), E + P2, 0,
-                            Xt, kcs, c0, c1, nr);
-            kdots<3, false>(acc[1], a.awh + (size_t)j * D, (size_t)D * D, D, E + P2, Xt, kcs, c0,
-                            c1, nr);
+            kdots<3, false>(acc[0], cs<S>(a.awi) + (size_t)j * (E + P2), (size_t)D * (E + P2),
+                            E + P2, 0, Xt, kcs, c0, c1, nr);
+            kdots<3, false>(acc[1], cs<S>(a.awh) + (size_t)j * D, (size_t)D * D, D, E + P2, Xt,
+                            kcs, c0, c1, nr);
           },
           [&](float(&acc)[2][3][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
@@ -722,15 +818,15 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
               const float hn = pick(gh[2], lane) + a.abh[2 * D + j];
               const float n = tanhf((pick(gi[2], lane) + a.abi[2 * D + j]) + r * hn);
               const float hp = __ldcg(pair_at(wk.ah, in) + (size_t)b * D + j);
-              const float h = (1.f - z) * n + z * hp;
+              const float h = rnd<S>((1.f - z) * n + z * hp);
               pair_at(wk.ah, out)[(size_t)b * D + j] = h;
               if (save) {
-                a.s_ah[(gb + b) * D + j] = h;
-                float* s = a.s_gru + (gb + b) * 4 * D;
-                s[j] = r;
-                s[D + j] = z;
-                s[2 * D + j] = n;
-                s[3 * D + j] = hn;
+                stv(ms<S>(a.s_ah) + ((gb + b) * D + j), h);
+                S* s = ms<S>(a.s_gru) + (gb + b) * 4 * D;
+                stv(s + j, r);
+                stv(s + (D + j), z);
+                stv(s + (2 * D + j), n);
+                stv(s + (3 * D + j), hn);
               }
             }
           });
@@ -740,16 +836,17 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
     pf.stamp(FP_GRU_W);
     // ---- the query q = W ah + b and rnn_input on [ctx_g | ah] ----
     {
-      const Seg segs[2] = {{ctx_all + gb * E, E, E}, {pair_at(wk.ah, out), D, D}};
+      const Seg segs[2] = {{(BF ? wk.ctxf : reinterpret_cast<float*>(ctx_all)) + gb * E, E, E},
+                           {pair_at(wk.ah, out), D, D}};
       kstage<1, 1, 3>(
           p, X, B, D + L, segs, 2,
           [&](float(&acc)[1][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
             if (u < D)
-              kdots<1, false>(acc[0], a.wq + (size_t)u * D, 0, D, E, Xt, kcs, c0, c1, nr);
+              kdots<1, false>(acc[0], cs<S>(a.wq) + (size_t)u * D, 0, D, E, Xt, kcs, c0, c1, nr);
             else
-              kdots<1, false>(acc[0], a.wr + (size_t)(u - D) * (E + D), 0, E + D, 0, Xt, kcs, c0,
-                              c1, nr);
+              kdots<1, false>(acc[0], cs<S>(a.wr) + (size_t)(u - D) * (E + D), 0, E + D, 0, Xt,
+                              kcs, c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int u, int, int b0, int nr) {
             if (lane < nr) {
@@ -760,9 +857,9 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
                 if (save) a.s_q[(gb + b) * D + u] = qv;
               } else {
                 const int j = u - D;
-                const float x0 = pick(acc[0][0], lane) + a.br[j];
+                const float x0 = rnd<S>(pick(acc[0][0], lane) + a.br[j]);
                 wk.x0[(size_t)b * L + j] = x0;
-                if (save) a.s_x0[(gb + b) * L + j] = x0;
+                if (save) stv(ms<S>(a.s_x0) + ((gb + b) * L + j), x0);
               }
             }
           });
@@ -773,29 +870,29 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
     // ---- the residual LSTMCells with zoneout on h; each interval's
     // barrier also carries a slot of group g's attention items ----
     for (int layer = 0; layer < 2; ++layer) {
-      const float* wi = layer == 0 ? a.l1wi : a.l2wi;
-      const float* wh = layer == 0 ? a.l1wh : a.l2wh;
-      const float* sw = layer == 0 ? s_l1 : s_l2;
+      const S* wi = cs<S>(layer == 0 ? a.l1wi : a.l2wi);
+      const S* wh = cs<S>(layer == 0 ? a.l1wh : a.l2wh);
+      const S* sw = layer == 0 ? s_l1 : s_l2;
       const bool resident = (layer == 0 ? p.res_l1 : p.res_l2) != 0;
       const float* bias = layer == 0 ? a.l1b : a.l2b;
-      const float* zm = (layer == 0 ? a.zm1 : a.zm2) + gb * L;
+      const S* zm = cs<S>(layer == 0 ? a.zm1 : a.zm2) + gb * L;
       const float* xin = layer == 0 ? wk.x0 : wk.x1;
       float* xout = layer == 0 ? wk.x1 : wk.x2;
       const float* h_cur = layer == 0 ? pair_at(wk.h1, in) : pair_at(wk.h2, in);
       const float* c_cur = layer == 0 ? pair_at(wk.c1, in) : pair_at(wk.c2, in);
       float* h_nxt = layer == 0 ? pair_at(wk.h1, out) : pair_at(wk.h2, out);
       float* c_nxt = layer == 0 ? pair_at(wk.c1, out) : pair_at(wk.c2, out);
-      float* s_gates = layer == 0 ? a.s_g1 : a.s_g2;
-      float* s_c = layer == 0 ? a.s_c1 : a.s_c2;
-      float* s_h = layer == 0 ? a.s_h1 : a.s_h2;
-      float* s_x = layer == 0 ? a.s_x1 : a.s_x2;
+      S* s_gates = ms<S>(layer == 0 ? a.s_g1 : a.s_g2);
+      S* s_c = ms<S>(layer == 0 ? a.s_c1 : a.s_c2);
+      S* s_h = ms<S>(layer == 0 ? a.s_h1 : a.s_h2);
+      S* s_x = ms<S>(layer == 0 ? a.s_x1 : a.s_x2);
       const Seg segs[2] = {{xin, L, L}, {h_cur, L, L}};
       kstage<4, 1, 2>(
           p, X, B, L, segs, 2,
           [&](float(&acc)[1][4][RB], int j, int m, const float* Xt, int kcs, int c0, int c1,
               int nr) {
             if (resident) {
-              const float* rows = sw + (size_t)m * 4 * 2 * L;
+              const S* rows = sw + (size_t)m * 4 * 2 * L;
               kdots<4, true>(acc[0], rows, 2 * (size_t)L, L, 0, Xt, kcs, c0, c1, nr);
               kdots<4, true>(acc[0], rows + L, 2 * (size_t)L, L, L, Xt, kcs, c0, c1, nr);
             } else {
@@ -811,24 +908,24 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
               const float fg = sigm(pick(acc[0][1], lane) + bias[L + j]);
               const float gg = tanhf(pick(acc[0][2], lane) + bias[2 * L + j]);
               const float og = sigm(pick(acc[0][3], lane) + bias[3 * L + j]);
-              const float c = fg * __ldcg(c_cur + o) + ig * gg;
+              const float c = rnd<S>(fg * __ldcg(c_cur + o) + ig * gg);
               const float hp = __ldcg(h_cur + o);
-              const float zz = zm[o];
-              const float h = zz * hp + (1.f - zz) * (og * tanhf(c));
-              const float xv = __ldcg(xin + o) + h;
+              const float zz = ldv(zm + o);
+              const float h = rnd<S>(zz * hp + (1.f - zz) * (og * tanhf(c)));
+              const float xv = rnd<S>(__ldcg(xin + o) + h);
               c_nxt[o] = c;
               h_nxt[o] = h;
               xout[o] = xv;
               if (save) {
                 const size_t so = (gb + b) * L + j;
-                float* sg = s_gates + (gb + b) * 4 * L;
-                sg[j] = ig;
-                sg[L + j] = fg;
-                sg[2 * L + j] = gg;
-                sg[3 * L + j] = og;
-                s_c[so] = c;
-                s_h[so] = h;
-                s_x[so] = xv;
+                S* sg = s_gates + (gb + b) * 4 * L;
+                stv(sg + j, ig);
+                stv(sg + (L + j), fg);
+                stv(sg + (2 * L + j), gg);
+                stv(sg + (3 * L + j), og);
+                stv(s_c + so, c);
+                stv(s_h + so, h);
+                stv(s_x + so, xv);
               }
             }
           });
@@ -847,14 +944,18 @@ __device__ __forceinline__ void fwd_res(const TfFwdArgs& a, const AfFwdArgs& x, 
           p, X, B, F, segs, 1,
           [&](float(&acc)[1][1][RB], int f, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<1, false>(acc[0], a.wm + (size_t)f * L, 0, L, 0, Xt, kcs, c0, c1, nr);
+            kdots<1, false>(acc[0], cs<S>(a.wm) + (size_t)f * L, 0, L, 0, Xt, kcs, c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int f, int, int b0, int nr) {
             if (lane < nr) {
               const int b = b0 + lane;
-              const float mv = pick(acc[0][0], lane);
-              a.mel[(gb + b) * F + f] = mv;
-              if (f >= F - NM && g + 1 < G) x.s_prev[(gb + B + b) * NM + f - (F - NM)] = 0.f + mv;
+              const float mv = rnd<S>(pick(acc[0][0], lane));
+              stv(ms<S>(a.mel) + ((gb + b) * F + f), mv);
+              if (f >= F - NM && g + 1 < G) {
+                const size_t po = (gb + B + b) * NM + f - (F - NM);
+                stv(ms<S>(x.s_prev) + po, 0.f + mv);
+                if constexpr (BF) wk.prevf[po] = mv;
+              }
             }
           });
     }
@@ -922,8 +1023,9 @@ struct BWork {
 // taps at a time reduced by reduce_scatter8), then dcl[j] = sum over
 // tt + k = j of P[tt][k] for the cumulative's taps and dal[j] likewise for
 // the attention's (positions t0 - 15 + j, j < 46). All threads.
+template <typename W>
 __device__ __forceinline__ void loc_grads(const float (&dp)[TC], int d, bool unit, int D,
-                                          const float* w01t, float* s_dp, float* P, float* dcl,
+                                          const W* w01t, float* s_dp, float* P, float* dcl,
                                           float* dal) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (unit) {
@@ -941,7 +1043,7 @@ __device__ __forceinline__ void loc_grads(const float (&dp)[TC], int d, bool uni
         const float p0 = s_dp[tp * D + dd], p1 = s_dp[(tp + 1) * D + dd];
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
-          const float wv = k0 + u < NTAP ? w01t[(k0 + u) * D + dd] : 0.f;
+          const float wv = k0 + u < NTAP ? ldv(w01t + ((k0 + u) * D + dd)) : 0.f;
           v0[u] = fmaf(p0, wv, v0[u]);
           v1[u] = fmaf(p1, wv, v1[u]);
         }
@@ -1016,7 +1118,8 @@ __device__ __forceinline__ void att_bwd_a(const TfBwdArgs& a, const BWork& w, fl
 // d(encp), the v and location-weight gradients into the block's
 // accumulators, the conv's input cotangents over the item's window), with
 // S from the items' partials; d(q)'s partial over its positions.
-__device__ __forceinline__ void att_bwd_b(const TfBwdArgs& a, const BWork& w, const float* s_w01t, float* s_gw,
+template <typename ST>
+__device__ __forceinline__ void att_bwd_b(const TfBwdArgs& a, const BWork& w, const ST* s_w01t, float* s_gw,
                           float* s_pv, float* sc, int nc, int b, int c, int g) {
   const int B = (int)a.B, T = (int)a.T, D = (int)a.D;
   const int t0 = c * TC, tc = min(TC, T - t0);
@@ -1046,10 +1149,10 @@ __device__ __forceinline__ void att_bwd_b(const TfBwdArgs& a, const BWork& w, co
   const float div = a.s_div[gbb];
   const int d = threadIdx.x;
   const bool unit = d < D;
-  const float qd = unit ? a.s_q[gbb * D + d] : 0.f, vd = unit ? a.v[d] : 0.f;
+  const float qd = unit ? a.s_q[gbb * D + d] : 0.f, vd = unit ? ldv(cs<ST>(a.v) + d) : 0.f;
   float arg[TC], dp[TC];
   if (unit) {
-    lsa_args(arg, 0, tc, d, D, qd, cw, aw, s_w01t, a.encp + ((size_t)b * T + t0) * D);
+    lsa_args(arg, 0, tc, d, D, qd, cw, aw, s_w01t, cs<ST>(a.encp) + ((size_t)b * T + t0) * D);
   } else {
 #pragma unroll
     for (int tt = 0; tt < TC; ++tt) arg[tt] = 0.f;
@@ -1130,6 +1233,7 @@ __device__ __forceinline__ void att_bwd_c(const TfBwdArgs& a, const BWork& w, in
 // original's order (lanes along e, e = e0 + lane + 32 i, then the xor
 // butterfly), d(enc)[b, t] = sum over g from G - 1 down to 0 of aref[g, b,
 // t] dctx[g] by fmaf, as the original accumulated it group by group.
+template <typename S>
 __device__ __forceinline__ void contraction(const TfBwdArgs& a, const AfBwdArgs& x, const BWork& w,
                             const ResPlan& p, float* sm) {
   const int G = (int)a.G, B = (int)a.B, T = (int)a.T, E = (int)a.E, E4 = E / 4;
@@ -1147,8 +1251,7 @@ __device__ __forceinline__ void contraction(const TfBwdArgs& a, const AfBwdArgs&
     for (int i = 0; i < NA; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     for (int e = threadIdx.x; e < tn * E4; e += THREADS)
-      reinterpret_cast<float4*>(s_enc)[e] =
-          __ldg(reinterpret_cast<const float4*>(a.enc + ((size_t)b * T + t0) * E) + e);
+      reinterpret_cast<float4*>(s_enc)[e] = ldg4i(cs<S>(a.enc) + ((size_t)b * T + t0) * E, e);
     for (int g1 = G; g1 > 0; g1 -= gc) {
       const int g0 = max(0, g1 - gc), gn = g1 - g0;
       __syncthreads();
@@ -1159,7 +1262,7 @@ __device__ __forceinline__ void contraction(const TfBwdArgs& a, const AfBwdArgs&
       }
       for (int e = threadIdx.x; e < gn * tt; e += THREADS) {
         const int gi = e / tt, ti = e - gi * tt;
-        s_ar[e] = ti < tn ? x.aref[((size_t)(g0 + gi) * B + b) * T + t0 + ti] : 0.f;
+        s_ar[e] = ti < tn ? ldv(cs<S>(x.aref) + (((size_t)(g0 + gi) * B + b) * T + t0 + ti)) : 0.f;
       }
       __syncthreads();
       // d(enc): thread i owns float4 outputs i, i + 256, ... of tn x E4
@@ -1209,7 +1312,9 @@ enum BProf {
   BP_S4_W, BP_S7, BP_S7_ATT, BP_S7_W, BP_S8, BP_S8_ATT, BP_S8_W, BP_S9, BP_S9_W, BP_EPI
 };
 
-template <bool PROF>
+// S as in fwd_res: the weights, the streams and the masks are read as S;
+// every cotangent and gradient stays float.
+template <bool PROF, typename S>
 __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, const ResPlan& p,
                                         long long* prof_out) {
   const int G = (int)a.G, B = (int)a.B, E = (int)a.E, D = (int)a.D;
@@ -1222,13 +1327,13 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
   pf.start(PROF ? prof_out : nullptr);
 
   extern __shared__ float smem[];
-  float* s_w01t = smem + p.off_w01t;
+  S* s_w01t = ms<S>(smem + p.off_w01t);
   float* s_att = smem + p.off_att;
   float* X = smem + p.off_x;
   float* s_gw = p.gw_global ? a.pw01 + (size_t)blockIdx.x * NTAP * D : smem + p.off_gw;
   float* s_pv = smem + p.off_pv;
   for (int e = threadIdx.x; e < NTAP * D; e += THREADS) {
-    s_w01t[e] = a.w01t[e];
+    s_w01t[e] = cs<S>(a.w01t)[e];
     s_gw[e] = 0.f;
   }
   for (int e = threadIdx.x; e < D; e += THREADS) s_pv[e] = 0.f;
@@ -1264,17 +1369,17 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
           p, X, B, L, segs, 1,
           [&](float(&acc)[1][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<1, false>(acc[0], a.wmT + (size_t)j * F, 0, F, 0, Xt, kcs, c0, c1, nr);
+            kdots<1, false>(acc[0], cs<S>(a.wmT) + (size_t)j * F, 0, F, 0, Xt, kcs, c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
               const int b = b0 + lane;
               const size_t o = (size_t)b * L + j, so = (gb + b) * L + j;
               const float dx2 = pick(acc[0][0], lane);
-              const float cp = g > 0 ? a.s_c2[so - (size_t)B * L] : 0.f;
+              const float cp = g > 0 ? ldv(cs<S>(a.s_c2) + (so - (size_t)B * L)) : 0.f;
               const LstmBwd r = lstm_bwd(__ldcg(wk.dh2 + o) + dx2, __ldcg(wk.dc2 + o),
-                                         a.s_g2 + (gb + b) * 4 * L, j, L, a.s_c2[so], cp,
-                                         a.zm2[so]);
+                                         cs<S>(a.s_g2) + (gb + b) * 4 * L, j, L,
+                                         ldv(cs<S>(a.s_c2) + so), cp, ldv(cs<S>(a.zm2) + so));
               float* dg = a.c_dg2 + (gb + b) * 4 * L;
               for (int q = 0; q < 4; ++q) dg[q * L + j] = r.dg[q];
               wk.dc2[o] = r.dc_prev;
@@ -1295,8 +1400,8 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
     // ---- 3: dx0 = dx1 + dG1 @ l1wi, dh1 = z dh + dG1 @ l1wh ----
     for (int layer = 2; layer >= 1; --layer) {
       const float* dG = (layer == 2 ? a.c_dg2 : a.c_dg1) + gb * 4 * L;
-      const float* wiT = layer == 2 ? a.l2wiT : a.l1wiT;
-      const float* whT = layer == 2 ? a.l2whT : a.l1whT;
+      const S* wiT = cs<S>(layer == 2 ? a.l2wiT : a.l1wiT);
+      const S* whT = cs<S>(layer == 2 ? a.l2whT : a.l1whT);
       const Seg segs[1] = {{dG, 4 * L, 4 * L}};
       kstage<1, 2, 2>(
           p, X, B, L, segs, 1,
@@ -1312,10 +1417,10 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
               if (layer == 2) {
                 const float dx1 = __ldcg(wk.dx2 + o) + pick(acc[0][0], lane);
                 wk.dh2[o] = __ldcg(wk.wz2 + o) + pick(acc[1][0], lane);
-                const float cp = g > 0 ? a.s_c1[so - (size_t)B * L] : 0.f;
+                const float cp = g > 0 ? ldv(cs<S>(a.s_c1) + (so - (size_t)B * L)) : 0.f;
                 const LstmBwd r = lstm_bwd(__ldcg(wk.dh1 + o) + dx1, __ldcg(wk.dc1 + o),
-                                           a.s_g1 + (gb + b) * 4 * L, j, L, a.s_c1[so], cp,
-                                           a.zm1[so]);
+                                           cs<S>(a.s_g1) + (gb + b) * 4 * L, j, L,
+                                           ldv(cs<S>(a.s_c1) + so), cp, ldv(cs<S>(a.zm1) + so));
                 float* dg = a.c_dg1 + (gb + b) * 4 * L;
                 for (int q = 0; q < 4; ++q) dg[q * L + j] = r.dg[q];
                 wk.dc1[o] = r.dc_prev;
@@ -1348,9 +1453,10 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
           p, X, B, E + D, segs, 2,
           [&](float(&acc)[2][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<1, false>(acc[0], a.wrT + (size_t)u * L, 0, L, 0, Xt, kcs, c0, c1, nr);
+            kdots<1, false>(acc[0], cs<S>(a.wrT) + (size_t)u * L, 0, L, 0, Xt, kcs, c0, c1, nr);
             if (u >= E)
-              kdots<1, false>(acc[1], a.wqT + (size_t)(u - E) * D, 0, D, L, Xt, kcs, c0, c1, nr);
+              kdots<1, false>(acc[1], cs<S>(a.wqT) + (size_t)(u - E) * D, 0, D, L, Xt, kcs, c0, c1,
+                              nr);
           },
           [&](float(&acc)[2][1][RB], int u, int, int b0, int nr) {
             if (lane < nr) {
@@ -1363,9 +1469,10 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
                 const float dahp = __ldcg(wk.dah + (size_t)b * D + j) + v;
                 const float dh = dahp + pick(acc[1][0], lane);
                 const size_t gbb = gb + b;
-                const float* sg = a.s_gru + gbb * 4 * D;
-                const float r = sg[j], z = sg[D + j], n = sg[2 * D + j], hn = sg[3 * D + j];
-                const float hp = g > 0 ? a.s_ah[(gbb - B) * D + j] : 0.f;
+                const S* sg = cs<S>(a.s_gru) + gbb * 4 * D;
+                const float r = ldv(sg + j), z = ldv(sg + (D + j)), n = ldv(sg + (2 * D + j)),
+                            hn = ldv(sg + (3 * D + j));
+                const float hp = g > 0 ? ldv(cs<S>(a.s_ah) + ((gbb - B) * D + j)) : 0.f;
                 const float dz = dh * (hp - n);
                 const float dn = dh * (1.f - z);
                 const float dpre_n = dn * (1.f - n * n);
@@ -1397,14 +1504,14 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
           p, X, B, P2, segs, 1,
           [&](float(&acc)[1][1][RB], int j, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<1, false>(acc[0], a.awiT + (size_t)(E + j) * 3 * D, 0, 3 * D, 0, Xt, kcs, c0,
-                            c1, nr);
+            kdots<1, false>(acc[0], cs<S>(a.awiT) + (size_t)(E + j) * 3 * D, 0, 3 * D, 0, Xt, kcs,
+                            c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int j, int, int b0, int nr) {
             if (lane < nr) {
               const size_t o = (gb + b0 + lane) * P2 + j;
               const float v = 0.f + pick(acc[0][0], lane);
-              x.c_dp2[o] = a.pre[o] > 0.f ? v * x.dm2[o] : 0.f;
+              x.c_dp2[o] = ldv(cs<S>(a.pre) + o) > 0.f ? v * ldv(cs<S>(x.dm2) + o) : 0.f;
             }
           });
     }
@@ -1425,12 +1532,13 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
           [&](float(&acc)[1][1][RB], int u, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
             if (u < P1)
-              kdots<1, false>(acc[0], x.w2T + (size_t)u * P2, 0, P2, 0, Xt, kcs, c0, c1, nr);
+              kdots<1, false>(acc[0], cs<S>(x.w2T) + (size_t)u * P2, 0, P2, 0, Xt, kcs, c0, c1,
+                              nr);
             else if (u < P1 + E)
-              kdots<1, false>(acc[0], a.awiT + (size_t)(u - P1) * 3 * D, 0, 3 * D, P2, Xt, kcs,
-                              c0, c1, nr);
+              kdots<1, false>(acc[0], cs<S>(a.awiT) + (size_t)(u - P1) * 3 * D, 0, 3 * D, P2, Xt,
+                              kcs, c0, c1, nr);
             else
-              kdots<1, false>(acc[0], a.awhT + (size_t)(u - P1 - E) * 3 * D, 0, 3 * D,
+              kdots<1, false>(acc[0], cs<S>(a.awhT) + (size_t)(u - P1 - E) * 3 * D, 0, 3 * D,
                               P2 + 3 * D, Xt, kcs, c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int u, int, int b0, int nr) {
@@ -1440,7 +1548,7 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
               if (u < P1) {
                 const size_t o = (gb + b) * P1 + u;
                 const float s1 = 0.f + v;
-                x.c_dp1[o] = x.s_p1[o] > 0.f ? s1 * x.dm1[o] : 0.f;
+                x.c_dp1[o] = ldv(cs<S>(x.s_p1) + o) > 0.f ? s1 * ldv(cs<S>(x.dm1) + o) : 0.f;
               } else if (u < P1 + E) {
                 wk.dctx[(size_t)b * E + u - P1] = v;
               } else {
@@ -1463,7 +1571,7 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
           p, X, B, NM, segs, 1,
           [&](float(&acc)[1][1][RB], int m, int, const float* Xt, int kcs, int c0, int c1,
               int nr) {
-            kdots<1, false>(acc[0], x.w1T + (size_t)m * P1, 0, P1, 0, Xt, kcs, c0, c1, nr);
+            kdots<1, false>(acc[0], cs<S>(x.w1T) + (size_t)m * P1, 0, P1, 0, Xt, kcs, c0, c1, nr);
           },
           [&](float(&acc)[1][1][RB], int m, int, int b0, int nr) {
             if (lane < nr) {
@@ -1482,7 +1590,7 @@ __device__ __forceinline__ void bwd_res(const TfBwdArgs& a, const AfBwdArgs& x, 
   if (!p.gw_global)
     for (int e = threadIdx.x; e < NTAP * D; e += THREADS) pw[e] = s_gw[e];
   for (int e = threadIdx.x; e < D; e += THREADS) a.pv[(size_t)blockIdx.x * D + e] = s_pv[e];
-  contraction(a, x, wk, p, smem + 4);
+  contraction<S>(a, x, wk, p, smem + 4);
   pf.stamp(BP_EPI);
 }
 
@@ -1493,19 +1601,28 @@ namespace {
 #ifndef TACO_TRAIN_HELPERS_ONLY   // taco_tf_resident.cu takes the helpers alone
 __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_fwd(TfFwdArgs a, AfFwdArgs x, ResPlan p) {
-  res::fwd_res<false>(a, x, p, nullptr);
+  res::fwd_res<false, float>(a, x, p, nullptr);
 }
 __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_fwd_prof(TfFwdArgs a, AfFwdArgs x, ResPlan p, long long* prof) {
-  res::fwd_res<true>(a, x, p, prof);
+  res::fwd_res<true, float>(a, x, p, prof);
 }
 __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_bwd(TfBwdArgs a, AfBwdArgs x, ResPlan p) {
-  res::bwd_res<false>(a, x, p, nullptr);
+  res::bwd_res<false, float>(a, x, p, nullptr);
 }
 __global__ void __launch_bounds__(THREADS, 1)
     taco_af_res_bwd_prof(TfBwdArgs a, AfBwdArgs x, ResPlan p, long long* prof) {
-  res::bwd_res<true>(a, x, p, prof);
+  res::bwd_res<true, float>(a, x, p, prof);
+}
+// the bf16 instantiations (weights, streams, saved states and mel in bf16)
+__global__ void __launch_bounds__(THREADS, 1)
+    taco_af_res_fwd_bf16(TfFwdArgs a, AfFwdArgs x, ResPlan p) {
+  res::fwd_res<false, bf16_t>(a, x, p, nullptr);
+}
+__global__ void __launch_bounds__(THREADS, 1)
+    taco_af_res_bwd_bf16(TfBwdArgs a, AfBwdArgs x, ResPlan p) {
+  res::bwd_res<false, bf16_t>(a, x, p, nullptr);
 }
 
 #endif
@@ -1529,30 +1646,33 @@ cudaError_t launch_res(const void* fn, const ResPlan& p, void** kargs, cudaStrea
 
 // wgrads() with the location-weight and v partials one per block of the
 // grid (the original has one per utterance).
+template <typename S>
 cudaError_t res_wgrads(const TfBwdArgs& a, const AfBwdArgs& x, int64_t nparts, cudaStream_t st) {
   cudaError_t e;
   const int64_t R = a.G * a.B, B = a.B, D = a.D, E = a.E, P2 = a.P2, L = a.L, F = a.F;
-  if ((e = gemm(st, a.c_dgi, 3 * D, a.s_ctx, E, B, a.dawi, E + P2, 3 * D, E, R))) return e;
-  if ((e = gemm(st, a.c_dgi, 3 * D, a.pre, P2, 0, a.dawi + E, E + P2, 3 * D, P2, R))) return e;
+  const S *s_ctx = cs<S>(a.s_ctx), *s_ah = cs<S>(a.s_ah);
+  if ((e = gemm(st, a.c_dgi, 3 * D, s_ctx, E, B, a.dawi, E + P2, 3 * D, E, R))) return e;
+  if ((e = gemm(st, a.c_dgi, 3 * D, cs<S>(a.pre), P2, 0, a.dawi + E, E + P2, 3 * D, P2, R)))
+    return e;
   if ((e = csum(st, a.c_dgi, 3 * D, a.dabi, 3 * D, R))) return e;
-  if ((e = gemm(st, a.c_dgh, 3 * D, a.s_ah, D, B, a.dawh, D, 3 * D, D, R))) return e;
+  if ((e = gemm(st, a.c_dgh, 3 * D, s_ah, D, B, a.dawh, D, 3 * D, D, R))) return e;
   if ((e = csum(st, a.c_dgh, 3 * D, a.dabh, 3 * D, R))) return e;
-  if ((e = gemm(st, a.c_dq, D, a.s_ah, D, 0, a.dwq, D, D, D, R))) return e;
+  if ((e = gemm(st, a.c_dq, D, s_ah, D, 0, a.dwq, D, D, D, R))) return e;
   if ((e = csum(st, a.c_dq, D, a.dqb, D, R))) return e;
-  if ((e = gemm(st, a.c_dx0, L, a.s_ctx, E, 0, a.dwr, E + D, L, E, R))) return e;
-  if ((e = gemm(st, a.c_dx0, L, a.s_ah, D, 0, a.dwr + E, E + D, L, D, R))) return e;
+  if ((e = gemm(st, a.c_dx0, L, s_ctx, E, 0, a.dwr, E + D, L, E, R))) return e;
+  if ((e = gemm(st, a.c_dx0, L, s_ah, D, 0, a.dwr + E, E + D, L, D, R))) return e;
   if ((e = csum(st, a.c_dx0, L, a.dbr, L, R))) return e;
-  if ((e = gemm(st, a.c_dg1, 4 * L, a.s_x0, L, 0, a.dl1wi, L, 4 * L, L, R))) return e;
-  if ((e = gemm(st, a.c_dg1, 4 * L, a.s_h1, L, B, a.dl1wh, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg1, 4 * L, cs<S>(a.s_x0), L, 0, a.dl1wi, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg1, 4 * L, cs<S>(a.s_h1), L, B, a.dl1wh, L, 4 * L, L, R))) return e;
   if ((e = csum(st, a.c_dg1, 4 * L, a.dl1b, 4 * L, R))) return e;
-  if ((e = gemm(st, a.c_dg2, 4 * L, a.s_x1, L, 0, a.dl2wi, L, 4 * L, L, R))) return e;
-  if ((e = gemm(st, a.c_dg2, 4 * L, a.s_h2, L, B, a.dl2wh, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg2, 4 * L, cs<S>(a.s_x1), L, 0, a.dl2wi, L, 4 * L, L, R))) return e;
+  if ((e = gemm(st, a.c_dg2, 4 * L, cs<S>(a.s_h2), L, B, a.dl2wh, L, 4 * L, L, R))) return e;
   if ((e = csum(st, a.c_dg2, 4 * L, a.dl2b, 4 * L, R))) return e;
-  if ((e = gemm(st, a.dmel, F, a.s_x2, L, 0, a.dwm, L, F, L, R))) return e;
+  if ((e = gemm(st, a.dmel, F, cs<S>(a.s_x2), L, 0, a.dwm, L, F, L, R))) return e;
   const int64_t P1 = x.P1, NM = x.NM;
-  if ((e = gemm(st, x.c_dp2, P2, x.s_p1, P1, 0, x.dw2, P1, P2, P1, R))) return e;
+  if ((e = gemm(st, x.c_dp2, P2, cs<S>(x.s_p1), P1, 0, x.dw2, P1, P2, P1, R))) return e;
   if ((e = csum(st, x.c_dp2, P2, x.db2, P2, R))) return e;
-  if ((e = gemm(st, x.c_dp1, P1, x.s_prev, NM, 0, x.dw1, NM, P1, NM, R))) return e;
+  if ((e = gemm(st, x.c_dp1, P1, cs<S>(x.s_prev), NM, 0, x.dw1, NM, P1, NM, R))) return e;
   if ((e = csum(st, x.c_dp1, P1, x.db1, P1, R))) return e;
   reduce_parts<<<(unsigned)((NTAP * D + 255) / 256), 256, 0, st>>>(a.pw01, (int)nparts, NTAP,
                                                                     (int)D, 1, a.dw01);
@@ -1569,7 +1689,11 @@ extern "C" {
 
 // Floats of zeroed workspace the resident forward / backward needs.
 int64_t wr_taco_af_res_fwd_work_floats(const TfFwdArgs* a, const ResPlan* p) {
-  return res::FWork(nullptr, *a, *p).size;
+  return res::FWork<float>(nullptr, *a, *p).size;
+}
+int64_t wr_taco_af_res_fwd_bf16_work_floats(const TfFwdArgs* a, const AfFwdArgs* x,
+                                            const ResPlan* p) {
+  return res::FWork<bf16_t>(nullptr, *a, *p, x).size;
 }
 int64_t wr_taco_af_res_bwd_work_floats(const TfBwdArgs* a, const ResPlan* p) {
   return res::BWork(nullptr, *a, *p).size;
@@ -1610,7 +1734,32 @@ int wr_taco_af_res_bwd(const TfBwdArgs* args, const AfBwdArgs* xargs, const ResP
     e = launch_res((const void*)taco_af_res_bwd, p, kargs, st);
   }
   if (e != cudaSuccess) return e;
-  return res_wgrads(a, x, p.nblk, st);
+  return res_wgrads<float>(a, x, p.nblk, st);
+}
+
+// The bf16 forward and backward (every operand of ops/cuda_taco_train.py's
+// bf16 class in bf16; scores, s_cum, s_q, s_div, the biases, dmel, dsc and
+// every cotangent and gradient in float).
+int wr_taco_af_res_fwd_bf16(const TfFwdArgs* args, const AfFwdArgs* xargs, const ResPlan* plan,
+                            void* stream) {
+  TfFwdArgs a = *args;
+  AfFwdArgs x = *xargs;
+  ResPlan p = *plan;
+  if (a.pre != x.s_pre || a.D > THREADS) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &x, &p};
+  return launch_res((const void*)taco_af_res_fwd_bf16, p, kargs, (cudaStream_t)stream);
+}
+int wr_taco_af_res_bwd_bf16(const TfBwdArgs* args, const AfBwdArgs* xargs, const ResPlan* plan,
+                            void* stream) {
+  TfBwdArgs a = *args;
+  AfBwdArgs x = *xargs;
+  ResPlan p = *plan;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a.dmel != x.dmel || a.D > THREADS) return cudaErrorInvalidValue;
+  void* kargs[] = {&a, &x, &p};
+  const cudaError_t e = launch_res((const void*)taco_af_res_bwd_bf16, p, kargs, st);
+  if (e != cudaSuccess) return e;
+  return res_wgrads<bf16_t>(a, x, p.nblk, st);
 }
 
 }  // extern "C"

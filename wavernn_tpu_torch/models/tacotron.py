@@ -363,13 +363,36 @@ def draw_masks(model: Tacotron, B: int, T_text: int, n_groups: int,
             "dec_drop2": drop(n_groups, B, P2), "zm1": zm1, "zm2": zm2}
 
 
+class _Forward(nn.Module):
+    """``forward`` as a module call, so that ``torch.func.functional_call``
+    can run it on the model's parameters cast to a compute dtype."""
+
+    def __init__(self, model: Tacotron):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return forward(self.model, *args, **kwargs)
+
+
+def _cast_params_except_bn(model: Tacotron, dtype) -> dict:
+    """Every parameter cast to ``dtype`` (a differentiable cast, so the
+    gradients reach the float32 masters in float32), except BatchNorm's,
+    which stay float32 with its running statistics
+    (``_cast_params_except_bn``, wavernn_tpu/models/tacotron.py:338-348)."""
+    bn = {name for name, mod in model.named_modules()
+          if isinstance(mod, nn.BatchNorm1d)}
+    return {"model." + k: (p if k.rsplit(".", 1)[0] in bn else p.to(dtype))
+            for k, p in model.named_parameters()}
+
+
 def forward(model: Tacotron, x_ids, m, r: int,
             mode: str = "teacher_forcing", training: bool = True,
             generate_gta: bool = False, recurrence: str = "auto",
             masks: Optional[dict] = None,
             generator: Optional[torch.Generator] = None,
             attn_ref: Optional[torch.Tensor] = None,
-            decoder_only: bool = False):
+            decoder_only: bool = False, compute_dtype=None):
     """Training forward of every mode (tacotron.py:319-379; the JAX
     package's ``models/tacotron.forward``).
 
@@ -390,7 +413,24 @@ def forward(model: Tacotron, x_ids, m, r: int,
     decoder recurrence on B6 (teacher forcing) or B7 (attention forcing),
     their plain versions on CPU tensors; "scan" runs the plain step loops
     under autograd. Free running has no kernel: its loop is plain on every
-    device."""
+    device.
+
+    ``compute_dtype`` (torch.bfloat16): mixed precision as the JAX
+    package's (wavernn_tpu/models/tacotron.py:356-376, :494-498): the
+    forward runs on every parameter cast to it except BatchNorm's, on m and
+    attn_ref cast to it, and returns mel, linear and attn in float32; the
+    master parameters stay float32 and take float32 gradients through the
+    casts. The kernels (B5, B6, B7) then run on bfloat16 operands."""
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        outs = torch.func.functional_call(
+            _Forward(model), _cast_params_except_bn(model, compute_dtype),
+            (x_ids, m.to(compute_dtype), r),
+            dict(mode=mode, training=training, generate_gta=generate_gta,
+                 recurrence=recurrence, masks=masks, generator=generator,
+                 attn_ref=(None if attn_ref is None
+                           else attn_ref.to(compute_dtype)),
+                 decoder_only=decoder_only))
+        return tuple(None if t is None else t.float() for t in outs)
     if mode not in TTS_MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {TTS_MODES}")
     if recurrence not in ("auto", "pallas", "scan"):

@@ -26,7 +26,23 @@ previous h; zeros are eval mode), enc (B, T, E), encp (B, T, D), and the
 weights of ``WEIGHTS`` in torch's (out, in) layouts: the location conv
 composed with L as W01 (D, 62) (cumulative taps, then attention taps),
 qb = W.b + L.b, the LSTM biases summed, and mel_proj's rows of the r frames
-reordered frame-major (F = r * n_mels). float32 only.
+reordered frame-major (F = r * n_mels).
+
+Precision: the weights, the streams and the saved states take the compute
+dtype of the operands (float32 or bfloat16; enc's dtype), the biases stay
+float32. In bfloat16 the forward rounds to it where the JAX kernel does
+(``pallas_taco_train.py:129-236``, the flat twins ``core_ref`` /
+``core_af_ref`` at ``:1008-1048`` / ``:1080-1129``): ah, the scores, ctx,
+x0, c1, h1, x1, c2, h2, x2, the mel and the AF prenet's p1 and output;
+every matrix product takes its operands as stored and accumulates in
+float32, and the gate and elementwise math, the cumulative attention, the
+normaliser, q and the scores' float32 copy stay float32. The backward reads
+the bfloat16 streams and weights and keeps every cotangent in float32 (the
+JAX kernel also rounds each cotangent to bfloat16 before its product;
+B6's resident body forms d(ctx)'s contraction through a split whose parts
+have no common rounding point, so both bodies and the plain versions keep
+the cotangents float32). The weight gradients are summed in float32 and
+returned in each weight's dtype.
 
 B7 runs on the resident body ``csrc/taco_train_resident.cu``
 (``taco_af_res_fwd`` / ``taco_af_res_bwd``; launch plan
@@ -81,33 +97,50 @@ def decoder_operands(dec: Dict[str, torch.Tensor], max_r: int, r: int,
     """The recurrence's weight operands (``WEIGHTS`` order) from the
     decoder's parameters by state-dict name below ``decoder.``, as
     differentiable functions of them (``pallas_taco_train.py:1230-1259``):
-    autograd carries the operands' gradients back to the parameters."""
+    autograd carries the operands' gradients back to the parameters. The
+    matrices keep the parameters' dtype (W01 composed in float32, then
+    rounded to it); the biases are summed in it and returned float32, as
+    the JAX package's ``[None].astype(F32)``."""
     lw = dec["attn_net.L.weight"]                            # (D, 32)
-    D = lw.shape[0]
-    W01 = torch.einsum("cik,dc->dik", dec["attn_net.conv.weight"],
-                       lw).reshape(D, 2 * CONV_K)
+    D, dt = lw.shape[0], lw.dtype
+    acc = _acc_dtype(dt)
+    W01 = torch.einsum("cik,dc->dik", dec["attn_net.conv.weight"].to(acc),
+                       lw.to(acc)).reshape(D, 2 * CONV_K).to(dt)
     L_ = dec["res_rnn1.weight_hh"].shape[1]
     wm = dec["mel_proj.weight"].reshape(n_mels, max_r, L_)[:, :r]
-    return (dec["attn_rnn.weight_ih"], dec["attn_rnn.bias_ih"],
-            dec["attn_rnn.weight_hh"], dec["attn_rnn.bias_hh"],
+    b = lambda t: t.to(acc)
+    return (dec["attn_rnn.weight_ih"], b(dec["attn_rnn.bias_ih"]),
+            dec["attn_rnn.weight_hh"], b(dec["attn_rnn.bias_hh"]),
             dec["attn_net.W.weight"],
-            dec["attn_net.W.bias"] + dec["attn_net.L.bias"],
+            b(dec["attn_net.W.bias"] + dec["attn_net.L.bias"]),
             W01, dec["attn_net.v.weight"][0],
-            dec["rnn_input.weight"], dec["rnn_input.bias"],
+            dec["rnn_input.weight"], b(dec["rnn_input.bias"]),
             dec["res_rnn1.weight_ih"], dec["res_rnn1.weight_hh"],
-            dec["res_rnn1.bias_ih"] + dec["res_rnn1.bias_hh"],
+            b(dec["res_rnn1.bias_ih"] + dec["res_rnn1.bias_hh"]),
             dec["res_rnn2.weight_ih"], dec["res_rnn2.weight_hh"],
-            dec["res_rnn2.bias_ih"] + dec["res_rnn2.bias_hh"],
+            b(dec["res_rnn2.bias_ih"] + dec["res_rnn2.bias_hh"]),
             wm.transpose(0, 1).reshape(r * n_mels, L_))
 
 
 def af_operands(dec: Dict[str, torch.Tensor], max_r: int, r: int,
                 n_mels: int) -> Tuple[torch.Tensor, ...]:
     """The AF recurrence's weight operands (``AF_WEIGHTS`` order): the
-    decoder prenet's, then ``decoder_operands``."""
-    return (dec["prenet.fc1.weight"], dec["prenet.fc1.bias"],
-            dec["prenet.fc2.weight"], dec["prenet.fc2.bias"]) \
+    decoder prenet's (biases float32), then ``decoder_operands``."""
+    acc = _acc_dtype(dec["prenet.fc1.weight"].dtype)
+    return (dec["prenet.fc1.weight"], dec["prenet.fc1.bias"].to(acc),
+            dec["prenet.fc2.weight"], dec["prenet.fc2.bias"].to(acc)) \
         + decoder_operands(dec, max_r, r, n_mels)
+
+
+def _acc_dtype(dt):
+    """The accumulation dtype: float32 for float32 and bfloat16 operands;
+    float64 stays float64 (the gradient checks)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+# the streams kept in the accumulation dtype at every compute dtype (the
+# cumulative, q and the normaliser); the rest take the compute dtype
+ACC_STREAMS = ("cum", "q", "div")
 
 
 def _windows(x):
@@ -123,13 +156,13 @@ def _energy_args(cum, att, q, encp, W01):
     return torch.tanh(loc + encp + q[:, None])
 
 
-def _lstm(x, h, c, z, wi, wh, b):
+def _lstm(x, h, c, z, wi, wh, b, rd=lambda t: t):
     L = h.shape[-1]
     g = x @ wi.t() + h @ wh.t() + b
     i, f = torch.sigmoid(g[:, :L]), torch.sigmoid(g[:, L:2 * L])
     gg, o = torch.tanh(g[:, 2 * L:3 * L]), torch.sigmoid(g[:, 3 * L:])
-    c = f * c + i * gg
-    h = z * h + (1.0 - z) * (o * torch.tanh(c))
+    c = rd(f * c + i * gg)
+    h = rd(z * h + (1.0 - z) * (o * torch.tanh(c)))
     return h, c, torch.cat([i, f, gg, o], dim=-1)
 
 
@@ -138,9 +171,16 @@ def _forward(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
     hoisted prenet. AF and free running: ``af`` = (aref, dm1, dm2, w1, b1,
     w2, b2); the prenet runs on the previous group's last mel frame
     (zeros at g = 0) with the scaled dropout keep-masks dm1/dm2, and the
-    context weights are aref (G, B, T), or the scores when aref is None."""
+    context weights are aref (G, B, T), or the scores when aref is None.
+    The compute dtype is enc's; the math runs in ``_acc_dtype`` of it and
+    rounds to it at the module docstring's points (``rd``)."""
+    dt = enc.dtype
+    acc = _acc_dtype(dt)
+    f = lambda t: t.to(acc)
+    rd = lambda t: t.to(dt).to(acc)
     (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b, l2wi,
-     l2wh, l2b, wm) = weights
+     l2wh, l2b, wm) = (f(w) for w in weights)
+    enc, encp = f(enc), f(encp)
     G, B = zm1.shape[:2]
     T, E = enc.shape[1], enc.shape[2]
     D, L = wq.shape[0], wr.shape[0]
@@ -153,30 +193,31 @@ def _forward(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
     st = {k: [] for k in names} if save else None
     if af is not None:
         aref, dm1, dm2, w1, b1, w2, b2 = af
+        w1, b1, w2, b2 = f(w1), f(b1), f(w2), f(b2)
         prev = z(B, w1.shape[1])
     for g in range(G):
         if af is not None:
-            p1 = torch.relu(prev @ w1.t() + b1) * dm1[g]
-            pre_g = torch.relu(p1 @ w2.t() + b2) * dm2[g]
+            p1 = rd(torch.relu(prev @ w1.t() + b1) * f(dm1[g]))
+            pre_g = rd(torch.relu(p1 @ w2.t() + b2) * f(dm2[g]))
             if save:
                 st["prev"].append(prev)
                 st["p1"].append(p1)
                 st["pre"].append(pre_g)
         else:
-            pre_g = pre[g]
+            pre_g = f(pre[g])
         gi = torch.cat([ctx, pre_g], dim=1) @ awi.t() + abi
         gh = ah @ awh.t() + abh
         r = torch.sigmoid(gi[:, :D] + gh[:, :D])
         zg = torch.sigmoid(gi[:, D:2 * D] + gh[:, D:2 * D])
         hn = gh[:, 2 * D:]
         n = torch.tanh(gi[:, 2 * D:] + r * hn)
-        ah = (1.0 - zg) * n + zg * ah
+        ah = rd((1.0 - zg) * n + zg * ah)
         q = ah @ wq.t() + qb
         sig = torch.sigmoid(_energy_args(cum, att, q, encp, W01) @ v)
         div = sig.sum(dim=1)
-        s = sig / torch.where(div > 0, div, torch.ones_like(div))[:, None]
-        cw = s if af is None or aref is None else aref[g]
-        ctx = torch.einsum("bt,bte->be", cw, enc)
+        s = rd(sig / torch.where(div > 0, div, torch.ones_like(div))[:, None])
+        cw = s if af is None or aref is None else f(aref[g])
+        ctx = rd(torch.einsum("bt,bte->be", cw, enc))
         if save:
             st["cum"].append(cum)
             st["q"].append(q)
@@ -185,12 +226,12 @@ def _forward(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
             st["gru"].append(torch.cat([r, zg, n, hn], dim=-1))
             st["ctx"].append(ctx)
         cum, att = cum + s, s
-        x0 = torch.cat([ctx, ah], dim=1) @ wr.t() + br
-        h1, c1, g1 = _lstm(x0, h1, c1, zm1[g], l1wi, l1wh, l1b)
-        x1 = x0 + h1
-        h2, c2, g2 = _lstm(x1, h2, c2, zm2[g], l2wi, l2wh, l2b)
-        x2 = x1 + h2
-        mel = x2 @ wm.t()
+        x0 = rd(torch.cat([ctx, ah], dim=1) @ wr.t() + br)
+        h1, c1, g1 = _lstm(x0, h1, c1, f(zm1[g]), l1wi, l1wh, l1b, rd)
+        x1 = rd(x0 + h1)
+        h2, c2, g2 = _lstm(x1, h2, c2, f(zm2[g]), l2wi, l2wh, l2b, rd)
+        x2 = rd(x1 + h2)
+        mel = rd(x2 @ wm.t())
         mels.append(mel)
         scs.append(s)
         if af is not None:
@@ -200,17 +241,18 @@ def _forward(zm1, zm2, enc, encp, weights, save, pre=None, af=None):
                            ("g2", g2), ("c1", c1), ("h1", h1), ("c2", c2),
                            ("h2", h2)):
                 st[k].append(val)
-    streams = {k: torch.stack(v_) for k, v_ in st.items()} if save else None
-    return torch.stack(mels), torch.stack(scs), streams
+    streams = ({k: torch.stack(v_).to(acc if k in ACC_STREAMS else dt)
+                for k, v_ in st.items()} if save else None)
+    return torch.stack(mels).to(dt), torch.stack(scs), streams
 
 
 def core_ref(pre, zm1, zm2, enc, encp, awi, abi, awh, abh, wq, qb, W01, v,
              wr, br, l1wi, l1wh, l1b, l2wi, l2wh, l2b, wm,
              save: bool = False):
     """Plain TF forward, one group at a time (``pallas_taco_train.py:
-    983-1055`` in the batched layout): (mel (G, B, F), scores (G, B, T),
-    streams), the streams a dict of ``STREAMS`` when ``save``, else None.
-    Differentiable by autograd."""
+    983-1055`` in the batched layout): (mel (G, B, F) in the compute dtype,
+    scores (G, B, T) in float32, streams), the streams a dict of ``STREAMS``
+    when ``save``, else None. Differentiable by autograd."""
     weights = (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b,
                l2wi, l2wh, l2b, wm)
     return _forward(zm1, zm2, enc, encp, weights, save, pre=pre)
@@ -255,16 +297,23 @@ def _backward(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
               pre=None, af=None):
     """The plain reverse sweep of both arms (the kernels' spec), group by
     group from the forward's streams: TF with ``pre``; AF with ``af`` =
-    (aref, dm1, dm2, w1, b1, w2, b2). Returns (d(pre) or d(aref), denc,
+    (aref, dm1, dm2, w1, b1, w2, b2). Every operand is read in float32
+    (``_acc_dtype``) and every cotangent stays in it; the results are
+    returned in their operands' dtypes. Returns (d(pre) or d(aref), denc,
     dencp, the weight gradients by name)."""
+    out_dt = {k: w.dtype for k, w in zip(WEIGHTS, weights)}
+    out_dt.update(enc=enc.dtype, encp=encp.dtype)
+    acc_dt = _acc_dtype(enc.dtype)
+    f = lambda t: t.to(acc_dt)
     (awi, abi, awh, abh, wq, qb, W01, v, wr, br, l1wi, l1wh, l1b, l2wi,
-     l2wh, l2b, wm) = weights
+     l2wh, l2b, wm) = weights = tuple(f(w) for w in weights)
+    enc, encp, scores, dmel, zm1, zm2 = (f(t) for t in (enc, encp, scores,
+                                                        dmel, zm1, zm2))
     G, B = zm1.shape[:2]
     T, E = enc.shape[1], enc.shape[2]
     D, L = wq.shape[0], wr.shape[0]
-    if dsc is None:
-        dsc = scores.new_zeros(scores.shape)
-    s_ = streams
+    dsc = scores.new_zeros(scores.shape) if dsc is None else f(dsc)
+    s_ = {k: f(v_) for k, v_ in streams.items()}
     z = lambda *s: enc.new_zeros(s)
     dah, dctx = z(B, D), z(B, E)
     dh1, dc1, dh2, dc2 = z(B, L), z(B, L), z(B, L), z(B, L)
@@ -273,9 +322,13 @@ def _backward(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     denc, dencp = torch.zeros_like(enc), torch.zeros_like(encp)
     conv_w = torch.stack([W01[:, :CONV_K], W01[:, CONV_K:]], dim=1)
     if af is None:
+        out_dt["first"] = pre.dtype
+        pre = f(pre)
         dfirst = torch.empty_like(pre)                     # d(pre)
     else:
-        aref, dm1, dm2, w1, b1, w2, b2 = af
+        out_dt["first"] = af[0].dtype
+        out_dt.update((k, w.dtype) for k, w in zip(AF_PRENET, af[3:]))
+        aref, dm1, dm2, w1, b1, w2, b2 = (f(t) for t in af)
         NM = w1.shape[1]
         dfirst = torch.empty_like(aref)                    # d(aref)
         for k, w in zip(AF_PRENET, (w1, b1, w2, b2)):
@@ -378,7 +431,9 @@ def _backward(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
         acc["w1"] += dp1.t() @ s_["prev"][g]
         acc["b1"] += dp1.sum(0)
         dprev = dp1 @ w1
-    return dfirst, denc, dencp, acc
+    return (dfirst.to(out_dt["first"]), denc.to(out_dt["enc"]),
+            dencp.to(out_dt["encp"]),
+            {k: g_.to(out_dt[k]) for k, g_ in acc.items()})
 
 
 def core_bwd_ref(dmel, dsc, streams, scores, pre, zm1, zm2, enc, encp,
@@ -576,9 +631,11 @@ def af_resident_stages(dims) -> Dict[str, Dict[str, int]]:
                     "s8_dp1_dctx_dah": P1 + E + D, "s9_dprev": NM}}
 
 
-def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
+def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid, esize=4):
     """The plan both resident bodies share: (fwd fields, the end of the
-    forward's regions in floats, bwd fields)."""
+    forward's regions in floats, bwd fields). ``esize``: the bytes of the
+    weights' storage type (4 float32, 2 bfloat16): the location weight and
+    the resident LSTM rows take that many bytes an entry."""
     G, B, T, E, D = (dims[k] for k in ("G", "B", "T", "E", "D"))
     L = dims["L"]
     cap = smem_bytes // 4
@@ -588,7 +645,7 @@ def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
                 upb_l=_cdiv(L, sms), res_l1=0, res_l2=0, off_l1=0, off_l2=0,
                 off_gw=0, off_pv=0, gw_global=0, ctx_smem=0, epi_tt=0,
                 epi_gc=0)
-    w01t = _up4(NTAP * D)
+    w01t = _up4(_cdiv(NTAP * D * esize, 4))
 
     def chunk(plan, room):
         """tp and kc for a chunk in ``room`` floats at off_x."""
@@ -606,9 +663,10 @@ def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
     fwd = dict(base, off_w01t=4, off_att=4 + w01t)
     fwd["off_x"] = fwd["off_att"] + _up4(att_fwd)
     end = fwd["off_x"] + RES_RB * tiles * 128
-    lstm = fwd["upb_l"] * 4 * 2 * L
+    lstm = fwd["upb_l"] * 4 * 2 * L * esize // 4
+    # (a row's bulk copy moves a multiple of 16 bytes)
     for k in ("l1", "l2"):
-        if end + lstm <= cap:
+        if end + lstm <= cap and L * esize % 16 == 0:
             fwd[f"res_{k}"], fwd[f"off_{k}"] = 1, end
             end += lstm
     # the resident rows sit after the chunk: move them behind its final size
@@ -624,9 +682,10 @@ def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
     bwd = dict(base, off_w01t=4, off_att=4 + w01t)
     bwd["off_pv"] = bwd["off_att"] + _up4(att_bwd)
     fixed = bwd["off_pv"] + _up4(D)
-    if cap - fixed - w01t >= least:
+    gw = _up4(NTAP * D)             # the location weight's float32 gradient
+    if cap - fixed - gw >= least:
         bwd["off_gw"] = fixed
-        fixed += w01t
+        fixed += gw
     else:
         bwd["gw_global"] = 1
     bwd["off_x"] = fixed
@@ -642,8 +701,8 @@ def _resident_plan(dims, sms, smem_bytes, att_fwd, att_bwd, kid):
     return fwd, end, bwd
 
 
-def af_resident_plan(dims, sms: int = 132,
-                     smem_bytes: int = H100_SMEM) -> Dict[str, Dict[str, int]]:
+def af_resident_plan(dims, sms: int = 132, smem_bytes: int = H100_SMEM,
+                     esize: int = 4) -> Dict[str, Dict[str, int]]:
     """The resident B7 body's launch plan for ``dims`` (G, B, T, E, D, P1,
     P2, L, F, NM) on ``sms`` SMs with ``smem_bytes`` of shared memory a
     block: ``{"fwd": fields, "bwd": fields}``, each the ``ResPlan`` the
@@ -662,12 +721,14 @@ def af_resident_plan(dims, sms: int = 132,
     product stages an utterance's enc when it fits (else reads it through
     L2); the backward's contraction takes ``epi_tt`` positions a task and
     ``epi_gc`` groups a chunk. Raises only where not even a chunk of one
-    tile fits, which the original body does not fit either."""
+    tile fits, which the original body does not fit either. ``esize``:
+    the weights' bytes an entry (2 for the bfloat16 instantiation, whose
+    location weight and resident rows take half the room)."""
     T, E, D = dims["T"], dims["E"], dims["D"]
     nc = _cdiv(T, TC)
     fwd, end, bwd = _resident_plan(dims, sms, smem_bytes,
                                    ATT_FWD_FLOATS + nc,
-                                   att_bwd_floats(D, nc), "B7")
+                                   att_bwd_floats(D, nc), "B7", esize)
     if 4 + T * E <= smem_bytes // 4:
         fwd["ctx_smem"] = 1
         end = max(end, 4 + T * E)
@@ -685,8 +746,8 @@ def tf_resident_stages(dims) -> Dict[str, Dict[str, int]]:
                     "mel_rnn_input": E + D}}
 
 
-def tf_resident_plan(dims, sms: int = 132,
-                     smem_bytes: int = H100_SMEM) -> Dict[str, Dict[str, int]]:
+def tf_resident_plan(dims, sms: int = 132, smem_bytes: int = H100_SMEM,
+                     esize: int = 4) -> Dict[str, Dict[str, int]]:
     """The resident B6 body's launch plan for ``dims`` (G, B, T, E, D, P2,
     L, F): ``{"fwd": fields, "bwd": fields}`` in the B7 body's ``ResPlan``
     (``RES_FIELDS``; offsets in floats), laid out as ``af_resident_plan``
@@ -696,12 +757,12 @@ def tf_resident_plan(dims, sms: int = 132,
     products' tiles (``GEMM_TILE_FLOATS``) before the first group and after
     the last. A shape whose LSTM rows or location-weight gradient do not
     fit reads them from device memory; raises only where not even a chunk
-    of one tile fits."""
+    of one tile fits. ``esize`` as in ``af_resident_plan``."""
     T, E, D = dims["T"], dims["E"], dims["D"]
     nc = _cdiv(T, TC)
     fwd, end, bwd = _resident_plan(dims, sms, smem_bytes,
                                    ATT_FWD_FLOATS + nc,
-                                   att_tf_bwd_floats(D, E, nc), "B6")
+                                   att_tf_bwd_floats(D, E, nc), "B6", esize)
     fwd["smem_bytes"] = 4 * max(end, 4 + GEMM_TILE_FLOATS)
     bwd["smem_bytes"] = max(bwd["smem_bytes"], 4 * (4 + GEMM_TILE_FLOATS))
     for p in (fwd, bwd):
@@ -717,25 +778,27 @@ def af_resident_units(plan, units: int, block: int):
     return list(range(block, units, plan["fwd"]["nblk"]))
 
 
-def af_resident_regions(plan, direction: str, dims,
-                        tf: bool = False) -> Dict[str, Tuple[int, int]]:
+def af_resident_regions(plan, direction: str, dims, tf: bool = False,
+                        esize: int = 4) -> Dict[str, Tuple[int, int]]:
     """The shared-memory regions of one direction's plan that the main loop
     uses: name -> (offset, floats). The prologue's enc staging and the
     backward's contraction reuse the whole space after the loop; ``tf``:
-    the B6 body's plan (its backward's attention scratch)."""
+    the B6 body's plan (its backward's attention scratch); ``esize`` the
+    plan's (the weights' bytes an entry)."""
     p = plan[direction]
     D, L, nc = dims["D"], dims["L"], p["nc"]
     att = (ATT_FWD_FLOATS + nc if direction == "fwd"
            else att_tf_bwd_floats(D, dims["E"], nc) if tf
            else att_bwd_floats(D, nc))
-    regions = {"mbarrier": (0, 4), "w01t": (p["off_w01t"], NTAP * D),
+    regions = {"mbarrier": (0, 4),
+               "w01t": (p["off_w01t"], _cdiv(NTAP * D * esize, 4)),
                "attention": (p["off_att"], att),
                "chunk": (p["off_x"], RES_RB * p["tp"] * p["kc"])}
     if direction == "fwd":
         for k in ("l1", "l2"):
             if p[f"res_{k}"]:
                 regions[f"lstm{k[1]}"] = (p[f"off_{k}"],
-                                          p["upb_l"] * 4 * 2 * L)
+                                          p["upb_l"] * 4 * 2 * L * esize // 4)
     else:
         regions["v_grad"] = (p["off_pv"], D)
         if not p["gw_global"]:
@@ -760,7 +823,10 @@ def _res_lib():
                 (lib.wr_taco_af_res_fwd, [P, P, P, P, P], ctypes.c_int),
                 (lib.wr_taco_af_res_bwd, [P, P, P, P, P], ctypes.c_int),
                 (lib.wr_taco_af_res_fwd_work_floats, [P, P], I64),
-                (lib.wr_taco_af_res_bwd_work_floats, [P, P], I64)):
+                (lib.wr_taco_af_res_bwd_work_floats, [P, P], I64),
+                (lib.wr_taco_af_res_fwd_bf16, [P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_af_res_bwd_bf16, [P, P, P, P], ctypes.c_int),
+                (lib.wr_taco_af_res_fwd_bf16_work_floats, [P, P, P], I64)):
             fn.argtypes, fn.restype = args, res
         lib._typed = True
     return lib
@@ -774,17 +840,20 @@ def _tf_lib():
                 (lib.wr_taco_tf_res_fwd, [P, P, P, P], ctypes.c_int),
                 (lib.wr_taco_tf_res_bwd, [P, P, P, P], ctypes.c_int),
                 (lib.wr_taco_tf_res_fwd_work_floats, [P, P], I64),
-                (lib.wr_taco_tf_res_bwd_work_floats, [P, P], I64)):
+                (lib.wr_taco_tf_res_bwd_work_floats, [P, P], I64),
+                (lib.wr_taco_tf_res_fwd_bf16, [P, P, P], ctypes.c_int),
+                (lib.wr_taco_tf_res_bwd_bf16, [P, P, P], ctypes.c_int),
+                (lib.wr_taco_tf_res_fwd_bf16_work_floats, [P, P], I64)):
             fn.argtypes, fn.restype = args, res
         lib._typed = True
     return lib
 
 
-def _device_plan(dims, dev, tf: bool = False):
+def _device_plan(dims, dev, tf: bool = False, esize: int = 4):
     props = torch.cuda.get_device_properties(dev)
     return (tf_resident_plan if tf else af_resident_plan)(
         dims, props.multi_processor_count,
-        getattr(props, "shared_memory_per_block_optin", H100_SMEM))
+        getattr(props, "shared_memory_per_block_optin", H100_SMEM), esize)
 
 
 def _dims(G, B, enc, weights) -> Dict[str, int]:
@@ -797,17 +866,41 @@ def _dims(G, B, enc, weights) -> Dict[str, int]:
     return d
 
 
-def _check_weights(weights, d, dev):
+# the float32 operands at every compute dtype: the biases
+BIASES = ("abi", "abh", "qb", "br", "l1b", "l2b", "b1", "b2")
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _operand_dtype(name, dt):
+    return torch.float32 if name in BIASES else dt
+
+
+def _check_weights(weights, d, dev, dt=torch.float32):
     D, E, P2, L, Fm = d["D"], d["E"], d["P2"], d["L"], d["F"]
     shapes = ((3 * D, E + P2), (3 * D,), (3 * D, D), (3 * D,), (D, D), (D,),
               (D, 2 * CONV_K), (D,), (L, E + D), (L,), (4 * L, L),
               (4 * L, L), (4 * L,), (4 * L, L), (4 * L, L), (4 * L,),
               (Fm, L))
     for name, w, shape in zip(WEIGHTS, weights, shapes):
-        _build.check_operand(w, name, torch.float32, shape, dev)
+        _build.check_operand(w, name, _operand_dtype(name, dt), shape, dev)
 
 
-def _prep_af(af, d, dev):
+def _compute_dtype(enc, legacy, prof):
+    """The kernels' compute dtype, enc's: float32, or bfloat16 on the
+    resident bodies' bf16 instantiations (the original body and the
+    profiling instantiation take float32 only)."""
+    dt = enc.dtype
+    if dt not in _KERNEL_DTYPES:
+        raise TypeError(f"the B6/B7 kernels take float32 or bfloat16 "
+                        f"operands, got {dt}")
+    if dt == torch.bfloat16 and (legacy or prof is not None):
+        raise ValueError("the original B6/B7 body (csrc/taco_train.cu) and "
+                         "the profiling instantiation take float32 "
+                         "operands only")
+    return dt
+
+
+def _prep_af(af, d, dev, dt=torch.float32):
     """The AF operands, checked and contiguous: (aref, dm1, dm2, w1, b1, w2,
     b2, P1, n_mels)."""
     aref, dm1, dm2, w1, b1, w2, b2 = (t.detach().contiguous() for t in af)
@@ -821,7 +914,7 @@ def _prep_af(af, d, dev):
                            (dm2, "dm2", (G, B, P2)), (w1, "w1", (P1, NM)),
                            (b1, "b1", (P1,)), (w2, "w2", (P2, P1)),
                            (b2, "b2", (P2,))):
-        _build.check_operand(t, name, torch.float32, shape, dev)
+        _build.check_operand(t, name, _operand_dtype(name, dt), shape, dev)
     return aref, dm1, dm2, w1, b1, w2, b2, P1, NM
 
 
@@ -847,29 +940,32 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
     dev = enc.device
     f32 = torch.float32
     kid = "B6" if af is None else "B7"
+    dt = _compute_dtype(enc, legacy, prof)
+    bf = dt == torch.bfloat16
     zm1, zm2, enc, encp = (t.contiguous() for t in (zm1, zm2, enc, encp))
     weights = tuple(w.detach().contiguous() for w in weights)
     d = _dims(zm1.shape[0], zm1.shape[1], enc, weights)
     G, B, T, E, D, P2, L, Fm = (d[k] for k in _DIMS)
     for t, name, shape in ((zm1, "zm1", (G, B, L)), (zm2, "zm2", (G, B, L)),
                            (enc, "enc", (B, T, E)), (encp, "encp", (B, T, D))):
-        _build.check_operand(t, name, f32, shape, dev)
-    _check_weights(weights, d, dev)
+        _build.check_operand(t, name, dt, shape, dev)
+    _check_weights(weights, d, dev, dt)
     if af is None:
         pre = pre.contiguous()
-        _build.check_operand(pre, "pre", f32, (G, B, P2), dev)
+        _build.check_operand(pre, "pre", dt, (G, B, P2), dev)
     else:
-        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev)
-        extra = {k: torch.empty(G, B, n, dtype=f32, device=dev)
+        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev, dt)
+        extra = {k: torch.empty(G, B, n, dtype=dt, device=dev)
                  for k, n in (("prev", NM), ("p1", P1), ("pre", P2))}
         pre = extra["pre"]
     w = dict(zip(WEIGHTS, weights))
     w01t = w["W01"].t().contiguous()
-    mel = torch.empty(G, B, Fm, dtype=f32, device=dev)
+    mel = torch.empty(G, B, Fm, dtype=dt, device=dev)
     scores = torch.empty(G, B, T, dtype=f32, device=dev)
     widths = dict(cum=T, q=D, div=1, ah=D, gru=4 * D, ctx=E, x0=L, x1=L,
                   x2=L, g1=4 * L, g2=4 * L, c1=L, h1=L, c2=L, h2=L)
-    streams = ({k: torch.empty(G, B, widths[k], dtype=f32, device=dev)
+    streams = ({k: torch.empty(G, B, widths[k], device=dev,
+                               dtype=f32 if k in ACC_STREAMS else dt)
                 for k in STREAMS} if save else None)
     ptrs = dict(pre=pre, zm1=zm1, zm2=zm2, enc=enc, encp=encp, w01t=w01t,
                 mel=mel, scores=scores,
@@ -888,28 +984,47 @@ def _fwd_cuda(zm1, zm2, enc, encp, weights, save, pre=None, af=None,
             P1=P1, NM=NM)
     stream = torch.cuda.current_stream(dev).cuda_stream
     pptr = None if prof is None else prof.data_ptr()
+    esize = dt.itemsize
     if af is not None and not legacy:
         lib = _res_lib()
-        plan = _ResPlan(**_device_plan(dict(d, P1=P1, NM=NM), dev)["fwd"])
-        work = torch.zeros(lib.wr_taco_af_res_fwd_work_floats(
-            ctypes.byref(args), ctypes.byref(plan)), dtype=f32, device=dev)
+        plan = _ResPlan(**_device_plan(dict(d, P1=P1, NM=NM), dev,
+                                       esize=esize)["fwd"])
+        if bf:
+            nw = lib.wr_taco_af_res_fwd_bf16_work_floats(
+                ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(plan))
+        else:
+            nw = lib.wr_taco_af_res_fwd_work_floats(ctypes.byref(args),
+                                                    ctypes.byref(plan))
+        work = torch.zeros(nw, dtype=f32, device=dev)
         args.work = work.data_ptr()
         with torch.cuda.device(dev):
-            _run(lib.wr_taco_af_res_fwd(
-                ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(plan),
-                pptr, stream), kid, "forward")
-        _count(decoder_af, "fwd", resident=True)
+            if bf:
+                err = lib.wr_taco_af_res_fwd_bf16(
+                    ctypes.byref(args), ctypes.byref(xargs),
+                    ctypes.byref(plan), stream)
+            else:
+                err = lib.wr_taco_af_res_fwd(
+                    ctypes.byref(args), ctypes.byref(xargs),
+                    ctypes.byref(plan), pptr, stream)
+            _run(err, kid, "forward")
+        _count(decoder_af, "fwd", resident=True, bf16=bf)
     elif not legacy:
         lib = _tf_lib()
-        plan = _ResPlan(**_device_plan(d, dev, tf=True)["fwd"])
-        work = torch.zeros(lib.wr_taco_tf_res_fwd_work_floats(
-            ctypes.byref(args), ctypes.byref(plan)), dtype=f32, device=dev)
+        plan = _ResPlan(**_device_plan(d, dev, tf=True, esize=esize)["fwd"])
+        nw = (lib.wr_taco_tf_res_fwd_bf16_work_floats if bf
+              else lib.wr_taco_tf_res_fwd_work_floats)(ctypes.byref(args),
+                                                       ctypes.byref(plan))
+        work = torch.zeros(nw, dtype=f32, device=dev)
         args.work = work.data_ptr()
         with torch.cuda.device(dev):
-            _run(lib.wr_taco_tf_res_fwd(ctypes.byref(args),
-                                        ctypes.byref(plan), pptr, stream),
-                 kid, "forward")
-        _count(decoder_tf, "fwd", resident=True)
+            if bf:
+                err = lib.wr_taco_tf_res_fwd_bf16(
+                    ctypes.byref(args), ctypes.byref(plan), stream)
+            else:
+                err = lib.wr_taco_tf_res_fwd(ctypes.byref(args),
+                                             ctypes.byref(plan), pptr, stream)
+            _run(err, kid, "forward")
+        _count(decoder_tf, "fwd", resident=True, bf16=bf)
     else:
         lib = _lib()
         if af is None:
@@ -948,6 +1063,8 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     dev = enc.device
     f32 = torch.float32
     kid = "B6" if af is None else "B7"
+    dt = _compute_dtype(enc, legacy, prof)
+    bf = dt == torch.bfloat16
     # the autograd Functions save their inputs as given: a shard's masks
     # sliced on the batch axis are strided, and the kernel reads rows
     zm1, zm2, enc, encp = (t.contiguous() for t in (zm1, zm2, enc, encp))
@@ -956,22 +1073,25 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     G, B, T, E, D, P2, L, Fm = (d[k] for k in _DIMS)
     for t, name, shape in ((zm1, "zm1", (G, B, L)), (zm2, "zm2", (G, B, L)),
                            (enc, "enc", (B, T, E)), (encp, "encp", (B, T, D))):
-        _build.check_operand(t, name, f32, shape, dev)
+        _build.check_operand(t, name, dt, shape, dev)
     if af is None:
         pre = pre.contiguous()
-        _build.check_operand(pre, "pre", f32, (G, B, P2), dev)
+        _build.check_operand(pre, "pre", dt, (G, B, P2), dev)
+    # the cotangents are float32 (a bfloat16 output's arrives bfloat16);
     # AF: the kernel adds each group's previous-frame cotangent into its
     # own copy of dmel, which the mel_proj gradient then reads
+    dmel = dmel.to(f32)
     dmel = dmel.contiguous() if af is None else dmel.clone(
         memory_format=torch.contiguous_format)
-    dsc = (torch.zeros_like(scores) if dsc is None else dsc.contiguous())
+    dsc = (torch.zeros_like(scores) if dsc is None
+           else dsc.to(f32).contiguous())
     for t, name, shape in ((dmel, "dmel", (G, B, Fm)),
                            (dsc, "dsc", (G, B, T)),
                            (scores, "scores", (G, B, T))):
         _build.check_operand(t, name, f32, shape, dev)
-    _check_weights(weights, d, dev)
+    _check_weights(weights, d, dev, dt)
     if af is not None:
-        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev)
+        aref, dm1, dm2, w1, b1, w2, b2, P1, NM = _prep_af(af, d, dev, dt)
         pre = streams["pre"]
     w = dict(zip(WEIGHTS, weights))
     tr = lambda t: t.t().contiguous()
@@ -984,25 +1104,31 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
     streams = dict(streams, div=streams["div"][..., None])
     for k in STREAMS:
         ptrs[f"s_{k}"] = streams[k].contiguous()
+        _build.check_operand(ptrs[f"s_{k}"], f"stream {k}",
+                             f32 if k in ACC_STREAMS else dt,
+                             streams[k].shape, dev)
     cw = dict(dgi=3 * D, dgh=3 * D, dq=D, dx0=L, dg1=4 * L, dg2=4 * L)
     for k in _COT:
         ptrs[f"c_{k}"] = torch.empty(G, B, cw[k], dtype=f32, device=dev)
     resident = not legacy
     if resident and af is None:
-        plan = _device_plan(d, dev, tf=True)["bwd"]
+        plan = _device_plan(d, dev, tf=True, esize=dt.itemsize)["bwd"]
     elif resident:
-        plan = _device_plan(dict(d, P1=af[3].shape[0],
-                                 NM=af[3].shape[1]), dev)["bwd"]
+        plan = _device_plan(dict(d, P1=af[3].shape[0], NM=af[3].shape[1]),
+                            dev, esize=dt.itemsize)["bwd"]
     # the location-weight and v partials: one per utterance (the original
-    # body), one per block of the grid (the resident body)
+    # body), one per block of the grid (the resident body); every gradient
+    # is formed in float32 and returned in its operand's dtype
     parts = plan["nblk"] if resident else B
-    outs = dict(denc=torch.zeros_like(enc), dencp=torch.zeros_like(encp),
+    f32_like = lambda t: torch.empty(t.shape, dtype=f32, device=dev)
+    outs = dict(denc=torch.zeros(enc.shape, dtype=f32, device=dev),
+                dencp=torch.zeros(encp.shape, dtype=f32, device=dev),
                 pw01=torch.zeros(parts, 2 * CONV_K, D, dtype=f32, device=dev),
                 pv=torch.zeros(parts, D, dtype=f32, device=dev))
     if af is None:
-        outs["dpre"] = torch.empty_like(pre)
+        outs["dpre"] = f32_like(pre)
     for k, wt in zip(WEIGHTS, weights):
-        outs["dw01" if k == "W01" else f"d{k}"] = torch.empty_like(wt)
+        outs["dw01" if k == "W01" else f"d{k}"] = f32_like(wt)
     ptrs.update(outs)
     args = _BwdArgs(**{k: v.data_ptr() for k, v in ptrs.items()}, **d)
     lib = (_lib() if not resident else _res_lib() if af is not None
@@ -1012,9 +1138,8 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
             args.bc = _rows(lib.wr_taco_tf_bwd_rows(ctypes.byref(args)), kid,
                             "backward")
     else:
-        af_outs = dict(daref=torch.empty_like(aref), dw1=torch.empty_like(w1),
-                       db1=torch.empty_like(b1), dw2=torch.empty_like(w2),
-                       db2=torch.empty_like(b2),
+        af_outs = dict(daref=f32_like(aref), dw1=f32_like(w1),
+                       db1=f32_like(b1), dw2=f32_like(w2), db2=f32_like(b2),
                        c_dp1=torch.empty(G, B, P1, dtype=f32, device=dev),
                        c_dp2=torch.empty(G, B, P2, dtype=f32, device=dev))
         af_ins = dict(aref=aref, dm1=dm1, dm2=dm2, w1T=tr(w1), w2T=tr(w2),
@@ -1034,20 +1159,31 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
             ctypes.byref(args), ctypes.byref(cplan)), dtype=f32, device=dev)
         args.work = work.data_ptr()
         with torch.cuda.device(dev):
-            _run(lib.wr_taco_af_res_bwd(
-                ctypes.byref(args), ctypes.byref(xargs), ctypes.byref(cplan),
-                pptr, stream), kid, "backward")
-        _count(decoder_af, "bwd", resident=True)
+            if bf:
+                err = lib.wr_taco_af_res_bwd_bf16(
+                    ctypes.byref(args), ctypes.byref(xargs),
+                    ctypes.byref(cplan), stream)
+            else:
+                err = lib.wr_taco_af_res_bwd(
+                    ctypes.byref(args), ctypes.byref(xargs),
+                    ctypes.byref(cplan), pptr, stream)
+            _run(err, kid, "backward")
+        _count(decoder_af, "bwd", resident=True, bf16=bf)
     elif resident:
         cplan = _ResPlan(**plan)
         work = torch.zeros(lib.wr_taco_tf_res_bwd_work_floats(
             ctypes.byref(args), ctypes.byref(cplan)), dtype=f32, device=dev)
         args.work = work.data_ptr()
         with torch.cuda.device(dev):
-            _run(lib.wr_taco_tf_res_bwd(ctypes.byref(args),
-                                        ctypes.byref(cplan), pptr, stream),
-                 kid, "backward")
-        _count(decoder_tf, "bwd", resident=True)
+            if bf:
+                err = lib.wr_taco_tf_res_bwd_bf16(
+                    ctypes.byref(args), ctypes.byref(cplan), stream)
+            else:
+                err = lib.wr_taco_tf_res_bwd(ctypes.byref(args),
+                                             ctypes.byref(cplan), pptr,
+                                             stream)
+            _run(err, kid, "backward")
+        _count(decoder_tf, "bwd", resident=True, bf16=bf)
     else:
         work = torch.zeros(lib.wr_taco_tf_bwd_work_floats(
             ctypes.byref(args)), dtype=f32, device=dev)
@@ -1062,11 +1198,14 @@ def _bwd_cuda(dmel, dsc, streams, scores, zm1, zm2, enc, encp, weights,
                                         ctypes.byref(xargs), stream), kid,
                      "backward")
                 _count(decoder_af, "bwd", resident=False)
-    grads = {k: outs["dw01" if k == "W01" else f"d{k}"] for k in WEIGHTS}
+    grads = {k: outs["dw01" if k == "W01" else f"d{k}"].to(w.dtype)
+             for k, w in zip(WEIGHTS, weights)}
+    denc, dencp = outs["denc"].to(enc.dtype), outs["dencp"].to(encp.dtype)
     if af is None:
-        return outs["dpre"], outs["denc"], outs["dencp"], grads
-    grads.update((k, af_outs[f"d{k}"]) for k in AF_PRENET)
-    return af_outs["daref"], outs["denc"], outs["dencp"], grads
+        return outs["dpre"].to(pre.dtype), denc, dencp, grads
+    grads.update((k, af_outs[f"d{k}"].to(t.dtype))
+                 for k, t in zip(AF_PRENET, (w1, b1, w2, b2)))
+    return af_outs["daref"].to(aref.dtype), denc, dencp, grads
 
 
 def decoder_tf_fwd(pre, zm1, zm2, enc, encp, weights, save: bool,
@@ -1148,6 +1287,9 @@ decoder_tf.resident_fwd_launches = 0
 decoder_tf.resident_bwd_launches = 0
 decoder_tf.legacy_fwd_launches = 0
 decoder_tf.legacy_bwd_launches = 0
+# of them on the resident body's bf16 instantiation
+decoder_tf.bf16_fwd_launches = 0
+decoder_tf.bf16_bwd_launches = 0
 
 
 def decoder_af_fwd(aref, dm1, dm2, zm1, zm2, enc, encp, weights, save: bool,
@@ -1225,11 +1367,14 @@ def decoder_af(aref, dm1, dm2, zm1, zm2, enc, encp, weights,
     return mel, scores
 
 
-def _count(wrapper, direction: str, resident: bool):
-    """One B6 (``decoder_tf``) or B7 (``decoder_af``) launch: its total, and
-    its body's own count."""
+def _count(wrapper, direction: str, resident: bool, bf16: bool = False):
+    """One B6 (``decoder_tf``) or B7 (``decoder_af``) launch: its total, its
+    body's own count, and the bf16 instantiation's."""
     body = "resident" if resident else "legacy"
-    for name in (f"{direction}_launches", f"{body}_{direction}_launches"):
+    names = [f"{direction}_launches", f"{body}_{direction}_launches"]
+    if bf16:
+        names.append(f"bf16_{direction}_launches")
+    for name in names:
         setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
@@ -1240,6 +1385,8 @@ decoder_af.resident_fwd_launches = 0
 decoder_af.resident_bwd_launches = 0
 decoder_af.legacy_fwd_launches = 0
 decoder_af.legacy_bwd_launches = 0
+decoder_af.bf16_fwd_launches = 0
+decoder_af.bf16_bwd_launches = 0
 
 
 def decoder_tf_train(dec, encoder_seq, encoder_seq_proj, pre_all, zm1, zm2,

@@ -28,10 +28,11 @@ def conv1d(x, w, b=None, padding: int = 0):
 
 
 def batchnorm(x, weight, bias, mean, var, eps: float = BN_EPS):
-    """Eval-mode BatchNorm1d over (N, C, W) with running statistics."""
+    """Eval-mode BatchNorm1d over (N, C, W) with running statistics, the
+    output in x's dtype (the statistics stay float32 under bfloat16)."""
     inv = torch.rsqrt(var + eps)
     y = (x - mean[None, :, None]) * inv[None, :, None]
-    return y * weight[None, :, None] + bias[None, :, None]
+    return (y * weight[None, :, None] + bias[None, :, None]).to(x.dtype)
 
 
 def batchnorm_train(x, weight, bias, running_mean, running_var,

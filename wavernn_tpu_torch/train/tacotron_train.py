@@ -38,6 +38,7 @@ import torch
 from ..config import Config, TacotronConfig
 from ..models import tacotron as taco
 from ..timing import stage
+from ..utils.backend import resolve_recurrence
 from ..parallel.mesh import barrier, set_batchnorm_mesh
 from .wavernn_train import (Optimizer, average_over_mesh, join_mesh,
                             make_optimizer)
@@ -80,32 +81,43 @@ def attention_kl(student_attn, teacher_attn, eps: float = 1e-10):
     return torch.mean(torch.sum(kl, dim=-1))
 
 
+def compute_dtype(precision: str):
+    """The forward's compute dtype for a ``tts_precision`` value: None
+    (float32 throughout) or torch.bfloat16."""
+    return torch.bfloat16 if precision == "bfloat16" else None
+
+
 def loss_tf(model, x_ids, m, r: int, recurrence: str = "auto", masks=None,
-            generator=None):
+            generator=None, precision: str = "float32"):
     """(loss, attn): mean |mel - m| + mean |linear - m| of the
-    teacher-forcing training forward; BatchNorm's running statistics
-    update in place."""
+    teacher-forcing training forward against the float32 target;
+    BatchNorm's running statistics update in place. ``precision``
+    "bfloat16" runs the forward in bfloat16 (``taco.forward``'s
+    compute_dtype)."""
     mel, linear, attn = taco.forward(model, x_ids, m, r,
                                      mode="teacher_forcing", training=True,
                                      recurrence=recurrence, masks=masks,
-                                     generator=generator)
+                                     generator=generator,
+                                     compute_dtype=compute_dtype(precision))
     loss = torch.mean(torch.abs(mel - m)) + torch.mean(torch.abs(linear - m))
     return loss, attn
 
 
 def loss_af(model, x_ids, m, attn_ref, r: int, attn_loss_coeff: float,
             offline: bool, recurrence: str = "auto", masks=None,
-            generator=None):
+            generator=None, precision: str = "float32"):
     """(loss, attn, loss_out, loss_attn) of the attention-forcing training
     forward: loss_out = mean |mel - m| + mean |linear - m|; loss_attn the
     mean L1 of attn and attn_ref (offline) or ``attention_kl`` (online);
-    loss = loss_out + attn_loss_coeff * loss_attn."""
+    loss = loss_out + attn_loss_coeff * loss_attn; ``precision`` as in
+    ``loss_tf``."""
     mode = ("attention_forcing_offline" if offline
             else "attention_forcing_online")
     mel, linear, attn = taco.forward(model, x_ids, m, r, mode=mode,
                                      training=True, recurrence=recurrence,
                                      masks=masks, generator=generator,
-                                     attn_ref=attn_ref)
+                                     attn_ref=attn_ref,
+                                     compute_dtype=compute_dtype(precision))
     loss_out = torch.mean(torch.abs(mel - m)) + torch.mean(
         torch.abs(linear - m))
     if offline:
@@ -128,24 +140,27 @@ def _grads(model, loss_fn, dev, timings):
 
 def loss_and_grads(model, x_ids, m, r: int, recurrence: str = "auto",
                    masks=None, generator=None,
-                   timings: Optional[dict] = None):
+                   timings: Optional[dict] = None,
+                   precision: str = "float32"):
     """(loss, attn, gradients in ``model.parameters()`` order) of
     ``loss_tf``."""
     loss, attn, _, grads = _grads(
         model, lambda: loss_tf(model, x_ids, m, r, recurrence, masks,
-                               generator), m.device, timings)
+                               generator, precision), m.device, timings)
     return loss, attn, grads
 
 
 def loss_and_grads_af(model, x_ids, m, attn_ref, r: int,
                       attn_loss_coeff: float, offline: bool,
                       recurrence: str = "auto", masks=None, generator=None,
-                      timings: Optional[dict] = None):
+                      timings: Optional[dict] = None,
+                      precision: str = "float32"):
     """(loss, attn, loss_out, loss_attn, gradients in
     ``model.parameters()`` order) of ``loss_af``."""
     loss, attn, (l_out, l_attn), grads = _grads(
         model, lambda: loss_af(model, x_ids, m, attn_ref, r, attn_loss_coeff,
-                               offline, recurrence, masks, generator),
+                               offline, recurrence, masks, generator,
+                               precision),
         m.device, timings)
     return loss, attn, l_out, l_attn, grads
 
@@ -186,15 +201,19 @@ def _step_masks(state, x_ids, m, r, masks, generator, mesh):
 
 def train_step_tf(state: TTSTrainState, x_ids, m, r: int,
                   recurrence: str = "auto", masks=None, generator=None,
-                  timings: Optional[dict] = None, mesh=None) -> dict:
+                  timings: Optional[dict] = None, mesh=None,
+                  precision: str = "float32") -> dict:
     """One optimizer step on ``state`` in place. Returns {"loss",
     "grad_norm", "attn"} on the device (no host synchronisation).
     ``mesh``: x_ids, m (and injected ``masks``) are this rank's shard; the
     loss and the gradients are averaged over the ranks (module
-    docstring); ``attn`` stays this rank's."""
+    docstring); ``attn`` stays this rank's. ``precision`` "bfloat16":
+    the forward and backward in bfloat16, the master parameters, the
+    optimizer and the gradients' update in float32."""
     masks = _step_masks(state, x_ids, m, r, masks, generator, mesh)
+    recurrence = resolve_recurrence(recurrence, mesh)
     loss, attn, grads = loss_and_grads(state.model, x_ids, m, r, recurrence,
-                                       masks, generator, timings)
+                                       masks, generator, timings, precision)
     gnorm, (loss,) = _apply(state, grads, timings, m.device, mesh, (loss,))
     return {"loss": loss, "grad_norm": gnorm, "attn": attn}
 
@@ -202,16 +221,18 @@ def train_step_tf(state: TTSTrainState, x_ids, m, r: int,
 def train_step_af(state: TTSTrainState, x_ids, m, attn_ref, r: int,
                   attn_loss_coeff: float = 1.0, offline: bool = False,
                   recurrence: str = "auto", masks=None, generator=None,
-                  timings: Optional[dict] = None, mesh=None) -> dict:
+                  timings: Optional[dict] = None, mesh=None,
+                  precision: str = "float32") -> dict:
     """One attention-forcing optimizer step on ``state`` in place
     (train_step_af, ``wavernn_tpu/train/tacotron_train.py:106-122``).
     Returns {"loss", "loss_out", "loss_attn", "grad_norm", "attn"} on the
-    device; ``mesh`` as in ``train_step_tf`` (attn_ref this rank's
-    shard)."""
+    device; ``mesh`` and ``precision`` as in ``train_step_tf`` (attn_ref
+    this rank's shard)."""
     masks = _step_masks(state, x_ids, m, r, masks, generator, mesh)
+    recurrence = resolve_recurrence(recurrence, mesh)
     loss, attn, l_out, l_attn, grads = loss_and_grads_af(
         state.model, x_ids, m, attn_ref, r, attn_loss_coeff, offline,
-        recurrence, masks, generator, timings)
+        recurrence, masks, generator, timings, precision)
     gnorm, (loss, l_out, l_attn) = _apply(state, grads, timings, m.device,
                                           mesh, (loss, l_out, l_attn))
     return {"loss": loss, "loss_out": l_out, "loss_attn": l_attn,
@@ -225,7 +246,8 @@ def teacher_attn_ref(teacher, x_ids, m, r: int, recurrence: str = "auto"):
     the postnet, which does not feed the attention, is skipped. On CUDA
     tensors its decoder runs on B6 and its encoder BiGRU on B5."""
     _, _, attn = taco.forward(teacher, x_ids, m, r, mode="teacher_forcing",
-                              training=False, recurrence=recurrence,
+                              training=False,
+                              recurrence=resolve_recurrence(recurrence),
                               decoder_only=True)
     return attn
 
@@ -300,11 +322,12 @@ def train_loop(cfg: Config, workspace, state: TTSTrainState, make_dataset,
                     metrics = train_step_af(
                         state, chars, mel, rest[0], r, tt.attn_loss_coeff,
                         offline, tt.recurrence, generator=generator,
-                        mesh=mesh)
+                        mesh=mesh, precision=tt.precision)
                 else:
                     metrics = train_step_tf(state, chars, mel, r,
                                             tt.recurrence,
-                                            generator=generator, mesh=mesh)
+                                            generator=generator, mesh=mesh,
+                                            precision=tt.precision)
                 n += 1
                 running += metrics["loss"]
                 bad_loss += (~torch.isfinite(metrics["loss"])).int()

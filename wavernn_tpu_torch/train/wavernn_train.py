@@ -34,6 +34,7 @@ from ..models.distribution import discretized_mix_logistic_loss
 from ..parallel.mesh import (all_reduce_mean_, barrier, rank, replicate_,
                              set_batchnorm_mesh)
 from ..timing import stage
+from ..utils.backend import resolve_recurrence
 from .pruning import Pruner, apply_masks, wavernn_prune_spec
 
 
@@ -179,7 +180,8 @@ def train_step(state: TrainState, x, y, mels, voc: WaveRNNConfig,
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else None
     set_batchnorm_mesh(state.model, mesh)
     loss, grads = loss_and_grads(state.model, x, y, mels, voc, compute_dtype,
-                                 recurrence, timings)
+                                 resolve_recurrence(recurrence, mesh),
+                                 timings)
     if mesh is not None:
         with stage(timings, "all_reduce", x.device):
             loss, = average_over_mesh((loss,), grads, mesh)
