@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu_torch.utils import backend
 
@@ -19,14 +20,6 @@ ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ("torch_deepmind_fit", "torch_nb1_sine_fit",
             "torch_nb2_short_sample_fit", "torch_nb3_long_sample_fit",
             "torch_nb4_conditioned_fit")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _example(name):
@@ -142,7 +135,8 @@ def test_examples_import_neither_jax_nor_the_jax_package():
 
 def test_launcher_syntax_and_menu():
     script = ROOT / "scripts" / "run_taco_wrnn_torch.sh"
-    assert subprocess.run(["bash", "-n", str(script)]).returncode == 0
+    assert subprocess.run(["bash", "-n", str(script)],
+                          timeout=60).returncode == 0
     text = script.read_text()
     for exp in ("preprocess", "taco_tf", "taco_gta", "taco_attn",
                 "taco_af_online", "taco_af_offline", "wrnn", "wrnn_gta",
@@ -150,5 +144,5 @@ def test_launcher_syntax_and_menu():
         assert f"  {exp})" in text
     assert "wavernn_tpu_torch.cli" in text and "wavernn_tpu.cli" not in text
     out = subprocess.run(["bash", str(script), "nonsense"],
-                         capture_output=True, text=True)
+                         capture_output=True, text=True, timeout=60)
     assert out.returncode == 1 and "unknown experiment" in out.stderr

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import Config as JConfig
 from wavernn_tpu.data.dataset import get_tts_datasets as j_datasets

@@ -20,6 +20,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import TacotronConfig as JTTS
 from wavernn_tpu.models import tacotron as jtaco

@@ -19,19 +19,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.models import deepmind as jdm
 from wavernn_tpu.train.checkpoints import tree_to_flat
 from wavernn_tpu_torch.compat.from_jax import deepmind_state_dict
 from wavernn_tpu_torch.models import deepmind as dm
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, rel):

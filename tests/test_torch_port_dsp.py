@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu import dsp as J
 from wavernn_tpu.config import DSPConfig as JDSP
@@ -27,16 +28,6 @@ from wavernn_tpu_torch.dsp.mel import filterbank_tensor
 
 CFG, JCFG = DSPConfig(), JDSP()
 SMALL = dict(n_fft=512, hop_length=128, win_length=256, num_mels=40)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the FFTs at these sizes gain nothing from more,
-    whose spinning only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _signal(seed, hops, cfg=CFG):

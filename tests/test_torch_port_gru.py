@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.ops.pallas_gru import gru_seq_tm as j_gru_seq_tm
 from wavernn_tpu_torch.ops import cuda_gru

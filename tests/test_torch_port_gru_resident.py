@@ -19,6 +19,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu_torch.ops import cuda_gru as g
 
@@ -34,14 +35,6 @@ SHAPES = [(32, 512), (128, 512), (32, 128), (1, 128), (3, 100), (5, 203),
 # (SMs, largest cluster, clusters the card holds at once; 0: SMs / C)
 CARDS = [(132, 16, 0), (132, 16, 6), (132, 16, 7), (132, 8, 0), (114, 16, 0),
          (7, 2, 3)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _plan(B, H, backward, card, dtype=torch.float32):

@@ -54,6 +54,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # the CPU-thread budget
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -317,7 +318,6 @@ SOLO = ({"train_voc", "train_tf", "batchnorm", "cli"},
 def worker(rank: int, world: int, work: Path) -> None:
     """One rank of the cluster: every mesh case, then its share of the
     one-process references."""
-    torch.set_num_threads(1)
     from wavernn_tpu_torch.parallel.mesh import (initialize_distributed,
                                                  make_mesh)
     dev = initialize_distributed("cpu")
@@ -591,10 +591,10 @@ def cluster(tmp_path_factory):
     port = _free_port()
     procs = []
     for rank in range(WORLD):
-        env = dict(os.environ, MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
-                   OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+        env = torch_threads.subprocess_env(
+            WORLD, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+            RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
+            PYTHONPATH=str(ROOT))
         procs.append(subprocess.Popen(
             [sys.executable, __file__, "--rank", str(rank), "--world",
              str(WORLD), "--dir", str(work)], env=env, cwd=str(ROOT),

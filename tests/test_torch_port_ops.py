@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.compat import native
 from wavernn_tpu.models import distribution as jdist

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu import dsp as J
 from wavernn_tpu.config import Config as JConfig
@@ -62,16 +63,6 @@ LINES = ["The birch canoe slid on the smooth planks.",
          "These days a chicken leg is a rare dish.",
          "Rice is often served in round bowls.",
          "The juice of lemons makes fine punch."]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: nothing here gains from more, whose spinning
-    only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _corpus(root):

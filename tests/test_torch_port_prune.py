@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.cli.common import load_voc_weights as j_load_voc_weights
 from wavernn_tpu.config import Config as JConfig
@@ -61,17 +62,6 @@ Z = 0.9375
 NAMES = {"rnn1/wi": "rnn1.weight_ih_l0", "rnn1/wh": "rnn1.weight_hh_l0",
          "rnn2/wi": "rnn2.weight_ih_l0", "rnn2/wh": "rnn2.weight_hh_l0",
          "fc1/w": "fc1.weight", "fc2/w": "fc2.weight", "fc3/w": "fc3.weight"}
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the products at these widths gain nothing from
-    more, whose spinning only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _models(mode, seed=0, **over):

@@ -24,6 +24,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu_torch.ops import cuda_gen as cg
 

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import DSPConfig as JDSP
 from wavernn_tpu.config import WaveRNNConfig as JVoc
@@ -43,16 +44,6 @@ VOC = dict(rnn_dims=32, fc_dims=32, compute_dims=16, res_out_dims=16,
 HOP = 275
 TARGET, OVERLAP = 2 * HOP, HOP          # frame-aligned: B1 / B4b
 TARGET_M, OVERLAP_M = 500, 200          # not hop multiples: B3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the products at these widths gain nothing from
-    more, whose spinning only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _models(mode, seed=1):

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 from scipy.io import wavfile
 
 from wavernn_tpu.config import DSPConfig as JDSP

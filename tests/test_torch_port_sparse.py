@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import DSPConfig as JDSP
 from wavernn_tpu.config import WaveRNNConfig as JVoc
@@ -40,17 +41,6 @@ VOC = dict(rnn_dims=256, fc_dims=256, compute_dims=16, res_out_dims=16,
 HOP = 275
 Z = 0.9375
 TARGET, OVERLAP = 4 * HOP, HOP
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the products at these widths gain nothing from
-    more, whose spinning only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pruned(mode, seed=1, block=(128, 128), z=Z, rnn_input=True):

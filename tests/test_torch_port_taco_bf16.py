@@ -41,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # the CPU-thread budget
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -101,7 +102,6 @@ def _dp_step(mesh, rows):
 
 def worker(rank: int, world: int, out: Path) -> None:
     """One gloo rank of the data-parallel bf16 step."""
-    torch.set_num_threads(1)
     from wavernn_tpu_torch.parallel.mesh import (initialize_distributed,
                                                  make_mesh)
     initialize_distributed("cpu")
@@ -490,10 +490,10 @@ def test_bf16_step_on_two_gloo_ranks_matches_one_process(tmp_path):
     port = _free_port()
     procs = []
     for rank in range(WORLD):
-        env = dict(os.environ, MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
-                   OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+        env = torch_threads.subprocess_env(
+            WORLD, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+            RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
+            PYTHONPATH=str(ROOT))
         procs.append(subprocess.Popen(
             [sys.executable, __file__, "--rank", str(rank), "--world",
              str(WORLD), "--dir", str(tmp_path)], env=env, cwd=str(ROOT),

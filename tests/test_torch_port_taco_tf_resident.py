@@ -29,6 +29,7 @@ from pathlib import Path
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu_torch.ops import cuda_taco_train as ct
 

@@ -40,6 +40,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import Config as JConfig
 from wavernn_tpu.config import DSPConfig as JDSP

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  the CPU-thread budget
 
 from wavernn_tpu.config import DSPConfig as JDSP
 from wavernn_tpu.config import WaveRNNConfig as JVoc
@@ -33,16 +34,6 @@ from wavernn_tpu_torch.ops import cuda_gen, cuda_gen2
 VOC = dict(rnn_dims=64, fc_dims=64, compute_dims=16, res_out_dims=32,
            res_blocks=1, pad=2, upsample_factors=(5, 5, 11))
 B, T = 4, 150
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the products at these widths gain nothing from
-    more, whose spinning only takes cores from the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(mode, seed):
