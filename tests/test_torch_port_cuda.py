@@ -1010,12 +1010,13 @@ def test_resident_many_rows_equals_legacy_body(cuda, rows, dtype):
     against the original body's dense arm: B1 over two hop chunks (bench
     .py's 128 folds; 500 rows, several a sampling block) and B3 with B4a
     from a given state with a snapshot inside, under the counter hash. In
-    float32 at 128 rows and at 500 the plan keeps the per-row regions in
-    device memory, in bfloat16 at 128 in shared memory."""
+    bfloat16 the plan splits the grid into two row groups, in float32 it
+    keeps one; either way the per-row regions lie in device memory."""
     core, gen = _resident_case("MOL", cuda, 33, 512, 512)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = cuda_gen.resident_plan(512, 512, 30, 8, 80, rows, sms, dtype, 5)
-    assert plan.rows_global == (rows == 500 or dtype == torch.float32)
+    assert plan.rows_global
+    assert plan.groups == (2 if dtype == torch.bfloat16 else 1)
     chunks, hop, K = 2, 275, 5
     frames = torch.rand(chunks + K - 1, rows, 80 + 32,
                         generator=gen).to(cuda)
@@ -1039,6 +1040,75 @@ def test_resident_many_rows_equals_legacy_body(cuda, rows, dtype):
                                               _legacy=True)
     assert torch.equal(new, old)
     assert torch.equal(new3[0], old3[0]) and _same(new3[1], old3[1])
+
+
+@pytest.mark.parametrize("rows,mode", [(80, "MOL"), (176, "MOL"),
+                                       (80, "RAW")])
+def test_resident_row_groups_equal_one_group(cuda, rows, mode):
+    """The plan's two row groups against one group (forced through the
+    private launch's ``groups``), bit for bit, at the default widths in
+    bfloat16: B1 over two hop chunks at the batched cell's row counts under
+    injected noise, the counter hash and a shard's hash rows (row0,
+    B_global); B4b at 136 rows from a given state with a snapshot inside;
+    B3 with B4a at 112 rows from a state. Every grouped launch counts in
+    its wrapper's ``grouped_launches``."""
+    core, gen = _resident_case(mode, cuda, 34, 512, 512)
+    bf = torch.bfloat16
+    NC = core["fc3.weight"].shape[0]
+    nu = NC // 3 + 1 if mode == "MOL" else NC
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunks, hop, K = 2, 275, 5
+    T = chunks * hop
+    for B in (rows, 136, 112):
+        assert cuda_gen.resident_plan(512, 512, NC, 8, 80, B, sms, bf,
+                                      K if B != 112 else 0).groups == 2
+    frames = torch.rand(chunks + K - 1, rows, 80 + 32, generator=gen).to(cuda)
+    phi = torch.rand(K, hop, generator=gen).to(cuda)
+    u = cuda_gen.counter_uniforms(9, T, rows, nu, mode == "MOL", cuda)
+    noise = (u[..., :nu - 1], u[..., nu - 1]) if mode == "MOL" else u
+    args = (core, frames, phi, hop, 2, chunks, mode)
+
+    def rand_state(B):
+        return tuple(t.to(cuda) for t in (
+            torch.rand(B, 512, generator=gen) - .5,
+            torch.rand(B, 512, generator=gen) - .5,
+            torch.rand(B, generator=gen) - .5))
+    fns = (cuda_gen.generate_fused, cuda_gen.generate_fused_with_state,
+           cuda_gen.generate_materialized)
+    with torch.no_grad():
+        for nz, hr in (((noise, 0), None), ((None, 19), None),
+                       ((None, 19), (5, rows + 300))):
+            n0 = [f.grouped_launches for f in fns]
+            kw = dict(noise=nz[0], seed=nz[1], compute_dtype=bf)
+            if hr:
+                kw.update(row0=hr[0], B_global=hr[1])
+            two = cuda_gen.generate_fused(*args, **kw)
+            one = cuda_gen._fused_launch(*args, nz[0], nz[1], bf, None, None,
+                                         True, rows=hr, groups=1)
+            assert torch.equal(two, one), (nz[1], hr)
+            assert [f.grouped_launches for f in fns] == [n0[0] + 1, n0[1],
+                                                         n0[2]]
+        fr = torch.rand(chunks + K - 1, 136, 80 + 32, generator=gen).to(cuda)
+        a136 = (core, fr, phi, hop, 2, chunks, mode)
+        state = rand_state(136)
+        two = cuda_gen.generate_fused_with_state(
+            *a136, seed=20, init_state=state, state_snapshot_at=300,
+            compute_dtype=bf)
+        one = cuda_gen._fused_launch(*a136, None, 20, bf, None, (state, 300),
+                                     True, groups=1)
+        assert torch.equal(two[0], one[0]) and _same(two[1], one[1])
+        mu = torch.rand(112, 120, 80, generator=gen).to(cuda)
+        au = (torch.rand(112, 120, 32, generator=gen) * 2 - 1).to(cuda)
+        state = rand_state(112)
+        two = cuda_gen.generate_materialized(
+            core, mu, au, mode, seed=21, init_state=state,
+            state_snapshot_at=50, compute_dtype=bf)
+        one = cuda_gen._materialized_launch(core, mu, au, mode, None, 21,
+                                            state, 50, bf, None, True,
+                                            groups=1)
+        assert _same(two, one)
+        assert [f.grouped_launches for f in fns] == [n0[0] + 1, n0[1] + 1,
+                                                     n0[2] + 1]
 
 
 def _pruned_case(mode, cuda, seed, rnn, fc, block=(128, 128)):

@@ -57,7 +57,7 @@ def _regions_disjoint(plan):
                                       (256, 128, 132), (64, 64, 132),
                                       (24, 16, 7), (64, 64, 1)])
 def test_every_unit_owned_exactly_once(R, FC, sms):
-    plan = cg.resident_plan(R, FC, 30, 32, 80, 10, sms)
+    plan = cg.resident_plan(R, FC, 30, 32, 80, 10, sms, groups=1)
     assert plan.G == sms
     for units, n, per in ((plan.units_r, R, plan.UR),
                           (plan.units_fc, FC, plan.UF)):
@@ -94,9 +94,10 @@ def test_plan_fits_the_budget_at_the_default_config(dtype, NC):
         assert plan.sizes["tile_a"] == plan.tile_rows * 512 * 4
         assert plan.sizes["tile_b"] >= max(plan.tile_rows, 7) * 512 * 4
         assert plan.w3_resident == (NC == 30)
-    # ten rows, the main path's folds, take one tile in either dtype
-    assert cg.resident_plan(512, 512, NC, 32, 80, 10, 132, dtype,
-                            5).tile_rows == 10
+    # ten rows, the main path's folds, take one tile of each group's rows
+    # in either dtype
+    plan = cg.resident_plan(512, 512, NC, 32, 80, 10, 132, dtype, 5)
+    assert plan.tile_rows == plan.group_rows == 10 // plan.groups
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -114,13 +115,17 @@ def test_plan_fits_any_row_count(dtype):
         assert _regions_disjoint(plan)
         row_bytes = sum(-(-plan.sizes[n] // 16) * 16 for n in cg.ROW_REGIONS)
         assert plan.row_bytes == (row_bytes if plan.rows_global else 0)
-    # bfloat16 keeps them in shared memory past bench.py's 128 folds,
-    # float32 moves them before it; both have moved at 500
-    assert not cg.resident_plan(512, 512, 30, 32, 80, 128, 132).rows_global
+    # in one row group, bfloat16 keeps them in shared memory past bench.py's
+    # 128 folds, float32 moves them before it; both have moved at 500
+    assert not cg.resident_plan(512, 512, 30, 32, 80, 128, 132,
+                                groups=1).rows_global
     assert cg.resident_plan(512, 512, 30, 32, 80, 128, 132, torch.float32,
                             5).rows_global
     assert cg.resident_plan(512, 512, 30, 32, 80, 500, 132, dtype,
-                            5).rows_global
+                            5, groups=1).rows_global
+    # in two (bfloat16 from GROUP_MIN_ROWS), where the tile is larger:
+    # device memory at the default widths
+    assert cg.resident_plan(512, 512, 30, 32, 80, 128, 132).rows_global
 
 
 def test_plan_that_cannot_fit_raises_naming_the_budget():
@@ -157,6 +162,134 @@ def test_plan_mirrors_the_kernel():
     names = [n.strip() for n in lists.split(",")]
     assert names[:names.index("N_LISTS")] == [
         f"L_{n.upper()}" for n in cg.SPARSE_LISTS]
+
+
+def _units_once(plan, R, FC):
+    """Every R- and FC-wide unit owned exactly once among a group's blocks,
+    as a prefix of each block's slots."""
+    for units, n, per in ((plan.units_r, R, plan.UR),
+                          (plan.units_fc, FC, plan.UF)):
+        assert len(units) == plan.G and all(len(u) == per for u in units)
+        assert sorted(j for u in units for j in u if j >= 0) == list(range(n))
+        for u in units:
+            k = sum(j >= 0 for j in u)
+            assert all(j >= 0 for j in u[:k]) and all(j < 0 for j in u[k:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("NC", [30, 512])
+def test_row_groups_split_the_rows_and_fit(dtype, NC):
+    """Whatever the rule picks at 1-500 rows on 132 SMs: one group of 132
+    blocks, or two of 66 (GROUP_MIN_ROWS and more, where the grouped plan
+    fits); every row in exactly one group (group j: rows j*group_rows ..
+    up to B, none empty), every unit owned once in each group, the group's
+    plan within the budget with disjoint aligned regions and a tile of
+    GRU_ROWS multiples where it takes several."""
+    for B in list(range(1, 65)) + [80, 112, 136, 176, 216, 288, 440, 500]:
+        plan = cg.resident_plan(512, 512, NC, 32, 80, B, 132, dtype, 5)
+        assert plan.groups in (1, 2)
+        assert plan.G * plan.groups <= 132 and plan.G == 132 // plan.groups
+        assert plan.group_rows == -(-B // plan.groups)
+        rows = [list(range(j * plan.group_rows,
+                           min(B, (j + 1) * plan.group_rows)))
+                for j in range(plan.groups)]
+        assert all(rows) and sum(rows, []) == list(range(B))
+        _units_once(plan, 512, 512)
+        assert plan.smem_bytes <= cg.SMEM_BUDGET
+        assert all(v % 16 == 0 for v in plan.offsets.values())
+        assert _regions_disjoint(plan)
+        assert 1 <= plan.tile_rows <= plan.group_rows
+        if plan.groups == 2:
+            assert B >= cg.GROUP_MIN_ROWS
+            assert plan.tile_rows % cg.GRU_ROWS == 0 or \
+                plan.tile_rows == plan.group_rows
+            assert plan.sizes["x_own"] == -(-plan.group_rows // 66) * 4
+    # the default widths hold two copies of the bfloat16 weights, not of
+    # the float32 ones
+    big = cg.resident_plan(512, 512, NC, 32, 80, 176, 132, dtype, 5)
+    assert big.groups == (2 if dtype == torch.bfloat16 else 1)
+
+
+@pytest.mark.parametrize("R,FC,sms", [(512, 512, 132), (512, 512, 114),
+                                      (256, 128, 132), (64, 64, 132),
+                                      (24, 16, 7)])
+def test_row_groups_own_every_unit_in_each_group(R, FC, sms):
+    """Two forced groups at 40 and 200 rows: each group's G = sms // 2
+    blocks own every unit once (their table is the same for each group),
+    and a group's sampling blocks own none only where the plan's rule for
+    one group's rows says so."""
+    for B in (40, 200):
+        plan = cg.resident_plan(R, FC, 30, 32, 80, B, sms, groups=2)
+        assert (plan.groups, plan.G, plan.group_rows) == (2, sms // 2,
+                                                          -(-B // 2))
+        _units_once(plan, R, FC)
+        Bg, G = plan.group_rows, plan.G
+        assert plan.exclusive == (Bg < G and -(-R // (G - Bg))
+                                  * -(-Bg // cg.GRU_ROWS)
+                                  <= cg.RESIDENT_WARPS)
+
+
+def test_row_groups_rule():
+    """One group below GROUP_MIN_ROWS (the card's sweep: 10), for B9's and
+    B10's arms at any count, where two do not fit (float32 at the default
+    widths) and on one SM; two from GROUP_MIN_ROWS for the dense arms (B1,
+    B4b: taps; B3: none). Forcing a count the kernel cannot run raises."""
+    assert cg.GROUP_MIN_ROWS == 10
+    for B in range(1, cg.GROUP_MIN_ROWS):
+        for taps in (5, 0):
+            assert cg.resident_plan(512, 512, 30, 32, 80, B, 132,
+                                    taps=taps).groups == 1
+    for B in (cg.GROUP_MIN_ROWS, 22, 80, 176, 500):
+        for taps in (5, 0):
+            assert cg.resident_plan(512, 512, 30, 32, 80, B, 132,
+                                    taps=taps).groups == 2
+        assert cg.resident_plan(512, 512, 30, 32, 80, B, 132,
+                                sparse=True).groups == 1
+        assert cg.resident_plan(512, 512, 30, 32, 80, B, 132,
+                                v2=True).groups == 1
+        assert cg.resident_plan(512, 512, 30, 32, 80, B, 132, torch.float32,
+                                5).groups == 1
+        assert cg.resident_plan(64, 64, 30, 32, 80, B, 1).groups == 1
+    with pytest.raises(ValueError, match="row groups"):
+        cg.resident_plan(512, 512, 30, 32, 80, 80, 132, sparse=True,
+                         groups=2)
+    with pytest.raises(ValueError, match="row groups"):
+        cg.resident_plan(512, 512, 30, 32, 80, 80, 132, v2=True, groups=2)
+    with pytest.raises(ValueError, match="row groups"):
+        cg.resident_plan(512, 512, 30, 32, 80, 80, 132, groups=3)
+    with pytest.raises(ValueError, match="row groups"):
+        cg.resident_plan(512, 512, 30, 32, 80, 1, 132, groups=2)
+    with pytest.raises(ValueError, match="232,448-byte budget"):
+        cg.resident_plan(512, 512, 30, 32, 80, 80, 132, torch.float32, 5,
+                         groups=2)
+
+
+def test_row_groups_mirror_the_kernel():
+    """The kernel finds its group as the plan lays them out: G blocks a
+    group from ResArgs, the group's rows from GB, its workspace slab by the
+    same formula as wr_resident_work_floats, its per-row device slice by
+    its grid index, the whole grid G * groups blocks; every row-strided
+    input and output indexed by the launch's row ro + b."""
+    assert "int64_t groups, GB;" in SRC
+    assert ("const int G = (int)a.G, grp = (int)blockIdx.x / G, "
+            "g = (int)blockIdx.x - grp * G;") in SRC
+    assert "const int ro = grp * (int)a.GB, BS = (int)a.B;" in SRC
+    assert "const int B = min((int)a.GB, BS - ro)" in SRC
+    assert "a.work + grp * resident_work_floats(a.GB, R, FC, K, G)" in SRC
+    assert "return resident_work_floats(B, R, FC, K, G);" in SRC
+    assert "const int64_t blocks = args->G * args->groups;" in SRC
+    assert "gridDim.x / " not in SRC
+    for use in ("a.out[(size_t)(ro + b) * T + t]",
+                "((size_t)t * BS + ro + b) * NU",
+                "(uint32_t)(ro + b)) * (uint32_t)NU",
+                "a.h1_0[(size_t)(ro + b) * R + j]",
+                "a.x_0[ro + g + r * G]",
+                "a.snap_x[ro + g + r * G]",
+                "((size_t)(k + kind) * BS + ro) * C",
+                "a.cond + ((size_t)k * BS + ro) * C"):
+        assert use in SRC, use
+    assert [f for f, _ in cg._ResArgs._fields_][-3:] == ["groups", "GB",
+                                                         "off"]
 
 
 def _core(seed=0):

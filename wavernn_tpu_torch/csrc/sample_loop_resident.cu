@@ -36,11 +36,19 @@
 // needs the previous sample. Counted once, the work is ~1 % of what the
 // card could do in that time (PERF.md §6). At 10 rows and more
 // the floor becomes L2 bandwidth: every SM reads every stage's whole
-// activation vectors.
+// activation vectors. So many rows split the grid into row groups (the
+// plan's `groups`, 2 from its row threshold): each group is a whole sample
+// loop over a contiguous slice of the rows, with its own unit ownership,
+// its own copy of the weights and its own tagged words, and no block reads
+// another group's words; every SM then reads half the rows' vectors, with
+// the same products (twice the units, half the rows). A row's sums do not
+// depend on the block that owns a unit, and the noise is drawn by the
+// launch's rows, so the samples are one group's bit for bit.
 //
 // Design, against the four costs of the original body:
-//  1. Weights resident. Block g owns the output units g, g + G, ... of
-//     every stage (ops/cuda_gen.resident_plan; 3 or 4 of 512 on 132 SMs)
+//  1. Weights resident. Block g of a group owns the output units g, g + G,
+//     ... of every stage (ops/cuda_gen.resident_plan; 3 or 4 of 512 on 132
+//     SMs, 7 or 8 in each of two groups of 66)
 //     and copies their rows of wi1, wh1, wi2x, wh2, w1x, w2x, and fc3 where
 //     it samples, into shared memory once, by cp.async.bulk on an mbarrier;
 //     the conditioning matrices' rows of its units too. No step reads a
@@ -219,11 +227,12 @@ struct ResArgs {
   float* snap_x;        // (B,)
   float* out;           // (B, T) f32
   float* work;          // zeroed workspace (wr_resident_work_floats)
-  const int32_t* units_r;   // (G, UR) the R-wide units each block owns, -1 pad
+  const int32_t* units_r;   // (G, UR) the R-wide units each block of a group
+                            // owns, -1 pad
   const int32_t* units_fc;  // (G, UF) the FC-wide units
   long long* prof;      // profiling: (N_PSTAGE, N_PKIND) cycles, and steps
-  float* rows;          // (G, row_bytes / 4) the per-row regions, or null
-                        // where they lie in shared memory
+  float* rows;          // (groups * G, row_bytes / 4) the per-row regions,
+                        // or null where they lie in shared memory
   const float* wxw1;    // B10: (3R,) W_i1 w_Ix
   const float* wxw2;    // B10: (3R,) W_i2x w_Ix
   const float* streams; // B10: (T, G, PBV) f32 the streams in unit order
@@ -236,12 +245,25 @@ struct ResArgs {
   // B_global-row draw (a shard of a multi-device fold batch); 0 and B
   // for a launch that is the whole batch
   int64_t row0, B_global;
+  // row groups: the grid is `groups` sets of G blocks; set j loops over
+  // the launch's rows j*GB .. min(B, (j + 1)*GB) - 1 with its own
+  // workspace slab (resident_work_floats(GB, ...) floats); the plan's
+  // regions are sized for GB rows
+  int64_t groups, GB;
   int64_t off[N_REGIONS];
 };
 
 namespace {
 
 typedef unsigned long long u64;
+
+// Floats of one group's workspace: two buffers of tagged words (two floats
+// each) for the seven (B, width) step vectors, base, (B1) the K mel taps,
+// (B9) G done words and (B10) B samples.
+__host__ __device__ inline int64_t resident_work_floats(int64_t B, int64_t R, int64_t FC,
+                                                        int64_t K, int64_t G) {
+  return 2 * 2 * B * (5 * R + 2 * FC + R + K * R) + 2 * 2 * (G + B);
+}
 
 // ---- loads ----
 __device__ __forceinline__ void ld8(const float* p, float (&w)[8]) {
@@ -948,12 +970,16 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   constexpr bool FUSED = ARM == ARM_FUSED, MAT = ARM == ARM_MAT, V2 = ARM == ARM_V2;
   static_assert(!(SP && V2), "B10 has no sparse arm");
   extern __shared__ __align__(128) unsigned char smem[];
-  const int B = (int)a.B, R = (int)a.R, FC = (int)a.FC, A = (int)a.A;
+  // this block's row group: G blocks (g the block's index among them) over
+  // B rows, the launch's rows ro .. ro + B - 1; BS, the launch's rows, is
+  // the row stride of frames, cond and noise
+  const int G = (int)a.G, grp = (int)blockIdx.x / G, g = (int)blockIdx.x - grp * G;
+  const int ro = grp * (int)a.GB, BS = (int)a.B;
+  const int B = min((int)a.GB, BS - ro), R = (int)a.R, FC = (int)a.FC, A = (int)a.A;
   const int n_mels = (int)a.n_mels, NC = (int)a.NC, K = FUSED ? (int)a.K : 0;
   const int hop = FUSED ? (int)a.hop : 1, C = n_mels + 4 * A;
   const int T = FUSED ? (int)(a.fold_chunks * a.hop) : (int)a.T;
   const int n_index = FUSED ? (int)a.fold_chunks : T;  // conditioning indices
-  const int G = (int)gridDim.x, g = (int)blockIdx.x;
   const int UR = (int)a.UR, UF = (int)a.UF, TR = (int)a.TR;
   const bool mol = a.mol != 0;
   const int nr = NC / 3;
@@ -981,7 +1007,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   // it; PLANE is index k's plane buffer (pl)
   constexpr bool ROWS_AT_USE = ROWS_G && MAT;
   unsigned char* rb = ROWS_G && !MAT
-                          ? reinterpret_cast<unsigned char*>(a.rows) + (size_t)g * a.row_bytes
+                          ? reinterpret_cast<unsigned char*>(a.rows) + (size_t)blockIdx.x * a.row_bytes
                           : smem;
   float* gh1 = reinterpret_cast<float*>(rb + a.off[S_GH1]);      // (UR, 3, B)
   float* gh2 = reinterpret_cast<float*>(rb + a.off[S_GH2]);      // (UR, 3, B)
@@ -991,7 +1017,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   // stream slice adds gi1 (UR, 3, B) and i (UR, B)
   float* plane = reinterpret_cast<float*>(rb + a.off[S_PLANE]);
   auto row_region = [&](int region) {
-    unsigned char* base = reinterpret_cast<unsigned char*>(a.rows) + (size_t)g * a.row_bytes;
+    unsigned char* base = reinterpret_cast<unsigned char*>(a.rows) + (size_t)blockIdx.x * a.row_bytes;
     return reinterpret_cast<float*>(base + a.off[region]);
   };
 #define GH1 (ROWS_AT_USE ? row_region(S_GH1) : gh1)
@@ -1015,8 +1041,10 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   const int PB = V2 ? (int)a.PBV : (3 * UR + 2 * UF) * B;
   const int PF = 3 * UR * B;  // f1a's offset in a plane buffer
 
-  // the workspace: tagged words, two buffers (by step or index parity) each
-  u64* vg = reinterpret_cast<u64*>(a.work);  // (2, B, R) stage-1 input
+  // the group's workspace: tagged words, two buffers (by step or index
+  // parity) each
+  u64* vg = reinterpret_cast<u64*>(a.work + grp * resident_work_floats(a.GB, R, FC, K, G));
+  // (2, B, R) stage-1 input
   u64* h1g = vg + (size_t)2 * B * R;         // (2, B, R)
   u64* h2g = h1g + (size_t)2 * B * R;        // (2, B, R)
   u64* xrg = h2g + (size_t)2 * B * R;        // (2, B, R)
@@ -1049,7 +1077,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   long long plast = 0;
   auto mark = [&](int kind) {
     if constexpr (PROF) {
-      if (g == 0 && threadIdx.x == 0) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
         const long long now = clock64();
         prof[pst * N_PKIND + kind] += now - plast;
         plast = now;
@@ -1143,8 +1171,8 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     const int s = e / B, b = e % B, j = __ldg(ur + s);
     float h1 = 0.f, h2 = 0.f;
     if constexpr (STATE) {
-      if (a.h1_0) h1 = a.h1_0[(size_t)b * R + j];
-      if (a.h2_0) h2 = a.h2_0[(size_t)b * R + j];
+      if (a.h1_0) h1 = a.h1_0[(size_t)(ro + b) * R + j];
+      if (a.h2_0) h2 = a.h2_0[(size_t)(ro + b) * R + j];
     }
     OWN1[e] = h1;
     OWN2[e] = h2;
@@ -1152,7 +1180,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   for (int r = threadIdx.x; g + r * G < B; r += THREADS) {
     float x = 0.f;
     if constexpr (STATE) {
-      if (a.x_0) x = a.x_0[g + r * G];
+      if (a.x_0) x = a.x_0[ro + g + r * G];
     }
     sX[r] = x;
   }
@@ -1167,7 +1195,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     else
       first = fetch_tagged(dst, src, count, tag);
     if constexpr (PROF) {
-      if (g == 0 && threadIdx.x == 0) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
         prof[pst * N_PKIND] += first - plast;
         plast = first;
       }
@@ -1205,7 +1233,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
   // where they fit, for both parts' dots
   const bool staged = MAT && (size_t)B * C <= (size_t)max(TR, K + 2) * R;
   auto stage_rows = [&](int k) {
-    if (staged) copy_rows(tB, a.cond + (size_t)k * B * C, B * C);
+    if (staged) copy_rows(tB, a.cond + ((size_t)k * BS + ro) * C, B * C);
   };
   auto conditioning = [&](int k, bool global_part) {
     const int buf = k & 1;
@@ -1217,15 +1245,15 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     const int kr = global_part ? (FUSED ? K + 1 : 1) : 3;
     const int kf = global_part ? 0 : 2;
     const int n_tasks = (nR * kr + nF * kf) * n_ch;
-    const float* rows = FUSED ? a.frames : a.cond + (size_t)k * B * C;
+    const float* rows = FUSED ? a.frames : a.cond + ((size_t)k * BS + ro) * C;
     if (!FUSED && staged) rows = tB;  // B3: the rows copied by stage_rows
-    const float* aux = FUSED ? a.frames + ((size_t)(k + a.aux_tap) * B) * C + n_mels
+    const float* aux = FUSED ? a.frames + ((size_t)(k + a.aux_tap) * BS + ro) * C + n_mels
                              : rows + n_mels;
     float* pl = (ROWS_AT_USE ? row_region(S_PLANE) : plane) + (size_t)buf * PB;
     if (MAT && global_part && k + 1 < n_index) {  // B3: the next step's rows
       const size_t line = (size_t)g * THREADS + threadIdx.x;  // 128-byte lines
       if (line * 32 < (size_t)B * C)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(a.cond + ((size_t)k + 1) * B * C
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(a.cond + (((size_t)k + 1) * BS + ro) * C
                                                       + line * 32));
     }
 #pragma unroll 1
@@ -1240,7 +1268,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
         kind = q % kr;
         if (global_part && FUSED && kind < K) {
           w = cw(S_WIMEL) + (size_t)s * n_mels;
-          x = a.frames + ((size_t)(k + kind) * B) * C;
+          x = a.frames + ((size_t)(k + kind) * BS + ro) * C;
           n = n_mels;
         } else if (global_part && FUSED) {
           w = cw(S_WIA1) + (size_t)s * A;
@@ -1365,7 +1393,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
       const int nb = min(TR, B - b0);
       __syncthreads();
       for (int e = threadIdx.x; e < nb * R; e += THREADS)
-        tB[e] = (STATE && h0) ? h0[(size_t)b0 * R + e] : 0.f;
+        tB[e] = (STATE && h0) ? h0[(size_t)(ro + b0) * R + e] : 0.f;
       __syncthreads();
       HIDDEN(m == 0 ? GH1 : GH2, m == 0 ? sWh1 : sWh2, tB, nb, b0, m == 0 ? 1 : 3);
     }
@@ -1414,10 +1442,10 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
       if (t == a.snapshot_at) {
         for (int e = threadIdx.x; e < nR * B; e += THREADS) {
           const int s = e / B, b = e % B, j = sUR[s];
-          a.snap_h1[(size_t)b * R + j] = OWN1[e];
-          a.snap_h2[(size_t)b * R + j] = OWN2[e];
+          a.snap_h1[(size_t)(ro + b) * R + j] = OWN1[e];
+          a.snap_h2[(size_t)(ro + b) * R + j] = OWN2[e];
         }
-        for (int r = threadIdx.x; g + r * G < B; r += THREADS) a.snap_x[g + r * G] = sX[r];
+        for (int r = threadIdx.x; g + r * G < B; r += THREADS) a.snap_x[ro + g + r * G] = sX[r];
       }
     }
 
@@ -1571,11 +1599,11 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     if (!sampler) mark(4);
     for (int r = 0; sampler && g + r * G < B; ++r) {
       const int b = g + r * G;
-      const size_t ctr0 = ((size_t)t * B + b) * NU;  // injected: local rows
-      // the hash's counter (t*B_global + row0 + b)*NU, modulo 2^32 as the
-      // hash takes it
+      const size_t ctr0 = ((size_t)t * BS + ro + b) * NU;  // injected: the launch's rows
+      // the hash's counter (t*B_global + row0 + ro + b)*NU, modulo 2^32 as
+      // the hash takes it
       const uint32_t hc0 = ((uint32_t)t * (uint32_t)a.B_global + (uint32_t)a.row0
-                            + (uint32_t)b) * (uint32_t)NU;
+                            + (uint32_t)(ro + b)) * (uint32_t)NU;
       if (!V2 && r > 0 && t + 1 < T) {  // further rows of this block (B > G)
         __syncthreads();
         preload_v(t + 1, b);
@@ -1599,7 +1627,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
         }
       }
       if (a.noise && t + 1 < T && threadIdx.x * 32 < NU)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(a.noise + ((size_t)(t + 1) * B + b) * NU
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(a.noise + ((size_t)(t + 1) * BS + ro + b) * NU
                                                       + threadIdx.x * 32));
       mark(4);
       // B9: the first row's fetch first waits for every acting block's
@@ -1666,7 +1694,7 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
           sample = 2.f * (float)idx / ((float)NC - 1.f) - 1.f;
         }
         if (lane == 0) {
-          a.out[(size_t)b * T + t] = sample;
+          a.out[(size_t)(ro + b) * T + t] = sample;
           sX[r] = sample;
           if constexpr (V2) {
             if (t + 1 < T) st_tagged(SAMPLE_WORDS + (size_t)((t + 1) & 1) * B + b, sample, tag + 1);
@@ -1684,14 +1712,14 @@ __global__ void __launch_bounds__(THREADS, 1) sample_loop_resident(ResArgs a) {
     if (a.snapshot_at == T) {
       for (int e = threadIdx.x; e < nR * B; e += THREADS) {
         const int s = e / B, b = e % B, j = __ldg(ur + s);
-        a.snap_h1[(size_t)b * R + j] = OWN1[e];
-        a.snap_h2[(size_t)b * R + j] = OWN2[e];
+        a.snap_h1[(size_t)(ro + b) * R + j] = OWN1[e];
+        a.snap_h2[(size_t)(ro + b) * R + j] = OWN2[e];
       }
-      for (int r = threadIdx.x; g + r * G < B; r += THREADS) a.snap_x[g + r * G] = sX[r];
+      for (int r = threadIdx.x; g + r * G < B; r += THREADS) a.snap_x[ro + g + r * G] = sX[r];
     }
   }
   if constexpr (PROF) {
-    if (g == 0 && threadIdx.x == 0) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
       for (int e = 0; e < N_PSTAGE * N_PKIND; ++e) a.prof[e] = prof[e];
       a.prof[N_PSTAGE * N_PKIND] = T;
     }
@@ -1721,11 +1749,13 @@ int launch(const void* fn, const ResArgs* args, void* stream) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
   if (e != cudaSuccess) return e;
   // every block must be resident at once: readers spin on other blocks' words
-  if (per_sm < 1 || args->G > (int64_t)per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t blocks = args->G * args->groups;
+  if (per_sm < 1 || args->groups < 1 || blocks > (int64_t)per_sm * sms)
+    return cudaErrorCooperativeLaunchTooLarge;
   ResArgs a = *args;
   void* kargs[] = {&a};
-  e = cudaLaunchCooperativeKernel(fn, dim3((unsigned)args->G), dim3(THREADS), kargs,
-                                  smem, (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks), dim3(THREADS), kargs, smem,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1773,13 +1803,11 @@ int entry_any(int which, const ResArgs* args, void* stream) {
 
 extern "C" {
 
-// Floats of workspace a launch needs (zero-filled by the caller): two
-// buffers of tagged words (two floats each) for the seven (B, width) step
-// vectors, base, (B1) the K mel taps, (B9) G done words and (B10) B
-// samples.
+// Floats of workspace one row group of B rows and G blocks needs
+// (zero-filled by the caller; a launch holds `groups` of them).
 int64_t wr_resident_work_floats(int64_t B, int64_t R, int64_t FC, int64_t K,
                                 int64_t G) {
-  return 2 * 2 * B * (5 * R + 2 * FC + R + K * R) + 2 * 2 * (G + B);
+  return resident_work_floats(B, R, FC, K, G);
 }
 
 // B1: the fused loop on `stream`; returns the CUDA error code (0 = launched).
@@ -1812,17 +1840,19 @@ int wr_resident_v2(const ResArgs* args, void* stream) {
   return args->streams ? entry_any(5, args, stream) : cudaErrorInvalidValue;
 }
 
-// clock64() stamps on block 0 into args->prof (bfloat16 weights, the
-// per-row regions in shared memory only): the per-stage split of a step
-// of B10 (args->streams), B1's sparse arm (args->sparse), B3 (args->cond)
-// or B1. Not on any serving path.
+// clock64() stamps on block 0 into args->prof (bfloat16 weights; the
+// per-row regions in shared memory, or for B1 also in device memory): the
+// per-stage split of a step of B10 (args->streams), B1's sparse arm
+// (args->sparse), B3 (args->cond) or B1. Not on any serving path.
 int wr_resident_profile(const ResArgs* args, void* stream) {
   typedef __nv_bfloat16 H;
-  if (!args->bf16 || !args->prof || args->rows) return cudaErrorInvalidValue;
+  const bool b1 = !args->streams && !args->sparse && !args->cond;
+  if (!args->bf16 || !args->prof || (args->rows && !b1)) return cudaErrorInvalidValue;
   const void* fn =
       args->streams ? (const void*)sample_loop_resident<H, ARM_V2, false, true, false, false>
       : args->sparse ? (const void*)sample_loop_resident<H, ARM_FUSED, false, true, false, true>
       : args->cond ? (const void*)sample_loop_resident<H, ARM_MAT, true, true, false, false>
+      : args->rows ? (const void*)sample_loop_resident<H, ARM_FUSED, false, true, true, false>
                    : (const void*)sample_loop_resident<H, ARM_FUSED, false, true, false, false>;
   return launch(fn, args, stream);
 }

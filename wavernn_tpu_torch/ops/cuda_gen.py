@@ -4,12 +4,13 @@ PyTorch versions.
 Every CUDA sample loop runs on ``csrc/sample_loop_resident.cu`` (weights
 resident in shared memory, activations read as step-tagged words instead
 of behind a grid barrier, the conditioning built once per row; its launch
-plan is ``resident_plan``): B1, B4b, B3 with B4a, B9's sparse arm of B1
-and B3 (``sparse_packed=``) and B10 (``ops/cuda_gen2.py``). The original
-body, ``csrc/sample_loop_fused.cu``, runs only through the wrappers'
-private ``_legacy=True``: the yardstick each arm is held to bit for bit
-and timed against. ``loop_body`` says which body a call runs on. The
-kernels:
+plan is ``resident_plan``, which splits a dense arm's grid into two row
+groups from ``GROUP_MIN_ROWS`` rows): B1, B4b, B3 with B4a, B9's sparse
+arm of B1 and B3 (``sparse_packed=``) and B10 (``ops/cuda_gen2.py``). The
+original body, ``csrc/sample_loop_fused.cu``, runs only through the
+wrappers' private ``_legacy=True``: the yardstick each arm is held to bit
+for bit and timed against. ``loop_body`` says which body a call runs on.
+The kernels:
 
 - B1, ``generate_fused``: port of
   ``wavernn_tpu/ops/pallas_gen.py::generate_pallas_fused`` (the
@@ -535,11 +536,14 @@ SPARSE_LISTS = ("v", "h1", "xr", "h2", "x2", "hf1")
 
 
 class ResidentPlan:
-    """The resident body's launch plan for one shape: ``G`` blocks (one per
-    SM); block g owns the R-wide units ``units_r[g]`` of the GRU stages and
+    """The resident body's launch plan for one shape: ``groups`` row groups
+    of ``G`` blocks (one per SM), each a whole sample loop over
+    ``group_rows`` of the launch's rows (the last group over the rest);
+    the layout below is one group's, the same in each. Block g of a group
+    owns the R-wide units ``units_r[g]`` of the GRU stages and
     the FC-wide units ``units_fc[g]`` of fc1/fc2 (-1 pads the slots it
-    lacks); with ``exclusive``, the B sampling blocks own none, and fc3's
-    rows (only they hold them) share the unit weights' bytes; the byte
+    lacks); with ``exclusive``, the group's sampling blocks own none, and
+    fc3's rows (only they hold them) share the unit weights' bytes; the byte
     offset of each region (``offsets``, by RESIDENT_REGIONS name) and
     ``smem_bytes`` of shared memory in all; with ``rows_global``, the
     per-row regions (ROW_REGIONS) lie instead in a device buffer of
@@ -553,8 +557,9 @@ class ResidentPlan:
 
     def __init__(self, G, units_r, units_fc, sizes, tile_rows, w3_resident,
                  exclusive=False, alias_w3=False, rows_global=False,
-                 sparse_words=0, slice_floats=0):
+                 sparse_words=0, slice_floats=0, groups=1, group_rows=0):
         self.G, self.units_r, self.units_fc = G, units_r, units_fc
+        self.groups, self.group_rows = groups, group_rows
         self.UR, self.UF = len(units_r[0]), len(units_fc[0])
         self.tile_rows, self.w3_resident = tile_rows, w3_resident
         self.exclusive, self.alias_w3 = exclusive, alias_w3
@@ -607,22 +612,40 @@ def v2_slice_floats(UR: int, UF: int, B: int) -> int:
     return -(-(7 * UR + 2 * UF) * B // 4) * 4
 
 
+# Row groups: from GROUP_MIN_ROWS rows a dense arm (B1, B4b, B3) splits its
+# grid into two sample loops of half the SMs, each holding the weights and
+# owning half the rows, where that plan fits: every SM then polls half the
+# tagged activation words a step. tools/probe_b1_rows.py's sweep of B1 on
+# an H100 at the default widths in bfloat16 (PERF.md §6, PR 20): two groups
+# take 0.65-0.93 of one group's step at every count from 10 to 288 rows,
+# 1.045 at 8 (where one group's sampling blocks own no unit).
+GROUP_MIN_ROWS = 10
+ROW_GROUPS = 2
+
+
 def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
                   sms: int, compute_dtype=torch.bfloat16, taps: int = 0,
                   budget: int = SMEM_BUDGET, sparse: bool = False,
-                  v2: bool = False) -> ResidentPlan:
+                  v2: bool = False, groups: Optional[int] = None
+                  ) -> ResidentPlan:
     """The resident body's plan for B rows on ``sms`` SMs with matrices in
-    ``compute_dtype`` and ``taps`` mel taps (B1's K; B3, B10: 0): every
-    block's owned units, region layout and tile rows (tile_b also holds a
-    sampled row's base, taps and w_Ix: taps + 2 rows at least). The per-row
-    regions stay in shared memory while a tile of min(B, GRU_ROWS) rows
-    still fits beside them, else they move to device memory (many rows:
-    from 378 at the default widths in bfloat16, from 65 in float32), so any
-    row count runs. ``sparse``: B9's arm, with its table
-    (``sparse_words``); ``v2``: B10's, without the conditioning matrices,
-    its plane two slots of stream slices and the B samples in shared
-    memory. Raises ValueError, naming the budget, when a block's weights
-    and one row of tiles do not fit ``budget`` bytes."""
+    ``compute_dtype`` and ``taps`` mel taps (B1's K; B3, B10: 0): its row
+    groups, and in each every block's owned units, region layout and tile
+    rows (tile_b also holds a sampled row's base, taps and w_Ix: taps + 2
+    rows at least). Two groups of sms // 2 blocks, each over ceil(B / 2)
+    rows at most, where B is at least GROUP_MIN_ROWS, the arm is dense
+    (not ``sparse``, not ``v2``) and that plan fits; else one group of
+    ``sms``. ``groups`` (1 or 2) forces the count, for the probes and the
+    card tests that hold both plans equal. In one group the per-row regions
+    stay in shared memory while a tile of min(B, GRU_ROWS) rows still fits
+    beside them, else they move to device memory (many rows: from 378 at
+    the default widths in bfloat16, from 65 in float32), so any row count
+    runs; in two, they lie where the tile is larger, and a tile of several
+    is cut to a multiple of GRU_ROWS (a GRU item's rows). ``sparse``: B9's
+    arm, with its table (``sparse_words``); ``v2``: B10's, without the
+    conditioning matrices, its plane two slots of stream slices and the B
+    samples in shared memory. Raises ValueError, naming the budget, when a
+    block's weights and one row of tiles do not fit ``budget`` bytes."""
     if sms < 1 or B < 1:
         raise ValueError(f"need at least one SM and one row (sms {sms}, "
                          f"B {B})")
@@ -630,20 +653,49 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
         raise ValueError(f"the resident sample loop's conditioning dots take "
                          f"at most {RESIDENT_MAX_COND} columns a row: n_mels "
                          f"{n_mels}, aux_dims {A}")
+    args = (R, FC, NC, A, n_mels, compute_dtype, taps, budget, sparse, v2)
+    if groups is None:
+        if (B >= GROUP_MIN_ROWS and not (sparse or v2)
+                and sms >= ROW_GROUPS):
+            plan = _group_plan(*args, B, sms, ROW_GROUPS)[0]
+            if plan is not None:
+                return plan
+        groups = 1
+    if groups not in (1, ROW_GROUPS) or groups > min(B, sms) or (
+            groups > 1 and (sparse or v2)):
+        raise ValueError(f"{groups} row groups: need 1, or {ROW_GROUPS} for "
+                         f"a dense arm with at least {ROW_GROUPS} rows and "
+                         "SMs")
+    plan, need = _group_plan(*args, B, sms, groups)
+    if plan is None:
+        raise ValueError(
+            f"the resident sample loop needs {need:,} bytes of shared memory "
+            f"a block (R {R}, FC {FC}, {NC} classes, {B} rows, "
+            f"{compute_dtype} weights on {sms} SMs, {groups} row group(s)), "
+            f"over the {budget:,}-byte budget")
+    return plan
+
+
+def _group_plan(R, FC, NC, A, n_mels, compute_dtype, taps, budget, sparse,
+                v2, B, sms, groups):
+    """``resident_plan`` in ``groups`` row groups: (the plan, None), or
+    (None, the bytes a block would need) where a block's weights and one
+    row of tiles do not fit."""
+    G, Bg = sms // groups, -(-B // groups)
     wb = 2 if compute_dtype == torch.bfloat16 else 4
     w3_resident = NC * FC * wb <= W3_RESIDENT_MAX
     # few rows: the sampling blocks own no unit, so the others' deferred
     # products and B3's conditioning run while the rows are sampled; only
     # while each of the others still has at most one GRU item a warp
-    exclusive = (B < sms and -(-R // (sms - B)) * -(-B // GRU_ROWS)
+    exclusive = (Bg < G and -(-R // (G - Bg)) * -(-Bg // GRU_ROWS)
                  <= RESIDENT_WARPS)
-    first = B if exclusive else 0
-    units_r, units_fc = _own(R, sms, first), _own(FC, sms, first)
+    first = Bg if exclusive else 0
+    units_r, units_fc = _own(R, G, first), _own(FC, G, first)
     UR, UF = len(units_r[0]), len(units_fc[0])
     alias_w3 = exclusive and w3_resident and (
         NC * FC <= UR * 12 * R + UF * (R + FC))
-    sw = sparse_words(R, FC, UR, UF, sms) if sparse else 0
-    pbv = v2_slice_floats(UR, UF, B) if v2 else 0
+    sw = sparse_words(R, FC, UR, UF, G) if sparse else 0
+    pbv = v2_slice_floats(UR, UF, Bg) if v2 else 0
     sizes = {"mbar": 32 if v2 else 16,
              "prof": 8 * len(_PROF_STAGES) * len(_PROF_KINDS),
              "wi1": UR * 3 * R * wb, "wh1": UR * 3 * R * wb,
@@ -653,13 +705,13 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
              "w_imel": UR * n_mels * wb, "w_ia1": UR * A * wb,
              "wi2a": UR * 3 * A * wb, "w1a": UF * A * wb,
              "w2a": UF * A * wb,
-             "gh1": UR * 3 * B * 4, "gh2": UR * 3 * B * 4,
-             "own_h1": UR * B * 4, "own_h2": UR * B * 4,
-             "plane": 2 * (3 * UR + 2 * UF) * B * 4,
-             "x_own": -(-B // sms) * 4, "logits": NC * 4,
+             "gh1": UR * 3 * Bg * 4, "gh2": UR * 3 * Bg * 4,
+             "own_h1": UR * Bg * 4, "own_h2": UR * Bg * 4,
+             "plane": 2 * (3 * UR + 2 * UF) * Bg * 4,
+             "x_own": -(-Bg // G) * 4, "logits": NC * 4,
              "consts": (UR * 13 + UF * 2) * 4 + (UR + UF) * 4,
              "tile_a": 0, "tile_b": 0, "sparse": sw * 4,
-             "x_all": B * 4 if v2 else 0}
+             "x_all": Bg * 4 if v2 else 0}
     if v2:
         sizes.update({n: 0 for n in COND_REGIONS})
         sizes["plane"] = 2 * pbv * 4
@@ -668,32 +720,33 @@ def resident_plan(R: int, FC: int, NC: int, A: int, n_mels: int, B: int,
         return rows * max(R, FC) * 4 + max(rows, taps + 2) * R * 4
 
     def tile_rows(rows_global):
-        fixed = ResidentPlan(sms, units_r, units_fc, sizes, 0, w3_resident,
+        fixed = ResidentPlan(G, units_r, units_fc, sizes, 0, w3_resident,
                              exclusive, alias_w3, rows_global).smem_bytes
-        rows = max(0, min(B, (budget - fixed) // ((max(R, FC) + R) * 4)))
+        rows = max(0, min(Bg, (budget - fixed) // ((max(R, FC) + R) * 4)))
         while rows >= 1 and fixed + tiles(rows) > budget:
             rows -= 1
         return rows, fixed
 
     rows_global = False
     rows, fixed = tile_rows(False)
-    if rows < min(B, GRU_ROWS):
-        rows_global = True
+    if rows < min(Bg, GRU_ROWS) or (groups > 1 and rows < Bg):
         if v2:   # the kernel reads the gathered streams in place
             sizes["plane"] = 0
-        rows, fixed = tile_rows(True)
+        wide = tile_rows(True)
+        if groups == 1 or wide[0] > rows:
+            rows_global = True
+            rows, fixed = wide
     if rows < 1:
-        raise ValueError(
-            f"the resident sample loop needs {fixed + tiles(1):,} bytes of "
-            f"shared memory a block (R {R}, FC {FC}, {NC} classes, {B} rows, "
-            f"{compute_dtype} weights on {sms} SMs), over the {budget:,}-byte "
-            "budget")
+        return None, fixed + tiles(1)
+    if groups > 1 and GRU_ROWS <= rows < Bg:
+        rows -= rows % GRU_ROWS
     sizes["tile_a"] = rows * max(R, FC) * 4
     sizes["tile_b"] = max(rows, taps + 2) * R * 4
-    plan = ResidentPlan(sms, units_r, units_fc, sizes, rows, w3_resident,
-                        exclusive, alias_w3, rows_global, sw, pbv)
+    plan = ResidentPlan(G, units_r, units_fc, sizes, rows, w3_resident,
+                        exclusive, alias_w3, rows_global, sw, pbv, groups,
+                        Bg)
     assert not sparse or plan.offsets["sparse"] == SPARSE_OFF
-    return plan
+    return plan, None
 
 
 def chunk_masks(pack: SparsePack, R: int, FC: int):
@@ -850,7 +903,7 @@ class _ResArgs(ctypes.Structure):
                     "fold_chunks", "aux_tap", "T", "snapshot_at", "mol",
                     "seed", "bf16", "G", "UR", "UF", "TR", "w3_resident",
                     "exclusive", "smem_bytes", "row_bytes", "PBV", "SW",
-                    "row0", "B_global")]
+                    "row0", "B_global", "groups", "GB")]
                 + [("off", ctypes.c_int64 * len(RESIDENT_REGIONS))])
 
 
@@ -874,29 +927,34 @@ _unit_tables: dict = {}
 
 
 def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
-                     prof=None, pack=None, streams=None, **fields):
-    """One launch of the resident body: its plan for this shape and card,
-    the unit tables on ``dev`` (made once per plan), a zeroed workspace;
-    B9's table for ``pack`` (made once per pack and plan), B10's
-    ``streams`` gathered into the plan's order; ``fields`` fill the rest
-    of ResArgs."""
+                     prof=None, pack=None, streams=None, counter=None,
+                     groups=None, **fields):
+    """One launch of the resident body: its plan for this shape and card
+    (``groups`` forces its row groups: the probes' and card tests' hook),
+    the unit tables on ``dev`` (made once per plan), a zeroed workspace
+    for each row group; B9's table for ``pack`` (made once per pack and
+    plan), B10's ``streams`` gathered into the plan's order; ``fields``
+    fill the rest of ResArgs. ``counter``: the wrapper whose
+    ``grouped_launches`` counts a launch in more than one row group."""
     R, FC, A, NC = fields["R"], fields["FC"], fields["A"], fields["NC"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = resident_plan(R, FC, NC, A, fields["n_mels"], B, sms,
                          compute_dtype, K, sparse=pack is not None,
-                         v2=streams is not None)
-    # the ownership depends on the row count where the sampling blocks own
-    # no unit
-    key = (R, FC, sms, B if plan.exclusive else 0, dev)
+                         v2=streams is not None, groups=groups)
+    # the ownership depends on the group's blocks, and on its row count
+    # where the sampling blocks own no unit
+    key = (R, FC, plan.G, plan.group_rows if plan.exclusive else 0, dev)
     if key not in _unit_tables:
         _unit_tables[key] = tuple(
             torch.tensor(u, dtype=torch.int32, device=dev)
             for u in (plan.units_r, plan.units_fc))
     ur, uf = _unit_tables[key]
-    if prof is not None and plan.rows_global:
+    if prof is not None and plan.rows_global and (
+            pack is not None or streams is not None
+            or fields.get("cond") is not None):
         raise ValueError(f"the profiling instantiation keeps the per-row "
-                         f"regions in shared memory: {B} rows need them in "
-                         "device memory")
+                         f"regions in shared memory (but B1's): {B} rows "
+                         "need them in device memory")
     for k in ("wi1", "wh1", "wi2x", "wh2", "w1x", "w2x", "w3"):
         if w[k].data_ptr() % 16:
             raise ValueError(f"{k} is not 16-byte aligned for the bulk copy")
@@ -915,10 +973,11 @@ def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
     fields.setdefault("row0", 0)
     fields.setdefault("B_global", B)
     lib = _resident_lib()
-    work = torch.zeros(lib.wr_resident_work_floats(B, R, FC, K, plan.G),
-                       dtype=torch.float32, device=dev)
-    rows = (torch.zeros(plan.G * plan.row_bytes // 4, dtype=torch.float32,
-                        device=dev) if plan.rows_global else None)
+    work = torch.zeros(plan.groups * lib.wr_resident_work_floats(
+        plan.group_rows, R, FC, K, plan.G), dtype=torch.float32, device=dev)
+    rows = (torch.zeros(plan.groups * plan.G * plan.row_bytes // 4,
+                        dtype=torch.float32, device=dev)
+            if plan.rows_global else None)
     args = _ResArgs(
         work=work.data_ptr(), units_r=ur.data_ptr(), units_fc=uf.data_ptr(),
         prof=_ptr(prof), rows=_ptr(rows), sparse=_ptr(table),
@@ -927,8 +986,8 @@ def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
         G=plan.G, UR=plan.UR, UF=plan.UF, TR=plan.tile_rows,
         w3_resident=int(plan.w3_resident), exclusive=int(plan.exclusive),
         smem_bytes=plan.smem_bytes, row_bytes=plan.row_bytes,
-        PBV=plan.slice_floats, SW=plan.sparse_words,
-        off=(ctypes.c_int64 * len(RESIDENT_REGIONS))(
+        PBV=plan.slice_floats, SW=plan.sparse_words, groups=plan.groups,
+        GB=plan.group_rows, off=(ctypes.c_int64 * len(RESIDENT_REGIONS))(
             *(plan.offsets[n] for n in RESIDENT_REGIONS)),
         **{k: w[k].data_ptr() for k in _WEIGHT_FIELDS}, **fields)
     with torch.cuda.device(dev):
@@ -937,6 +996,8 @@ def _resident_launch(entry: str, w, dev, compute_dtype, B: int, K: int,
     if err:
         raise RuntimeError(f"resident sample-loop kernel ({entry}) launch "
                            f"failed: CUDA error {err}")
+    if counter is not None and plan.groups > 1:
+        counter.grouped_launches += 1
 
 
 def _check_kernel_call(core, mode: str, compute_dtype, dev):
@@ -1001,7 +1062,7 @@ def generate_fused(core, frames, phi, hop: int, aux_tap: int,
     rows = _launch_rows(row0, B_global, frames.shape[1], resident)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
                         noise, seed, compute_dtype, pack, None, resident,
-                        rows=rows)
+                        rows=rows, counter=generate_fused)
     _count(generate_fused, resident, pack is not None)
     return out
 
@@ -1027,9 +1088,10 @@ def _count(fn, resident: bool, sparse: bool):
 
 # launches of B1 on either body; of the resident body's dense arm and its
 # sparse arm (B9); of the original body's dense and sparse arms (the
-# private yardstick)
+# private yardstick); of the resident launches, those in two row groups
 generate_fused.launches = 0
 generate_fused.resident_launches = 0
+generate_fused.grouped_launches = 0
 generate_fused.sparse_launches = 0
 generate_fused.legacy_launches = 0
 generate_fused.legacy_sparse_launches = 0
@@ -1067,14 +1129,16 @@ def generate_fused_with_state(core, frames, phi, hop: int, aux_tap: int,
     rows = _launch_rows(row0, B_global, frames.shape[1], not _legacy)
     out = _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode,
                         noise, seed, compute_dtype, None, state, not _legacy,
-                        rows=rows)
+                        rows=rows, counter=generate_fused_with_state)
     _count(generate_fused_with_state, not _legacy, False)
     return out
 
 
-# launches of B4b on either body; on the resident body; on the original body
+# launches of B4b on either body; on the resident body; on the original
+# body; of the resident launches, those in two row groups
 generate_fused_with_state.launches = 0
 generate_fused_with_state.resident_launches = 0
+generate_fused_with_state.grouped_launches = 0
 generate_fused_with_state.legacy_launches = 0
 
 
@@ -1103,13 +1167,14 @@ def _ptr(t):
 
 def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
                   seed, compute_dtype, pack, state, resident, prof=None,
-                  rows=None):
+                  rows=None, counter=None, groups=None):
     """One launch of the fused loop on CUDA tensors: B1 (``state`` None),
     or its state arm B4b (``state`` = (init_state, state_snapshot_at)),
     which also returns the snapshot; on the resident body or (``resident``
     False) the original body. ``prof``: the resident body's profiling
     instantiation, its cycles written there. ``rows``: the resident body's
-    (row0, B_global), (0, B) when None."""
+    (row0, B_global), (0, B) when None. ``counter`` and ``groups`` as in
+    ``_resident_launch``."""
     if frames.device.type != "cuda":
         raise ValueError(f"no fused sample loop for {frames.device}")
     dev = frames.device
@@ -1143,9 +1208,9 @@ def _fused_launch(core, frames, phi, hop, aux_tap, fold_chunks, mode, noise,
                  else "wr_resident_fused" if state is None
                  else "wr_resident_fused_state")
         _resident_launch(
-            entry, w, dev, compute_dtype, B, K, prof, pack,
-            frames=frames.data_ptr(), phi=phi.data_ptr(), noise=_ptr(u),
-            h1_0=_ptr(st[0]), h2_0=_ptr(st[1]), x_0=_ptr(st[2]),
+            entry, w, dev, compute_dtype, B, K, prof, pack, counter=counter,
+            groups=groups, frames=frames.data_ptr(), phi=phi.data_ptr(),
+            noise=_ptr(u), h1_0=_ptr(st[0]), h2_0=_ptr(st[1]), x_0=_ptr(st[2]),
             snap_h1=_ptr(snap[0]), snap_h2=_ptr(snap[1]),
             snap_x=_ptr(snap[2]), out=out.data_ptr(), R=R, FC=FC, A=A,
             n_mels=n_mels, NC=NC, hop=hop, fold_chunks=fold_chunks,
@@ -1208,18 +1273,20 @@ def generate_materialized(core, mels_up, aux, mode: str, noise=None,
     rows = _launch_rows(row0, B_global, mels_up.shape[0], resident)
     out = _materialized_launch(core, mels_up, aux, mode, noise, seed,
                                init_state, state_snapshot_at, compute_dtype,
-                               pack, resident, rows=rows)
+                               pack, resident, rows=rows,
+                               counter=generate_materialized)
     _count(generate_materialized, resident, pack is not None)
     return out
 
 
 def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
                          state_snapshot_at, compute_dtype, pack, resident,
-                         prof=None, rows=None):
+                         prof=None, rows=None, counter=None, groups=None):
     """One launch of the materialized loop on CUDA tensors, on the resident
     body or (``resident`` False) the original body; returns (samples,
     snapshot). ``prof``: the resident body's profiling instantiation, its
-    cycles written there; ``rows`` as in ``_fused_launch``."""
+    cycles written there; ``rows``, ``counter`` and ``groups`` as in
+    ``_fused_launch``."""
     if mels_up.device.type != "cuda":
         raise ValueError(f"no materialized sample loop for {mels_up.device}")
     dev = mels_up.device
@@ -1250,7 +1317,7 @@ def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
             "wr_resident_profile" if prof is not None
             else "wr_resident_materialized_sparse" if pack is not None
             else "wr_resident_materialized", w, dev, compute_dtype, B, 0,
-            prof, pack,
+            prof, pack, counter=counter, groups=groups,
             cond=cond.data_ptr(), noise=_ptr(u), h1_0=_ptr(state[0]),
             h2_0=_ptr(state[1]), x_0=_ptr(state[2]),
             snap_h1=snap[0].data_ptr(), snap_h2=snap[1].data_ptr(),
@@ -1281,6 +1348,7 @@ def _materialized_launch(core, mels_up, aux, mode, noise, seed, init_state,
 # as generate_fused's counts
 generate_materialized.launches = 0
 generate_materialized.resident_launches = 0
+generate_materialized.grouped_launches = 0
 generate_materialized.sparse_launches = 0
 generate_materialized.legacy_launches = 0
 generate_materialized.legacy_sparse_launches = 0
