@@ -9,8 +9,8 @@ For each seed, in one process: a run's set-up and a window of
 ``--seconds`` at the cell's own load, the check's numbers for the program
 (the lower readings), then the same numbers for the control: the plain
 reference put in the program's place one precision below what the
-configuration states (TF32 for the float32 Tacotron and conditioning,
-float8 e4m3 for the bfloat16 sample loop). A training cell also reads the
+configuration states (TF32 for the float32 Tacotron, conditioning and
+vocoder training, float8 e4m3 for the bfloat16 sample loop). A training cell also reads the
 program with a fault planted: half of each batch left out (the mean over
 the rest), and every step skipped (the state left unchanged). One JSON
 line a seed on standard output.
@@ -18,7 +18,6 @@ line a seed on standard output.
 import json
 import sys
 import time
-from contextlib import contextmanager
 from pathlib import Path
 
 sys.path[0] = str(Path(__file__).resolve().parents[1])
@@ -28,23 +27,9 @@ import argparse  # noqa: E402
 import torch  # noqa: E402
 
 from gpubench import harness, yardstick  # noqa: E402
+from gpubench.entries.common import judge_steps, tf32  # noqa: E402
 from gpubench.reference import tacotron as ref_taco  # noqa: E402
-from gpubench.reference import train as ref_train  # noqa: E402
 from gpubench.reference import wavernn as ref_voc  # noqa: E402
-
-
-@contextmanager
-def tf32():
-    """Every float32 product and convolution of torch in TF32."""
-    m, c = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = m
-        torch.backends.cudnn.allow_tf32 = c
 
 
 @torch.no_grad()
@@ -92,27 +77,37 @@ def serving(spec, seed, seconds, dev):
 
 
 def training(spec, seed, dev, controls=True):
-    """The program's readings and, with ``controls``, the TF32 control's
-    and those of the program with each fault planted, all against one
-    reference run."""
-    from gpubench.entries import train_af
+    """The program's readings and, with ``controls``, the control's and
+    those of the program with each fault planted, all against one
+    reference run. The cell's entry gives the step (``Runner._step``), its
+    plain reference (``Runner.reference``) and the control's steps
+    (``Runner.control``)."""
+    entry = harness.entry_module(spec["root"], spec["mix"]["entry"])
     row, ref = {}, None
     for fault in ("none", "half_batch", "frozen")[:3 if controls else 1]:
-        runner = _faulty(train_af.Runner, fault)(
+        runner = _faulty(entry.Runner, fault)(
             spec["cfg"], spec["mix"], seed, dev, False, {})
         runner.release()
         if ref is None:
-            ref = ref_train.steps(runner.P0, runner.batches, runner.cfg)
-        row["program" if fault == "none" else fault] = train_af.judge_steps(
-            runner.cfg, runner.P0, runner.batches, runner.losses,
-            runner.first, runner.change, ref)
+            ref = runner.reference()
+        row["program" if fault == "none" else fault] = judge_steps(
+            runner.losses, runner.first, runner.change, ref)
         if fault == "none" and controls:
-            with tf32():
-                ctl = ref_train.steps(runner.P0, runner.batches, runner.cfg)
-            row["control"] = train_af.judge_steps(
-                runner.cfg, runner.P0, runner.batches, *ctl, ref=ref)
+            row["control"] = judge_steps(*runner.control(), ref)
         del runner
     return row
+
+
+def half_batch(b):
+    """A training batch with the second half of its rows left out: every
+    tensor cut on its batch axis (the first; the second for the AF
+    decoder's time-major masks)."""
+    h = next(iter(b.values())).shape[0] // 2
+    out = {k: v[:h] for k, v in b.items() if k != "masks"}
+    if "masks" in b:
+        out["masks"] = {k: (v[:h] if k.startswith("enc") else v[:, :h])
+                        .contiguous() for k, v in b["masks"].items()}
+    return out
 
 
 def _faulty(base, fault):
@@ -124,13 +119,7 @@ def _faulty(base, fault):
             if fault == "frozen":
                 loss = torch.zeros((), device=self.dev)
                 return {"loss": loss}
-            h = b["ids"].shape[0] // 2
-            half = {"ids": b["ids"][:h], "mel": b["mel"][:h],
-                    "aref": b["aref"][:h],
-                    "masks": {k: (v[:h] if k.startswith("enc")
-                                  else v[:, :h]).contiguous()
-                              for k, v in b["masks"].items()}}
-            return super()._step(half, timings)
+            return super()._step(half_batch(b), timings)
     return Faulty
 
 
@@ -150,7 +139,9 @@ def main():
     dev = torch.device("cuda", 0)
     for i, seed in enumerate(args.seeds):
         t = time.time()
-        if spec["mix"]["entry"] == "train_af":
+        # a training entry's runner replays its steps on the reference
+        if hasattr(harness.entry_module(spec["root"], spec["mix"]["entry"])
+                   .Runner, "reference"):
             row = training(spec, seed, dev,
                            args.controls is None or i < args.controls)
         else:

@@ -13,8 +13,6 @@ weights and the batches the benchmark made.
 """
 from __future__ import annotations
 
-import statistics
-import sys
 import time
 
 import torch
@@ -22,7 +20,7 @@ import torch
 from .. import traffic, weights
 from ..reference import train as ref_train
 from ..reference.tacotron import text_ids
-from .common import build, port_config
+from .common import build, first_steps, judge_steps, port_config, tf32
 
 
 class Runner:
@@ -67,21 +65,8 @@ class Runner:
         self._sync()
         split["data_s"] = time.time() - t
         t = time.time()
-        names = [k for k, _ in model.named_parameters()]
-        self.losses = []
-        for k, b in enumerate(self.batches):
-            out = self._step(b, None)
-            self.losses.append(out["loss"])
-            if k == 0:
-                st = self.state.opt.adam.state
-                # Adam's first moment after one step is (1 - b1) g
-                self.first = {n: float(torch.linalg.vector_norm(
-                    st[p]["exp_avg"]) / (1 - 0.9)) if p in st else 0.0
-                    for n, p in zip(names, model.parameters())}
-        self.losses = [float(x) for x in self.losses]
-        self.change = {n: float(torch.linalg.vector_norm(p.detach()
-                                                         - self.P0[n]))
-                       for n, p in model.named_parameters()}
+        self.losses, self.first, self.change = first_steps(
+            self._step, self.batches, model, self.state.opt, self.P0)
         self._sync()
         split["first_steps_s"] = time.time() - t
 
@@ -143,33 +128,15 @@ class Runner:
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
 
+    def reference(self):
+        """The plain reference's steps from the same weights and batches."""
+        return ref_train.steps(self.P0, self.batches, self.cfg)
+
+    def control(self):
+        """The reference's steps one precision below float32: TF32."""
+        with tf32():
+            return self.reference()
+
     def judge(self, res) -> dict:
-        return judge_steps(self.cfg, self.P0, self.batches, self.losses,
-                           self.first, self.change)
-
-
-def judge_steps(cfg, P0, batches, losses, first, change, ref=None):
-    """The program's steps, one a batch, against the reference's (``ref``,
-    its ``steps`` of them, where already made): the widest relative gap of
-    a step's loss; of a leaf's norm of the first clipped gradient; of a
-    leaf's norm of the change over all the steps. A
-    leaf's gap is measured against its reference norm or the median
-    leaf's, whichever is larger; leaves whose reference gradient is under
-    a thousandth of the median leaf's (moved by round-off alone under
-    Adam) are left out of the change."""
-    r_losses, r_first, r_change = (ref_train.steps(P0, batches, cfg)
-                                   if ref is None else ref)
-    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, r_losses))
-    med_g = statistics.median(r_first.values())
-    grad = {k: abs(first[k] - g) / max(g, med_g) for k, g in r_first.items()}
-    kept = [k for k, g in r_first.items() if g >= 1e-3 * med_g]
-    med_c = statistics.median(r_change[k] for k in kept)
-    change = {k: abs(change[k] - r_change[k]) / max(r_change[k], med_c)
-              for k in kept}
-    wg, wc = max(grad, key=grad.get), max(change, key=change.get)
-    print(f"judge: worst gradient leaf {wg} ({r_first[wg]:.4g} of median "
-          f"{med_g:.4g}), worst change leaf {wc} ({r_change[wc]:.4g} of "
-          f"median {med_c:.4g}); {len(r_first) - len(kept)} leaves left out",
-          file=sys.stderr)
-    return {"loss_gap": loss_gap, "grad_gap": grad[wg],
-            "change_gap": change[wc]}
+        return judge_steps(self.losses, self.first, self.change,
+                           self.reference())

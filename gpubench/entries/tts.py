@@ -129,6 +129,15 @@ class Runner:
                                      for u in utts)})
         return out
 
+    def counters(self) -> dict:
+        """The sample loop's launch counts so far (``generate_fused``'s:
+        every launch, the resident body's dense and sparse arms, the dense
+        launches in two row groups)."""
+        from wavernn_tpu_torch.ops.cuda_gen import generate_fused as g
+        return {k: getattr(g, k) for k in ("launches", "resident_launches",
+                                           "grouped_launches",
+                                           "sparse_launches")}
+
     def end_to_end(self, res) -> dict:
         sr = self.cfg["sample_rate"]
         done = [r for r in res["recs"] if r["outs"] is not None]

@@ -90,6 +90,20 @@ def cell_spec(bench: dict, name: str, root: Path = ROOT) -> dict:
             "end_to_end": e2e, "per_layer": layer, "root": root}
 
 
+def entry_module(root: Path, name: str):
+    """The entry module ``entries/<name>.py`` of the checkout at ``root``
+    (a copy of the benchmark that adds an entry loads it from its own
+    files; the harness's modules it imports are this checkout's)."""
+    modname = f"gpubench.entries.{name}"
+    if Path(root).resolve() == ROOT:
+        return importlib.import_module(modname)
+    spec = importlib.util.spec_from_file_location(
+        modname, Path(root) / "gpubench" / "entries" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(root: Path, name: str):
     """The ``read(ctx)`` of the per-layer metric ``name``
     (``metrics/<name>.py``)."""
@@ -103,14 +117,21 @@ def reader(root: Path, name: str):
 
 class LayerContext:
     """What a per-layer reader reads: the configuration and mix, the
-    window, the trace's device seconds, the program's stage milliseconds
-    (its ``timings=`` CUDA events) and the shapes of the work completed."""
+    window, the trace's device seconds (in all, by kernel, and by program
+    stage where the entry marks its stages with ``trace.StageMarks``), the
+    program's stage milliseconds (its ``timings=`` CUDA events), the shapes
+    of the work completed and the program's counters over the window
+    (``{}`` where the entry reads none)."""
 
-    def __init__(self, cfg, mix, window_s, traced, stage_ms, calls):
+    def __init__(self, cfg, mix, window_s, traced, stage_ms, calls,
+                 counters=None):
         self.cfg, self.mix, self.window_s = cfg, mix, window_s
         self.busy_s = traced["busy_s"] if traced else None
         self.kernels = traced["kernels"] if traced else {}
+        stages = traced.get("stages") if traced else None
+        self.stage_s = stages[0] if stages else {}
         self.stage_ms, self.calls = stage_ms, calls
+        self.counters = counters or {}
 
     def kernel_s(self, *parts) -> float:
         """Device seconds of the kernels whose name holds one of ``parts``."""
@@ -127,7 +148,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     from . import trace as tr
     configure_torch()
     mix, cfg = spec["mix"], spec["cfg"]
-    entry = importlib.import_module(f"gpubench.entries.{mix['entry']}")
+    entry = entry_module(spec["root"], mix["entry"])
     if entry_patch is not None:
         entry_patch(entry)
     if device.type == "cuda":
@@ -140,19 +161,30 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     log("setup " + json.dumps({k: round(v, 3) for k, v in split.items()})
         + f" total {setup_s:.3f} s")
     traced = None
+    # the program's counters, read on the host just before and just after
+    # the window (nothing is called inside it)
+    read_counters = getattr(runner, "counters", dict)
+    before = read_counters()
     if trace:
         with tr.profiled(device.type) as h:
             res = runner.window(seconds)
-        if device.type == "cuda":
-            traced = tr.reduce(h.prof, res["window_s"])
     else:
         res = runner.window(seconds)
+    counted = {k: v - before.get(k, 0) for k, v in read_counters().items()}
+    if counted:
+        log("counters " + json.dumps(counted))
+    if trace and device.type == "cuda":
+        traced = tr.reduce(h.prof, res["window_s"])
+        if traced["stages"]:
+            by, lost = traced["stages"]
+            log("stage device s " + json.dumps(by)
+                + f" unattributed {lost!r} busy {traced['busy_s']!r}")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     metrics = {}
     if trace:
         ctx = LayerContext(cfg, mix, res["window_s"], traced,
-                           res.get("stage_ms", {}), res["calls"])
+                           res.get("stage_ms", {}), res["calls"], counted)
         for m in spec["per_layer"]:
             v = reader(spec["root"], m["name"])(ctx)
             if v is not None:

@@ -1,0 +1,3 @@
+"""Device ms a vocoder-training step of the operations launched in
+its forward stage, from the trace (moves train_steps_per_s)."""
+from gpubench.readers import voc_fwd_ms as read  # noqa: F401

@@ -95,3 +95,54 @@ def train_mfu(ctx):
     t = sum(3 * Y.tacotron_flops(d, s["B"], s["T_text"], s["frames"], s["r"])
             for s in ctx.calls) / Y.PEAK_F32
     return 100.0 * t / ctx.window_s
+
+
+def b5_voc_roofline(ctx):
+    """B5's least time at the vocoder's two GRUs, forward and backward,
+    over its device time."""
+    d = Y.dims(ctx.cfg)
+    least = sum(Y.least_s(fl, nb, Y.PEAK_F32) for s in ctx.calls
+                for fl, nb in Y.b5_voc_step(d, s["B"], s["T"]))
+    return _share(least, ctx.kernel_s("gru_res_fwd", "gru_res_bwd"))
+
+
+def voc_train_mfu(ctx):
+    """A vocoder-training window's share of the float32 peak: three times
+    the forward FLOPs of every step as least time, over the window."""
+    if ctx.busy_s is None:
+        return None
+    d = Y.dims(ctx.cfg)
+    t = sum(3 * Y.wavernn_train_flops(d, s["B"], s["T"])
+            for s in ctx.calls) / Y.PEAK_F32
+    return 100.0 * t / ctx.window_s
+
+
+def _stage_device_ms(ctx, stage):
+    if stage not in ctx.stage_s or not ctx.calls:
+        return None
+    return 1e3 * ctx.stage_s[stage] / len(ctx.calls)
+
+
+def voc_fwd_ms(ctx):
+    """Device ms a training step of the operations launched in its
+    ``forward`` stage (the trace, each op by its launch between the
+    program's stage marks)."""
+    return _stage_device_ms(ctx, "forward")
+
+
+def voc_bwd_ms(ctx):
+    """Device ms a training step of its ``backward`` stage's operations."""
+    return _stage_device_ms(ctx, "backward")
+
+
+def voc_opt_ms(ctx):
+    """Device ms a training step of its ``optimizer`` stage's operations
+    (the clip and Adam)."""
+    return _stage_device_ms(ctx, "optimizer")
+
+
+def step_device_ms(ctx):
+    """Device ms a training step: the window's busy time over its steps."""
+    if ctx.busy_s is None or not ctx.calls:
+        return None
+    return 1e3 * ctx.busy_s / len(ctx.calls)

@@ -1,6 +1,7 @@
-"""Plain attention-forcing (offline) training steps of the Tacotron: the
-loss of ``tacotron.af_forward``, its gradients by autograd, optax's
-global-norm clip and Adam (b1 0.9, b2 0.999, eps 1e-8), in float32."""
+"""Plain training steps: a loss (by default the attention-forcing
+(offline) loss of ``tacotron.af_forward``), its gradients by autograd,
+optax's global-norm clip and Adam (b1 0.9, b2 0.999, eps 1e-8), in
+float32."""
 from __future__ import annotations
 
 import torch
@@ -26,25 +27,27 @@ def af_loss(P, batch, cfg):
                                                             - batch["aref"])))
 
 
-def steps(P0, batches, cfg):
-    """Adam steps from the weights P0, one a batch: (the losses, each
-    trained leaf's norm of the first step's clipped gradient, each leaf's
-    norm of the change over all the steps)."""
+def steps(P0, batches, cfg, loss=af_loss, prefix="tts"):
+    """Adam steps from the weights P0, one a batch, on ``loss(P, batch,
+    cfg)`` at the learning rate and clip of ``cfg``'s ``<prefix>_lr`` and
+    ``<prefix>_clip_grad_norm``: (the losses, each trained leaf's norm of
+    the first step's clipped gradient, each leaf's norm of the change over
+    all the steps)."""
     names = [k for k in P0 if trained(k)]
     params = {k: P0[k].detach().clone().requires_grad_(True) for k in names}
     fixed = {k: v for k, v in P0.items() if not trained(k)}
     m = {k: torch.zeros_like(v) for k, v in params.items()}
     v = {k: torch.zeros_like(p) for k, p in params.items()}
     b1, b2, eps = 0.9, 0.999, 1e-8
-    lr, clip = cfg["tts_lr"], cfg["tts_clip_grad_norm"]
+    lr, clip = cfg[f"{prefix}_lr"], cfg[f"{prefix}_clip_grad_norm"]
     losses, first = [], None
     for t, batch in enumerate(batches, 1):
-        loss = af_loss({**fixed, **params}, batch, cfg)
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        value = loss({**fixed, **params}, batch, cfg)
+        grads = torch.autograd.grad(value, [params[k] for k in names])
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
-        losses.append(float(loss.detach()))
+        losses.append(float(value.detach()))
         with torch.no_grad():
             for k, g in zip(names, grads):
                 g = g * scale

@@ -38,9 +38,10 @@ def test_serving_control_fails_on_the_card(card, cell):
 
 
 @pytest.mark.cuda
-def test_training_control_and_faults_fail_on_the_card(card):
-    spec = harness.cell_spec(harness.load_manifest(harness.ROOT),
-                             "train_af.lj_af_offline")
+@pytest.mark.parametrize("cell", ["train_af.lj_af_offline",
+                                  "train_voc.lj_mol"])
+def test_training_control_and_faults_fail_on_the_card(card, cell):
+    spec = harness.cell_spec(harness.load_manifest(harness.ROOT), cell)
     row = control.training(spec, 3, card)
     lim = spec["limits"]
     assert all(row["program"][k] <= v for k, v in lim.items()), row

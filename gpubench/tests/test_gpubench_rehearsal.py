@@ -9,8 +9,9 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
-from gpubench import harness
+from gpubench import control, harness
 from gpubench.tests import tiny
 
 CELLS = [w["name"] for w in harness.load_manifest(harness.ROOT)["workloads"]]
@@ -59,20 +60,14 @@ def _alter_served_samples(entry):
 
 
 def _freeze_state(entry):
-    entry.Runner._step = lambda self, b, timings: {
-        "loss": b["mel"].new_zeros(())}
+    entry.Runner._step = lambda self, b, timings: {"loss": torch.zeros(())}
 
 
 def _half_batch(entry):
     step = entry.Runner._step
 
     def half(self, b, timings):
-        h = b["ids"].shape[0] // 2
-        cut = {"ids": b["ids"][:h], "mel": b["mel"][:h],
-               "aref": b["aref"][:h],
-               "masks": {k: (v[:h] if k.startswith("enc") else v[:, :h])
-                         .contiguous() for k, v in b["masks"].items()}}
-        return step(self, cut, timings)
+        return step(self, control.half_batch(b), timings)
     entry.Runner._step = half
 
 
@@ -80,7 +75,9 @@ def _half_batch(entry):
     ("tts_batch.lj_mol", _alter_served_samples),
     ("tts_single.lj_mol", _alter_served_samples),
     ("train_af.lj_af_offline", _freeze_state),
-    ("train_af.lj_af_offline", _half_batch)])
+    ("train_af.lj_af_offline", _half_batch),
+    ("train_voc.lj_mol", _freeze_state),
+    ("train_voc.lj_mol", _half_batch)])
 def test_a_broken_path_is_not_correct(cell, fault):
     import importlib
     entry = importlib.import_module(

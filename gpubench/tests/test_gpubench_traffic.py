@@ -76,3 +76,53 @@ def test_training_batches_pad_as_the_trainers_collate():
             np.testing.assert_array_equal(ids, want[0])
             np.testing.assert_array_equal(mel, want[1])
             np.testing.assert_array_equal(aref, want[4])
+
+
+def _voc_cfg():
+    return json.loads((harness.HERE / "configs" / "lj_mol.json").read_text())
+
+
+def test_vocoder_batches_are_the_same_shapes_under_every_seed():
+    m, cfg = load("train_voc"), dict(_voc_cfg(), voc_batch_size=4)
+    shapes = set()
+    for seed in SEEDS:
+        items = traffic.voc_items(m, seed, cfg)
+        shapes.add(tuple((mel.shape, q.shape) for b in items for mel, q in b))
+        for b in items:
+            for mel, q in b:
+                assert 0.0 <= mel.min() and mel.max() <= 1.0
+                assert 0 <= q.min() and q.max() < 2 ** 16
+        x, y, mels = traffic.collate_voc(items[0], 275, 1375, 2, 16, "MOL",
+                                         traffic.crop_rng(seed))
+        assert x.shape == y.shape == (4, 1375) and mels.shape == (4, 80, 9)
+    assert len(shapes) == 1
+    one, two = (traffic.voc_items(m, 3, cfg)[1][2][1] for _ in range(2))
+    assert (one == two).all()
+
+
+@pytest.mark.parametrize("mode", ["MOL", "RAW"])
+def test_vocoder_batches_cut_as_the_trainers_collate(mode):
+    """The benchmark's own cut of a vocoder batch (which both the program
+    and the reference read) is what the port's trainer would feed from the
+    same utterances and the same crop generator."""
+    import dataclasses
+    import numpy as np
+    from wavernn_tpu_torch.config import Config
+    from wavernn_tpu_torch.data.dataset import collate_vocoder
+    cfg = dict(_voc_cfg(), voc_batch_size=6, voc_mode=mode)
+    port = Config()
+    port = dataclasses.replace(port, voc=dataclasses.replace(port.voc,
+                                                             mode=mode))
+    assert (port.dsp.hop_length, port.voc_train.seq_len, port.voc.pad,
+            port.dsp.bits) == (cfg["hop_length"], cfg["voc_seq_len"],
+                               cfg["voc_pad"], cfg["bits"])
+    bits = 16 if mode == "MOL" else cfg["bits"]
+    for seed in (5, 2 ** 31 + 17):
+        for items in traffic.voc_items(load("train_voc"), seed, cfg):
+            got = traffic.collate_voc(items, cfg["hop_length"],
+                                      cfg["voc_seq_len"], cfg["voc_pad"],
+                                      bits, mode, traffic.crop_rng(seed))
+            want = collate_vocoder(items, port, traffic.crop_rng(seed))
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)

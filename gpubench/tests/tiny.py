@@ -29,12 +29,19 @@ TINY_MIX = {"tts_batch": {"batch": 2, "lengths": [6, 9, 12, 15],
 
 
 def spec(cell: str, root=harness.ROOT) -> dict:
-    """The cell's spec with the cut widths, mix and limits; a mix this
-    file does not know is cut as the first of its entry's."""
+    """The cell's spec with the cut widths, mix and limits. The entry the
+    mix names may bring its own cut: ``TINY_MIX`` (merged over the mix),
+    ``TINY_CFG`` (merged over the shared widths) and ``TINY_LIMITS`` (for
+    its own check numbers). Otherwise the tables here apply; a mix they do
+    not know is cut as the first of its entry's."""
     s = copy.deepcopy(harness.cell_spec(harness.load_manifest(root), cell,
                                         root))
+    entry = harness.entry_module(root, s["mix"]["entry"])
     s["cfg"].update(TINY_CFG)
-    cut = TINY_MIX.get(s["cell"]["traffic"])
+    s["cfg"].update(getattr(entry, "TINY_CFG", {}))
+    cut = getattr(entry, "TINY_MIX", None)
+    if cut is None:
+        cut = TINY_MIX.get(s["cell"]["traffic"])
     if cut is None:
         cut = {k: v for k, v in next(
             m for t, m in TINY_MIX.items()
@@ -42,7 +49,8 @@ def spec(cell: str, root=harness.ROOT) -> dict:
                            / f"{t}.json").read_text())["entry"]
             == s["mix"]["entry"]).items() if k != "batch"}
     s["mix"].update(cut)
-    s["limits"] = {k: TINY_LIMITS[k] for k in s["limits"]}
+    limits = {**TINY_LIMITS, **getattr(entry, "TINY_LIMITS", {})}
+    s["limits"] = {k: limits[k] for k in s["limits"]}
     return s
 
 

@@ -150,3 +150,63 @@ def collate(items, r: int, ids):
         aref[b, :g, T - 1] = a[:, -1]
         aref[b, g:] = aref[b, g - 1]
     return chars, mels * 8.0 - 4.0, aref
+
+
+def voc_items(mix: dict, seed: int, cfg: dict):
+    """The vocoder-training utterances of a mix, which the run cuts into
+    its batches: ``batches`` lists of ``voc_batch_size`` (mel (n_mels,
+    frames) float32 in [0, 1], labels (frames * hop,) int64 at 16 bits
+    for MOL). Utterance i of batch k has ``frames[(k * B + i) % len]``
+    frames, so every seed cuts the same shapes. Its wave is ``tones``
+    sinusoids of ``tone_hz`` at a level drawn from ``amplitude``, with
+    white noise of ``noise``, quantised as the dataset quantises it."""
+    hop, B = cfg["hop_length"], cfg["voc_batch_size"]
+    bits = 16 if cfg["voc_mode"] == "MOL" else cfg["bits"]
+    frames = mix["frames"]
+    g = rng(seed, 5)
+    batches = []
+    for k in range(mix["batches"]):
+        items = []
+        for i in range(B):
+            n = frames[(k * B + i) % len(frames)]
+            mel = g.random((cfg["num_mels"], n), dtype=np.float32)
+            t = np.arange(n * hop) / cfg["sample_rate"]
+            f = g.uniform(*mix["tone_hz"], size=(mix["tones"], 1))
+            ph = g.uniform(0.0, 2 * np.pi, size=(mix["tones"], 1))
+            x = np.sin(2 * np.pi * f * t + ph).mean(axis=0)
+            x = g.uniform(*mix["amplitude"]) * x + mix["noise"] * \
+                g.standard_normal(n * hop)
+            x = np.clip(x, -1.0, 1.0)
+            items.append((mel, ((x + 1.0) * (2 ** bits - 1) / 2)
+                          .astype(np.int64)))
+        batches.append(items)
+    return batches
+
+
+def crop_rng(seed: int) -> np.random.RandomState:
+    """The generator of the vocoder batches' random crops (the trainer's
+    kind: a RandomState)."""
+    return np.random.RandomState(int(rng(seed, 6).integers(2 ** 32)))
+
+
+def collate_voc(items, hop: int, seq_len: int, pad: int, bits: int,
+                mode: str, crops: np.random.RandomState):
+    """A vocoder-training batch cut from ``voc_items``' items as the
+    upstream dataset's collate cuts it: a window of ``seq_len // hop +
+    2 * pad`` mel frames at an offset drawn from ``crops``, the labels from
+    ``(offset + pad) * hop``, ``seq_len + 1`` of them; x = the first
+    ``seq_len`` as floats in [-1, 1], y = the last ``seq_len`` (as floats
+    for MOL). Returns (x (B, seq_len) float32, y (B, seq_len), mels (B,
+    n_mels, window) float32)."""
+    mel_win = seq_len // hop + 2 * pad
+    offsets = [crops.randint(0, m.shape[-1] - 2 - (mel_win + 2 * pad))
+               for m, _ in items]
+    mels = np.stack([m[:, o:o + mel_win] for (m, _), o in zip(items, offsets)]
+                    ).astype(np.float32)
+    labels = np.stack([q[(o + pad) * hop:(o + pad) * hop + seq_len + 1]
+                       for (_, q), o in zip(items, offsets)]).astype(np.int64)
+    x = 2 * labels[:, :seq_len].astype(np.float32) / (2 ** bits - 1.0) - 1.0
+    y = labels[:, 1:]
+    if mode == "MOL":
+        y = 2 * y.astype(np.float32) / (2 ** bits - 1.0) - 1.0
+    return x, y, mels

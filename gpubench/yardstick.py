@@ -127,7 +127,8 @@ def dims(cfg: dict) -> dict:
                 hw=cfg["tts_num_highways"],
                 compute=cfg["voc_compute_dims"],
                 res_out=cfg["voc_res_out_dims"],
-                res_blocks=cfg["voc_res_blocks"], pad=cfg["voc_pad"])
+                res_blocks=cfg["voc_res_blocks"], pad=cfg["voc_pad"],
+                ups=tuple(cfg["voc_upsample_factors"]))
 
 
 def b1_call(d: dict, folds: int, target: int, overlap: int, wbytes: int = 2):
@@ -189,3 +190,29 @@ def melresnet_flops(d: dict, frames: int):
     k = 2 * d["pad"] + 1
     return 2 * frames * (k * d["n_mels"] * c + d["res_blocks"] * 2 * c * c
                          + c * d["res_out"])
+
+
+def b5_voc_step(d: dict, B: int, T: int):
+    """[(FLOPs, bytes)] of the B5 launches of one vocoder training step:
+    both GRUs (H = rnn_dims) forward and backward over windows of T
+    samples."""
+    return [gru_work(T, B, d["R"], 4, backward)
+            for _ in range(2) for backward in (False, True)]
+
+
+def wavernn_train_flops(d: dict, B: int, T: int):
+    """Forward FLOPs of the WaveRNN's teacher-forced pass over B windows of
+    T samples (T / hop mel frames, with 2*pad frames of context): the
+    MelResNet, the averaging convs (n_mels rows, 2s + 1 taps at each
+    stretched position), I, both GRUs' input products and recurrences,
+    fc1-3."""
+    R, FC, A, NC, n_mels = d["R"], d["FC"], d["A"], d["NC"], d["n_mels"]
+    f = B * melresnet_flops(d, T // d["hop"])
+    length = T // d["hop"] + 2 * d["pad"]
+    for s in d["ups"]:
+        length *= s
+        f += 2 * B * n_mels * length * (2 * s + 1)
+    per_sample = 2 * ((1 + n_mels + A) * R + 3 * R * R + 3 * R * R
+                      + 3 * (R + A) * R + 3 * R * R + (R + A) * FC
+                      + (FC + A) * FC + FC * NC)
+    return f + B * T * per_sample
